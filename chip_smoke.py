@@ -11,9 +11,9 @@ and ``nvcc``.  Phases, one JSON line each:
            ptxas register / spill lines;
   kernels  every kernel against its plain PyTorch version on the card, at
            the shapes the main path gives it, timed with CUDA events;
-  slice    the port's main path — StreamingEngine(feature_backend="fused")
-           .simulate at the default TaoConfig width on captured benchmark
-           traces — with the kernels' launch counts read around that run,
+  slice    the port's main path — StreamingEngine.simulate of raw traces
+           at the default TaoConfig width on captured benchmark traces —
+           with the kernels' launch counts read around that run,
            finite-metric checks, and a comparison with the same engine on
            the CPU (the plain versions) on one trace.
 
@@ -42,6 +42,7 @@ FP32_FLOPS_PER_S = 67e12  # float32 on the CUDA cores, no tensor cores
 SLICE_BENCHMARKS = ("dee", "mcf", "lee")
 SLICE_INSTRUCTIONS = 150_000
 KERNEL_LAUNCHES = 4        # state-threaded B1 launches checked bitwise
+WIDE_ADDR_OFFSET = 1 << 40  # shifts a trace's addresses past the int32 window
 ATTN_ATOL = 1e-5           # fp32 online softmax vs full-matrix softmax:
 ATTN_RTOL = 1e-5           # only the summation order differs
 
@@ -184,45 +185,51 @@ def phase_kernels(failures, results):
 
     dev = torch.device("cuda")
 
-    # ---- B1: fused features, state threaded over KERNEL_LAUNCHES batches
+    # ---- B1: fused features, state threaded over KERNEL_LAUNCHES batches,
+    # on a benchmark trace and on the same trace with wide addresses
     fcfg = FeatureConfig()
     n = 64 * 129  # one engine batch: 64 windows of 129
     ft = run_functional(get_benchmark("mcf"), KERNEL_LAUNCHES * n)
-    cols = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-            for k, v in trace_columns(ft, fcfg).items()}
-    spec = extract_features(ft, fcfg, with_labels=False)
-    st_k = init_fused_state(fcfg, dev)
-    table_p, mq_p = st_k["table"].clone(), st_k["mq"].clone()
-    mq_k = st_k["mq"]
+    wide = ft.copy()
+    wide["addr"][wide["is_mem"]] += WIDE_ADDR_OFFSET
     bitwise, max_err = True, 0.0
     names = ("regbits", "flags", "brhist", "memdist")
-    for i in range(KERNEL_LAUNCHES):
-        sl = {k: cols[k][i * n:(i + 1) * n] for k in COLUMN_KEYS}
-        *outs_k, mq_k = fused_features_cuda(sl, st_k["table"], mq_k)
-        *outs_p, table_p, mq_p = fused_features_plain(sl, table_p, mq_p)
-        torch.cuda.synchronize()
-        for name, a, b in zip(names, outs_k, outs_p):
-            ref = getattr(spec, name)[i * n:(i + 1) * n]
-            same = torch.equal(a.view(torch.int32), b.view(torch.int32)) and np.array_equal(
-                a.cpu().numpy().view(np.int32), ref.view(np.int32))
-            bitwise &= same
-            max_err = max(max_err, float((a - b).abs().max()))
-        bitwise &= torch.equal(st_k["table"], table_p) and torch.equal(mq_k, mq_p)
+    for trace in (ft, wide):
+        cols = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in trace_columns(trace, fcfg).items()}
+        spec = extract_features(trace, fcfg, with_labels=False)
+        st_k = init_fused_state(fcfg, dev)
+        table_k, mq_k = st_k["table"], st_k["mq"]
+        table_p, mq_p = table_k.clone(), mq_k.clone()
+        for i in range(KERNEL_LAUNCHES):
+            sl = {k: cols[k][i * n:(i + 1) * n] for k in COLUMN_KEYS}
+            *outs_k, table_k, mq_k = fused_features_cuda(sl, table_k, mq_k)
+            *outs_p, table_p, mq_p = fused_features_plain(sl, table_p, mq_p)
+            torch.cuda.synchronize()
+            for name, a, b in zip(names, outs_k, outs_p):
+                ref = getattr(spec, name)[i * n:(i + 1) * n]
+                same = torch.equal(a.view(torch.int32), b.view(torch.int32)) and np.array_equal(
+                    a.cpu().numpy().view(np.int32), ref.view(np.int32))
+                bitwise &= same
+                max_err = max(max_err, float((a - b).abs().max()))
+            bitwise &= torch.equal(table_k, table_p) and torch.equal(mq_k, mq_p)
     if not bitwise:
         failures.append("fused_features: kernel != plain version / NumPy spec")
+    cols = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in trace_columns(ft, fcfg).items()}
     sl = {k: cols[k][:n] for k in COLUMN_KEYS}
     t_state = init_fused_state(fcfg, dev)
     ms = graph_ms(lambda: fused_features_cuda(sl, t_state["table"], t_state["mq"]))
     call_ms = cuda_ms(lambda: fused_features_cuda(sl, t_state["table"], t_state["mq"]), 200)
     p_state = init_fused_state(fcfg, dev)
     plain_ms = cuda_ms(lambda: fused_features_plain(sl, p_state["table"], p_state["mq"]), 10)
-    col_bytes = n * (6 * 4 + 4 * 1)
-    state_bytes = 2 * (fcfg.n_buckets * fcfg.n_queue * 4 + (fcfg.n_mem + 1) * 4)
+    col_bytes = n * (5 * 4 + 8 + 4 * 1)
+    state_bytes = 2 * (fcfg.n_buckets * fcfg.n_queue * 4 + (fcfg.n_mem + 1) * 8)
     out_bytes = n * (32 + 5 + fcfg.n_queue + fcfg.n_mem) * 4
-    n_mem_slots = int((spec.memdist[:n] != 0).sum())
-    # per valid memory-distance slot: one subtraction, one conversion and
+    n_mem_slots = int((extract_features(ft[:n], fcfg, with_labels=False).memdist != 0).sum())
+    # per valid memory-distance slot: one subtraction, two conversions and
     # the ~27 float32 ops of the signed-log
-    b_ms, b_by = bound(col_bytes + state_bytes + out_bytes, 29 * n_mem_slots)
+    b_ms, b_by = bound(col_bytes + state_bytes + out_bytes, 30 * n_mem_slots)
     results["fused_features"] = {
         "name": "fused_features", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_features.cu",
@@ -230,7 +237,8 @@ def phase_kernels(failures, results):
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
-    emit({"phase": "kernels", "kernel": "fused_features", "launches_checked": KERNEL_LAUNCHES,
+    emit({"phase": "kernels", "kernel": "fused_features",
+          "launches_checked": 2 * KERNEL_LAUNCHES, "wide_address_offset": WIDE_ADDR_OFFSET,
           "positions_per_launch": n, "bitwise_vs_plain_and_numpy_spec": bitwise,
           "max_abs_err": max_err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
           "bound_ms": b_ms, "bound_by": b_by})
@@ -299,7 +307,7 @@ def phase_slice(failures, results):
 
     cfg = TaoConfig()
     metrics = ("cpi", "branch_mpki", "l1d_mpki", "cpi_phase", "l1d_phase")
-    ecfg = EngineConfig(feature_backend="fused", metrics=metrics)
+    ecfg = EngineConfig(metrics=metrics)
     t0 = time.perf_counter()
     traces = {b: run_functional(get_benchmark(b), SLICE_INSTRUCTIONS) for b in SLICE_BENCHMARKS}
     capture_s = time.perf_counter() - t0
@@ -333,7 +341,7 @@ def phase_slice(failures, results):
 
     # the same engine on the CPU (plain versions), one trace, same weights
     name = SLICE_BENCHMARKS[0]
-    ecfg_c = EngineConfig(feature_backend="fused", metrics=metrics, collect=True)
+    ecfg_c = EngineConfig(metrics=metrics, collect=True)
     gpu = StreamingEngine(model, cfg, ecfg_c, device="cuda").simulate(traces[name])
     cpu_model = init_tao(cfg, torch.Generator().manual_seed(0), device="cpu")
     cpu = StreamingEngine(cpu_model, cfg, ecfg_c, device="cpu").simulate(traces[name])

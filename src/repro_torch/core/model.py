@@ -55,9 +55,6 @@ class TaoConfig:
     d_ff: int = 512
     d_cat: int = 64            # per-category embedding width
     features: FeatureConfig = FeatureConfig()
-    # kept for parity with the reference config; the port's attention is
-    # the hand-written kernel on the card whatever its value
-    use_pallas: bool = False
     dtype: str = "float32"
 
     @property

@@ -7,10 +7,12 @@
 //   flags   (n, 5)    is_branch, taken, is_mem, is_store, is_fp,
 //   brhist  (n, N_q)  the branch's bucket row of the (N_b, N_q) outcome
 //                     table, most recent first (0 off branches),
-//   memdist (n, N_m)  signed-log of the int32 deltas to the last N_m
-//                     memory addresses (0 off memory ops / past the fill),
+//   memdist (n, N_m)  signed-log of the deltas to the last N_m memory
+//                     addresses (0 off memory ops / past the fill),
 // and carries the scan state (table, address queue + fill count) from one
-// batch into the next.
+// batch into the next.  The state is functional: the incoming table and
+// queue are read only and the outgoing ones go to separate buffers, so one
+// state can be passed again (a retry, two runs from one start).
 //
 // The TPU kernel walks positions in one sequential loop with the table in
 // VMEM.  Blocks on the card run in no order and carry nothing between
@@ -20,22 +22,25 @@
 //     slot j of the bucket's queue in a register.  The warp walks the
 //     batch 32 positions at a time, finds its bucket's branches with
 //     __ballot_sync, stores its row at each (one 128 B store) and pushes
-//     the outcome with __shfl_up_sync.  The table row is read at the start
-//     and written back at the end by the same warp: updated IN PLACE.
+//     the outcome with __shfl_up_sync.  The warp reads its row of the
+//     incoming table at the start and writes it to the outgoing table at
+//     the end.
 //   * memory distance — the lag-gather form of core/features.py with the
 //     carry prepended: an exclusive prefix count of is_mem gives each
 //     access its rank r, and slot k is addr - compacted[r-1-k], or the
 //     carried queue[k-r] while k-r < fill.  Every output is independent.
-//     All blocks read the incoming queue, so the outgoing one goes to a
-//     separate buffer (mq_out), written by the block holding the last
-//     position.
+//     Addresses and the queue are int64 and the delta is taken in int64,
+//     then rounded to float32 through float64 as the NumPy specification
+//     does (int64 -> float64 -> float32), so any address is exact (the
+//     TPU kernel's int32 deltas need |addr| < 2^30).
+//     The block holding the last position writes the outgoing queue.
 //   * regbits / flags — parallel over positions, one warp per row.
 // The signed-log runs here, with __fadd_rn/__fmul_rn/__fdiv_rn in exactly
 // the order of core/features.py::signed_log, so no multiply-add is
 // contracted into an fma and the output is bitwise the NumPy
 // specification's (one launch instead of ~20 eager ops).
 //
-// What bounds it on the H100: bytes.  Per position it reads 28 B of
+// What bounds it on the H100: bytes.  Per position it reads 32 B of
 // columns and writes (32 + 5 + N_q + N_m) * 4 B = 532 B of features at the
 // default configuration; the branch warps re-read the batch's 5 B/position
 // of keys from L2 through shared-memory tiles, once per block of 8 buckets.
@@ -103,7 +108,7 @@ __device__ __forceinline__ float signed_log_rn(float d) {
 
 struct Args {
   const int32_t* bucket;
-  const int32_t* addr;
+  const int64_t* addr;
   const int32_t* opcode;
   const int32_t* dst;
   const int32_t* src1;
@@ -112,9 +117,10 @@ struct Args {
   const uint8_t* taken;
   const uint8_t* is_mem;
   const uint8_t* is_store;
-  float* table;          // (n_buckets, n_queue), updated in place
-  const int32_t* mq_in;  // (n_mem + 1): queue slots, then the fill count
-  int32_t* mq_out;       // (n_mem + 1)
+  const float* table_in;  // (n_buckets, n_queue)
+  float* table_out;       // (n_buckets, n_queue)
+  const int64_t* mq_in;   // (n_mem + 1): queue slots, then the fill count
+  int64_t* mq_out;        // (n_mem + 1)
   float* regbits;
   float* flags;
   float* brhist;
@@ -128,7 +134,7 @@ __device__ void branch_role(const Args& g, int block, int* keys) {
   const int b = block * kWarps + (threadIdx.x >> 5);
   const bool active = b < g.n_buckets;  // warp-uniform
   const size_t row = (size_t)b * g.n_queue;
-  float q = (active && lane < g.n_queue) ? g.table[row + lane] : 0.0f;
+  float q = (active && lane < g.n_queue) ? g.table_in[row + lane] : 0.0f;
   for (int t0 = 0; t0 < g.n; t0 += kBrTile) {
     const int cnt = min(kBrTile, g.n - t0);
     __syncthreads();  // the previous tile is consumed
@@ -153,20 +159,27 @@ __device__ void branch_role(const Args& g, int block, int* keys) {
       }
     }
   }
-  if (active && lane < g.n_queue) g.table[row + lane] = q;
+  if (active && lane < g.n_queue) g.table_out[row + lane] = q;
+}
+
+// core/features.py::_memory_distance: the int64 delta (wrapping, as NumPy
+// does), to float64, to float32, each rounded to nearest even.
+__device__ __forceinline__ float delta_f32(int64_t a, int64_t b) {
+  const long long d = (long long)((unsigned long long)a - (unsigned long long)b);
+  return __double2float_rn(__ll2double_rn(d));
 }
 
 // kTile positions: ranks of the memory ops, then one warp per row.
-__device__ void position_role(const Args& g, int tile, int* smem) {
+__device__ void position_role(const Args& g, int tile, char* smem) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int p0 = tile * kTile;
   const int p1 = min(p0 + kTile, g.n);
-  int* warp_cnt = smem;              // [kWarps]
-  int* rank = warp_cnt + kWarps;     // [kTile] rank of each position here
-  int* queue = rank + kTile;         // [n_mem] incoming address queue
-  int* comp = queue + g.n_mem;       // [n_mem + kTile] compacted addresses
+  int64_t* queue = (int64_t*)smem;       // [n_mem] incoming address queue
+  int64_t* comp = queue + g.n_mem;       // [n_mem + kTile] compacted addresses
+  int* warp_cnt = (int*)(comp + g.n_mem + kTile);  // [kWarps]
+  int* rank = warp_cnt + kWarps;         // [kTile] rank of each position here
 
   // r0: memory ops of this batch before p0
   int r0 = 0;
@@ -178,7 +191,7 @@ __device__ void position_role(const Args& g, int tile, int* smem) {
   // the ranks this tile can reach back to: lo <= r < r0 + kTile
   const int lo = r0 - g.n_mem;
   for (int i = tid; i < g.n_mem; i += kThreads) queue[i] = g.mq_in[i];
-  const int fill = g.mq_in[g.n_mem];
+  const int fill = (int)g.mq_in[g.n_mem];
 
   // block-wide exclusive prefix count of is_mem over [0, p1)
   int base = 0;
@@ -224,15 +237,15 @@ __device__ void position_role(const Args& g, int tile, int* smem) {
       for (int k = lane; k < g.n_queue; k += 32)
         g.brhist[(size_t)p * g.n_queue + k] = 0.0f;
     const int r = rank[p - p0];
-    const int a = g.addr[p];
+    const int64_t a = g.addr[p];
     for (int k = lane; k < g.n_mem; k += 32) {
       float v = 0.0f;
       if (mem) {
         const int src = r - 1 - k;
         if (src >= 0) {
-          v = signed_log_rn((float)(a - comp[src - lo]));
+          v = signed_log_rn(delta_f32(a, comp[src - lo]));
         } else if (k - r < fill) {
-          v = signed_log_rn((float)(a - queue[k - r]));
+          v = signed_log_rn(delta_f32(a, queue[k - r]));
         }
       }
       g.memdist[(size_t)p * g.n_mem + k] = v;
@@ -246,15 +259,15 @@ __device__ void position_role(const Args& g, int tile, int* smem) {
       const int s = total - 1 - j;
       g.mq_out[j] = s >= 0 ? comp[s - lo] : queue[j - total];
     }
-    if (tid == 0) g.mq_out[g.n_mem] = min(fill + total, g.n_mem);
+    if (tid == 0) g.mq_out[g.n_mem] = (int64_t)min(fill + total, g.n_mem);
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 fused_features_kernel(Args g, int branch_blocks) {
-  extern __shared__ int smem[];
+  extern __shared__ __align__(16) char smem[];
   if ((int)blockIdx.x < branch_blocks)
-    branch_role(g, blockIdx.x, smem);
+    branch_role(g, blockIdx.x, (int*)smem);
   else
     position_role(g, blockIdx.x - branch_blocks, smem);
 }
@@ -268,22 +281,24 @@ extern "C" const char* tao_error_string(int err) {
 // One batch.  Pointers are device pointers of contiguous tensors; the
 // boolean columns are one byte each.  Requires 1 <= n_queue <= 32.
 extern "C" int tao_fused_features(
-    const int32_t* bucket, const int32_t* addr, const int32_t* opcode,
+    const int32_t* bucket, const int64_t* addr, const int32_t* opcode,
     const int32_t* dst, const int32_t* src1, const int32_t* src2,
     const uint8_t* is_branch, const uint8_t* taken, const uint8_t* is_mem,
-    const uint8_t* is_store, float* table, const int32_t* mq_in,
-    int32_t* mq_out, float* regbits, float* flags, float* brhist,
-    float* memdist, int n, int n_buckets, int n_queue, int n_mem,
-    void* stream) {
+    const uint8_t* is_store, const float* table_in, float* table_out,
+    const int64_t* mq_in, int64_t* mq_out, float* regbits, float* flags,
+    float* brhist, float* memdist, int n, int n_buckets, int n_queue,
+    int n_mem, void* stream) {
   if (n < 1 || n_buckets < 1 || n_queue < 1 || n_queue > 32 || n_mem < 1)
     return (int)cudaErrorInvalidValue;
   Args g{bucket, addr, opcode, dst, src1, src2, is_branch, taken, is_mem,
-         is_store, table, mq_in, mq_out, regbits, flags, brhist, memdist,
-         n, n_buckets, n_queue, n_mem};
+         is_store, table_in, table_out, mq_in, mq_out, regbits, flags,
+         brhist, memdist, n, n_buckets, n_queue, n_mem};
   const int branch_blocks = (n_buckets + kWarps - 1) / kWarps;
   const int tiles = (n + kTile - 1) / kTile;
-  const int pos_ints = kWarps + 2 * kTile + 2 * n_mem;
-  const size_t smem = (size_t)(pos_ints > kBrTile ? pos_ints : kBrTile) * sizeof(int);
+  const size_t pos_bytes = (size_t)(2 * n_mem + kTile) * sizeof(int64_t) +
+                           (size_t)(kWarps + kTile) * sizeof(int);
+  const size_t br_bytes = (size_t)kBrTile * sizeof(int);
+  const size_t smem = pos_bytes > br_bytes ? pos_bytes : br_bytes;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fused_features_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

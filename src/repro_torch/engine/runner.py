@@ -7,21 +7,21 @@ trace flows through
   the Tao forward  ->  device-resident metric accumulators
   (``MetricSpec`` registry)  ->  one host sync  ->  ``SimulationResult``.
 
-Feature backends:
+Where the features come from follows from what ``simulate`` is given:
 
-  * ``"numpy"`` — the host NumPy pre-pass (``core.features``); batches are
-    materialized on the host and copied to the device one at a time.
-  * ``"fused"`` — the raw int32/bool columns go to the device once, then
-    each batch is ONE launch of the fused feature kernel
-    (``kernels/fused``) with the scan state carried across batches;
-    features exist only at batch granularity.  Bitwise the NumPy features.
-    A trace with |addr| >= 2^30 takes the NumPy path (the int32 deltas
-    would be inexact), as in the reference.
+  * a raw trace — its columns go to the device once, then each batch is
+    ONE launch of the fused feature kernel (``kernels/fused``; its plain
+    version on the CPU) with the scan state carried across batches.
+    Features exist only at batch granularity and are bitwise the NumPy
+    specification's for any address (the deltas are taken in int64).
+  * precomputed ``features=`` (a ``FeatureSet``) — batches are cut on the
+    host and copied to the device one at a time.
 
+The reference's ``feature_backend`` switch is therefore not needed here;
+its staged ``"pallas"`` kernels are still to port (ROADMAP B2, B3).
 Carries stay on the device; the only device-to-host transfer is one
 packed copy of every carry (and collected array) after the last batch.
-``feature_backend="pallas"`` (the staged kernels) and ``precision="int8"``
-are not ported yet and raise ``NotImplementedError``.
+``precision="int8"`` is not ported yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -34,15 +34,14 @@ import torch
 
 from .. import resolve_device
 from ..core.dataset import INPUT_KEYS, num_windows, stream_batches
-from ..core.features import FeatureSet, extract_features
+from ..core.features import FeatureSet
 from ..core.model import Tao, TaoConfig, tao_forward
-from ..kernels.features.ops import DEFAULT_CHUNK, trace_columns
+from ..kernels.features.ops import trace_columns
 from ..kernels.fused.ops import FusedExtractor
 from .metrics import DEFAULT_METRICS, MetricSpec, StepContext, resolve_metrics
 
 __all__ = [
     "EngineConfig",
-    "FEATURE_BACKENDS",
     "PRECISIONS",
     "PER_INSTRUCTION_KEYS",
     "MetricNotCollectedError",
@@ -52,8 +51,6 @@ __all__ = [
     "device_get",
     "simulate_trace_engine",
 ]
-
-FEATURE_BACKENDS = ("numpy", "pallas", "fused")
 
 PRECISIONS = ("fp32", "int8")
 
@@ -71,12 +68,6 @@ _RESERVED_RESULT_ATTRS = frozenset(
 class EngineConfig:
     batch_size: int = 64
     collect: bool = False        # also return per-instruction predictions
-    # "numpy": host NumPy pre-pass; "fused": one fused-kernel launch per
-    # batch, scan state carried across batches (bitwise the same features)
-    feature_backend: str = "numpy"
-    # the reference's Pallas scan chunk, validated for parity; the CUDA
-    # kernel tiles the batch on its own
-    feature_chunk: int = DEFAULT_CHUNK
     precision: str = "fp32"
     # device-side accumulators: registry names or MetricSpec instances
     metrics: Tuple[Union[str, MetricSpec], ...] = DEFAULT_METRICS
@@ -246,23 +237,9 @@ class StreamingEngine:
     ):
         if ecfg.batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {ecfg.batch_size}")
-        if ecfg.feature_backend not in FEATURE_BACKENDS:
-            raise ValueError(
-                f"feature_backend must be one of {FEATURE_BACKENDS}, "
-                f"got {ecfg.feature_backend!r}"
-            )
         if ecfg.precision not in PRECISIONS:
             raise ValueError(
                 f"precision must be one of {PRECISIONS}, got {ecfg.precision!r}"
-            )
-        if ecfg.feature_chunk < 1:
-            raise ValueError(
-                f"feature_chunk must be >= 1, got {ecfg.feature_chunk}"
-            )
-        if ecfg.feature_backend == "pallas":
-            raise NotImplementedError(
-                "feature_backend='pallas' needs the staged branch-history and "
-                "memory-distance kernels (ROADMAP B2, B3), not ported yet"
             )
         if ecfg.precision == "int8":
             raise NotImplementedError(
@@ -332,7 +309,7 @@ class StreamingEngine:
         return new_carry, per
 
     def _host_batches(self, fs: FeatureSet, func_trace: np.ndarray) -> Iterator[Dict]:
-        """The "numpy" backend: host batches copied to the device."""
+        """Precomputed features: host batches copied to the device."""
         for b in stream_batches(
             fs,
             self.cfg.window,
@@ -343,9 +320,9 @@ class StreamingEngine:
             yield {k: torch.from_numpy(v).to(self.device) for k, v in b.items()}
 
     def _fused_batches(self, cols: Dict, w_eff: int, count: int) -> Iterator[Dict]:
-        """The "fused" backend: columns on the device once, then one fused
-        kernel launch per batch.  Window / padding / validity layout is the
-        host path's (non-overlapping windows, ragged tail zero-padded)."""
+        """A raw trace: columns on the device once, then one fused kernel
+        launch per batch.  Window / padding / validity layout is the host
+        path's (non-overlapping windows, ragged tail zero-padded)."""
         bsz = self.ecfg.batch_size
         nw = count // w_eff
         nb = -(-nw // bsz)
@@ -380,16 +357,10 @@ class StreamingEngine:
         count = nw * w_eff
         carry = self.init_carry(n)
 
-        batches = None
-        if features is None and self.ecfg.feature_backend == "fused":
-            cols = trace_columns(func_trace, cfg.features)
-            if cols is not None:  # addresses fit the int32-exact window
-                batches = self._fused_batches(cols, w_eff, count)
-        if batches is None:
-            fs = features
-            if fs is None:
-                fs = extract_features(func_trace, cfg.features, with_labels=False)
-            batches = self._host_batches(fs, func_trace)
+        if features is None:
+            batches = self._fused_batches(trace_columns(func_trace, cfg.features), w_eff, count)
+        else:
+            batches = self._host_batches(features, func_trace)
 
         pers: List[Dict[str, torch.Tensor]] = []
         with torch.inference_mode():
@@ -441,7 +412,6 @@ def simulate_trace_engine(
     batch_size: int = 64,
     features: Optional[FeatureSet] = None,
     collect: bool = False,
-    feature_backend: str = "numpy",
     precision: str = "fp32",
     metrics: Tuple[Union[str, MetricSpec], ...] = DEFAULT_METRICS,
     *,
@@ -454,7 +424,6 @@ def simulate_trace_engine(
         EngineConfig(
             batch_size=batch_size,
             collect=collect,
-            feature_backend=feature_backend,
             precision=precision,
             metrics=metrics,
         ),

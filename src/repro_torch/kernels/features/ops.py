@@ -1,31 +1,22 @@
 """Host-side trace preparation and the eager torch signed-log.
 
 ``trace_columns`` is the host prep of the device feature path (bucket hash
-on the int64 pc, int32 address narrowing); it returns None when addresses
-fall outside the int32-exact window, and callers then take the NumPy path —
-the reference's own semantics.  ``signed_log`` is the op-per-kernel torch
+on the int64 pc; addresses stay int64, so the deltas are exact for any
+address, as in the NumPy specification).  ``signed_log`` is the op-per-kernel torch
 twin of ``core.features.signed_log``: one rounded float32 op per statement,
 never compiled, so it matches the NumPy specification bit for bit on any
 device.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 import torch
 
 from ...core.features import SIGNED_LOG_COEFFS, SIGNED_LOG_SQRT2, FeatureConfig
 
-__all__ = ["ADDR_EXACT_LIMIT", "DEFAULT_CHUNK", "signed_log", "trace_columns"]
-
-# Addresses must stay within this bound for int32 deltas to be exact (and
-# overflow-free: |a - b| < 2^31 when |a|, |b| < 2^30).
-ADDR_EXACT_LIMIT = 2**30
-
-# trace positions per scan chunk in the reference's Pallas grid; the port's
-# EngineConfig keeps the field, the CUDA kernel tiles on its own
-DEFAULT_CHUNK = 512
+__all__ = ["signed_log", "trace_columns"]
 
 
 # tao: bitwise
@@ -57,20 +48,12 @@ def signed_log(d: torch.Tensor) -> torch.Tensor:
     return torch.where(d < 0, -r, r)
 
 
-def trace_columns(
-    trace: np.ndarray, cfg: FeatureConfig
-) -> Optional[Dict[str, np.ndarray]]:
-    """Host-side prep of the device extraction inputs (~28 B/instr).
-
-    Returns None when addresses exceed the int32-exact window
-    (|addr| >= 2^30); the caller then takes the NumPy backend.
-    """
-    addr = trace["addr"]
-    if len(addr) and int(np.abs(addr).max()) >= ADDR_EXACT_LIMIT:
-        return None
+def trace_columns(trace: np.ndarray, cfg: FeatureConfig) -> Dict[str, np.ndarray]:
+    """Host-side prep of the device extraction inputs (~32 B/instr): the
+    bucket hash and narrowed ids, with ``addr`` kept int64."""
     return {
         "bucket": ((trace["pc"] >> 2) % cfg.n_buckets).astype(np.int32),
-        "addr": addr.astype(np.int32),
+        "addr": trace["addr"].astype(np.int64),
         "opcode": trace["opcode"].astype(np.int32),
         "dst": trace["dst"].astype(np.int32),
         "src1": trace["src1"].astype(np.int32),

@@ -23,12 +23,13 @@ COLUMN_KEYS = (
     "bucket", "addr", "opcode", "dst", "src1", "src2",
     "is_branch", "taken", "is_mem", "is_store",
 )
-_INT_KEYS = COLUMN_KEYS[:6]
+_DTYPES = {"addr": torch.int64, "bucket": torch.int32, "opcode": torch.int32,
+           "dst": torch.int32, "src1": torch.int32, "src2": torch.int32}
 N_FLAGS = 5
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 FUSED_FEATURES = CudaKernel(
-    "fused_features.cu", "tao_fused_features", [_P] * 17 + [_I] * 4
+    "fused_features.cu", "tao_fused_features", [_P] * 18 + [_I] * 4
 )
 
 
@@ -43,17 +44,18 @@ def fused_features_cuda(
     cols: Dict[str, torch.Tensor], table: torch.Tensor, mq: torch.Tensor
 ) -> Tuple[torch.Tensor, ...]:
     """One pass over ``n`` positions.  ``cols``: the ten (n,) columns
-    (int32, and torch.bool for the four flags); ``table`` (N_b, N_q)
-    float32, UPDATED IN PLACE; ``mq`` (1, N_m + 1) int32, read only.
-    Returns ``(regbits, flags, brhist, memdist, mq_out)``, memdist
-    signed-log compressed, ``mq_out`` the outgoing queue + fill row."""
+    (``addr`` int64, the other four ids int32, torch.bool for the four
+    flags); ``table`` (N_b, N_q) float32 and ``mq`` (1, N_m + 1) int64,
+    both read only.  Returns ``(regbits, flags, brhist, memdist,
+    table_out, mq_out)`` — memdist signed-log compressed, then the
+    outgoing state — as ``ref.fused_features_plain`` does."""
     n = cols["bucket"].shape[0]
     n_buckets, n_queue = table.shape
     n_mem = mq.shape[1] - 1
     for k in COLUMN_KEYS:
-        _check(k, cols[k], torch.int32 if k in _INT_KEYS else torch.bool, (n,))
+        _check(k, cols[k], _DTYPES.get(k, torch.bool), (n,))
     _check("table", table, torch.float32, (n_buckets, n_queue))
-    _check("mq", mq, torch.int32, (1, n_mem + 1))
+    _check("mq", mq, torch.int64, (1, n_mem + 1))
     if not 1 <= n_queue <= 32:
         raise ValueError(f"the kernel holds one queue slot per lane: n_queue={n_queue} must be 1..32")
     if n_mem < 1:
@@ -64,12 +66,13 @@ def fused_features_cuda(
         for w in (NUM_REGS, N_FLAGS, n_queue, n_mem)
     ]
     if n == 0:
-        return (*outs, mq.clone())
+        return (*outs, table.clone(), mq.clone())
+    table_out = torch.empty_like(table)
     mq_out = torch.empty_like(mq)
     FUSED_FEATURES.launch(
         *(cols[k].data_ptr() for k in COLUMN_KEYS),
-        table.data_ptr(), mq.data_ptr(), mq_out.data_ptr(),
+        table.data_ptr(), table_out.data_ptr(), mq.data_ptr(), mq_out.data_ptr(),
         *(o.data_ptr() for o in outs),
         n, n_buckets, n_queue, n_mem,
     )
-    return (*outs, mq_out)
+    return (*outs, table_out, mq_out)

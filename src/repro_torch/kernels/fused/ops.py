@@ -3,16 +3,16 @@
 Counterpart of ``repro/kernels/fused/ops.py``.  ``fused_feature_columns``
 runs one pass — the CUDA kernel for columns on the card, the plain version
 for columns on the CPU — and ``FusedExtractor`` is the streaming driver of
-the engine's ``"fused"`` backend: the raw columns go to the device once
-(~28 B/instr), then every ``next_batch`` is one kernel launch whose scan
+the engine's feature path: the raw columns go to the device once
+(~32 B/instr), then every ``next_batch`` is one kernel launch whose scan
 state carries into the next batch.  Features exist only at batch
 granularity.
 
-The state is the reference's layout: ``table`` (N_b, N_q) float32 and
-``mq`` (1, N_m + 1) int32 (queue slots, then the fill count).  On the card
-the kernel updates ``table`` in place and returns a new ``mq``; a state
-passed to ``fused_feature_columns`` must therefore not be reused after the
-call — thread the returned one.
+The state is the reference's layout, ``table`` (N_b, N_q) float32 and
+``mq`` (1, N_m + 1) (queue slots, then the fill count), with ``mq`` int64
+because the port takes address deltas in int64.  It is functional on
+every device: a pass reads the state it is given and returns a new one,
+so one state may be passed more than once.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ def init_fused_state(
     dev = resolve_device(device)
     return {
         "table": torch.zeros((cfg.n_buckets, cfg.n_queue), dtype=torch.float32, device=dev),
-        "mq": torch.zeros((1, cfg.n_mem + 1), dtype=torch.int32, device=dev),
+        "mq": torch.zeros((1, cfg.n_mem + 1), dtype=torch.int64, device=dev),
     }
 
 
@@ -52,15 +52,13 @@ def fused_feature_columns(
     Returns ``(features, new_state)``: the model inputs (``opcode`` /
     ``regbits`` / ``flags`` / ``brhist`` / ``memdist``) for exactly these
     positions, and the scan carry for the next slice.  Bitwise equal to one
-    pass over the concatenated slices.
+    pass over the concatenated slices; ``state`` is not modified.
     """
     table, mq = state["table"], state["mq"]
     if table.shape != (cfg.n_buckets, cfg.n_queue) or mq.shape != (1, cfg.n_mem + 1):
         raise ValueError("fused state does not match the FeatureConfig")
-    if cols["bucket"].is_cuda:
-        regbits, flags, brhist, memdist, mq = fused_features_cuda(cols, table, mq)
-    else:
-        regbits, flags, brhist, memdist, table, mq = fused_features_plain(cols, table, mq)
+    run = fused_features_cuda if cols["bucket"].is_cuda else fused_features_plain
+    regbits, flags, brhist, memdist, table, mq = run(cols, table, mq)
     feats = {
         "opcode": cols["opcode"],
         "regbits": regbits,

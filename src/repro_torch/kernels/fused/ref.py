@@ -8,8 +8,11 @@ in this pass reads slot ``k`` from the ``k``-th previous of them while
 ``k < j`` and from the carried row's slot ``k - j`` after; an access of rank
 ``r`` reads the ``k``-th previous access of the pass while ``k < r`` and the
 carried queue's slot ``k - r`` (while that is within the fill) after.  The
-outputs are copies and exact int32 subtractions, so they are bitwise the
-reference's sequential scan (``repro/kernels/fused/ref.py::fused_scan_ref``).
+outputs are copies and int64 subtractions rounded to float32 through
+float64 — the NumPy specification's ``core/features.py::_memory_distance``
+— so they are bitwise the reference's sequential scan
+(``repro/kernels/fused/ref.py::fused_scan_ref``) wherever that scan's int32
+deltas are exact, and the NumPy specification's for any address.
 """
 from __future__ import annotations
 
@@ -77,8 +80,8 @@ def _memory_scan(addr, is_mem, mq):
             from_pass, a[src.clamp(min=0)], queue[back.clamp(0, n_mem - 1)]
         )
         valid = from_pass | (back < fill)
-        delta = torch.where(valid, a[:, None] - prev, 0)  # exact int32
-        raw[mem_idx] = delta.to(torch.float32)
+        delta = torch.where(valid, a[:, None] - prev, 0)  # int64, as NumPy
+        raw[mem_idx] = delta.to(torch.float64).to(torch.float32)
     s = m - 1 - slot
     new_q = torch.where(
         s >= 0,
@@ -86,7 +89,7 @@ def _memory_scan(addr, is_mem, mq):
         queue[(slot - m).clamp(0, n_mem - 1)],
     )
     new_fill = torch.clamp(fill + m, max=n_mem)
-    return raw, torch.cat([new_q, new_fill[None]])[None].to(torch.int32)
+    return raw, torch.cat([new_q, new_fill[None]])[None].to(torch.int64)
 
 
 def fused_scan_plain(
@@ -99,8 +102,8 @@ def fused_scan_plain(
     mq: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Both scans over one pass with the state threaded explicitly: returns
-    ``(brhist, memdist_raw, table_out, mq_out)`` (raw int32 deltas cast to
-    float32; the inputs are not modified)."""
+    ``(brhist, memdist_raw, table_out, mq_out)`` (raw int64 deltas rounded
+    to float32; the inputs are not modified)."""
     brhist, table_out = _branch_scan(bucket, is_branch, taken, table)
     raw, mq_out = _memory_scan(addr, is_mem, mq)
     return brhist, raw, table_out, mq_out
@@ -111,7 +114,7 @@ def fused_features_plain(
 ) -> Tuple[torch.Tensor, ...]:
     """What ``fused_features_cuda`` computes, on any device: returns
     ``(regbits, flags, brhist, memdist, table_out, mq_out)`` with memdist
-    signed-log compressed."""
+    signed-log compressed; the inputs are not modified."""
     reg = torch.arange(NUM_REGS, device=table.device, dtype=torch.int32)[None, :]
     regbits = (
         (reg == cols["dst"][:, None])

@@ -2,8 +2,9 @@
 
 The reference initializes the weights (converted with ``params_from_jax``);
 the same functional traces go through ``repro.engine.StreamingEngine`` and
-the port's engine on the CPU, with the ``"numpy"`` and ``"fused"`` feature
-backends.
+the port's engine on the CPU, both ways the port takes features: from the
+raw trace through the fused kernel's path (``"fused"``), and precomputed by
+the NumPy specification (``"numpy"``, ``simulate(trace, features=...)``).
 
 Tolerance.  Features are bitwise equal on both sides (see
 test_torch_features.py); the model's float32 logits differ in the last
@@ -29,7 +30,7 @@ from repro.engine import StreamingEngine as RefEngine  # noqa: E402
 from repro.uarch import get_benchmark, run_functional  # noqa: E402
 
 from repro_torch.convert import params_from_jax  # noqa: E402
-from repro_torch.core.features import FeatureConfig  # noqa: E402
+from repro_torch.core.features import FeatureConfig, extract_features  # noqa: E402
 from repro_torch.core.model import TaoConfig, init_tao  # noqa: E402
 from repro_torch.engine import (  # noqa: E402
     EngineConfig,
@@ -83,6 +84,13 @@ def port_engine(weights, **kw):
     return StreamingEngine(port_model(weights), PORT_CFG, EngineConfig(**kw), device="cpu")
 
 
+def port_simulate(engine, trace, backend):
+    """``"fused"``: the raw trace; ``"numpy"``: the NumPy features, precomputed."""
+    if backend == "fused":
+        return engine.simulate(trace)
+    return engine.simulate(trace, features=extract_features(trace, PORT_CFG.features, with_labels=False))
+
+
 def assert_explained_by_flips(got, ref):
     n = ref.num_instructions
     assert got.num_instructions == n
@@ -113,7 +121,7 @@ def assert_explained_by_flips(got, ref):
 @pytest.mark.parametrize("backend", ["numpy", "fused"])
 @pytest.mark.parametrize("bench", ["dee", "lee"])
 def test_simulate_matches_reference_engine(weights, traces, reference, bench, backend):
-    got = port_engine(weights, feature_backend=backend, collect=True).simulate(traces[bench])
+    got = port_simulate(port_engine(weights, collect=True), traces[bench], backend)
     ref = reference[bench]
     assert got.available_metrics == ref.available_metrics
     assert_explained_by_flips(got, ref)
@@ -124,9 +132,11 @@ def test_simulate_matches_reference_engine(weights, traces, reference, bench, ba
 
 
 def test_fused_and_numpy_backends_are_identical(weights, traces):
-    """Same device, bitwise-equal features: the two backends agree exactly."""
-    a = port_engine(weights, feature_backend="numpy", collect=True).simulate(traces["dee"])
-    b = port_engine(weights, feature_backend="fused", collect=True).simulate(traces["dee"])
+    """Same device, bitwise-equal features: the raw-trace path and
+    precomputed NumPy features agree exactly."""
+    eng = port_engine(weights, collect=True)
+    a = port_simulate(eng, traces["dee"], "numpy")
+    b = port_simulate(eng, traces["dee"], "fused")
     for k, v in a.metrics.items():
         np.testing.assert_array_equal(b.metrics[k], v, err_msg=k)
     for k in ("fetch_lat", "exec_lat", "mispred_prob", "dlevel"):
@@ -134,26 +144,32 @@ def test_fused_and_numpy_backends_are_identical(weights, traces):
 
 
 def test_wide_addresses_take_the_numpy_route(weights, traces):
-    """|addr| >= 2^30 makes int32 deltas inexact: the fused backend takes
-    the NumPy path (no kernel pass), as the reference does."""
+    """Addresses past 2^31 (where the reference's int32 fused deltas would
+    be inexact): the raw-trace path takes its deltas in int64 and gives
+    what the NumPy route gives, bit for bit.  On the CPU it runs the plain
+    version, so no kernel launches."""
     t = traces["lee"][:2000].copy()
-    t["addr"][t["is_mem"]] += 1 << 31
+    t["addr"][t["is_mem"]] += 1 << 40
+    t["addr"][np.flatnonzero(t["is_mem"])[::7]] -= 1 << 50  # deltas past 2^31 too
     launches = FUSED_FEATURES.launches
-    fused = port_engine(weights, feature_backend="fused").simulate(t)
-    numpy_ = port_engine(weights, feature_backend="numpy").simulate(t)
+    eng = port_engine(weights, collect=True)
+    fused = port_simulate(eng, t, "fused")
+    numpy_ = port_simulate(eng, t, "numpy")
     assert FUSED_FEATURES.launches == launches
     for k, v in numpy_.metrics.items():
         np.testing.assert_array_equal(fused.metrics[k], v, err_msg=k)
+    for k in ("fetch_lat", "exec_lat", "mispred_prob", "dlevel"):
+        np.testing.assert_array_equal(getattr(fused, k), getattr(numpy_, k), err_msg=k)
 
 
 def test_short_trace_and_wrapper(weights, traces):
     """A trace shorter than the window is one truncated window; the one-shot
     wrapper equals the engine."""
     t = traces["dee"][:10]
-    r = port_engine(weights, feature_backend="fused").simulate(t)
+    r = port_engine(weights).simulate(t)
     assert r.num_instructions == 10
     w = simulate_trace_engine(port_model(weights), t, PORT_CFG, batch_size=BATCH,
-                              feature_backend="fused", metrics=METRICS, device="cpu")
+                              metrics=METRICS, device="cpu")
     for k, v in r.metrics.items():
         np.testing.assert_array_equal(w.metrics[k], v, err_msg=k)
 
@@ -165,12 +181,10 @@ def test_result_errors_and_unported_options(weights, traces):
     with pytest.raises(MetricNotComputedError):
         r.l1d_mpki
     assert "arrays" not in r.to_dict()
-    with pytest.raises(NotImplementedError, match="B2"):
-        port_engine(weights, feature_backend="pallas")
     with pytest.raises(NotImplementedError, match="A6"):
         port_engine(weights, precision="int8")
     with pytest.raises(ValueError):
-        port_engine(weights, feature_backend="bogus")
+        port_engine(weights, precision="bf16")
     with pytest.raises(ValueError):
         port_engine(weights, batch_size=0)
     with pytest.raises(ValueError):

@@ -1,9 +1,10 @@
 """Feature extraction of the port, bitwise against the reference.
 
-Every feature value is either an exact copy ({0, ±1}), an exact int32
-subtraction, or the signed-log of one — evaluated as a fixed sequence of
-individually rounded float32 ops — so the comparisons here are BITWISE
-(float32 bit patterns), never within a tolerance:
+Every feature value is either an exact copy ({0, ±1}), an int64 address
+delta rounded to float32 through float64 (as the NumPy specification does),
+or the signed-log of one — evaluated as a fixed sequence of individually
+rounded float32 ops — so the comparisons here are BITWISE (float32 bit
+patterns), never within a tolerance:
 
   * the torch ``signed_log`` == the NumPy specification's;
   * the port's NumPy ``extract_features`` / ``extract_features_reference``
@@ -11,7 +12,12 @@ individually rounded float32 ops — so the comparisons here are BITWISE
   * the plain version of the fused CUDA kernel == the reference's fused
     Pallas kernel (``fused_feature_columns``, interpret mode) and its scan
     oracle (``fused_scan_ref``) over three state-threaded slices, on
-    collision-heavy buckets, empty queues and traces without memory ops;
+    collision-heavy buckets, empty queues and traces without memory ops
+    (the reference's int32 queue compared by value with the port's int64);
+  * past the reference's int32 address window, the plain version == the
+    NumPy specification;
+  * the fused state is functional: a pass leaves the state it was given
+    unchanged, so passing it again gives the same result;
   * the CUDA source's constants == the Python constants it hard-codes.
 """
 import re
@@ -121,17 +127,25 @@ def test_numpy_extraction_matches_reference(bench):
 
 
 def test_trace_columns_match_reference():
+    """The same columns, except that ``addr`` stays int64: the reference
+    narrows it to int32 (and refuses |addr| >= 2^30), the port keeps every
+    address exact."""
     fcfg = port_features.FeatureConfig()
     rcfg = ref_features.FeatureConfig()
     t = run_functional(get_benchmark("mcf"), 2000)
     got, ref = port_ops.trace_columns(t, fcfg), ref_ops.trace_columns(t, rcfg)
     assert list(got) == list(ref)
     for k in got:
-        assert_bitwise(got[k], ref[k], k)
+        if k == "addr":
+            assert got[k].dtype == np.int64
+            np.testing.assert_array_equal(got[k], ref[k].astype(np.int64))
+        else:
+            assert_bitwise(got[k], ref[k], k)
     big = t.copy()
     big["addr"][5] = ref_ops.ADDR_EXACT_LIMIT
-    assert port_ops.trace_columns(big, fcfg) is None
+    big["addr"][6] = -(1 << 60)
     assert ref_ops.trace_columns(big, rcfg) is None
+    np.testing.assert_array_equal(port_ops.trace_columns(big, fcfg)["addr"], big["addr"])
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +195,7 @@ def test_fused_plain_matches_reference_kernel_threaded(geom):
         for f in ("opcode",) + FIELDS:
             assert_bitwise(got[f], ref[f], f"{geom}@{lo}/{f}")
         assert_bitwise(state["table"], ref_state["table"], "table")
-        assert_bitwise(state["mq"], ref_state["mq"], "mq")
+        assert_bitwise(state["mq"], np.asarray(ref_state["mq"]).astype(np.int64), "mq")
         lo += m
     # the CPU path is the plain version: no kernel launch
     assert port_kernel.FUSED_FEATURES.launches == launches
@@ -189,7 +203,7 @@ def test_fused_plain_matches_reference_kernel_threaded(geom):
 
 @pytest.mark.parametrize("geom", sorted(GEOMETRIES))
 def test_fused_scan_plain_matches_scan_oracle(geom):
-    """Raw int32 deltas and the explicit state against the lax.scan oracle,
+    """Raw deltas and the explicit state against the lax.scan oracle,
     starting from a nonzero carry."""
     (nb, nq, nm), make, slices = GEOMETRIES[geom]
     t = make()
@@ -200,7 +214,7 @@ def test_fused_scan_plain_matches_scan_oracle(geom):
     queue = rng.integers(-(1 << 20), 1 << 20, nm).astype(np.int32)
     fill = np.int32(nm // 2)
     state_ref = (jnp.asarray(table), jnp.asarray(queue), jnp.int32(fill))
-    mq = torch.from_numpy(np.concatenate([queue, [fill]]).astype(np.int32))[None]
+    mq = torch.from_numpy(np.concatenate([queue, [fill]]).astype(np.int64))[None]
     tab = torch.from_numpy(table)
     lo = 0
     for m in slices:
@@ -216,7 +230,7 @@ def test_fused_scan_plain_matches_scan_oracle(geom):
         assert_bitwise(brhist, ref["brhist"], f"{geom}/brhist")
         assert_bitwise(raw, ref["memdist_raw"], f"{geom}/memdist_raw")
         assert_bitwise(tab, state_ref[0], f"{geom}/table")
-        assert_bitwise(mq[0, :nm], state_ref[1], f"{geom}/queue")
+        assert_bitwise(mq[0, :nm], np.asarray(state_ref[1]).astype(np.int64), f"{geom}/queue")
         assert int(mq[0, nm]) == int(state_ref[2])
         lo += m
 
@@ -237,6 +251,47 @@ def test_extractor_batches_equal_numpy_spec():
         ex.next_batch(301)
     with pytest.raises(ValueError):
         FusedExtractor(port_ops.trace_columns(t, fcfg), fcfg, pad_to=100, device="cpu")
+
+
+@pytest.mark.parametrize("addr_hi", [1 << 31, 1 << 62], ids=["past_int32", "near_int64_edge"])
+def test_fused_plain_wide_addresses_match_numpy_spec(addr_hi):
+    """Addresses the reference's fused kernel cannot take (its int32 deltas
+    need |addr| < 2^30): over three threaded slices the plain version still
+    equals the NumPy specification, int64 delta -> float64 -> float32,
+    including deltas that wrap in int64 as NumPy's do."""
+    fcfg = port_features.FeatureConfig(n_buckets=16, n_queue=4, n_mem=8)
+    t = random_trace(2400, np.random.default_rng(17), addr_hi=addr_hi)
+    spec = port_features.extract_features(t, fcfg, with_labels=False)
+    cols = torch_cols(port_ops.trace_columns(t, fcfg))
+    state = init_fused_state(fcfg, device="cpu")
+    got = []
+    for lo, hi in ((0, 900), (900, 1700), (1700, 2400)):
+        feats, state = fused_feature_columns({k: v[lo:hi] for k, v in cols.items()}, state, fcfg)
+        got.append(feats)
+    for f in FIELDS:
+        assert_bitwise(torch.cat([g[f] for g in got]), getattr(spec, f), f)
+    assert np.abs(spec.memdist).max() > np.abs(port_features.signed_log(np.float64(2**31)))
+
+
+def test_fused_state_is_functional():
+    """A pass reads its state and returns a new one: the same state passed
+    twice gives the same features and the same outgoing state, and is left
+    as it was."""
+    fcfg = port_features.FeatureConfig(n_buckets=8, n_queue=4, n_mem=8)
+    t = random_trace(1200, np.random.default_rng(23), pc_mod=16)
+    cols = torch_cols(port_ops.trace_columns(t, fcfg))
+    first = {k: v[:500] for k, v in cols.items()}
+    second = {k: v[500:] for k, v in cols.items()}
+    _, state = fused_feature_columns(first, init_fused_state(fcfg, device="cpu"), fcfg)
+    kept = {k: v.clone() for k, v in state.items()}
+    a, out_a = fused_feature_columns(second, state, fcfg)
+    b, out_b = fused_feature_columns(second, state, fcfg)
+    for k in kept:
+        assert torch.equal(state[k], kept[k]), k
+        assert torch.equal(out_a[k], out_b[k]), k
+    assert not torch.equal(out_a["table"], state["table"])
+    for f in FIELDS:
+        assert_bitwise(a[f], b[f].numpy(), f)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

@@ -96,7 +96,7 @@ def test_default_device_entry_points_raise_without_cuda():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     # asked for explicitly, the CPU runs
-    r = simulate_trace_engine(cpu_model, trace, cfg, feature_backend="fused", device="cpu")
+    r = simulate_trace_engine(cpu_model, trace, cfg, device="cpu")
     assert np.isfinite(r.cpi)
 
 
