@@ -10,12 +10,21 @@ and ``nvcc``.  Phases, one JSON line each:
            source, all started together) and report the seconds and the
            ptxas register / spill lines;
   kernels  every kernel against its plain PyTorch version on the card, at
-           the shapes the main path gives it, timed with CUDA events;
-  slice    the port's main path — StreamingEngine.simulate of raw traces
-           at the default TaoConfig width on captured benchmark traces —
-           with the kernels' launch counts read around that run,
-           finite-metric checks, and a comparison with the same engine on
-           the CPU (the plain versions) on one trace.
+           the shapes the main paths give it, timed with CUDA events: the
+           fused feature kernel (B1), the staged whole-trace branch-history
+           and memory-distance scans (B2, B3) on whole benchmark traces,
+           a collision-heavy config and wide addresses, the staged
+           extraction and the eager signed-log against the NumPy
+           specification, and attention (B4);
+  slice    the port's main paths at the default TaoConfig width on
+           captured benchmark traces: StreamingEngine.simulate of the raw
+           traces (the fused route), then the staged route — one
+           whole-trace device_feature_arrays per trace, then
+           simulate(trace, features=arrays) — each with the kernels'
+           launch counts read around it; finite-metric checks, the staged
+           route against the fused one, the fused route against the same
+           engine on the CPU (the plain versions) on one trace, both
+           routes timed side by side, and a profile of one simulate.
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main path, error, times and bound; the card's name and power limit as
@@ -43,6 +52,9 @@ SLICE_BENCHMARKS = ("dee", "mcf", "lee")
 SLICE_INSTRUCTIONS = 150_000
 KERNEL_LAUNCHES = 4        # state-threaded B1 launches checked bitwise
 WIDE_ADDR_OFFSET = 1 << 40  # shifts a trace's addresses past the int32 window
+# (n_buckets, n_queue, n_mem) where many branches share few buckets (three:
+# not a power of two) and the queues are short
+COLLISION_SHAPE = (3, 5, 12)
 ATTN_ATOL = 1e-5           # fp32 online softmax vs full-matrix softmax:
 ATTN_RTOL = 1e-5           # only the summation order differs
 
@@ -53,6 +65,7 @@ ATTN_RTOL = 1e-5           # only the summation order differs
 # metric difference must be explained by the flips that occurred.
 FLIP_FRACTION = 1e-3
 PROB_ATOL = 1e-4           # sigmoid(mispred_logit), logits differ ~1e-6
+ROUTE_ROUNDS = 3           # turns of the fused / staged side-by-side timing
 
 
 def emit(obj) -> None:
@@ -123,21 +136,21 @@ def profile_breakdown(engine, trace) -> dict:
     busy = summed time of the device's kernel events (one stream: kernels
     do not overlap; the host ops that launched them are not counted again),
     idle share = 1 - busy / wall.  The profiler's own host overhead
-    inflates the wall time here; the unprofiled runs report the real MIPS."""
+    inflates the wall time here; the unprofiled runs report the real MIPS.
+    Raises when the profile cannot be taken or shows no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            engine.simulate(trace)
-            wall = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    except Exception as e:  # the profiler is optional here: report, go on
-        return {"profile": "not measured", "error": repr(e)}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.simulate(trace)
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not events:
+        raise RuntimeError("torch.profiler recorded no device time over one simulate")
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
     return {
@@ -148,7 +161,7 @@ def profile_breakdown(engine, trace) -> dict:
     }
 
 
-def phase_build(failures, results):
+def phase_build(failures, results, traces):
     from repro_torch.kernels import _cuda
 
     t0 = time.perf_counter()
@@ -170,7 +183,7 @@ def phase_build(failures, results):
         failures.append("build: no CUDA sources found")
 
 
-def phase_kernels(failures, results):
+def phase_kernels(failures, results, traces):
     import numpy as np
     import torch
 
@@ -243,6 +256,8 @@ def phase_kernels(failures, results):
           "max_abs_err": max_err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
           "bound_ms": b_ms, "bound_by": b_by})
 
+    check_staged_kernels(failures, results, traces)
+
     # ---- B4: attention at the Tao shape, plus q_offset / segment cases
     g = torch.Generator(device="cpu").manual_seed(0)
 
@@ -295,80 +310,158 @@ def phase_kernels(failures, results):
           "bound_ms": b_ms, "bound_by": b_by})
 
 
-def phase_slice(failures, results):
+def bitwise_equal(a, b) -> bool:
+    """Same shape, dtype and float32 bit patterns (any device, or NumPy)."""
     import numpy as np
     import torch
 
-    from repro_torch.core.model import TaoConfig, init_tao
-    from repro_torch.engine import EngineConfig, StreamingEngine
-    from repro_torch.kernels.attention.kernel import FLASH_ATTENTION
-    from repro_torch.kernels.fused.kernel import FUSED_FEATURES
-    from repro_torch.uarch import get_benchmark, run_functional
+    a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    b = b.cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    return bool(np.array_equal(a.view(np.int32), b.view(np.int32)) if a.dtype == np.float32
+                else np.array_equal(a, b))
 
-    cfg = TaoConfig()
-    metrics = ("cpi", "branch_mpki", "l1d_mpki", "cpi_phase", "l1d_phase")
-    ecfg = EngineConfig(metrics=metrics)
-    t0 = time.perf_counter()
-    traces = {b: run_functional(get_benchmark(b), SLICE_INSTRUCTIONS) for b in SLICE_BENCHMARKS}
-    capture_s = time.perf_counter() - t0
-    model = init_tao(cfg, torch.Generator().manual_seed(0), device="cuda")
-    engine = StreamingEngine(model, cfg, ecfg, device="cuda")
-    engine.simulate(traces["lee"])  # warm-up: cuBLAS handles, allocator pools
 
-    FUSED_FEATURES.launches = 0
-    FLASH_ATTENTION.launches = 0
-    res = {b: engine.simulate(t) for b, t in traces.items()}
-    launches = {"fused_features": FUSED_FEATURES.launches,
-                "flash_attention": FLASH_ATTENTION.launches}
-    batches = sum(-(-(r.num_instructions // cfg.window) // ecfg.batch_size) for r in res.values())
-    for b, r in res.items():
-        scalars = [r.cpi, r.total_cycles, r.branch_mpki, r.l1d_mpki]
-        curves = [r.cpi_phase, r.l1d_phase]
-        if not (all(math.isfinite(x) for x in scalars)
-                and all(np.isfinite(c).all() and c.shape == (32,) for c in curves)):
-            failures.append(f"slice: non-finite or misshapen metrics on {b}")
-        emit({"phase": "slice", "trace": b, "num_instructions": r.num_instructions,
-              "seconds": r.seconds, "mips": r.mips, "cpi": r.cpi,
-              "total_cycles": r.total_cycles, "branch_mpki": r.branch_mpki,
-              "l1d_mpki": r.l1d_mpki})
-    if launches["fused_features"] != batches or launches["flash_attention"] != cfg.n_layers * batches:
-        failures.append(f"slice: launches {launches} for {batches} batches "
-                        f"(expected 1 fused and {cfg.n_layers} attention launches per batch)")
-    for name, c in launches.items():
-        results[name]["launches"] = c
-    total_n = sum(r.num_instructions for r in res.values())
-    total_s = sum(r.seconds for r in res.values())
+def check_staged_kernels(failures, results, traces):
+    """B2 and B3 bitwise against their plain versions on whole traces, the
+    staged extraction and the eager signed-log against the NumPy spec."""
+    import numpy as np
+    import torch
 
-    # the same engine on the CPU (plain versions), one trace, same weights
-    name = SLICE_BENCHMARKS[0]
-    ecfg_c = EngineConfig(metrics=metrics, collect=True)
-    gpu = StreamingEngine(model, cfg, ecfg_c, device="cuda").simulate(traces[name])
-    cpu_model = init_tao(cfg, torch.Generator().manual_seed(0), device="cpu")
-    cpu = StreamingEngine(cpu_model, cfg, ecfg_c, device="cpu").simulate(traces[name])
-    n = gpu.num_instructions
+    from repro_torch.core.features import FeatureConfig, extract_features, signed_log
+    from repro_torch.kernels.features.kernel import branch_history_cuda, memdist_delta_cuda
+    from repro_torch.kernels.features.ops import (
+        _per_instruction_device,
+        device_feature_arrays,
+        signed_log as signed_log_torch,
+        trace_columns,
+    )
+    from repro_torch.kernels.features.ref import branch_history_plain, memdist_delta_plain
+
+    dev = torch.device("cuda")
+    fcfg = FeatureConfig()
+    wide = traces["mcf"].copy()
+    wide["addr"][wide["is_mem"]] += WIDE_ADDR_OFFSET
+    cases = [(b, fcfg, traces[b]) for b in SLICE_BENCHMARKS]
+    cases += [(f"{b}_collision", FeatureConfig(*COLLISION_SHAPE), traces[b]) for b in SLICE_BENCHMARKS]
+    cases += [("mcf_wide_addresses", fcfg, wide)]
+    ok = {"branch_history": True, "memdist_delta": True, "device_feature_arrays": True}
+    err = {"branch_history": 0.0, "memdist_delta": 0.0}
+    timing = {"branch_history": [], "memdist_delta": []}
+    for name, cfg, trace in cases:
+        cols = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in trace_columns(trace, cfg).items()}
+        _, _, outcome, mem = _per_instruction_device(
+            cols["opcode"], cols["dst"], cols["src1"], cols["src2"],
+            cols["is_branch"], cols["taken"], cols["is_mem"], cols["is_store"])
+        runs = {
+            "branch_history": (
+                lambda: branch_history_cuda(cols["bucket"], outcome, cfg.n_buckets, cfg.n_queue),
+                lambda: branch_history_plain(cols["bucket"], outcome, cfg.n_buckets, cfg.n_queue)),
+            "memdist_delta": (
+                lambda: memdist_delta_cuda(cols["addr"], mem, cfg.n_mem),
+                lambda: memdist_delta_plain(cols["addr"], mem, cfg.n_mem)),
+        }
+        line = {"phase": "kernels", "check": "staged_scans", "case": name,
+                "config": [cfg.n_buckets, cfg.n_queue, cfg.n_mem], "positions": len(trace)}
+        for kname, (kern, plain) in runs.items():
+            a, b = kern(), plain()
+            torch.cuda.synchronize()
+            same = bitwise_equal(a, b)
+            ok[kname] &= same
+            err[kname] = max(err[kname], float((a - b).abs().max()))
+            line[f"{kname}_bitwise_vs_plain"] = same
+            if cfg == fcfg and name in SLICE_BENCHMARKS:
+                timing[kname].append({
+                    "ms": graph_ms(kern), "call_ms": cuda_ms(kern, 50),
+                    "plain_ms": cuda_ms(plain, 5), "n": len(trace),
+                    "n_mem": int(trace["is_mem"].sum()),
+                })
+        spec = extract_features(trace, cfg, with_labels=False)
+        arrays = device_feature_arrays(trace_columns(trace, cfg), cfg, device=dev)
+        same = all(bitwise_equal(arrays[f], getattr(spec, f))
+                   for f in ("opcode", "regbits", "flags", "brhist", "memdist"))
+        ok["device_feature_arrays"] &= same
+        line["device_feature_arrays_bitwise_vs_numpy_spec"] = same
+        emit(line)
+        del cols, arrays, spec
+
+    # the eager signed-log on the card: edge values and mantissas around sqrt(2)
+    rng = np.random.default_rng(0)
+    x = np.array([np.nextafter(np.float32(np.sqrt(2)), np.float32(0)), np.float32(np.sqrt(2)),
+                  np.nextafter(np.float32(np.sqrt(2)), np.float32(2))])
+    near = (x * np.float32(2.0) ** np.arange(40, dtype=np.float32)[:, None] - np.float32(1)).ravel()
+    d = np.concatenate([
+        np.array([0.0, -0.0, 1.0, -1.0, 1e-45, -1e-45, 1e-38, 2.0**62, -(2.0**62), 3.4e38]),
+        near, -near, rng.integers(-(2**62), 2**62, 100_000).astype(np.float64),
+        rng.integers(-4096, 4096, 8192),
+    ]).astype(np.float32)
+    sl_ok = bitwise_equal(signed_log_torch(torch.from_numpy(d).to(dev)), signed_log(d))
+    emit({"phase": "kernels", "check": "eager_signed_log_on_card", "values": int(d.size),
+          "bitwise_vs_numpy_spec": sl_ok})
+    if not sl_ok:
+        failures.append("signed_log: eager torch CUDA ops differ from the NumPy spec")
+    if not ok["device_feature_arrays"]:
+        failures.append("device_feature_arrays: staged extraction != NumPy spec")
+
+    fields = {"branch_history": fcfg.n_queue, "memdist_delta": fcfg.n_mem}
+    sources = {"branch_history": "src/repro/kernels/features/kernel.py:39",
+               "memdist_delta": "src/repro/kernels/features/kernel.py:71"}
+    for kname, width in fields.items():
+        if not ok[kname]:
+            failures.append(f"{kname}: kernel != plain version")
+        rows = timing[kname]
+        bounds = []
+        for r in rows:
+            if kname == "branch_history":  # bucket + outcome in, (n, N_q) f32 out; copies only
+                bounds.append(bound(r["n"] * (8 + 4 * width), 0))
+            else:  # addr + mask in, (n, N_m) f32 out; a subtraction and two roundings per valid slot
+                slots = sum(min(k, width) for k in range(r["n_mem"]))
+                bounds.append(bound(r["n"] * (9 + 4 * width), 3 * slots))
+        mean = lambda key: sum(r[key] for r in rows) / len(rows)  # noqa: E731
+        b_ms = sum(b[0] for b in bounds) / len(bounds)
+        results[kname] = {
+            "name": kname, "route": "cuda", "source": "src/repro_torch/csrc/feature_scans.cu",
+            "replaces": sources[kname], "max_abs_err": err[kname], "ms": mean("ms"),
+            "plain_ms": mean("plain_ms"), "bound_ms": b_ms, "bound_by": bounds[0][1],
+            "library_ms": None,
+        }
+        emit({"phase": "kernels", "kernel": kname, "traces": list(SLICE_BENCHMARKS),
+              "positions": rows[0]["n"], "bitwise_vs_plain": ok[kname],
+              "per_trace_ms": [r["ms"] for r in rows], "ms": mean("ms"),
+              "call_ms": mean("call_ms"), "plain_ms": mean("plain_ms"),
+              "bound_ms": b_ms, "bound_by": bounds[0][1], "library_ms": None})
+
+
+def flip_check(got, ref, trace, cfg) -> dict:
+    """Whether every metric difference between two collected runs of one
+    trace is explained by the decodes that flipped (see FLIP_FRACTION): a
+    fetch flip moves the cycle sum by at most the top bucket (256), the
+    last exec latency by 256 once, a miss count by one per flip; a phase
+    chunk holds at least its share of instructions / memory ops."""
+    import numpy as np
+
+    n = got.num_instructions
     flipped = {
-        "fetch_lat": gpu.fetch_lat != cpu.fetch_lat,
-        "exec_lat": gpu.exec_lat != cpu.exec_lat,
-        "dlevel": gpu.dlevel != cpu.dlevel,
-        "mispredict": (gpu.mispred_prob > 0.5) != (cpu.mispred_prob > 0.5),
-        "l1d_miss": (gpu.dlevel >= 2) != (cpu.dlevel >= 2),
+        "fetch_lat": got.fetch_lat != ref.fetch_lat,
+        "exec_lat": got.exec_lat != ref.exec_lat,
+        "dlevel": got.dlevel != ref.dlevel,
+        "mispredict": (got.mispred_prob > 0.5) != (ref.mispred_prob > 0.5),
+        "l1d_miss": (got.dlevel >= 2) != (ref.dlevel >= 2),
     }
     flips = {k: int(v.sum()) for k, v in flipped.items()}
-    prob_err = float(np.abs(gpu.mispred_prob - cpu.mispred_prob).max())
-    # every metric difference must be explained by the flipped decodes: a
-    # fetch flip moves the cycle sum by at most the top bucket (256), the
-    # last exec latency by 256 once, a miss count by one per flip; a phase
-    # chunk holds at least its share of instructions / memory ops
-    tr = traces[name][:n]
+    prob_err = float(np.abs(got.mispred_prob - ref.mispred_prob).max())
+    tr = trace[:n]
     chunk_of = (np.arange(n) // cfg.window) * 32 // (n // cfg.window)
     min_chunk = np.bincount(chunk_of, minlength=32).min()
     min_mem_chunk = max(1, np.bincount(chunk_of, weights=tr["is_mem"], minlength=32).min())
     diffs = {
-        "cpi_abs": abs(gpu.cpi - cpu.cpi),
-        "branch_mpki_abs": abs(gpu.branch_mpki - cpu.branch_mpki),
-        "l1d_mpki_abs": abs(gpu.l1d_mpki - cpu.l1d_mpki),
-        "cpi_phase_max_abs": float(np.abs(gpu.cpi_phase - cpu.cpi_phase).max()),
-        "l1d_phase_max_abs": float(np.abs(gpu.l1d_phase - cpu.l1d_phase).max()),
+        "cpi_abs": abs(got.cpi - ref.cpi),
+        "branch_mpki_abs": abs(got.branch_mpki - ref.branch_mpki),
+        "l1d_mpki_abs": abs(got.l1d_mpki - ref.l1d_mpki),
+        "cpi_phase_max_abs": float(np.abs(got.cpi_phase - ref.cpi_phase).max()),
+        "l1d_phase_max_abs": float(np.abs(got.l1d_phase - ref.l1d_phase).max()),
     }
     tols = {
         "cpi_abs": 256.0 * (flips["fetch_lat"] + 1) / n,
@@ -378,19 +471,173 @@ def phase_slice(failures, results):
         "l1d_phase_max_abs": flips["l1d_miss"] / min_mem_chunk,
     }
     ok = (
-        max(flips.values()) <= FLIP_FRACTION * n
+        got.num_instructions == ref.num_instructions
+        and max(flips.values()) <= FLIP_FRACTION * n
         and prob_err <= PROB_ATOL
         and all(diffs[k] <= tols[k] * (1 + 1e-6) + 1e-9 for k in diffs)
     )
-    if not ok:
+    return {"flips": flips, "mispred_prob_max_abs": prob_err, "diffs": diffs, "tols": tols,
+            "ok": ok}
+
+
+def same_metrics(a, b) -> bool:
+    import numpy as np
+
+    return a.metrics.keys() == b.metrics.keys() and all(
+        np.array_equal(a.metrics[k], b.metrics[k]) for k in a.metrics)
+
+
+def phase_slice(failures, results, traces):
+    import numpy as np
+    import torch
+
+    from repro_torch.core.model import TaoConfig, init_tao
+    from repro_torch.engine import EngineConfig, StreamingEngine
+    from repro_torch.kernels.attention.kernel import FLASH_ATTENTION
+    from repro_torch.kernels.features.kernel import BRANCH_HISTORY, MEMDIST_DELTA
+    from repro_torch.kernels.features.ops import device_feature_arrays, trace_columns
+    from repro_torch.kernels.fused.kernel import FUSED_FEATURES
+
+    cfg = TaoConfig()
+    fcfg = cfg.features
+    metrics = ("cpi", "branch_mpki", "l1d_mpki", "cpi_phase", "l1d_phase")
+    ecfg = EngineConfig(metrics=metrics)
+    ecfg_c = EngineConfig(metrics=metrics, collect=True)
+    counters = {"fused_features": FUSED_FEATURES, "flash_attention": FLASH_ATTENTION,
+                "branch_history": BRANCH_HISTORY, "memdist_delta": MEMDIST_DELTA}
+
+    def zero_counts():
+        for c in counters.values():
+            c.launches = 0
+
+    def read_counts():
+        return {name: c.launches for name, c in counters.items()}
+
+    def extract(trace):
+        arrays = device_feature_arrays(trace_columns(trace, fcfg), fcfg, device="cuda")
+        torch.cuda.synchronize()
+        return arrays
+
+    model = init_tao(cfg, torch.Generator().manual_seed(0), device="cuda")
+    engine = StreamingEngine(model, cfg, ecfg, device="cuda")
+    engine.simulate(traces["lee"])  # warm-up: cuBLAS handles, allocator pools
+    engine.simulate(traces["lee"], features=extract(traces["lee"]))
+
+    # ---- the fused route: raw traces
+    zero_counts()
+    res = {b: engine.simulate(t) for b, t in traces.items()}
+    launches = read_counts()
+    batches = sum(-(-(r.num_instructions // cfg.window) // ecfg.batch_size) for r in res.values())
+    for b, r in res.items():
+        scalars = [r.cpi, r.total_cycles, r.branch_mpki, r.l1d_mpki]
+        curves = [r.cpi_phase, r.l1d_phase]
+        if not (all(math.isfinite(x) for x in scalars)
+                and all(np.isfinite(c).all() and c.shape == (32,) for c in curves)):
+            failures.append(f"slice: non-finite or misshapen metrics on {b}")
+        emit({"phase": "slice", "route": "fused", "trace": b, "num_instructions": r.num_instructions,
+              "seconds": r.seconds, "mips": r.mips, "cpi": r.cpi,
+              "total_cycles": r.total_cycles, "branch_mpki": r.branch_mpki,
+              "l1d_mpki": r.l1d_mpki})
+    expected = {"fused_features": batches, "flash_attention": cfg.n_layers * batches,
+                "branch_history": 0, "memdist_delta": 0}
+    if launches != expected:
+        failures.append(f"slice: fused route launches {launches}, expected {expected}")
+    for name in ("fused_features", "flash_attention"):
+        results[name]["launches"] = launches[name]
+    total_n = sum(r.num_instructions for r in res.values())
+    total_s = sum(r.seconds for r in res.values())
+    emit({"phase": "slice", "route": "fused", "traces": list(SLICE_BENCHMARKS),
+          "instructions": total_n, "simulate_seconds": total_s, "mips": total_n / 1e6 / total_s,
+          "batches": batches, "launches": launches})
+
+    # ---- the staged route: one whole-trace extraction per trace, on the card
+    zero_counts()
+    staged = {}
+    for b, t in traces.items():
+        t0 = time.perf_counter()
+        arrays = extract(t)
+        ext_s = time.perf_counter() - t0
+        staged[b] = (ext_s, engine.simulate(t, features=arrays))
+        del arrays
+    s_launches = read_counts()
+    expected = {"fused_features": 0, "flash_attention": cfg.n_layers * batches,
+                "branch_history": len(traces), "memdist_delta": len(traces)}
+    if s_launches != expected:
+        failures.append(f"slice: staged route launches {s_launches}, expected {expected}")
+    for name in ("branch_history", "memdist_delta"):
+        results[name]["launches"] = s_launches[name]
+    for b, (ext_s, r) in staged.items():
+        held = "exact" if same_metrics(r, res[b]) else None
+        check = None
+        if held is None:  # compare the decodes of both routes, collected
+            eng_c = StreamingEngine(model, cfg, ecfg_c, device="cuda")
+            check = flip_check(eng_c.simulate(traces[b], features=extract(traces[b])),
+                               eng_c.simulate(traces[b]), traces[b], cfg)
+            held = "flip_explained" if check["ok"] else "neither"
+        if held == "neither":
+            failures.append(f"slice: staged and fused routes disagree beyond the flips on {b}")
+        emit({"phase": "slice", "route": "staged", "trace": b, "num_instructions": r.num_instructions,
+              "extraction_seconds": ext_s, "simulate_seconds": r.seconds,
+              "mips": r.num_instructions / 1e6 / (ext_s + r.seconds),
+              "simulate_only_mips": r.mips, "fused_mips": res[b].mips, "cpi": r.cpi,
+              "vs_fused": held, **({"flip_check": check} if check else {})})
+    ext_total = sum(e for e, _ in staged.values())
+    sim_total = sum(r.seconds for _, r in staged.values())
+
+    # device memory the staged route holds for one trace
+    n_lee = len(traces["lee"])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    arrays = extract(traces["lee"])
+    held_bytes = sum(v.numel() * v.element_size() for v in arrays.values())
+    peak = torch.cuda.max_memory_allocated() - base
+    del arrays
+    emit({"phase": "slice", "route": "staged", "traces": list(SLICE_BENCHMARKS),
+          "instructions": total_n, "extraction_seconds": ext_total, "simulate_seconds": sim_total,
+          "mips": total_n / 1e6 / (ext_total + sim_total),
+          "simulate_only_mips": total_n / 1e6 / sim_total,
+          "fused_mips": total_n / 1e6 / total_s, "launches": s_launches,
+          "held_bytes_per_instruction": held_bytes / n_lee,
+          "peak_extraction_bytes_per_instruction": peak / n_lee})
+
+    # ---- both routes side by side, in turns (fused, staged, staged, fused):
+    # medians per trace of the fused simulate, the staged extraction and
+    # the staged simulate reusing that extraction
+    turns = {b: {"fused_s": [], "extraction_s": [], "staged_simulate_s": []} for b in traces}
+    for _ in range(ROUTE_ROUNDS):
+        for b, t in traces.items():
+            turns[b]["fused_s"].append(engine.simulate(t).seconds)
+            t0 = time.perf_counter()
+            arrays = extract(t)
+            turns[b]["extraction_s"].append(time.perf_counter() - t0)
+            for _ in range(2):
+                turns[b]["staged_simulate_s"].append(engine.simulate(t, features=arrays).seconds)
+            del arrays
+            turns[b]["fused_s"].append(engine.simulate(t).seconds)
+    med = {b: {k: float(np.median(v)) for k, v in d.items()} for b, d in turns.items()}
+    fused_s = sum(m["fused_s"] for m in med.values())
+    ext_s = sum(m["extraction_s"] for m in med.values())
+    sim_s = sum(m["staged_simulate_s"] for m in med.values())
+    gain = fused_s - sim_s  # per model, once the extraction is shared
+    emit({"phase": "slice", "check": "routes_side_by_side", "rounds": ROUTE_ROUNDS,
+          "instructions": total_n, "per_trace_median_s": med,
+          "fused_mips": total_n / 1e6 / fused_s,
+          "staged_mips": total_n / 1e6 / (ext_s + sim_s),
+          "staged_simulate_only_mips": total_n / 1e6 / sim_s,
+          "models_to_amortize_extraction": ext_s / gain if gain > 0 else None})
+
+    # ---- the same engine on the CPU (plain versions), one trace, same weights
+    name = SLICE_BENCHMARKS[0]
+    gpu = StreamingEngine(model, cfg, ecfg_c, device="cuda").simulate(traces[name])
+    cpu_model = init_tao(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cpu = StreamingEngine(cpu_model, cfg, ecfg_c, device="cpu").simulate(traces[name])
+    check = flip_check(gpu, cpu, traces[name], cfg)
+    if not check["ok"]:
         failures.append(f"slice: GPU and CPU engines disagree beyond tolerance on {name}")
-    emit({"phase": "slice", "check": "gpu_vs_cpu", "trace": name, "positions": n,
-          "flips": flips, "mispred_prob_max_abs": prob_err, "diffs": diffs, "tols": tols, "ok": ok,
-          "gpu_mips": gpu.mips, "cpu_mips": cpu.mips})
+    emit({"phase": "slice", "check": "gpu_vs_cpu", "trace": name, "positions": gpu.num_instructions,
+          **check, "gpu_mips": gpu.mips, "cpu_mips": cpu.mips})
     emit({"phase": "slice", "check": "profile", "trace": "lee", **profile_breakdown(engine, traces["lee"])})
-    emit({"phase": "slice", "traces": list(SLICE_BENCHMARKS), "instructions": total_n,
-          "capture_seconds": capture_s, "simulate_seconds": total_s,
-          "mips": total_n / 1e6 / total_s, "batches": batches, "launches": launches})
 
 
 def main() -> int:
@@ -402,16 +649,23 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
+    from repro_torch.uarch import get_benchmark, run_functional
+
+    t0 = time.perf_counter()
+    traces = {b: run_functional(get_benchmark(b), SLICE_INSTRUCTIONS) for b in SLICE_BENCHMARKS}
+    emit({"phase": "capture", "traces": list(SLICE_BENCHMARKS),
+          "instructions_each": SLICE_INSTRUCTIONS, "seconds": time.perf_counter() - t0})
     failures, results = [], {}
     for phase in (phase_build, phase_kernels, phase_slice):
-        phase(failures, results)
+        phase(failures, results, traces)
         if failures:
             break
     if failures:
         for f in failures:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)
         return 1
-    emit({"kernels": [results["fused_features"], results["flash_attention"]]})
+    emit({"kernels": [results[k] for k in
+                      ("fused_features", "branch_history", "memdist_delta", "flash_attention")]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

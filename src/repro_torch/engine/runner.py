@@ -7,20 +7,28 @@ trace flows through
   the Tao forward  ->  device-resident metric accumulators
   (``MetricSpec`` registry)  ->  one host sync  ->  ``SimulationResult``.
 
-Where the features come from follows from what ``simulate`` is given:
+Where the features come from follows from what ``simulate`` is given;
+there is no ``feature_backend`` setting:
 
-  * a raw trace — its columns go to the device once, then each batch is
-    ONE launch of the fused feature kernel (``kernels/fused``; its plain
-    version on the CPU) with the scan state carried across batches.
-    Features exist only at batch granularity and are bitwise the NumPy
-    specification's for any address (the deltas are taken in int64).
-  * precomputed ``features=`` (a ``FeatureSet``) — batches are cut on the
-    host and copied to the device one at a time.
+  * a raw trace alone (``features=None``) — the fused route: its columns
+    go to the device once, then each batch is ONE launch of the fused
+    feature kernel (``kernels/fused``; its plain version on the CPU) with
+    the scan state carried across batches.  Features exist only at batch
+    granularity.
+  * ``features=`` the dict of ``kernels.features.ops.device_feature_arrays``
+    — the staged route (the reference's ``"pallas"`` backend): the whole
+    trace was extracted once by the staged kernels (``kernels/features``)
+    and stays on the engine's device; batches are views of windows cut by
+    device-side reshapes, and only the ragged last batch is padded.  One
+    extraction serves any number of models.  A tensor on another device
+    raises; nothing is copied silently.
+  * ``features=`` a ``FeatureSet`` — batches are cut on the host and copied
+    to the device one at a time.
 
-The reference's ``feature_backend`` switch is therefore not needed here;
-its staged ``"pallas"`` kernels are still to port (ROADMAP B2, B3).
-Carries stay on the device; the only device-to-host transfer is one
-packed copy of every carry (and collected array) after the last batch.
+Every route's features are bitwise the NumPy specification's for any
+address (the deltas are taken in int64).  Carries stay on the device; the
+only device-to-host transfer is one packed copy of every carry (and
+collected array) after the last batch.
 ``precision="int8"`` is not ported yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -56,6 +64,9 @@ PRECISIONS = ("fp32", "int8")
 
 # per-instruction prediction arrays the step can emit under collect=True
 PER_INSTRUCTION_KEYS = ("fetch_lat", "exec_lat", "mispred_prob", "dlevel")
+
+# what the step reads of the staged route's device feature arrays
+_DEVICE_ARRAY_KEYS = INPUT_KEYS + ("is_branch", "is_mem")
 
 # SimulationResult instance attributes that would shadow a same-named
 # metric (instance dict wins over __getattr__)
@@ -342,12 +353,76 @@ class StreamingEngine:
             batch["valid"] = valid[i]
             yield batch
 
+    def _check_device_arrays(self, arrays: Dict[str, torch.Tensor]) -> int:
+        """The staged route's arrays: every key the step reads, one length,
+        all on this engine's device.  Returns the length."""
+        missing = [k for k in _DEVICE_ARRAY_KEYS if k not in arrays]
+        if missing:
+            raise ValueError(f"device feature arrays lack {missing}")
+        n = arrays["opcode"].shape[0]
+        for k in _DEVICE_ARRAY_KEYS:
+            t = arrays[k]
+            if t.device.type != self.device.type or (
+                self.device.index is not None and t.device.index != self.device.index
+            ):
+                raise ValueError(
+                    f"device feature array {k!r} is on {t.device}, the engine "
+                    f"on {self.device}: extract with device_feature_arrays(..., "
+                    "device=<the engine's device>)"
+                )
+            if t.shape[0] != n:
+                raise ValueError(f"device feature array {k!r} has {t.shape[0]} rows, opcode {n}")
+        return n
+
+    def _device_batches(
+        self, arrays: Dict[str, torch.Tensor], w_eff: int, count: int
+    ) -> Iterator[Dict]:
+        """Whole-trace features already on the device: windows are
+        device-side reshapes (non-overlapping, stride == window), a batch is
+        a slice of them, and only the ragged last batch is zero-padded.
+        Layout and validity are the other routes'."""
+        bsz = self.ecfg.batch_size
+        nw = count // w_eff
+        wins = {
+            k: arrays[k][:count].reshape((nw, w_eff) + arrays[k].shape[1:])
+            for k in _DEVICE_ARRAY_KEYS
+        }
+        valid = torch.ones((bsz, w_eff), dtype=torch.float32, device=self.device)
+        for lo in range(0, nw, bsz):
+            rows = min(bsz, nw - lo)
+            batch = {k: v[lo : lo + rows] for k, v in wins.items()}
+            if rows < bsz:
+                batch = {
+                    k: torch.cat([v, v.new_zeros((bsz - rows,) + v.shape[1:])])
+                    for k, v in batch.items()
+                }
+                batch["valid"] = torch.cat([valid[:rows], valid.new_zeros((bsz - rows, w_eff))])
+            else:
+                batch["valid"] = valid
+            yield batch
+
     def simulate(
-        self, func_trace: np.ndarray, features: Optional[FeatureSet] = None
+        self,
+        func_trace: np.ndarray,
+        features: Optional[Union[FeatureSet, Dict[str, torch.Tensor]]] = None,
     ) -> SimulationResult:
+        """Simulate one trace; ``features`` picks the route (module note):
+        None (the fused route from ``func_trace``), the dict of
+        ``device_feature_arrays`` on this engine's device, or a host
+        ``FeatureSet``."""
         t0 = time.perf_counter()
         cfg = self.cfg
-        n = len(features) if features is not None else len(func_trace)
+        if features is None:
+            n = len(func_trace)
+        elif isinstance(features, FeatureSet):
+            n = len(features)
+        elif isinstance(features, dict):
+            n = self._check_device_arrays(features)
+        else:
+            raise TypeError(
+                "features must be None, a FeatureSet or the dict of "
+                f"device_feature_arrays, got {type(features).__name__}"
+            )
         if n == 0:
             raise ValueError("cannot simulate an empty trace")
         w_eff = min(cfg.window, n)
@@ -359,8 +434,10 @@ class StreamingEngine:
 
         if features is None:
             batches = self._fused_batches(trace_columns(func_trace, cfg.features), w_eff, count)
-        else:
+        elif isinstance(features, FeatureSet):
             batches = self._host_batches(features, func_trace)
+        else:
+            batches = self._device_batches(features, w_eff, count)
 
         pers: List[Dict[str, torch.Tensor]] = []
         with torch.inference_mode():
@@ -410,14 +487,15 @@ def simulate_trace_engine(
     func_trace: np.ndarray,
     cfg: TaoConfig,
     batch_size: int = 64,
-    features: Optional[FeatureSet] = None,
+    features: Optional[Union[FeatureSet, Dict[str, torch.Tensor]]] = None,
     collect: bool = False,
     precision: str = "fp32",
     metrics: Tuple[Union[str, MetricSpec], ...] = DEFAULT_METRICS,
     *,
     device: Optional[Union[str, torch.device]] = None,
 ) -> SimulationResult:
-    """One-shot convenience wrapper: build an engine, stream one trace."""
+    """One-shot convenience wrapper: build an engine, stream one trace
+    (``features`` picks the route, as in ``StreamingEngine.simulate``)."""
     engine = StreamingEngine(
         params,
         cfg,

@@ -22,11 +22,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "CudaKernel", "build", "library_path"]
+__all__ = [
+    "CSRC", "BUILD_DIR", "NVCC_FLAGS", "CudaKernel", "build", "check_cuda_tensor",
+    "library_path",
+]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -89,6 +92,17 @@ def build(sources: Optional[Iterable[Path]] = None) -> Dict[Path, Path]:
                 proc.kill()
                 proc.wait()
     return libs
+
+
+def check_cuda_tensor(
+    name: str, t: torch.Tensor, dtype: torch.dtype, shape: Tuple[int, ...]
+) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape``: what a C entry point may be given a pointer to."""
+    if not (t.is_cuda and t.dtype == dtype and t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous {dtype} CUDA tensor")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
 
 
 class CudaKernel:

@@ -14,7 +14,7 @@ from typing import Dict, Tuple
 import torch
 
 from ...uarch.isa import NUM_REGS
-from .._cuda import CudaKernel
+from .._cuda import CudaKernel, check_cuda_tensor
 
 __all__ = ["COLUMN_KEYS", "FUSED_FEATURES", "N_FLAGS", "fused_features_cuda"]
 
@@ -33,13 +33,6 @@ FUSED_FEATURES = CudaKernel(
 )
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Tuple[int, ...]):
-    if not (t.is_cuda and t.dtype == dtype and t.is_contiguous()):
-        raise ValueError(f"{name} must be a contiguous {dtype} CUDA tensor")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-
-
 def fused_features_cuda(
     cols: Dict[str, torch.Tensor], table: torch.Tensor, mq: torch.Tensor
 ) -> Tuple[torch.Tensor, ...]:
@@ -53,9 +46,9 @@ def fused_features_cuda(
     n_buckets, n_queue = table.shape
     n_mem = mq.shape[1] - 1
     for k in COLUMN_KEYS:
-        _check(k, cols[k], _DTYPES.get(k, torch.bool), (n,))
-    _check("table", table, torch.float32, (n_buckets, n_queue))
-    _check("mq", mq, torch.int64, (1, n_mem + 1))
+        check_cuda_tensor(k, cols[k], _DTYPES.get(k, torch.bool), (n,))
+    check_cuda_tensor("table", table, torch.float32, (n_buckets, n_queue))
+    check_cuda_tensor("mq", mq, torch.int64, (1, n_mem + 1))
     if not 1 <= n_queue <= 32:
         raise ValueError(f"the kernel holds one queue slot per lane: n_queue={n_queue} must be 1..32")
     if n_mem < 1:

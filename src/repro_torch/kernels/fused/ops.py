@@ -33,7 +33,7 @@ def init_fused_state(
     cfg: FeatureConfig, device: Optional[torch.device] = None
 ) -> Dict[str, torch.Tensor]:
     """The scan carry threaded across passes: the (N_b, N_q) branch-outcome
-    table and the address queue + fill counter packed into one int32 row
+    table and the address queue + fill counter packed into one int64 row
     (``mq[0, :n_mem]`` = queue, ``mq[0, n_mem]`` = fill)."""
     dev = resolve_device(device)
     return {

@@ -8,21 +8,34 @@ toolkit:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The fused feature kernel is held BITWISE to its plain version and to the
-NumPy specification (copies, int64 deltas rounded to float32 through
-float64, and the signed-log in individually rounded float32 ops on every
-side); attention within atol = rtol = 1e-5 (float32 on both sides, online
-vs full-matrix softmax: only the summation order differs).
+The feature kernels — fused (B1) and the staged whole-trace scans (B2
+branch history, B3 memory distance) — are held BITWISE to their plain
+versions and to the NumPy specification (copies, int64 deltas rounded to
+float32 through float64, and the signed-log in individually rounded
+float32 ops on every side, the eager torch one included); attention within
+atol = rtol = 1e-5 (float32 on both sides, online vs full-matrix softmax:
+only the summation order differs).  The staged engine route equals the
+fused one on the card.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.features import FeatureConfig, extract_features  # noqa: E402
+from repro_torch.core.features import FeatureConfig, extract_features, signed_log  # noqa: E402
+from repro_torch.core.model import TaoConfig, init_tao  # noqa: E402
+from repro_torch.engine import EngineConfig, StreamingEngine  # noqa: E402
 from repro_torch.kernels.attention.kernel import FLASH_ATTENTION, flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.attention.ref import attention_plain  # noqa: E402
-from repro_torch.kernels.features.ops import trace_columns  # noqa: E402
+from repro_torch.kernels.features import ops as feature_ops  # noqa: E402
+from repro_torch.kernels.features.kernel import (  # noqa: E402
+    BRANCH_HISTORY,
+    MEMDIST_DELTA,
+    branch_history_cuda,
+    memdist_delta_cuda,
+)
+from repro_torch.kernels.features.ops import device_feature_arrays, trace_columns  # noqa: E402
+from repro_torch.kernels.features.ref import branch_history_plain, memdist_delta_plain  # noqa: E402
 from repro_torch.kernels.fused.kernel import FUSED_FEATURES, fused_features_cuda  # noqa: E402
 from repro_torch.kernels.fused.ops import fused_feature_columns, init_fused_state  # noqa: E402
 from repro_torch.kernels.fused.ref import fused_features_plain  # noqa: E402
@@ -152,3 +165,91 @@ def test_attention_kernel_refuses_wide_heads(dev):
     q = torch.zeros(1, 1, 4, 129, device=dev)
     with pytest.raises(ValueError, match="head dims"):
         flash_attention_cuda(q, q, q)
+
+
+# (n_buckets, n_queue, n_mem), trace: the CPU cases of
+# test_torch_feature_kernels.py, the default config on a benchmark, and
+# shapes past one rank tile and past 32 queue slots
+SCAN_CASES = {
+    "default_config_mcf": ((1024, 32, 64), lambda: run_functional(get_benchmark("mcf"), 20000)),
+    "dee_small_config": ((32, 4, 8), lambda: run_functional(get_benchmark("dee"), 2500)),
+    "lee_small_config": ((2, 3, 2), lambda: run_functional(get_benchmark("lee"), 2500)),
+    "one_bucket": ((1, 4, 4), lambda: random_trace(4000, np.random.default_rng(3), 0.8, 0.15, 512)),
+    "two_buckets": ((2, 8, 4), lambda: random_trace(4000, np.random.default_rng(4), 0.8, 0.15, 512)),
+    "three_buckets_long": ((3, 5, 12), lambda: random_trace(9000, np.random.default_rng(5), 0.8, 0.15, 512)),
+    "no_branches": ((4, 3, 3), lambda: random_trace(300, np.random.default_rng(6), 0.0, 0.5)),
+    "no_memory_ops": ((4, 3, 3), lambda: random_trace(300, np.random.default_rng(7), 0.5, 0.0)),
+    "neither": ((4, 3, 3), lambda: random_trace(300, np.random.default_rng(8), 0.0, 0.0)),
+    "single": ((4, 3, 3), lambda: random_trace(1, np.random.default_rng(9))),
+    "pair": ((4, 3, 3), lambda: random_trace(2, np.random.default_rng(10))),
+    "memory_heavy": ((16, 6, 12), lambda: random_trace(2000, np.random.default_rng(11), 0.3, 0.7, addr_hi=1 << 24)),
+    "deep_queues_wide_addresses": ((8192, 40, 100), lambda: random_trace(5000, np.random.default_rng(12), addr_hi=1 << 62)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_staged_scan_kernels_bitwise_equal_plain(dev, case):
+    (nb, nq, nm), make = SCAN_CASES[case]
+    fcfg = FeatureConfig(nb, nq, nm)
+    trace = make()
+    cols = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in trace_columns(trace, fcfg).items()}
+    outcome = torch.where(cols["is_branch"], torch.where(cols["taken"], 1.0, -1.0), 0.0).float()
+    launches = (BRANCH_HISTORY.launches, MEMDIST_DELTA.launches)
+    br = branch_history_cuda(cols["bucket"], outcome, nb, nq)
+    md = memdist_delta_cuda(cols["addr"], cols["is_mem"], nm)
+    br_p = branch_history_plain(cols["bucket"], outcome, nb, nq)
+    md_p = memdist_delta_plain(cols["addr"], cols["is_mem"], nm)
+    torch.cuda.synchronize()
+    assert (BRANCH_HISTORY.launches, MEMDIST_DELTA.launches) == (launches[0] + 1, launches[1] + 1)
+    assert torch.equal(br.view(torch.int32), br_p.view(torch.int32)), case
+    assert torch.equal(md.view(torch.int32), md_p.view(torch.int32)), case
+    spec = extract_features(trace, fcfg, with_labels=False)
+    arrays = device_feature_arrays(trace_columns(trace, fcfg), fcfg, device=dev)
+    for name in ("opcode", "regbits", "flags", "brhist", "memdist"):
+        got = arrays[name].cpu().numpy()
+        ref = getattr(spec, name)
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32), err_msg=f"{case}/{name}")
+
+
+def test_eager_signed_log_on_card_bitwise_equals_numpy(dev):
+    """One PyTorch CUDA op per statement, each rounded: the NumPy bits, over
+    edge values and mantissas on both sides of sqrt(2)."""
+    rng = np.random.default_rng(0)
+    tiny = np.float32(1e-45)  # the smallest denormal
+    sqrt2 = np.float32(np.sqrt(2.0))
+    # 1 + |d| with a mantissa just below, at and just above sqrt(2)
+    x = np.array([np.nextafter(sqrt2, np.float32(0)), sqrt2, np.nextafter(sqrt2, np.float32(2))])
+    near = x * np.float32(2.0) ** np.arange(40, dtype=np.float32)[:, None] - np.float32(1)
+    d = np.concatenate([
+        [0.0, -0.0, 1.0, -1.0, tiny, -tiny, 1e-38, -1e-38, 2.0**62, -(2.0**62), 2.0**24 + 2, 3.4e38],
+        near, -near,
+        rng.integers(-(2**62), 2**62, 20000).astype(np.float64),
+        rng.integers(-4096, 4096, 4000),
+    ], axis=None).astype(np.float32)
+    got = feature_ops.signed_log(torch.from_numpy(d).to(dev)).cpu().numpy()
+    np.testing.assert_array_equal(got.view(np.int32), signed_log(d).view(np.int32))
+
+
+def test_staged_engine_route_equals_fused_on_card(dev):
+    """One extraction on the card, two engines reusing it: the metrics and
+    per-instruction arrays equal the fused route's, with one launch of each
+    staged kernel and none of the fused one."""
+    fcfg = FeatureConfig(64, 8, 16)
+    cfg = TaoConfig(window=33, d_model=64, n_heads=2, n_layers=2, d_ff=128, d_cat=32, features=fcfg)
+    ecfg = EngineConfig(batch_size=16, collect=True, metrics=("cpi", "branch_mpki", "l1d_mpki", "cpi_phase"))
+    trace = run_functional(get_benchmark("lee"), 30000)
+    engine = StreamingEngine(init_tao(cfg, torch.Generator().manual_seed(0), device=dev), cfg, ecfg, device=dev)
+    fused = engine.simulate(trace)
+    launches = (BRANCH_HISTORY.launches, MEMDIST_DELTA.launches, FUSED_FEATURES.launches)
+    arrays = device_feature_arrays(trace_columns(trace, fcfg), fcfg, device=dev)
+    staged = [engine.simulate(trace, features=arrays) for _ in range(2)]
+    assert (BRANCH_HISTORY.launches, MEMDIST_DELTA.launches, FUSED_FEATURES.launches) == (
+        launches[0] + 1, launches[1] + 1, launches[2])
+    for got in staged:
+        for k, v in fused.metrics.items():
+            np.testing.assert_array_equal(got.metrics[k], v, err_msg=k)
+        for k in ("fetch_lat", "exec_lat", "mispred_prob", "dlevel"):
+            np.testing.assert_array_equal(getattr(got, k), getattr(fused, k), err_msg=k)
+    with pytest.raises(ValueError, match="device"):
+        engine.simulate(trace, features={k: v.cpu() for k, v in arrays.items()})

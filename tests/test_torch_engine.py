@@ -2,9 +2,12 @@
 
 The reference initializes the weights (converted with ``params_from_jax``);
 the same functional traces go through ``repro.engine.StreamingEngine`` and
-the port's engine on the CPU, both ways the port takes features: from the
-raw trace through the fused kernel's path (``"fused"``), and precomputed by
-the NumPy specification (``"numpy"``, ``simulate(trace, features=...)``).
+the port's engine on the CPU, every way the port takes features: from the
+raw trace through the fused kernel's path (``"fused"``), precomputed by the
+NumPy specification (``"numpy"``, ``simulate(trace, features=FeatureSet)``),
+and extracted once for the whole trace by the staged kernels' path
+(``"staged"``, ``simulate(trace, features=device_feature_arrays(...))``),
+which is held to the reference's ``feature_backend="pallas"``.
 
 Tolerance.  Features are bitwise equal on both sides (see
 test_torch_features.py); the model's float32 logits differ in the last
@@ -40,6 +43,8 @@ from repro_torch.engine import (  # noqa: E402
     simulate_trace_engine,
 )
 from repro_torch.engine.runner import device_get  # noqa: E402
+from repro_torch.kernels.features.kernel import BRANCH_HISTORY, MEMDIST_DELTA  # noqa: E402
+from repro_torch.kernels.features.ops import device_feature_arrays, trace_columns  # noqa: E402
 from repro_torch.kernels.fused.kernel import FUSED_FEATURES  # noqa: E402
 
 FCFG = (64, 4, 8)
@@ -72,6 +77,16 @@ def reference(weights, traces):
     return {b: eng.simulate(t) for b, t in traces.items()}
 
 
+@pytest.fixture(scope="module")
+def reference_pallas(weights, traces):
+    """The reference engine on its staged ``"pallas"`` feature backend (the
+    Pallas kernels in interpret mode off the TPU)."""
+    params, _ = weights
+    eng = RefEngine(params, REF_CFG, RefEngineConfig(batch_size=BATCH, collect=True, metrics=METRICS,
+                                                     feature_backend="pallas"))
+    return {b: eng.simulate(t) for b, t in traces.items()}
+
+
 def port_model(weights):
     model = init_tao(PORT_CFG, device="cpu")
     model.load_state_dict(weights[1])
@@ -85,9 +100,14 @@ def port_engine(weights, **kw):
 
 
 def port_simulate(engine, trace, backend):
-    """``"fused"``: the raw trace; ``"numpy"``: the NumPy features, precomputed."""
+    """``"fused"``: the raw trace; ``"numpy"``: the NumPy features,
+    precomputed; ``"staged"``: the whole-trace device feature arrays."""
     if backend == "fused":
         return engine.simulate(trace)
+    if backend == "staged":
+        fcfg = PORT_CFG.features
+        return engine.simulate(trace, features=device_feature_arrays(trace_columns(trace, fcfg), fcfg,
+                                                                     device="cpu"))
     return engine.simulate(trace, features=extract_features(trace, PORT_CFG.features, with_labels=False))
 
 
@@ -131,19 +151,72 @@ def test_simulate_matches_reference_engine(weights, traces, reference, bench, ba
     assert list(got.to_dict()["metrics"]) == list(ref.to_dict()["metrics"])
 
 
+@pytest.mark.parametrize("bench", ["dee", "lee"])
+def test_staged_route_matches_reference_pallas_engine(weights, traces, reference_pallas, bench):
+    """The staged route against the reference engine's staged ``"pallas"``
+    backend, under the flip-explained tolerance."""
+    got = port_simulate(port_engine(weights, collect=True), traces[bench], "staged")
+    ref = reference_pallas[bench]
+    assert got.available_metrics == ref.available_metrics
+    assert_explained_by_flips(got, ref)
+    assert list(got.to_dict()["metrics"]) == list(ref.to_dict()["metrics"])
+
+
 def test_fused_and_numpy_backends_are_identical(weights, traces):
-    """Same device, bitwise-equal features: the raw-trace path and
-    precomputed NumPy features agree exactly."""
+    """Same device, bitwise-equal features: the raw-trace path,
+    precomputed NumPy features and the staged whole-trace arrays agree
+    exactly (on the CPU: no kernel launches)."""
     eng = port_engine(weights, collect=True)
+    launches = (FUSED_FEATURES.launches, BRANCH_HISTORY.launches, MEMDIST_DELTA.launches)
     a = port_simulate(eng, traces["dee"], "numpy")
-    b = port_simulate(eng, traces["dee"], "fused")
-    for k, v in a.metrics.items():
-        np.testing.assert_array_equal(b.metrics[k], v, err_msg=k)
-    for k in ("fetch_lat", "exec_lat", "mispred_prob", "dlevel"):
-        np.testing.assert_array_equal(getattr(b, k), getattr(a, k), err_msg=k)
+    for backend in ("fused", "staged"):
+        b = port_simulate(eng, traces["dee"], backend)
+        for k, v in a.metrics.items():
+            np.testing.assert_array_equal(b.metrics[k], v, err_msg=f"{backend}/{k}")
+        for k in ("fetch_lat", "exec_lat", "mispred_prob", "dlevel"):
+            np.testing.assert_array_equal(getattr(b, k), getattr(a, k), err_msg=f"{backend}/{k}")
+    assert (FUSED_FEATURES.launches, BRANCH_HISTORY.launches, MEMDIST_DELTA.launches) == launches
 
 
-def test_wide_addresses_take_the_numpy_route(weights, traces):
+def test_staged_route_reuses_one_extraction(weights, traces):
+    """One extraction serves several simulations (the arrays are not
+    consumed), a batch size that divides the windows exactly pads nothing,
+    and the one-shot wrapper takes the arrays too."""
+    fcfg = PORT_CFG.features
+    t = traces["lee"][: 17 * 26]  # 26 windows: two whole batches of 13
+    arrays = device_feature_arrays(trace_columns(t, fcfg), fcfg, device="cpu")
+    kept = {k: v.clone() for k, v in arrays.items()}
+    eng = port_engine(weights)
+    runs = [eng.simulate(t, features=arrays) for _ in range(2)]
+    runs.append(simulate_trace_engine(port_model(weights), t, PORT_CFG, batch_size=BATCH,
+                                      features=arrays, metrics=METRICS, device="cpu"))
+    fused = eng.simulate(t)
+    for r in runs:
+        for k, v in fused.metrics.items():
+            np.testing.assert_array_equal(r.metrics[k], v, err_msg=k)
+    for k, v in kept.items():
+        assert torch.equal(arrays[k], v), k
+
+
+def test_staged_route_refuses_arrays_it_cannot_batch(weights, traces):
+    """A tensor on another device than the engine's raises (nothing is
+    copied silently), as do missing keys, ragged lengths and other types."""
+    fcfg = PORT_CFG.features
+    t = traces["dee"][:500]
+    arrays = device_feature_arrays(trace_columns(t, fcfg), fcfg, device="cpu")
+    eng = port_engine(weights)
+    moved = dict(arrays, memdist=arrays["memdist"].to("meta"))
+    with pytest.raises(ValueError, match="'memdist' is on meta"):
+        eng.simulate(t, features=moved)
+    with pytest.raises(ValueError, match="lack"):
+        eng.simulate(t, features={k: v for k, v in arrays.items() if k != "is_mem"})
+    with pytest.raises(ValueError, match="rows"):
+        eng.simulate(t, features=dict(arrays, brhist=arrays["brhist"][:-1]))
+    with pytest.raises(TypeError):
+        eng.simulate(t, features=list(arrays.values()))
+
+
+def test_wide_addresses_raw_trace_equals_numpy_route(weights, traces):
     """Addresses past 2^31 (where the reference's int32 fused deltas would
     be inexact): the raw-trace path takes its deltas in int64 and gives
     what the NumPy route gives, bit for bit.  On the CPU it runs the plain

@@ -76,7 +76,11 @@ def test_default_device_entry_points_raise_without_cuda():
     from repro_torch import resolve_device
     from repro_torch.core import FeatureConfig, TaoConfig, init_tao
     from repro_torch.engine import StreamingEngine, simulate_trace_engine
-    from repro_torch.kernels.features.ops import trace_columns
+    from repro_torch.kernels.features.ops import (
+        device_feature_arrays,
+        extract_features_device,
+        trace_columns,
+    )
     from repro_torch.kernels.fused.ops import FusedExtractor, init_fused_state
     from repro_torch.uarch import get_benchmark, run_functional
 
@@ -89,6 +93,8 @@ def test_default_device_entry_points_raise_without_cuda():
         "init_tao": lambda: init_tao(cfg),
         "init_fused_state": lambda: init_fused_state(fcfg),
         "FusedExtractor": lambda: FusedExtractor(trace_columns(trace, fcfg), fcfg),
+        "device_feature_arrays": lambda: device_feature_arrays(trace_columns(trace, fcfg), fcfg),
+        "extract_features_device": lambda: extract_features_device(trace, fcfg),
         "StreamingEngine": lambda: StreamingEngine(cpu_model, cfg),
         "simulate_trace_engine": lambda: simulate_trace_engine(cpu_model, trace, cfg),
     }
