@@ -15,7 +15,10 @@ and ``nvcc``.  Phases, one JSON line each:
            and memory-distance scans (B2, B3) on whole benchmark traces,
            a collision-heavy config and wide addresses, the staged
            extraction and the eager signed-log against the NumPy
-           specification, and attention (B4);
+           specification, attention (B4), and the Mamba-2 SSD scan (B5)
+           at the full mamba2-1.3b prefill shape in float32 and bfloat16,
+           with two groups, in one chunk, and against the sequential
+           recurrence;
   slice    the port's main paths at the default TaoConfig width on
            captured benchmark traces: StreamingEngine.simulate of the raw
            traces (the fused route), then the staged route — one
@@ -24,7 +27,16 @@ and ``nvcc``.  Phases, one JSON line each:
            launch counts read around it; finite-metric checks, the staged
            route against the fused one, the fused route against the same
            engine on the CPU (the plain versions) on one trace, both
-           routes timed side by side, and a profile of one simulate.
+           routes timed side by side, and a profile of one simulate;
+  mamba2   the port's Mamba-2 serving path at the full width of
+           mamba2-1.3b (48 layers, bfloat16, random weights from a CUDA
+           generator, seed 0): prefill of 4 prompts x 2048 tokens, then 32
+           greedy decode steps, with the SSD launches read around each
+           call (48 per prefill, 0 per decode step), prefill tokens/s,
+           decode ms per step, peak device memory and a profile of one
+           prefill; the prefill/decode handoff on a float32 copy of the
+           same weights, and the card's path against the same model on
+           the CPU (the plain versions) at 4 layers.
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main path, error, times and bound; the card's name and power limit as
@@ -35,6 +47,7 @@ Imports nothing of JAX or of the reference package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -66,6 +79,17 @@ ATTN_RTOL = 1e-5           # only the summation order differs
 FLIP_FRACTION = 1e-3
 PROB_ATOL = 1e-4           # sigmoid(mispred_logit), logits differ ~1e-6
 ROUTE_ROUNDS = 3           # turns of the fused / staged side-by-side timing
+
+# SSD kernel vs its plain chunked version, float32 on both sides: the
+# summation order and the chunk's prefix sum differ.  bfloat16 outputs
+# round nearly equal float32 values once; the float32 state is unrounded.
+SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SSD_STATE_TOL = 1e-4
+# the mamba2-1.3b serving cell: prompts x tokens, greedy decode steps
+MAMBA_BATCH, MAMBA_PROMPT, MAMBA_DECODE = 4, 2048, 32
+MAMBA_CPU_LAYERS, MAMBA_CPU_SEQ = 4, 512
+HANDOFF_REL = 2e-3         # prefill(p + t) vs prefill(p) + decode(t), float32
+GPU_CPU_REL = 1e-3         # kernel path on the card vs plain path on the CPU
 
 
 def emit(obj) -> None:
@@ -131,12 +155,32 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_breakdown(engine, trace) -> dict:
-    """Device time by kernel over one simulate, from torch.profiler (CUPTI):
+def launch_counters() -> dict:
+    """Every kernel wrapper of the port, by the name the kernels line uses."""
+    from repro_torch.kernels.attention.kernel import FLASH_ATTENTION
+    from repro_torch.kernels.features.kernel import BRANCH_HISTORY, MEMDIST_DELTA
+    from repro_torch.kernels.fused.kernel import FUSED_FEATURES
+    from repro_torch.kernels.ssd.kernel import SSD_SCAN
+
+    return {"fused_features": FUSED_FEATURES, "flash_attention": FLASH_ATTENTION,
+            "branch_history": BRANCH_HISTORY, "memdist_delta": MEMDIST_DELTA, "ssd": SSD_SCAN}
+
+
+def zero_counts() -> None:
+    for c in launch_counters().values():
+        c.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: c.launches for name, c in launch_counters().items()}
+
+
+def profile_breakdown(fn) -> dict:
+    """Device time by kernel over one ``fn()``, from torch.profiler (CUPTI):
     busy = summed time of the device's kernel events (one stream: kernels
     do not overlap; the host ops that launched them are not counted again),
     idle share = 1 - busy / wall.  The profiler's own host overhead
-    inflates the wall time here; the unprofiled runs report the real MIPS.
+    inflates the wall time here; the unprofiled runs report the real rates.
     Raises when the profile cannot be taken or shows no device time."""
     import torch
     from torch.autograd import DeviceType
@@ -144,13 +188,13 @@ def profile_breakdown(engine, trace) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.simulate(trace)
+        fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not events:
-        raise RuntimeError("torch.profiler recorded no device time over one simulate")
+        raise RuntimeError("torch.profiler recorded no device time")
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
     return {
@@ -308,6 +352,100 @@ def phase_kernels(failures, results, traces):
     emit({"phase": "kernels", "kernel": "flash_attention", "shape": [B, H, S, D],
           "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
           "bound_ms": b_ms, "bound_by": b_by})
+
+    check_ssd_kernel(failures, results)
+
+
+def ssd_inputs(B, S, H, P, G, N, dtype, seed):
+    """SSD inputs on the card in the model's regime: dt = softplus(noise
+    - 4), mostly 0.002-0.3, and A = -(1..H), so a chunk's prefix sum
+    reaches -10^3 on the fast heads."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
+
+    dt = F.softplus(torch.randn(B, S, H, generator=g, device="cuda") - 4.0).to(dtype)
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device="cuda")
+    return rand(B, S, H, P), dt, A, rand(B, S, G, N, scale=0.5), rand(B, S, G, N, scale=0.5)
+
+
+def check_ssd_kernel(failures, results):
+    """B5 against its plain chunked version (y and the final state) at the
+    full mamba2-1.3b prefill shape in float32 and bfloat16, with two
+    groups, in one chunk, and against the sequential recurrence; timed at
+    the prefill shape in bfloat16, with the state written, as prefill
+    launches it."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_sequential_ref
+
+    s = get_arch("mamba2-1.3b").ssm
+    d = get_arch("mamba2-1.3b").d_model
+    H, P, G, N, c = s.n_heads(d), s.head_dim, s.n_groups, s.d_state, s.chunk
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = {  # name: (B, S, H, P, G, N, dtype), against the chunked version
+        "prefill_f32": (MAMBA_BATCH, MAMBA_PROMPT, H, P, G, N, f32),
+        "prefill_bf16": (MAMBA_BATCH, MAMBA_PROMPT, H, P, G, N, bf16),
+        "two_groups_f32": (MAMBA_BATCH, 512, H, P, 2, N, f32),
+        "single_chunk_f32": (MAMBA_BATCH, c, H, P, G, N, f32),
+        "vs_sequential_f32": (2, 512, H, P, G, N, f32),
+    }
+    ok, max_err = True, 0.0
+    for i, (name, (B, S, h, p, g, n, dtype)) in enumerate(cases.items()):
+        inp = ssd_inputs(B, S, h, p, g, n, dtype, i)
+        y, state = ssd_scan_cuda(*inp, chunk=c, return_state=True)
+        if name == "vs_sequential_f32":
+            y_ref, state_ref = ssd_sequential_ref(*inp), None
+        else:
+            y_ref, state_ref = ssd_chunked_ref(*inp, c, return_state=True)
+        torch.cuda.synchronize()
+        tol = SSD_TOL[str(dtype).split(".")[-1]]
+        err = float((y.float() - y_ref.float()).abs().max())
+        good = bool(torch.isfinite(y.float()).all()) and bool(
+            torch.all((y.float() - y_ref.float()).abs() <= tol + tol * y_ref.float().abs()))
+        line = {"phase": "kernels", "kernel": "ssd", "case": name, "shape": [B, S, h, p, g, n, c],
+                "dtype": str(dtype), "y_max_abs_err": err, "y_tol": tol,
+                "y_max_abs": float(y_ref.float().abs().max())}
+        if state_ref is not None:
+            s_err = float((state - state_ref).abs().max())
+            good &= bool(torch.all((state - state_ref).abs()
+                                   <= SSD_STATE_TOL + SSD_STATE_TOL * state_ref.abs()))
+            line.update(state_max_abs_err=s_err, state_tol=SSD_STATE_TOL)
+            err = max(err, s_err)
+        line["ok"] = good
+        emit(line)
+        ok &= good
+        max_err = max(max_err, err)
+        del inp, y, state, y_ref, state_ref
+    if not ok:
+        failures.append("ssd: kernel outside tolerance of its plain version")
+
+    B, S = MAMBA_BATCH, MAMBA_PROMPT
+    inp = ssd_inputs(B, S, H, P, G, N, bf16, 0)
+    ms = graph_ms(lambda: ssd_scan_cuda(*inp, chunk=c, return_state=True), per_graph=5, replays=10)
+    call_ms = cuda_ms(lambda: ssd_scan_cuda(*inp, chunk=c, return_state=True), 10)
+    plain_ms = cuda_ms(lambda: ssd_chunked_ref(*inp, c, return_state=True), 3, warmup=1)
+    nbytes = (2 * B * S * H * P + 2 * B * S * G * N + B * S * H) * 2 + H * 4 + B * H * N * P * 4
+    # counted as launch/roofline.py counts the SSD: scores 2cGN, y_diag
+    # 2cHP, state build and apply 4NPH per token
+    flops = B * S * (2 * c * G * N + 2 * c * H * P + 4 * N * P * H)
+    b_ms, b_by = bound(nbytes, flops)
+    results["ssd"] = {
+        "name": "ssd", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:26",
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    emit({"phase": "kernels", "kernel": "ssd", "shape": [B, S, H, P, G, N, c], "dtype": "bfloat16",
+          "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "byte_floor_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes, "flops": flops,
+          "library_ms": None})
 
 
 def bitwise_equal(a, b) -> bool:
@@ -493,25 +631,13 @@ def phase_slice(failures, results, traces):
 
     from repro_torch.core.model import TaoConfig, init_tao
     from repro_torch.engine import EngineConfig, StreamingEngine
-    from repro_torch.kernels.attention.kernel import FLASH_ATTENTION
-    from repro_torch.kernels.features.kernel import BRANCH_HISTORY, MEMDIST_DELTA
     from repro_torch.kernels.features.ops import device_feature_arrays, trace_columns
-    from repro_torch.kernels.fused.kernel import FUSED_FEATURES
 
     cfg = TaoConfig()
     fcfg = cfg.features
     metrics = ("cpi", "branch_mpki", "l1d_mpki", "cpi_phase", "l1d_phase")
     ecfg = EngineConfig(metrics=metrics)
     ecfg_c = EngineConfig(metrics=metrics, collect=True)
-    counters = {"fused_features": FUSED_FEATURES, "flash_attention": FLASH_ATTENTION,
-                "branch_history": BRANCH_HISTORY, "memdist_delta": MEMDIST_DELTA}
-
-    def zero_counts():
-        for c in counters.values():
-            c.launches = 0
-
-    def read_counts():
-        return {name: c.launches for name, c in counters.items()}
 
     def extract(trace):
         arrays = device_feature_arrays(trace_columns(trace, fcfg), fcfg, device="cuda")
@@ -539,7 +665,7 @@ def phase_slice(failures, results, traces):
               "total_cycles": r.total_cycles, "branch_mpki": r.branch_mpki,
               "l1d_mpki": r.l1d_mpki})
     expected = {"fused_features": batches, "flash_attention": cfg.n_layers * batches,
-                "branch_history": 0, "memdist_delta": 0}
+                "branch_history": 0, "memdist_delta": 0, "ssd": 0}
     if launches != expected:
         failures.append(f"slice: fused route launches {launches}, expected {expected}")
     for name in ("fused_features", "flash_attention"):
@@ -561,7 +687,7 @@ def phase_slice(failures, results, traces):
         del arrays
     s_launches = read_counts()
     expected = {"fused_features": 0, "flash_attention": cfg.n_layers * batches,
-                "branch_history": len(traces), "memdist_delta": len(traces)}
+                "branch_history": len(traces), "memdist_delta": len(traces), "ssd": 0}
     if s_launches != expected:
         failures.append(f"slice: staged route launches {s_launches}, expected {expected}")
     for name in ("branch_history", "memdist_delta"):
@@ -637,7 +763,128 @@ def phase_slice(failures, results, traces):
         failures.append(f"slice: GPU and CPU engines disagree beyond tolerance on {name}")
     emit({"phase": "slice", "check": "gpu_vs_cpu", "trace": name, "positions": gpu.num_instructions,
           **check, "gpu_mips": gpu.mips, "cpu_mips": cpu.mips})
-    emit({"phase": "slice", "check": "profile", "trace": "lee", **profile_breakdown(engine, traces["lee"])})
+    emit({"phase": "slice", "check": "profile", "trace": "lee",
+          **profile_breakdown(lambda: engine.simulate(traces["lee"]))})
+
+
+def rel_diff(a, b) -> float:
+    """max |a - b| relative to max |b|."""
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def phase_mamba2(failures, results, traces):
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+
+    cfg = get_arch("mamba2-1.3b")
+    B, S, steps = MAMBA_BATCH, MAMBA_PROMPT, MAMBA_DECODE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    logits, cache = model.prefill(prompts)  # warm-up: cuBLAS handles, allocator pools
+    model.decode_step(cache, logits.argmax(-1), S)
+    del logits, cache
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    p_launches = read_counts()
+    finite = bool(torch.isfinite(logits).all())
+    tok = logits.argmax(-1)
+    step_ms, d_launches = [], []
+    for i in range(steps):
+        zero_counts()
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(cache, tok, S + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        d_launches.append(read_counts())
+        finite &= bool(torch.isfinite(logits).all())
+        tok = logits.argmax(-1)
+    peak = torch.cuda.max_memory_allocated()
+    none = {k: 0 for k in p_launches}
+    expected_p = none | {"ssd": cfg.n_layers}
+    if p_launches != expected_p:
+        failures.append(f"mamba2: prefill launches {p_launches}, expected {expected_p}")
+    if any(d != none for d in d_launches):
+        failures.append(f"mamba2: a decode step launched a kernel: {d_launches}")
+    if not finite:
+        failures.append("mamba2: non-finite logits")
+    results["ssd"]["launches"] = p_launches["ssd"]
+    emit({"phase": "mamba2", "config": cfg.name, "dtype": cfg.compute_dtype,
+          "params": n_params, "init_seconds": init_s, "batch": B, "prompt_tokens": S,
+          "prefill_seconds": prefill_s, "prefill_tokens_per_s": B * S / prefill_s,
+          "prefill_launches": p_launches, "decode_steps": steps,
+          "decode_ms_per_step_median": sorted(step_ms)[steps // 2],
+          "decode_ms_per_step_mean": sum(step_ms) / steps,
+          "decode_tokens_per_s": B * steps / (sum(step_ms) / 1e3),
+          "decode_ssd_launches": [d["ssd"] for d in d_launches],
+          "weights_bytes": base, "peak_bytes": peak, "finite_logits": finite})
+    emit({"phase": "mamba2", "check": "profile", "call": "prefill",
+          **profile_breakdown(lambda: model.prefill(prompts))})
+    emit({"phase": "mamba2", "check": "profile", "call": "decode_step",
+          **profile_breakdown(lambda: model.decode_step(cache, tok, S + steps))})
+    del cache, logits
+
+    # ---- handoff on a float32 copy of the same weights: the last logits of
+    # prefill(p + t) against prefill(p) then decode_step(t)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    m32 = Model(cfg32, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+    m32.load_state_dict(model.state_dict())
+    del model
+    full, _ = m32.prefill(torch.cat([prompts, tok[:, None]], dim=1))
+    _, cache32 = m32.prefill(prompts)
+    dec, _ = m32.decode_step(cache32, tok, S)
+    torch.cuda.synchronize()
+    handoff = rel_diff(dec, full)
+    del cache32
+    ok = handoff <= HANDOFF_REL and bool(torch.isfinite(full).all())
+    if not ok:
+        failures.append(f"mamba2: prefill/decode handoff {handoff} > {HANDOFF_REL} of max |logit|")
+    emit({"phase": "mamba2", "check": "handoff_f32", "prompt_tokens": S,
+          "max_abs_diff_rel_to_max_logit": handoff, "limit": HANDOFF_REL, "ok": ok})
+
+    # ---- the card's path (kernel) against the same model on the CPU (plain
+    # versions), full width, first MAMBA_CPU_LAYERS layers, float32
+    cfg4 = dataclasses.replace(cfg32, n_layers=MAMBA_CPU_LAYERS)
+    sd4 = {k: v for k, v in m32.state_dict().items()
+           if not k.startswith("layers.") or int(k.split(".")[1]) < MAMBA_CPU_LAYERS}
+    del m32
+    gpu = Model(cfg4, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+    gpu.load_state_dict(sd4)
+    cpu = Model(cfg4, device="cpu", generator=torch.Generator().manual_seed(1))
+    cpu.load_state_dict({k: v.cpu() for k, v in sd4.items()})
+    toks = prompts[:2, :MAMBA_CPU_SEQ]
+    zero_counts()
+    g_logits, g_cache = gpu.prefill(toks)
+    g_step, _ = gpu.decode_step(g_cache, toks[:, 0], MAMBA_CPU_SEQ)
+    torch.cuda.synchronize()
+    g_launches = read_counts()["ssd"]
+    t0 = time.perf_counter()
+    c_logits, c_cache = cpu.prefill(toks.cpu())
+    c_step, _ = cpu.decode_step(c_cache, toks[:, 0].cpu(), MAMBA_CPU_SEQ)
+    cpu_s = time.perf_counter() - t0
+    diffs = {"prefill_logits": rel_diff(g_logits.cpu(), c_logits),
+             "decode_logits": rel_diff(g_step.cpu(), c_step),
+             **{f"cache_{k}": rel_diff(g_cache[k].cpu(), c_cache[k]) for k in c_cache}}
+    ok = max(diffs.values()) <= GPU_CPU_REL and g_launches == MAMBA_CPU_LAYERS
+    if not ok:
+        failures.append(f"mamba2: GPU and CPU disagree beyond {GPU_CPU_REL}: {diffs}, "
+                        f"{g_launches} SSD launches")
+    emit({"phase": "mamba2", "check": "gpu_vs_cpu", "layers": MAMBA_CPU_LAYERS,
+          "tokens": list(toks.shape), "rel_diffs": diffs, "limit": GPU_CPU_REL,
+          "gpu_ssd_launches": g_launches, "cpu_seconds": cpu_s, "ok": ok})
 
 
 def main() -> int:
@@ -656,7 +903,7 @@ def main() -> int:
     emit({"phase": "capture", "traces": list(SLICE_BENCHMARKS),
           "instructions_each": SLICE_INSTRUCTIONS, "seconds": time.perf_counter() - t0})
     failures, results = [], {}
-    for phase in (phase_build, phase_kernels, phase_slice):
+    for phase in (phase_build, phase_kernels, phase_slice, phase_mamba2):
         phase(failures, results, traces)
         if failures:
             break
@@ -665,7 +912,7 @@ def main() -> int:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)
         return 1
     emit({"kernels": [results[k] for k in
-                      ("fused_features", "branch_history", "memdist_delta", "flash_attention")]})
+                      ("fused_features", "branch_history", "memdist_delta", "flash_attention", "ssd")]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -9,6 +9,12 @@ map ``table`` -> ``weight`` (embeddings), ``w`` -> ``weight`` TRANSPOSED
 ``nn.Linear`` stores (out, in)), ``b`` -> ``bias``, and the layernorm's
 ``scale`` / ``bias`` -> ``weight`` / ``bias``; lists (``blocks``) index
 like ``nn.ModuleList``.
+
+``lm_params_from_jax`` does the same for the reference's language-model
+tree (``repro/models/backbone.py::Model.init``), whose layer params are
+stacked on a leading axis: it unstacks them into ``layers.{i}``, maps
+``table`` / ``scale`` -> ``weight`` and the mixer's ``in_proj`` /
+``out_proj`` ``(in, out)`` arrays to ``nn.Linear`` weights, transposed.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax"]
+__all__ = ["lm_params_from_jax", "params_from_jax"]
 
 _LEAF_NAMES = {"table": "weight", "w": "weight", "b": "bias", "scale": "weight", "bias": "bias"}
 
@@ -41,6 +47,36 @@ def params_from_jax(np_tree: Mapping) -> Dict[str, torch.Tensor]:
                 a = a.T
             name = ".".join(path[:-1] + [_LEAF_NAMES.get(leaf, leaf)])
             out[name] = torch.from_numpy(np.array(a, copy=True, order="C"))
+
+    walk(np_tree, [])
+    return out
+
+
+_LM_LEAF_NAMES = {"table": "weight", "scale": "weight",
+                  "in_proj": "in_proj.weight", "out_proj": "out_proj.weight"}
+
+
+def lm_params_from_jax(np_tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Reference LM param tree of NumPy arrays (layer axis first under
+    ``layers``) -> ``models.Model`` state dict (CPU float32 tensors)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(path, a):
+        leaf = path[-1]
+        if leaf in ("in_proj", "out_proj"):
+            a = a.T
+        name = ".".join(path[:-1] + [_LM_LEAF_NAMES.get(leaf, leaf)])
+        out[name] = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, path + [str(k)])
+        elif path[0] == "layers":
+            for i, a in enumerate(np.asarray(node)):
+                put(["layers", str(i)] + path[1:], a)
+        else:
+            put(path, np.asarray(node))
 
     walk(np_tree, [])
     return out

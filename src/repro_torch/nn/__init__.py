@@ -1,3 +1,3 @@
-from .core import dense, embed, gelu, layernorm, truncated_normal_
+from .core import RMSNorm, dense, embed, gelu, layernorm, rmsnorm, truncated_normal_
 
-__all__ = ["dense", "embed", "gelu", "layernorm", "truncated_normal_"]
+__all__ = ["RMSNorm", "dense", "embed", "gelu", "layernorm", "rmsnorm", "truncated_normal_"]

@@ -3,8 +3,9 @@
 Counterpart of ``repro/nn/core.py``.  Layers are ``nn.Module``s whose
 arithmetic matches the reference's pure functions: ``dense`` is
 ``nn.Linear`` (the reference's ``(in, out)`` weight ``w`` is this layer's
-``weight.T``), ``layernorm`` uses the biased variance with eps 1e-5, and
-``gelu`` is the tanh approximation.  Initialization draws from an explicit
+``weight.T``), ``layernorm`` uses the biased variance with eps 1e-5,
+``gelu`` is the tanh approximation, and ``rmsnorm`` normalizes in float32
+with eps 1e-6.  Initialization draws from an explicit
 ``torch.Generator``: the distributions are the reference's, the numbers
 are not (``jax.random`` cannot be reproduced in torch), so parity tests
 load the reference's weights through ``repro_torch.convert``.  Layers are
@@ -19,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
 
-__all__ = ["dense", "embed", "gelu", "layernorm", "truncated_normal_"]
+__all__ = ["RMSNorm", "dense", "embed", "gelu", "layernorm", "rmsnorm", "truncated_normal_"]
 
 # std of a unit normal truncated to [-2, 2]: dividing by it keeps the
 # requested stddev after truncation (as the reference's initializer does)
@@ -53,3 +54,22 @@ def layernorm(dim: int) -> nn.LayerNorm:
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS normalization over the last axis, computed in float32 whatever
+    the input dtype and cast back to it (the reference's ``rmsnorm``)."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (y * weight.float()).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """``rmsnorm`` with its scale (ones at init) as ``weight``."""
+
+    def __init__(self, dim: int, *, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rmsnorm(x, self.weight)

@@ -15,7 +15,11 @@ float32 through float64, and the signed-log in individually rounded
 float32 ops on every side, the eager torch one included); attention within
 atol = rtol = 1e-5 (float32 on both sides, online vs full-matrix softmax:
 only the summation order differs).  The staged engine route equals the
-fused one on the card.
+fused one on the card.  The SSD scan (B5) is held to its plain chunked
+version within atol = rtol = 1e-4 in float32 (summation order and the
+chunk's prefix sum differ) and 2e-2 on bfloat16 outputs (one rounding of
+nearly equal float32 values), its float32 final state within 1e-4 either
+way; one Mamba-2 prefill launches it once per layer, a decode step never.
 """
 import numpy as np
 import pytest
@@ -39,6 +43,10 @@ from repro_torch.kernels.features.ref import branch_history_plain, memdist_delta
 from repro_torch.kernels.fused.kernel import FUSED_FEATURES, fused_features_cuda  # noqa: E402
 from repro_torch.kernels.fused.ops import fused_feature_columns, init_fused_state  # noqa: E402
 from repro_torch.kernels.fused.ref import fused_features_plain  # noqa: E402
+from repro_torch.kernels.ssd.kernel import SSD_SCAN, ssd_scan_cuda  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_sequential_ref  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
 from repro_torch.uarch import get_benchmark, run_functional  # noqa: E402
 from repro_torch.uarch.isa import FUNC_TRACE_DTYPE, Op  # noqa: E402
 
@@ -253,3 +261,74 @@ def test_staged_engine_route_equals_fused_on_card(dev):
             np.testing.assert_array_equal(getattr(got, k), getattr(fused, k), err_msg=k)
     with pytest.raises(ValueError, match="device"):
         engine.simulate(trace, features={k: v.cpu() for k, v in arrays.items()})
+
+
+# (B, S, H, P, G, N, chunk): the reduced and full mamba2-1.3b widths, two
+# groups, a chunk that is not a multiple of the kernel's 64-row tile, and
+# odd head and state widths
+SSD_CASES = {
+    "reduced_config": (2, 64, 8, 16, 1, 16, 32),
+    "full_width": (2, 512, 64, 64, 1, 128, 256),
+    "two_groups": (1, 512, 8, 64, 2, 128, 256),
+    "chunk_96": (2, 192, 4, 32, 1, 64, 96),
+    "odd_widths": (1, 40, 3, 5, 1, 7, 8),
+}
+
+
+def ssd_inputs(case, dtype, dev):
+    B, S, H, P, G, N, c = SSD_CASES[case]
+    rng = np.random.default_rng(sorted(SSD_CASES).index(case))
+    cast = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev, dtype)  # noqa: E731
+    xh = cast(rng.standard_normal((B, S, H, P)))
+    # the model's regime: softplus(dt) in [1e-3, 0.1] plus noise, A = -(1..H)
+    dt = cast(np.log1p(np.exp(rng.uniform(-7, -2, (B, S, H)))))
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+    Bm = cast(rng.standard_normal((B, S, G, N)) * 0.5)
+    Cm = cast(rng.standard_normal((B, S, G, N)) * 0.5)
+    return (xh, dt, A, Bm, Cm), c
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_ssd_kernel_matches_plain(dev, case, dtype):
+    (xh, dt, A, Bm, Cm), c = ssd_inputs(case, getattr(torch, dtype), dev)
+    launches = SSD_SCAN.launches
+    y, state = ssd_scan_cuda(xh, dt, A, Bm, Cm, chunk=c, return_state=True)
+    y_only = ssd_scan_cuda(xh, dt, A, Bm, Cm, chunk=c)
+    y_ref, state_ref = ssd_chunked_ref(xh, dt, A, Bm, Cm, c, return_state=True)
+    torch.cuda.synchronize()
+    assert SSD_SCAN.launches == launches + 2
+    assert y.dtype == xh.dtype and state.dtype == torch.float32
+    assert torch.equal(y, y_only)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, state_ref, atol=1e-4, rtol=1e-4)
+    if dtype == "float32" and xh.shape[1] <= 512:
+        torch.testing.assert_close(y, ssd_sequential_ref(xh, dt, A, Bm, Cm), atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_kernel_refuses_what_it_cannot_hold(dev):
+    (xh, dt, A, Bm, Cm), _ = ssd_inputs("reduced_config", torch.float32, dev)
+    with pytest.raises(ValueError, match="limits"):
+        ssd_scan_cuda(xh, dt, A, Bm, Cm, chunk=512)
+    with pytest.raises(ValueError, match="dt must be a contiguous torch.float32"):
+        ssd_scan_cuda(xh, dt.to(torch.bfloat16), A, Bm, Cm, chunk=32)
+
+
+def test_mamba2_prefill_launches_ssd_once_per_layer(dev):
+    cfg = get_arch("mamba2-1.3b", reduced=True)
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 48), device=dev)
+    launches = SSD_SCAN.launches
+    logits, cache = model.prefill(toks)
+    assert SSD_SCAN.launches == launches + cfg.n_layers
+    step, _ = model.decode_step(cache, toks[:, 0], 48)
+    torch.cuda.synchronize()
+    assert SSD_SCAN.launches == launches + cfg.n_layers
+    assert torch.isfinite(logits).all() and torch.isfinite(step).all()
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    ref, ref_cache = cpu.prefill(toks.cpu())
+    torch.testing.assert_close(logits.cpu(), ref, atol=2e-4, rtol=2e-4)
+    for k in cache:
+        torch.testing.assert_close(cache[k].cpu(), ref_cache[k], atol=2e-4, rtol=2e-4)

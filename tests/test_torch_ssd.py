@@ -1,0 +1,150 @@
+"""The port's SSD scan against the reference's, on the CPU.
+
+The same NumPy-seeded inputs go through the reference's oracles
+(``ssd_sequential_ref``, ``ssd_chunked_ref``) and its Pallas kernel
+(``ssd_scan``, interpret mode off the TPU), and through the port's plain
+versions and its ``ssd_scan`` (which takes the plain chunked version for
+CPU tensors; the CUDA kernel is held to it on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
+
+Tolerances: atol = rtol = 1e-4 in float32 (both sides float32; they
+differ in summation order and in how the chunk's prefix sum is taken), as
+the reference's own kernel tests use; bfloat16 inputs at 5e-2, as the
+reference holds its kernel to the sequential oracle.
+"""
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.ssd.ops import ssd_scan as ref_ssd_scan  # noqa: E402
+from repro.kernels.ssd.ref import ssd_sequential_ref as ref_sequential  # noqa: E402
+from repro.models.mamba2 import ssd_chunked_ref as ref_chunked  # noqa: E402
+
+from repro_torch.kernels import _cuda  # noqa: E402
+from repro_torch.kernels.ssd import kernel as port_kernel  # noqa: E402
+from repro_torch.kernels.ssd.ops import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_sequential_ref  # noqa: E402
+
+ATOL = RTOL = 1e-4
+BF16_TOL = 5e-2
+
+# (B, S, H, P, G, N, chunk): the reference's three kernel cases
+# (tests/test_kernels.py), a two-group case, and S off the chunk grid
+CASES = {
+    "ref_a": (2, 128, 4, 16, 1, 8, 32),
+    "ref_b": (1, 64, 2, 8, 2, 16, 16),
+    "ref_c": (1, 256, 8, 32, 1, 16, 64),
+    "two_groups": (2, 96, 8, 16, 2, 16, 32),
+    "ragged_seq": (2, 70, 4, 16, 1, 16, 32),
+}
+
+
+def make_inputs(B, S, H, P, G, N, seed):
+    rng = np.random.default_rng(seed)
+    softplus = lambda v: np.log1p(np.exp(v))  # noqa: E731
+    return dict(
+        xh=rng.standard_normal((B, S, H, P)).astype(np.float32),
+        dt=(softplus(rng.standard_normal((B, S, H))) * 0.1).astype(np.float32),
+        A=(-np.exp(rng.standard_normal(H) * 0.3)).astype(np.float32),
+        Bm=(rng.standard_normal((B, S, G, N)) * 0.5).astype(np.float32),
+        Cm=(rng.standard_normal((B, S, G, N)) * 0.5).astype(np.float32),
+    )
+
+
+def padded(inp, chunk):
+    """Zero rows up to a chunk multiple, as the model pads (dt = 0 rows
+    are exact no-ops)."""
+    S = inp["xh"].shape[1]
+    pad = (-S) % chunk
+    return {k: v if k == "A" else np.concatenate(
+        [v, np.zeros((v.shape[0], pad) + v.shape[2:], v.dtype)], axis=1) for k, v in inp.items()}
+
+
+# Each side gets its own copy of the inputs, and the port runs first: no
+# buffer is shared between the two runtimes while either computes.
+def as_jax(inp):
+    return [jnp.array(inp[k], copy=True) for k in ("xh", "dt", "A", "Bm", "Cm")]
+
+
+def as_torch(inp):
+    return [torch.tensor(inp[k]) for k in ("xh", "dt", "A", "Bm", "Cm")]
+
+
+def close(a, b, tol=ATOL):
+    np.testing.assert_allclose(np.asarray(a, np.float32), np.asarray(b, np.float32), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_ssd_matches_reference_oracles_and_pallas(case):
+    B, S, H, P, G, N, c = CASES[case]
+    inp = make_inputs(B, S, H, P, G, N, sorted(CASES).index(case))
+    pin = padded(inp, c)
+    port = ssd_scan(*as_torch(pin), chunk=c)[:, :S].numpy()
+    port_chunked = ssd_chunked_ref(*as_torch(pin), c)[:, :S].numpy()
+    port_seq = ssd_sequential_ref(*as_torch(inp)).numpy()
+    np.testing.assert_array_equal(port, port_chunked)  # ssd_scan on CPU is the plain version
+    seq = np.asarray(ref_sequential(*as_jax(inp)))
+    chk = np.asarray(ref_chunked(*as_jax(pin), chunk=c))[:, :S]
+    ker = np.asarray(ref_ssd_scan(*as_jax(pin), chunk=c))[:, :S]
+    for ref in (seq, chk, ker):
+        close(port, ref)
+    close(port_seq, seq)
+
+
+@pytest.mark.parametrize("case", ["ref_a", "two_groups", "ragged_seq"])
+def test_ssd_final_state_matches_reference_and_recurrence(case):
+    B, S, H, P, G, N, c = CASES[case]
+    inp = make_inputs(B, S, H, P, G, N, 10 + sorted(CASES).index(case))
+    pin = padded(inp, c)
+    y, state = ssd_scan(*as_torch(pin), chunk=c, return_state=True)
+    _, ref_state = ref_chunked(*as_jax(pin), chunk=c, return_state=True)
+    assert state.dtype == torch.float32 and state.shape == (B, H, N, P)
+    close(state.numpy(), np.asarray(ref_state))
+    # the literal recurrence over the unpadded sequence (the padding's
+    # dt = 0 rows leave the state as it was)
+    Bh = np.repeat(inp["Bm"], H // G, axis=2)
+    st = np.zeros((B, H, N, P), np.float64)
+    for t in range(S):
+        decay = np.exp(inp["dt"][:, t] * inp["A"][None, :])
+        st = st * decay[..., None, None] + np.einsum(
+            "bh,bhn,bhp->bhnp", inp["dt"][:, t], Bh[:, t], inp["xh"][:, t])
+    close(state.numpy(), st)
+    close(y[:, :S].numpy(), np.asarray(ref_sequential(*as_jax(inp))))
+
+
+def test_ssd_bf16_matches_reference_sequential():
+    B, S, H, P, G, N, c = 1, 64, 2, 8, 1, 8, 32
+    inp = make_inputs(B, S, H, P, G, N, 5)
+    jx = as_jax(inp)
+    jx = [v if i == 2 else v.astype(jnp.bfloat16) for i, v in enumerate(jx)]  # A stays f32
+    tx = as_torch(inp)
+    tx = [v if i == 2 else v.to(torch.bfloat16) for i, v in enumerate(tx)]
+    port = ssd_scan(*tx, chunk=c)
+    port_seq = ssd_sequential_ref(*tx)
+    assert port.dtype == port_seq.dtype == torch.bfloat16
+    seq = np.asarray(ref_sequential(*jx), np.float32)
+    close(port.float().numpy(), seq, BF16_TOL)
+    close(port_seq.float().numpy(), seq, BF16_TOL)
+
+
+def test_ssd_scan_refuses_bad_shapes_and_grad():
+    inp = as_torch(make_inputs(1, 64, 4, 8, 2, 8, 0))
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd_scan(*inp, chunk=48)
+    xh, dt, A, Bm, Cm = inp
+    with pytest.raises(ValueError, match="groups"):
+        ssd_scan(xh[:, :, :3].contiguous(), dt[:, :, :3].contiguous(), A[:3], Bm, Cm, chunk=32)
+    with pytest.raises(RuntimeError, match="A7"):
+        ssd_scan(xh.requires_grad_(), dt, A, Bm, Cm, chunk=32)
+
+
+def test_kernel_limits_match_the_source():
+    src = (_cuda.CSRC / "ssd.cu").read_text()
+    for const, value in (("kMaxN", port_kernel.MAX_STATE), ("kMaxP", port_kernel.MAX_HEAD_DIM),
+                         ("kMaxChunk", port_kernel.MAX_CHUNK)):
+        assert int(re.search(rf"constexpr int {const} = (\d+);", src)[1]) == value, const
