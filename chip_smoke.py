@@ -432,9 +432,10 @@ def check_ssd_kernel(failures, results):
     call_ms = cuda_ms(lambda: ssd_scan_cuda(*inp, chunk=c, return_state=True), 10)
     plain_ms = cuda_ms(lambda: ssd_chunked_ref(*inp, c, return_state=True), 3, warmup=1)
     nbytes = (2 * B * S * H * P + 2 * B * S * G * N + B * S * H) * 2 + H * 4 + B * H * N * P * 4
-    # counted as launch/roofline.py counts the SSD: scores 2cGN, y_diag
-    # 2cHP, state build and apply 4NPH per token
-    flops = B * S * (2 * c * G * N + 2 * c * H * P + 4 * N * P * H)
+    # what the function needs: the causal scores C Bᵀ and the W X product
+    # over the lower triangle only (c(c+1)/2 entries per chunk, per group
+    # and per head), plus the state's apply and update, 4NPH per token
+    flops = B * (S // c) * (c * (c + 1) // 2) * 2 * (G * N + H * P) + B * S * 4 * N * P * H
     b_ms, b_by = bound(nbytes, flops)
     results["ssd"] = {
         "name": "ssd", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",

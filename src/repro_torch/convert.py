@@ -25,13 +25,28 @@ import torch
 
 __all__ = ["lm_params_from_jax", "params_from_jax"]
 
-_LEAF_NAMES = {"table": "weight", "w": "weight", "b": "bias", "scale": "weight", "bias": "bias"}
+# reference leaf name -> the port's, and the leaves stored (in, out) that
+# become nn.Linear weights, transposed
+_TAO_LEAVES = {"table": "weight", "w": "weight", "b": "bias", "scale": "weight", "bias": "bias"}
+_TAO_TRANSPOSED = frozenset({"w"})
+_LM_LEAVES = {"table": "weight", "scale": "weight",
+              "in_proj": "in_proj.weight", "out_proj": "out_proj.weight"}
+_LM_TRANSPOSED = frozenset({"in_proj", "out_proj"})
 
 
-def params_from_jax(np_tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Reference param tree of NumPy arrays -> ``Tao`` state dict (CPU
-    float32 tensors); load it with ``model.load_state_dict``."""
+def _state_dict(np_tree: Mapping, leaf_names: Mapping[str, str],
+                transposed: frozenset) -> Dict[str, torch.Tensor]:
+    """Walk the tree: dict keys and list indices join with dots, arrays under
+    a top-level ``layers`` key are unstacked on their first axis into
+    ``layers.{i}``, and each leaf is renamed and transposed as told."""
     out: Dict[str, torch.Tensor] = {}
+
+    def put(path, a):
+        leaf = path[-1]
+        if leaf in transposed:
+            a = a.T
+        name = ".".join(path[:-1] + [leaf_names.get(leaf, leaf)])
+        out[name] = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
     def walk(node, path):
         if isinstance(node, Mapping):
@@ -40,38 +55,6 @@ def params_from_jax(np_tree: Mapping) -> Dict[str, torch.Tensor]:
         elif isinstance(node, (list, tuple)):
             for i, v in enumerate(node):
                 walk(v, path + [str(i)])
-        else:
-            a = np.asarray(node, dtype=np.float32)
-            leaf = path[-1]
-            if leaf == "w":
-                a = a.T
-            name = ".".join(path[:-1] + [_LEAF_NAMES.get(leaf, leaf)])
-            out[name] = torch.from_numpy(np.array(a, copy=True, order="C"))
-
-    walk(np_tree, [])
-    return out
-
-
-_LM_LEAF_NAMES = {"table": "weight", "scale": "weight",
-                  "in_proj": "in_proj.weight", "out_proj": "out_proj.weight"}
-
-
-def lm_params_from_jax(np_tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Reference LM param tree of NumPy arrays (layer axis first under
-    ``layers``) -> ``models.Model`` state dict (CPU float32 tensors)."""
-    out: Dict[str, torch.Tensor] = {}
-
-    def put(path, a):
-        leaf = path[-1]
-        if leaf in ("in_proj", "out_proj"):
-            a = a.T
-        name = ".".join(path[:-1] + [_LM_LEAF_NAMES.get(leaf, leaf)])
-        out[name] = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
-
-    def walk(node, path):
-        if isinstance(node, Mapping):
-            for k, v in node.items():
-                walk(v, path + [str(k)])
         elif path[0] == "layers":
             for i, a in enumerate(np.asarray(node)):
                 put(["layers", str(i)] + path[1:], a)
@@ -80,3 +63,15 @@ def lm_params_from_jax(np_tree: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(np_tree, [])
     return out
+
+
+def params_from_jax(np_tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Reference param tree of NumPy arrays -> ``Tao`` state dict (CPU
+    float32 tensors); load it with ``model.load_state_dict``."""
+    return _state_dict(np_tree, _TAO_LEAVES, _TAO_TRANSPOSED)
+
+
+def lm_params_from_jax(np_tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Reference LM param tree of NumPy arrays (layer axis first under
+    ``layers``) -> ``models.Model`` state dict (CPU float32 tensors)."""
+    return _state_dict(np_tree, _LM_LEAVES, _LM_TRANSPOSED)

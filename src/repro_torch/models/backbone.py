@@ -18,9 +18,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
-from ..nn.core import RMSNorm
+from ..nn.core import RMSNorm, trunc_normal_param
 from .config import ArchConfig
-from .mamba2 import Mamba2, init_ssm_state, trunc_normal_param
+from .mamba2 import Mamba2, init_ssm_state
 
 __all__ = ["Model", "VOCAB_CHUNK"]
 

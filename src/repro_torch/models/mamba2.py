@@ -24,18 +24,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.ssd.ops import ssd_scan
-from ..nn.core import RMSNorm, rmsnorm, truncated_normal_
+from ..nn.core import RMSNorm, rmsnorm, trunc_normal_param
 from .config import ArchConfig
 
-__all__ = ["Mamba2", "init_ssm_state", "trunc_normal_param"]
-
-
-def trunc_normal_param(shape, stddev: float, generator: torch.Generator, *,
-                       device, dtype) -> nn.Parameter:
-    """A 2-sigma truncated normal of std ``stddev``, drawn in float32 on the
-    generator's device and stored as ``dtype`` on ``device``."""
-    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
-    return nn.Parameter(truncated_normal_(t, stddev, generator).to(device=device, dtype=dtype))
+__all__ = ["Mamba2", "init_ssm_state"]
 
 
 def _linear(in_dim: int, out_dim: int, weight: nn.Parameter) -> nn.Linear:

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
 
-__all__ = ["RMSNorm", "dense", "embed", "gelu", "layernorm", "rmsnorm", "truncated_normal_"]
+__all__ = ["RMSNorm", "dense", "embed", "gelu", "layernorm", "rmsnorm", "trunc_normal_param", "truncated_normal_"]
 
 # std of a unit normal truncated to [-2, 2]: dividing by it keeps the
 # requested stddev after truncation (as the reference's initializer does)
@@ -32,6 +32,14 @@ def truncated_normal_(t: torch.Tensor, stddev: float, generator: torch.Generator
     """Fill ``t`` in place with a 2-sigma truncated normal of std ``stddev``."""
     nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return t.mul_(stddev / _TRUNC_STD)
+
+
+def trunc_normal_param(shape, stddev: float, generator: torch.Generator, *,
+                       device, dtype) -> nn.Parameter:
+    """A 2-sigma truncated normal of std ``stddev``, drawn in float32 on the
+    generator's device and stored as ``dtype`` on ``device``."""
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    return nn.Parameter(truncated_normal_(t, stddev, generator).to(device=device, dtype=dtype))
 
 
 def dense(in_dim: int, out_dim: int, generator: torch.Generator, *, scale: float = 1.0) -> nn.Linear:
