@@ -15,7 +15,11 @@ and ``nvcc``.  Phases, one JSON line each:
            and memory-distance scans (B2, B3) on whole benchmark traces,
            a collision-heavy config and wide addresses, the staged
            extraction and the eager signed-log against the NumPy
-           specification, attention (B4), and the Mamba-2 SSD scan (B5)
+           specification, attention (B4: the Tao shape on the packed q/k/v
+           views the model hands over and on contiguous operands, 1024
+           causal keys, q_offset / segment / masked-row cases, with its
+           registers, shared memory and blocks per SM), and the Mamba-2
+           SSD scan (B5)
            at the full mamba2-1.3b prefill shape in float32 and bfloat16,
            with two groups, in one chunk, and against the sequential
            recurrence;
@@ -27,7 +31,8 @@ and ``nvcc``.  Phases, one JSON line each:
            launch counts read around it; finite-metric checks, the staged
            route against the fused one, the fused route against the same
            engine on the CPU (the plain versions) on one trace, both
-           routes timed side by side, and a profile of one simulate;
+           routes timed side by side, and a profile of one simulate
+           (with the copy kernels per batch);
   mamba2   the port's Mamba-2 serving path at the full width of
            mamba2-1.3b (48 layers, bfloat16, random weights from a CUDA
            generator, seed 0): prefill of 4 prompts x 2048 tokens, then 32
@@ -44,6 +49,11 @@ main path, error, times and bound; the card's name and power limit as
 exits nonzero before the device line.  Without a CUDA device, or outside a
 checkout (no ``src/repro_torch``), it exits nonzero and prints no result.
 Imports nothing of JAX or of the reference package.
+
+    python3 chip_smoke.py --tao-profile [CHECKOUT]
+
+profiles one Tao simulate and times B4 for the port of another checkout
+(default this one), so that two trees can be compared on one card.
 """
 from __future__ import annotations
 
@@ -201,6 +211,9 @@ def profile_breakdown(fn) -> dict:
         "wall_s": wall,
         "device_busy_s": busy_us / 1e6,
         "idle_share": 1.0 - busy_us / 1e6 / wall,
+        # PyTorch's copy / cast kernel (direct_copy_kernel_cuda): what a
+        # .contiguous() or a layout-changing reshape launches
+        "copy_kernels": sum(e.count for e in events if "copy_kernel" in e.key),
         "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top],
     }
 
@@ -232,8 +245,6 @@ def phase_kernels(failures, results, traces):
     import torch
 
     from repro_torch.core.features import FeatureConfig, extract_features
-    from repro_torch.kernels.attention.kernel import flash_attention_cuda
-    from repro_torch.kernels.attention.ref import attention_plain
     from repro_torch.kernels.features.ops import trace_columns
     from repro_torch.kernels.fused.kernel import COLUMN_KEYS, fused_features_cuda
     from repro_torch.kernels.fused.ops import init_fused_state
@@ -302,7 +313,27 @@ def phase_kernels(failures, results, traces):
 
     check_staged_kernels(failures, results, traces)
 
-    # ---- B4: attention at the Tao shape, plus q_offset / segment cases
+    check_attention_kernel(failures, results)
+    check_ssd_kernel(failures, results)
+
+
+def packed_qkv(B, S, H, D, rand):
+    """q, k, v as the Tao block makes them: (B, H, S, D) views of one
+    packed (B, S, 3, H, D) projection, no copy."""
+    return rand(B, S, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def check_attention_kernel(failures, results):
+    """B4 against its plain version: the Tao shape on the packed views the
+    model hands over and on contiguous tensors, a long causal problem of
+    many key tiles, q_offset / segment / masked-row cases; then its times,
+    bound and launch resources at the Tao shape."""
+    import torch
+
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda, launch_info
+    from repro_torch.kernels.attention.ref import attention_plain
+
+    dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(0)
 
     def rand(*shape):
@@ -316,6 +347,9 @@ def phase_kernels(failures, results, traces):
     cases = {
         "tao_causal": (rand(64, 4, 129, 32), rand(64, 4, 129, 32), rand(64, 4, 129, 32),
                        None, True, 0),
+        "tao_packed_qkv": (*packed_qkv(64, 129, 4, 32, rand), None, True, 0),
+        "long_causal_1024": (rand(2, 2, 1024, 64), rand(2, 2, 1024, 64), rand(2, 2, 1024, 64),
+                             None, True, 0),
         "q_offset_segments_dv48": (rand(2, 4, 40, 32), rand(2, 4, 129, 32),
                                    rand(2, 4, 129, 48), seg_ids(2, 129), True, 89),
         "masked_rows_noncausal": (rand(2, 4, 40, 32), rand(2, 4, 129, 32),
@@ -328,20 +362,31 @@ def phase_kernels(failures, results, traces):
         torch.cuda.synchronize()
         err = float((a - b).abs().max())
         ok = bool(torch.all((a - b).abs() <= ATTN_ATOL + ATTN_RTOL * b.abs()))
+        # the output is the (B, H, Sq, Dv) view of a contiguous (B, Sq, H, Dv)
+        ok = ok and a.transpose(1, 2).is_contiguous()
         attn_err, attn_ok = max(attn_err, err), attn_ok and ok
         emit({"phase": "kernels", "kernel": "flash_attention", "case": name,
-              "max_abs_err": err, "atol": ATTN_ATOL, "rtol": ATTN_RTOL, "ok": ok})
+              "shape": [*q.shape[:3], k.shape[2], q.shape[3], v.shape[3]],
+              "q_strides": list(q.stride()), "max_abs_err": err, "atol": ATTN_ATOL,
+              "rtol": ATTN_RTOL, "ok": ok})
     if not attn_ok:
         failures.append("flash_attention: kernel outside tolerance of the plain version")
-    q, k, v, *_ = cases["tao_causal"]
+
+    # times at the Tao shape on the operands the model gives it: the packed views
+    q, k, v, *_ = cases["tao_packed_qkv"]
+    qc, kc, vc, *_ = cases["tao_causal"]
     B, H, S, D = q.shape
     ms = graph_ms(lambda: flash_attention_cuda(q, k, v, causal=True))
+    contiguous_ms = graph_ms(lambda: flash_attention_cuda(qc, kc, vc, causal=True))
     call_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True), 200)
     plain_ms = cuda_ms(lambda: attention_plain(q, k, v, causal=True), 20)
     lib_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True))
     visible = B * H * S * (S + 1) // 2  # causal (query, key) pairs
     b_ms, b_by = bound(4 * B * H * S * D * 4, visible * (2 * D + 2 * D))
+    info = launch_info(S, D, D)
+    if info["spill_bytes_per_thread"]:
+        failures.append(f"flash_attention: {info['spill_bytes_per_thread']} spill bytes per thread")
     results["flash_attention"] = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/attention.cu",
@@ -350,10 +395,10 @@ def phase_kernels(failures, results, traces):
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
     }
     emit({"phase": "kernels", "kernel": "flash_attention", "shape": [B, H, S, D],
-          "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-          "bound_ms": b_ms, "bound_by": b_by})
-
-    check_ssd_kernel(failures, results)
+          "operands": "packed_qkv_views", "ms": ms, "contiguous_ms": contiguous_ms,
+          "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+          "bound_ms": b_ms, "bound_by": b_by, "x_bound": ms / b_ms, "x_library": ms / lib_ms,
+          **info})
 
 
 def ssd_inputs(B, S, H, P, G, N, dtype, seed):
@@ -764,8 +809,10 @@ def phase_slice(failures, results, traces):
         failures.append(f"slice: GPU and CPU engines disagree beyond tolerance on {name}")
     emit({"phase": "slice", "check": "gpu_vs_cpu", "trace": name, "positions": gpu.num_instructions,
           **check, "gpu_mips": gpu.mips, "cpu_mips": cpu.mips})
-    emit({"phase": "slice", "check": "profile", "trace": "lee",
-          **profile_breakdown(lambda: engine.simulate(traces["lee"]))})
+    prof = profile_breakdown(lambda: engine.simulate(traces["lee"]))
+    lee_batches = -(-(res["lee"].num_instructions // cfg.window) // ecfg.batch_size)
+    emit({"phase": "slice", "check": "profile", "trace": "lee", "batches": lee_batches,
+          "copy_kernels_per_batch": prof["copy_kernels"] / lee_batches, **prof})
 
 
 def rel_diff(a, b) -> float:
@@ -888,6 +935,54 @@ def phase_mamba2(failures, results, traces):
           "gpu_ssd_launches": g_launches, "cpu_seconds": cpu_s, "ok": ok})
 
 
+def tao_profile(checkout: Path) -> int:
+    """``--tao-profile [CHECKOUT]``: the Tao slice's copy kernels and B4's
+    times for the port in CHECKOUT (a checkout root, default this one), so
+    two trees can be compared in one run on one card: one profiled fused
+    simulate of the 150k-instruction ``lee`` trace (copy kernels per
+    batch), the median of three unprofiled simulates, then at the Tao
+    shape the public ``flash_attention`` on the packed q/k/v views the Tao
+    block makes, the kernel's wrapper on contiguous operands, and SDPA.
+    One JSON line, then the card line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(checkout / "src"))
+    from repro_torch.core.model import TaoConfig, init_tao
+    from repro_torch.engine import EngineConfig, StreamingEngine
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.uarch import get_benchmark, run_functional
+
+    _cuda.build()
+    cfg = TaoConfig()
+    ecfg = EngineConfig(metrics=("cpi", "branch_mpki", "l1d_mpki", "cpi_phase", "l1d_phase"))
+    trace = run_functional(get_benchmark("lee"), SLICE_INSTRUCTIONS)
+    engine = StreamingEngine(init_tao(cfg, torch.Generator().manual_seed(0), device="cuda"),
+                             cfg, ecfg, device="cuda")
+    r = engine.simulate(trace)  # warm-up
+    batches = -(-(r.num_instructions // cfg.window) // ecfg.batch_size)
+    prof = profile_breakdown(lambda: engine.simulate(trace))
+    simulate_s = sorted(engine.simulate(trace).seconds for _ in range(3))[1]
+    g = torch.Generator(device="cpu").manual_seed(0)
+    q, k, v = packed_qkv(64, 129, 4, 32, lambda *s: torch.randn(*s, generator=g).to("cuda"))
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    emit({"phase": "tao_profile", "checkout": str(checkout), "trace": "lee", "batches": batches,
+          "copy_kernels_per_batch": prof["copy_kernels"] / batches, "simulate_s": simulate_s,
+          "mips": r.num_instructions / 1e6 / simulate_s,
+          "attention_op_packed_views_ms": graph_ms(lambda: flash_attention(q, k, v, causal=True)),
+          "attention_kernel_contiguous_ms": graph_ms(
+              lambda: flash_attention_cuda(qc, kc, vc, causal=True)),
+          "library_ms": graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+              q, k, v, is_causal=True)),
+          **prof})
+    print(card_line(), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -921,4 +1016,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tao-profile"]:
+        sys.exit(tao_profile(Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT))
     sys.exit(main())

@@ -192,8 +192,11 @@ def apply_adapt(p: nn.Linear, h: torch.Tensor) -> torch.Tensor:
 def _block(p: TaoBlock, h: torch.Tensor, cfg: TaoConfig, causal: bool) -> torch.Tensor:
     B, W, d = h.shape
     nh, hd = cfg.n_heads, cfg.head_dim
+    # q, k, v: (B, nh, W, hd) views of the packed projection; on the card
+    # the kernel reads them at these strides and returns the (B, nh, W, hd)
+    # view of a (B, W, nh, hd) output, so neither side copies
     qkv = p.qkv(p.ln1(h)).reshape(B, W, 3, nh, hd)
-    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
     o = flash_attention(q, k, v, causal=causal)
     h = h + p.proj(o.transpose(1, 2).reshape(B, W, d))
     return h + p.down(gelu(p.up(p.ln2(h))))

@@ -4,6 +4,7 @@ version on the CPU.
 Counterpart of ``repro/kernels/attention/ops.py::flash_attention``.  The
 choice follows the tensors' device only: a CUDA tensor always launches the
 hand-written kernel (or raises), a CPU tensor takes the plain version.
+Neither copies its operands: both take q, k and v at their strides.
 """
 from __future__ import annotations
 
@@ -29,8 +30,5 @@ def flash_attention(
     """Attention over (B, H, S, D) operands; ``segment_ids`` ((B, Sk) int32,
     optional) confines attention to equal-id spans."""
     if q.is_cuda:
-        return flash_attention_cuda(
-            q.contiguous(), k.contiguous(), v.contiguous(), segment_ids,
-            causal=causal, q_offset=q_offset,
-        )
+        return flash_attention_cuda(q, k, v, segment_ids, causal=causal, q_offset=q_offset)
     return attention_plain(q, k, v, segment_ids, causal=causal, q_offset=q_offset)

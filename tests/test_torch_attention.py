@@ -104,3 +104,33 @@ def test_cuda_wrapper_refuses_what_it_does_not_take():
     q = torch.zeros(1, 1, 4, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         port_kernel.flash_attention_cuda(q, q, q)
+
+
+def test_cuda_wrapper_refuses_a_strided_last_dimension():
+    """Any batch, head and sequence strides go in; the last dimension must
+    be contiguous (the kernel's rows are copied as runs of floats)."""
+    q = torch.zeros(1, 1, 4, 16)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        port_kernel.flash_attention_cuda(q, q, q)
+
+
+def packed(seed, B, S, H, D):
+    """q, k, v as the Tao block makes them: (B, H, S, D) views of one
+    packed (B, S, 3, H, D) projection."""
+    x = np.random.default_rng(seed).standard_normal((B, S, 3, H, D)).astype(np.float32)
+    return x, torch.from_numpy(x).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_packed_qkv_views_match_contiguous_call_and_reference(causal):
+    """``flash_attention`` takes the packed views at their strides (no copy
+    on either device); on the CPU that equals the call on contiguous copies
+    within 1e-6 and the reference oracle within the tolerance above."""
+    x, (q, k, v) = packed(5, 3, 129, 4, 32)
+    assert not q.is_contiguous() and q.stride() == (129 * 3 * 4 * 32, 32, 3 * 4 * 32, 1)
+    got = flash_attention(q, k, v, causal=causal)
+    contiguous = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
+    np.testing.assert_allclose(got.numpy(), contiguous.numpy(), atol=1e-6, rtol=1e-6)
+    jq, jk, jv = (jnp.asarray(np.ascontiguousarray(x[:, :, i].transpose(0, 2, 1, 3)))
+                  for i in range(3))
+    close(got, attention_ref(jq, jk, jv, None, causal=causal), "packed views vs attention_ref")

@@ -13,8 +13,10 @@ branch history, B3 memory distance) — are held BITWISE to their plain
 versions and to the NumPy specification (copies, int64 deltas rounded to
 float32 through float64, and the signed-log in individually rounded
 float32 ops on every side, the eager torch one included); attention within
-atol = rtol = 1e-5 (float32 on both sides, online vs full-matrix softmax:
-only the summation order differs).  The staged engine route equals the
+atol = rtol = 1e-5 (3xTF32 tensor-core products, float32-level error, and
+exp2 of pre-scaled scores in the kernel against float32 einsum and expf in
+the full-matrix plain version), its output the (B, H, Sq, Dv) view of a
+(B, Sq, H, Dv) tensor, packed q/k/v views taken at their strides.  The staged engine route equals the
 fused one on the card.  The SSD scan (B5) is held to its plain chunked
 version within atol = rtol = 1e-4 in float32 (summation order and the
 chunk's prefix sum differ) and 2e-2 on bfloat16 outputs (one rounding of
@@ -147,6 +149,12 @@ ATTN_CASES = {
     "dv96_segments": (2, 2, 65, 65, 64, 96, True, 0, True),
     "decode_q_offset": (3, 2, 9, 140, 32, 32, True, 131, False),
     "rows_past_sk": (2, 2, 40, 129, 32, 48, False, 100, True),
+    # many double-buffered 64-key tiles and several query blocks per head
+    "long_causal_1024": (2, 2, 1024, 1024, 64, 64, True, 0, False),
+    # Sk not a multiple of the 64-key tile, with segments
+    "sk200_segments": (2, 2, 200, 200, 32, 32, True, 0, True),
+    # one query row decoding at the last position
+    "sq1_decode": (3, 2, 1, 140, 32, 32, True, 139, False),
 }
 
 
@@ -166,6 +174,38 @@ def test_attention_kernel_matches_plain(dev, case):
     ref = attention_plain(q, k, v, seg, causal=causal, q_offset=off)
     torch.cuda.synchronize()
     assert FLASH_ATTENTION.launches == launches + 1
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    # the (B, H, Sq, Dv) view of a contiguous (B, Sq, H, Dv) output
+    assert got.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_kernel_takes_packed_qkv_views(dev, causal):
+    """q, k, v cut from one packed (B, S, 3, H, D) tensor, as the Tao block
+    makes them, go in at their strides: no copy, same result."""
+    B, S, H, D = 64, 129, 4, 32
+    g = torch.Generator().manual_seed(11)
+    packed = torch.randn(B, S, 3, H, D, generator=g).to(dev)
+    q, k, v = packed.permute(2, 0, 3, 1, 4).unbind(0)
+    assert not q.is_contiguous() and q.stride() == (S * 3 * H * D, D, 3 * H * D, 1)
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    ref = attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    assert got.stride() == (S * H * D, D, H * D, 1)
+    contiguous = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
+    torch.testing.assert_close(got, contiguous, atol=0, rtol=0)
+
+
+def test_attention_kernel_takes_unaligned_strides(dev):
+    """Widths and strides that are not multiples of 4 floats take the
+    kernel's 4-byte copies; the result is the same."""
+    g = torch.Generator().manual_seed(12)
+    base = torch.randn(2, 3, 77, 2 * 21 + 1, generator=g).to(dev)
+    q, k, v = base[..., :21], base[..., 21:42], base[..., 1:22]
+    got = flash_attention_cuda(q, k, v, causal=True)
+    ref = attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
 
 

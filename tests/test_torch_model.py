@@ -129,3 +129,40 @@ def test_config_defaults_match_reference():
     assert ref.pop("use_pallas") is False
     port = dataclasses.asdict(port_model.TaoConfig())
     assert port == ref
+
+
+def test_block_hands_attention_views_and_takes_its_output_back_without_copy(monkeypatch):
+    """``_block`` passes attention (B, nh, W, hd) views of its packed
+    projection, and reads back the (B, W, d) input of ``proj`` as a view of
+    an attention output laid out as the kernel lays it out, (B, W, nh, hd).
+    With that layout stood in on the CPU, the logits stay within the
+    tolerance of the reference's."""
+    ref_cfg, port_cfg = configs(SMALL)
+    params, model = port_from_reference(ref_cfg, port_cfg)
+    batch = random_batch(port_cfg, 4, seed=2)
+    outputs, proj_inputs = [], []
+    attention = port_model.flash_attention
+
+    def kernel_layout_attention(q, k, v, segment_ids=None, *, causal=True, q_offset=0):
+        assert not q.is_contiguous() and q.stride(-1) == 1
+        assert q.data_ptr() < k.data_ptr() < v.data_ptr()  # one packed tensor
+        assert k.untyped_storage().data_ptr() == q.untyped_storage().data_ptr()
+        B, H, S, D = q.shape
+        out = torch.empty(B, S, H, D).transpose(1, 2)
+        out.copy_(attention(q, k, v, segment_ids, causal=causal, q_offset=q_offset))
+        outputs.append(out.data_ptr())
+        return out
+
+    monkeypatch.setattr(port_model, "flash_attention", kernel_layout_attention)
+    for blk in model.pred.blocks:
+        blk.proj.register_forward_pre_hook(lambda m, args: proj_inputs.append(args[0].data_ptr()))
+    forward = jax.jit(ref_model.tao_forward, static_argnums=2)
+    ref = forward(params, {k: jnp.asarray(v) for k, v in batch.items()}, ref_cfg)
+    with torch.inference_mode():
+        got = port_model.tao_forward(model, {k: torch.from_numpy(v) for k, v in batch.items()},
+                                     port_cfg)
+    assert len(outputs) == port_cfg.n_layers and proj_inputs == outputs
+    for k in ("fetch_lat_logits", "exec_lat_logits", "mispred_logit", "dlevel_logits",
+              "icache_logit", "tlb_logit"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), atol=ATOL, rtol=RTOL,
+                                   err_msg=k)
