@@ -61,8 +61,10 @@
 // all at once, and then the time is the latency of the longest warp's
 // chain of dependent steps (split, mma, max, exp, mma) with ~4.5 warps per
 // scheduler to hide it.  The tensor cores are not the limit: the Tao
-// shape's 3xTF32 products are 1.2 GFLOP of TF32, 2.4 us at the card's
-// 495 TFLOP/s.  PERF.md has the times.
+// shape's 3xTF32 products are 1.2 GFLOP of TF32, 2.4 us at the data
+// sheet's dense TF32 peak of 495 TFLOP/s.  mma.sync does not reach that
+// peak (wgmma is Hopper's full-rate path); at half of it the products
+// take 4.9 us, still well under the kernel's time.  PERF.md has the times.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

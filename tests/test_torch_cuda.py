@@ -141,27 +141,28 @@ def test_fused_kernel_state_is_functional(dev):
     assert FUSED_FEATURES.launches == launches + 2
 
 
-# (B, H, Sq, Sk, D, Dv, causal, q_offset, segmented)
+# (B, H, Sq, Sk, D, Dv, causal, q_offset, segmented, seed); each case keeps
+# its own seed, so a case added later leaves the others' inputs alone
 ATTN_CASES = {
-    "tao": (64, 4, 129, 129, 32, 32, True, 0, False),
-    "noncausal_odd_dims": (2, 3, 70, 70, 20, 40, False, 0, False),
-    "wide_heads": (2, 2, 100, 100, 128, 128, True, 0, False),
-    "dv96_segments": (2, 2, 65, 65, 64, 96, True, 0, True),
-    "decode_q_offset": (3, 2, 9, 140, 32, 32, True, 131, False),
-    "rows_past_sk": (2, 2, 40, 129, 32, 48, False, 100, True),
+    "tao": (64, 4, 129, 129, 32, 32, True, 0, False, 4),
+    "noncausal_odd_dims": (2, 3, 70, 70, 20, 40, False, 0, False, 2),
+    "wide_heads": (2, 2, 100, 100, 128, 128, True, 0, False, 5),
+    "dv96_segments": (2, 2, 65, 65, 64, 96, True, 0, True, 1),
+    "decode_q_offset": (3, 2, 9, 140, 32, 32, True, 131, False, 0),
+    "rows_past_sk": (2, 2, 40, 129, 32, 48, False, 100, True, 3),
     # many double-buffered 64-key tiles and several query blocks per head
-    "long_causal_1024": (2, 2, 1024, 1024, 64, 64, True, 0, False),
+    "long_causal_1024": (2, 2, 1024, 1024, 64, 64, True, 0, False, 6),
     # Sk not a multiple of the 64-key tile, with segments
-    "sk200_segments": (2, 2, 200, 200, 32, 32, True, 0, True),
+    "sk200_segments": (2, 2, 200, 200, 32, 32, True, 0, True, 7),
     # one query row decoding at the last position
-    "sq1_decode": (3, 2, 1, 140, 32, 32, True, 139, False),
+    "sq1_decode": (3, 2, 1, 140, 32, 32, True, 139, False, 8),
 }
 
 
 @pytest.mark.parametrize("case", sorted(ATTN_CASES))
 def test_attention_kernel_matches_plain(dev, case):
-    B, H, Sq, Sk, D, Dv, causal, off, segmented = ATTN_CASES[case]
-    g = torch.Generator().manual_seed(sorted(ATTN_CASES).index(case))
+    B, H, Sq, Sk, D, Dv, causal, off, segmented, seed = ATTN_CASES[case]
+    g = torch.Generator().manual_seed(seed)
     q = torch.randn(B, H, Sq, D, generator=g).to(dev)
     k = torch.randn(B, H, Sk, D, generator=g).to(dev)
     v = torch.randn(B, H, Sk, Dv, generator=g).to(dev)
