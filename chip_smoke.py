@@ -11,9 +11,13 @@ and ``nvcc``.  Phases, one JSON line each:
            ptxas register / spill lines;
   kernels  every kernel against its plain PyTorch version on the card, at
            the shapes the main paths give it, timed with CUDA events: the
-           fused feature kernel (B1), the staged whole-trace branch-history
-           and memory-distance scans (B2, B3) on whole benchmark traces,
-           a collision-heavy config and wide addresses, the staged
+           fused feature kernel (B1: state threaded over batches of a
+           benchmark trace, with wide addresses, queues of 48 and 64, 20,000
+           buckets, four batches in one launch and one-position launches;
+           the kernels one call enqueues), the staged whole-trace
+           branch-history and memory-distance scans (B2, B3) on whole
+           benchmark traces, a collision-heavy config, wide addresses and
+           20,000 / 60,000 buckets, the staged
            extraction and the eager signed-log against the NumPy
            specification, attention (B4: the Tao shape on the packed q/k/v
            views the model hands over and on contiguous operands, 1024
@@ -70,6 +74,9 @@ SLICE_BENCHMARKS = ("dee", "mcf", "lee")
 SLICE_INSTRUCTIONS = 150_000
 KERNEL_LAUNCHES = 4        # state-threaded B1 launches checked bitwise
 WIDE_ADDR_OFFSET = 1 << 40  # shifts a trace's addresses past the int32 window
+# bucket counts past 8,192: shared-memory counters opted in past 48 KB,
+# and counters in global scratch (past the kernels' SMEM_BUCKETS)
+MANY_BUCKETS = (20_000, 60_000)
 # (n_buckets, n_queue, n_mem) where many branches share few buckets (three:
 # not a power of two) and the queues are short
 COLLISION_SHAPE = (3, 5, 12)
@@ -163,6 +170,39 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernels_enqueued(fn) -> int:
+    """How many device kernels one ``fn()`` runs, from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def random_trace(n: int, seed: int, pc_mod: int):
+    """A functional trace of random instructions (40% branches, 40% memory
+    ops) whose pcs spread over ``pc_mod`` buckets' worth of addresses."""
+    import numpy as np
+
+    from repro_torch.uarch.isa import FUNC_TRACE_DTYPE, Op
+
+    rng = np.random.default_rng(seed)
+    t = np.zeros(n, dtype=FUNC_TRACE_DTYPE)
+    t["pc"] = rng.integers(0, pc_mod, n) * 4
+    t["opcode"] = rng.integers(0, len(Op), n)
+    for k in ("dst", "src1", "src2"):
+        t[k] = rng.integers(0, 32, n)
+    t["is_branch"] = rng.random(n) < 0.4
+    t["taken"] = t["is_branch"] & (rng.random(n) < 0.5)
+    t["is_mem"] = ~t["is_branch"] & (rng.random(n) < 0.67)
+    t["is_store"] = t["is_mem"] & (rng.random(n) < 0.4)
+    t["addr"] = np.where(t["is_mem"], rng.integers(0, 1 << 29, n), 0)
+    return t
+
+
 def launch_counters() -> dict:
     """Every kernel wrapper of the port, by the name the kernels line uses."""
     from repro_torch.kernels.attention.kernel import FLASH_ATTENTION
@@ -183,13 +223,15 @@ def read_counts() -> dict:
     return {name: c.launches for name, c in launch_counters().items()}
 
 
-def profile_breakdown(fn) -> dict:
+def profile_breakdown(fn, track: str = "") -> dict:
     """Device time by kernel over one ``fn()``, from torch.profiler (CUPTI):
     busy = summed time of the device's kernel events (one stream: kernels
     do not overlap; the host ops that launched them are not counted again),
     idle share = 1 - busy / wall.  The profiler's own host overhead
     inflates the wall time here; the unprofiled runs report the real rates.
-    Raises when the profile cannot be taken or shows no device time."""
+    ``track``: also the device ms of each kernel whose name holds it, by
+    the name from there to its argument list.  Raises when the profile
+    cannot be taken or shows no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -205,6 +247,8 @@ def profile_breakdown(fn) -> dict:
         raise RuntimeError("torch.profiler recorded no device time")
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    tracked = {e.key[e.key.index(track):].split("(")[0]: e.self_device_time_total / 1e3
+               for e in events if track and track in e.key}
     return {
         "wall_s": wall,
         "device_busy_s": busy_us / 1e6,
@@ -213,6 +257,7 @@ def profile_breakdown(fn) -> dict:
         # .contiguous() or a layout-changing reshape launches
         "copy_kernels": sum(e.count for e in events if "copy_kernel" in e.key),
         "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top],
+        **({"tracked_ms": tracked} if track else {}),
     }
 
 
@@ -244,41 +289,57 @@ def phase_kernels(failures, results, traces):
 
     from repro_torch.core.features import FeatureConfig, extract_features
     from repro_torch.kernels.features.ops import trace_columns
-    from repro_torch.kernels.fused.kernel import COLUMN_KEYS, fused_features_cuda
+    from repro_torch.kernels.fused.kernel import COLUMN_KEYS, KERNELS_PER_CALL, fused_features_cuda
     from repro_torch.kernels.fused.ops import init_fused_state
     from repro_torch.kernels.fused.ref import fused_features_plain
     from repro_torch.uarch import get_benchmark, run_functional
 
     dev = torch.device("cuda")
 
-    # ---- B1: fused features, state threaded over KERNEL_LAUNCHES batches,
-    # on a benchmark trace and on the same trace with wide addresses
+    # ---- B1: fused features, the state threaded over the launches of each
+    # case: (config, trace, positions per launch)
     fcfg = FeatureConfig()
     n = 64 * 129  # one engine batch: 64 windows of 129
     ft = run_functional(get_benchmark("mcf"), KERNEL_LAUNCHES * n)
     wide = ft.copy()
     wide["addr"][wide["is_mem"]] += WIDE_ADDR_OFFSET
+    batches = (n,) * KERNEL_LAUNCHES
+    cases = {
+        "mcf": (fcfg, ft, batches),
+        "mcf_wide_addresses": (fcfg, wide, batches),
+        "mcf_queue_48": (FeatureConfig(n_queue=48), ft, batches),
+        "mcf_queue_64": (FeatureConfig(n_queue=64), ft, batches),
+        "random_buckets_20000": (FeatureConfig(n_buckets=MANY_BUCKETS[0]),
+                                 random_trace(KERNEL_LAUNCHES * n, 1, 2 * MANY_BUCKETS[0]), batches),
+        "mcf_four_batches_one_launch": (fcfg, ft, (KERNEL_LAUNCHES * n,)),
+        "mcf_one_position_launches": (fcfg, ft[:n + 1], (1, n - 1, 1)),
+    }
     bitwise, max_err = True, 0.0
     names = ("regbits", "flags", "brhist", "memdist")
-    for trace in (ft, wide):
+    for case, (cfg, trace, slices) in cases.items():
         cols = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                for k, v in trace_columns(trace, fcfg).items()}
-        spec = extract_features(trace, fcfg, with_labels=False)
-        st_k = init_fused_state(fcfg, dev)
+                for k, v in trace_columns(trace, cfg).items()}
+        spec = extract_features(trace, cfg, with_labels=False)
+        st_k = init_fused_state(cfg, dev)
         table_k, mq_k = st_k["table"], st_k["mq"]
         table_p, mq_p = table_k.clone(), mq_k.clone()
-        for i in range(KERNEL_LAUNCHES):
-            sl = {k: cols[k][i * n:(i + 1) * n] for k in COLUMN_KEYS}
+        same, lo = True, 0
+        for m in slices:
+            sl = {k: cols[k][lo:lo + m] for k in COLUMN_KEYS}
             *outs_k, table_k, mq_k = fused_features_cuda(sl, table_k, mq_k)
             *outs_p, table_p, mq_p = fused_features_plain(sl, table_p, mq_p)
             torch.cuda.synchronize()
             for name, a, b in zip(names, outs_k, outs_p):
-                ref = getattr(spec, name)[i * n:(i + 1) * n]
-                same = torch.equal(a.view(torch.int32), b.view(torch.int32)) and np.array_equal(
+                ref = getattr(spec, name)[lo:lo + m]
+                same &= torch.equal(a.view(torch.int32), b.view(torch.int32)) and np.array_equal(
                     a.cpu().numpy().view(np.int32), ref.view(np.int32))
-                bitwise &= same
                 max_err = max(max_err, float((a - b).abs().max()))
-            bitwise &= torch.equal(table_k, table_p) and torch.equal(mq_k, mq_p)
+            same &= torch.equal(table_k, table_p) and torch.equal(mq_k, mq_p)
+            lo += m
+        bitwise &= same
+        emit({"phase": "kernels", "kernel": "fused_features", "case": case,
+              "config": [cfg.n_buckets, cfg.n_queue, cfg.n_mem], "positions_per_launch": list(slices),
+              "bitwise_vs_plain_and_numpy_spec": same})
     if not bitwise:
         failures.append("fused_features: kernel != plain version / NumPy spec")
     cols = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
@@ -287,6 +348,9 @@ def phase_kernels(failures, results, traces):
     t_state = init_fused_state(fcfg, dev)
     ms = graph_ms(lambda: fused_features_cuda(sl, t_state["table"], t_state["mq"]))
     call_ms = cuda_ms(lambda: fused_features_cuda(sl, t_state["table"], t_state["mq"]), 200)
+    per_call = kernels_enqueued(lambda: fused_features_cuda(sl, t_state["table"], t_state["mq"]))
+    if per_call != KERNELS_PER_CALL:
+        failures.append(f"fused_features: one call ran {per_call} kernels, not {KERNELS_PER_CALL}")
     p_state = init_fused_state(fcfg, dev)
     plain_ms = cuda_ms(lambda: fused_features_plain(sl, p_state["table"], p_state["mq"]), 10)
     col_bytes = n * (5 * 4 + 8 + 4 * 1)
@@ -303,11 +367,12 @@ def phase_kernels(failures, results, traces):
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
-    emit({"phase": "kernels", "kernel": "fused_features",
-          "launches_checked": 2 * KERNEL_LAUNCHES, "wide_address_offset": WIDE_ADDR_OFFSET,
+    emit({"phase": "kernels", "kernel": "fused_features", "cases": list(cases),
+          "launches_checked": sum(len(c[2]) for c in cases.values()),
+          "wide_address_offset": WIDE_ADDR_OFFSET,
           "positions_per_launch": n, "bitwise_vs_plain_and_numpy_spec": bitwise,
           "max_abs_err": max_err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-          "bound_ms": b_ms, "bound_by": b_by})
+          "bound_ms": b_ms, "bound_by": b_by, "x_bound": ms / b_ms, "kernels_per_call": per_call})
 
     check_staged_kernels(failures, results, traces)
 
@@ -533,6 +598,8 @@ def check_staged_kernels(failures, results, traces):
     cases = [(b, fcfg, traces[b]) for b in SLICE_BENCHMARKS]
     cases += [(f"{b}_collision", FeatureConfig(*COLLISION_SHAPE), traces[b]) for b in SLICE_BENCHMARKS]
     cases += [("mcf_wide_addresses", fcfg, wide)]
+    cases += [(f"random_buckets_{nb}", FeatureConfig(n_buckets=nb), random_trace(SLICE_INSTRUCTIONS, i, 2 * nb))
+              for i, nb in enumerate(MANY_BUCKETS)]
     ok = {"branch_history": True, "memdist_delta": True, "device_feature_arrays": True}
     err = {"branch_history": 0.0, "memdist_delta": 0.0}
     timing = {"branch_history": [], "memdist_delta": []}
@@ -812,10 +879,13 @@ def phase_slice(failures, results, traces):
         failures.append(f"slice: GPU and CPU engines disagree beyond tolerance on {name}")
     emit({"phase": "slice", "check": "gpu_vs_cpu", "trace": name, "positions": gpu.num_instructions,
           **check, "gpu_mips": gpu.mips, "cpu_mips": cpu.mips})
-    prof = profile_breakdown(lambda: engine.simulate(traces["lee"]))
+    # B1's passes are its source's kernels, named fx_*
+    prof = profile_breakdown(lambda: engine.simulate(traces["lee"]), track="fx_")
     lee_batches = -(-(res["lee"].num_instructions // cfg.window) // ecfg.batch_size)
+    b1_passes = {k: ms / lee_batches for k, ms in prof.pop("tracked_ms").items()}
     emit({"phase": "slice", "check": "profile", "trace": "lee", "batches": lee_batches,
-          "copy_kernels_per_batch": prof["copy_kernels"] / lee_batches, **prof})
+          "copy_kernels_per_batch": prof["copy_kernels"] / lee_batches,
+          "fused_features_pass_ms_per_batch": b1_passes, **prof})
 
 
 def rel_diff(a, b) -> float:

@@ -20,10 +20,12 @@
 // tiles, and a stable rank inside each tile — all computed here:
 //   * branch history — a stable partition of the branches by bucket.
 //     br_count: per tile of kBrTile positions, the branches of each bucket
-//     (shared-memory histogram).  br_tile_offsets: per bucket, the
+//     (a histogram in shared memory while N_b <= kSmemBuckets, past that in
+//     the tile's own row of the counts scratch).  br_tile_offsets: per bucket, the
 //     exclusive scan of its counts over the tiles and its total.
 //     scan_exclusive: the bucket totals to bucket starts.  br_scatter: one
-//     warp walks each tile in trace order; __match_any_sync groups the
+//     warp walks each tile in trace order, its next-slot counters where
+//     br_count kept its histogram; __match_any_sync groups the
 //     lanes of one bucket and __popc(peers & lanemask_lt) ranks them, so
 //     each branch's outcome goes to slot s of its bucket's list in trace
 //     order.  br_gather: row slot k is list[s-1-k] while k < r (r = the
@@ -37,7 +39,8 @@
 //     specification does, so any address is exact (the TPU kernel's int32
 //     deltas need |addr| < 2^30).
 // No pass re-reads the trace from position 0: every pass is O(n) (plus
-// O(n / kBrTile * N_b) counters for the branch partition).
+// O(n / kBrTile * N_b) counters for the branch partition).  Any N_b >= 1
+// is taken: counters that do not fit in shared memory live in global scratch.
 //
 // What bounds it on the H100: bytes.  Per position the branch history
 // reads 8 B and writes 4 * N_q B (128 B at the default N_q = 32); the
@@ -58,7 +61,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBrTile = 1024;      // positions per branch rank tile (one warp)
 constexpr int kMemTile = 2048;     // positions per compaction tile
 constexpr int kRows = 64;          // positions per gather block
-constexpr int kMaxBuckets = 8192;  // one shared-memory counter per bucket
+constexpr int kSmemBuckets = 49152;  // per-bucket counters in shared memory
 constexpr int kScanThreads = 1024;
 constexpr int kMaxPositions = 1 << 30;  // int32 positions, a tile of headroom
 constexpr unsigned kFull = 0xffffffffu;
@@ -122,23 +125,29 @@ scan_exclusive(int32_t* data, int len) {
 
 // ---- branch history ------------------------------------------------------
 
-// counts[t * N_b + b] = branches of bucket b in tile t.
+// counts[t * N_b + b] = branches of bucket b in tile t, counted in shared
+// memory (kSmem) or in the row itself.  kSmem is a template argument so that
+// the shared-memory build addresses cnt as shared memory, not generically.
+template <bool kSmem>
 __global__ void __launch_bounds__(kThreads)
 br_count(const int32_t* bucket, const float* outcome, int n, int n_buckets,
          int32_t* counts) {
-  extern __shared__ int cnt[];  // [n_buckets]
+  extern __shared__ int smem_cnt[];  // [n_buckets] when kSmem
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * kBrTile;
   const int p1 = min(p0 + kBrTile, n);
+  int32_t* row = counts + (size_t)blockIdx.x * n_buckets;
+  int* cnt = kSmem ? smem_cnt : row;
   for (int b = tid; b < n_buckets; b += kThreads) cnt[b] = 0;
   __syncthreads();
   for (int p = p0 + tid; p < p1; p += kThreads) {
     const int key = branch_key(bucket, outcome, p, n_buckets);
     if (key >= 0) atomicAdd(&cnt[key], 1);
   }
-  __syncthreads();
-  int32_t* row = counts + (size_t)blockIdx.x * n_buckets;
-  for (int b = tid; b < n_buckets; b += kThreads) row[b] = cnt[b];
+  if (kSmem) {
+    __syncthreads();
+    for (int b = tid; b < n_buckets; b += kThreads) row[b] = cnt[b];
+  }
 }
 
 // Per bucket, counts over the tiles -> their exclusive scan (in place);
@@ -179,16 +188,20 @@ br_tile_offsets(int32_t* counts, int tiles, int n_buckets, int32_t* totals) {
 }
 
 // One warp per tile, in trace order: each branch's slot s in the
-// bucket-sorted list (stable), and list[s] = its outcome.
+// bucket-sorted list (stable), and list[s] = its outcome.  The next slot of
+// each bucket is counted in shared memory (kSmem) or in the tile's row of
+// offsets, which nothing reads after this pass.
+template <bool kSmem>
 __global__ void __launch_bounds__(32)
 br_scatter(const int32_t* bucket, const float* outcome, int n, int n_buckets,
-           const int32_t* offsets, const int32_t* starts, float* list,
+           int32_t* offsets, const int32_t* starts, float* list,
            int32_t* slot_of) {
-  extern __shared__ int cnt[];  // [n_buckets]: the next slot of each bucket
+  extern __shared__ int smem_cnt[];  // [n_buckets] when kSmem
   const int lane = threadIdx.x;
   const int p0 = blockIdx.x * kBrTile;
   const int p1 = min(p0 + kBrTile, n);
-  const int32_t* row = offsets + (size_t)blockIdx.x * n_buckets;
+  int32_t* row = offsets + (size_t)blockIdx.x * n_buckets;
+  int* cnt = kSmem ? smem_cnt : row;
   for (int b = lane; b < n_buckets; b += 32) cnt[b] = starts[b] + row[b];
   __syncwarp();
   for (int i = p0; i < p1; i += 32) {
@@ -316,13 +329,12 @@ extern "C" const char* tao_error_string(int err) {
 }
 
 // Pointers are device pointers of contiguous tensors.  Requires
-// 1 <= n <= kMaxPositions, 1 <= n_buckets <= kMaxBuckets, n_queue >= 1.
+// 1 <= n <= kMaxPositions, n_buckets >= 1, n_queue >= 1.
 extern "C" int tao_branch_history(const int32_t* bucket, const float* outcome,
                                   float* out, void* scratch,
                                   size_t scratch_bytes, int n, int n_buckets,
                                   int n_queue, void* stream) {
-  if (n < 1 || n > kMaxPositions || n_buckets < 1 || n_buckets > kMaxBuckets ||
-      n_queue < 1 ||
+  if (n < 1 || n > kMaxPositions || n_buckets < 1 || n_queue < 1 ||
       scratch_bytes < branch_history_scratch_bytes(n, n_buckets))
     return (int)cudaErrorInvalidValue;
   const int tiles = (n + kBrTile - 1) / kBrTile;
@@ -331,16 +343,35 @@ extern "C" int tao_branch_history(const int32_t* bucket, const float* outcome,
   int32_t* slot_of = starts + n_buckets;
   float* list = (float*)(slot_of + n);
   const cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = (size_t)n_buckets * sizeof(int);
-  br_count<<<tiles, kThreads, smem, s>>>(bucket, outcome, n, n_buckets, counts);
+  const bool smem_counts = n_buckets <= kSmemBuckets;
+  const size_t smem = smem_counts ? (size_t)n_buckets * sizeof(int) : 0;
+  if (smem > 48 * 1024) {  // opt in past the default 48 KB
+    cudaError_t e = cudaFuncSetAttribute(
+        br_count<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(br_scatter<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (smem_counts)
+    br_count<true><<<tiles, kThreads, smem, s>>>(bucket, outcome, n, n_buckets,
+                                                 counts);
+  else
+    br_count<false><<<tiles, kThreads, 0, s>>>(bucket, outcome, n, n_buckets,
+                                               counts);
   TAO_LAUNCH_CHECK();
   br_tile_offsets<<<(n_buckets + 31) / 32, dim3(32, 32), 0, s>>>(
       counts, tiles, n_buckets, starts);
   TAO_LAUNCH_CHECK();
   scan_exclusive<<<1, kScanThreads, 0, s>>>(starts, n_buckets);
   TAO_LAUNCH_CHECK();
-  br_scatter<<<tiles, 32, smem, s>>>(bucket, outcome, n, n_buckets, counts,
-                                      starts, list, slot_of);
+  if (smem_counts)
+    br_scatter<true><<<tiles, 32, smem, s>>>(bucket, outcome, n, n_buckets,
+                                             counts, starts, list, slot_of);
+  else
+    br_scatter<false><<<tiles, 32, 0, s>>>(bucket, outcome, n, n_buckets,
+                                           counts, starts, list, slot_of);
   TAO_LAUNCH_CHECK();
   br_gather<<<(n + kRows - 1) / kRows, kThreads, 0, s>>>(
       bucket, starts, list, slot_of, n, n_queue, out);

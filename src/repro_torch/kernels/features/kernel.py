@@ -20,19 +20,19 @@ from .._cuda import CudaKernel, check_cuda_tensor
 __all__ = [
     "BRANCH_HISTORY",
     "BR_TILE",
-    "MAX_BUCKETS",
     "MAX_POSITIONS",
     "MEMDIST_DELTA",
     "MEM_TILE",
+    "SMEM_BUCKETS",
     "branch_history_cuda",
     "memdist_delta_cuda",
 ]
 
-# the source's kBrTile, kMemTile, kMaxBuckets and kMaxPositions (tests hold
+# the source's kBrTile, kMemTile, kSmemBuckets and kMaxPositions (tests hold
 # them equal)
-BR_TILE = 1024      # positions per branch rank tile
-MEM_TILE = 2048     # positions per address compaction tile
-MAX_BUCKETS = 8192  # one shared-memory counter per bucket
+BR_TILE = 1024        # positions per branch rank tile
+MEM_TILE = 2048       # positions per address compaction tile
+SMEM_BUCKETS = 49152  # up to this N_b the per-bucket counters sit in shared memory
 # positions are int32 on the card, with headroom for a tile past the end
 # (2^30 positions of features would need ~580 GB at the default config)
 MAX_POSITIONS = 2**30
@@ -70,11 +70,8 @@ def branch_history_cuda(
     contiguous on the card -> (n, n_queue) float32: each branch's bucket
     queue before its own push, most recent first, from an all-zero table;
     0 rows off branches.  What ``ref.branch_history_plain`` computes."""
-    if not 1 <= n_buckets <= MAX_BUCKETS:
-        raise ValueError(
-            f"the kernel keeps one shared-memory counter per bucket: "
-            f"n_buckets={n_buckets} must be 1..{MAX_BUCKETS}"
-        )
+    if n_buckets < 1:
+        raise ValueError(f"n_buckets must be >= 1, got {n_buckets}")
     if n_queue < 1:
         raise ValueError(f"n_queue must be >= 1, got {n_queue}")
     n = _positions(bucket)

@@ -43,7 +43,7 @@ from repro_torch.kernels.features.kernel import (  # noqa: E402
 from repro_torch.kernels.features.ops import device_feature_arrays, trace_columns  # noqa: E402
 from repro_torch.kernels.features.ref import branch_history_plain, memdist_delta_plain  # noqa: E402
 from repro_torch.kernels.fused.kernel import FUSED_FEATURES, fused_features_cuda  # noqa: E402
-from repro_torch.kernels.fused.ops import fused_feature_columns, init_fused_state  # noqa: E402
+from repro_torch.kernels.fused.ops import FusedExtractor, fused_feature_columns, init_fused_state  # noqa: E402
 from repro_torch.kernels.fused.ref import fused_features_plain  # noqa: E402
 from repro_torch.kernels.ssd.kernel import SSD_SCAN, ssd_scan_cuda  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_sequential_ref  # noqa: E402
@@ -84,6 +84,13 @@ FUSED_CASES = {
     "no_memory_ops": ((64, 8, 16), lambda: random_trace(2000, np.random.default_rng(2), mem_p=0.0), (700, 700, 600)),
     "narrow_queue_deep_memory": ((16, 5, 100), lambda: random_trace(2500, np.random.default_rng(3), 0.2, 0.6), (257, 1000, 1243)),
     "wide_addresses": ((64, 32, 64), lambda: random_trace(3000, np.random.default_rng(4), addr_hi=1 << 62), (1000, 1000, 1000)),
+    # past the one-slot-per-lane and shared-memory limits of earlier kernels
+    "queue_48_benchmark": ((1024, 48, 64), lambda: run_functional(get_benchmark("mcf"), 3 * 8256), (8256,) * 3),
+    "queue_64_benchmark": ((1024, 64, 64), lambda: run_functional(get_benchmark("mcf"), 3 * 8256), (8256,) * 3),
+    "buckets_20000": ((20000, 32, 64), lambda: random_trace(3 * 8256, np.random.default_rng(13), pc_mod=40_000), (8256,) * 3),
+    "buckets_60000": ((60000, 8, 16), lambda: random_trace(20000, np.random.default_rng(14), pc_mod=120_000), (10000, 10000)),
+    "four_batches_one_launch": ((1024, 32, 64), lambda: run_functional(get_benchmark("mcf"), 4 * 8256), (4 * 8256,)),
+    "single_position_launches": ((1024, 32, 64), lambda: run_functional(get_benchmark("mcf"), 2000), (1, 1, 1997, 1)),
 }
 
 
@@ -139,6 +146,34 @@ def test_fused_kernel_state_is_functional(dev):
             assert torch.equal(got_state[k].cpu(), ref_state[k]), k
             assert torch.equal(st_k[k], kept[k]), k
     assert FUSED_FEATURES.launches == launches + 2
+
+
+def test_engine_takes_deep_branch_queue_on_card(dev):
+    """FeatureConfig(n_queue=48), past the old one-slot-per-lane limit: a
+    raw trace runs through the fused kernel on the card, one launch per
+    batch, and gives exactly what the same engine gives from the NumPy
+    specification's features; the card's feature batches equal the CPU
+    path's."""
+    fcfg = FeatureConfig(64, 48, 16)
+    cfg = TaoConfig(window=33, d_model=64, n_heads=2, n_layers=2, d_ff=128, d_cat=32, features=fcfg)
+    ecfg = EngineConfig(batch_size=16, collect=True, metrics=("cpi", "branch_mpki", "l1d_mpki", "cpi_phase"))
+    trace = run_functional(get_benchmark("lee"), 30000)
+    engine = StreamingEngine(init_tao(cfg, torch.Generator().manual_seed(0), device=dev), cfg, ecfg, device=dev)
+    launches = FUSED_FEATURES.launches
+    fused = engine.simulate(trace)
+    assert FUSED_FEATURES.launches == launches + -(-(len(trace) // cfg.window) // ecfg.batch_size)
+    host = engine.simulate(trace, features=extract_features(trace, fcfg, with_labels=False))
+    for k, v in host.metrics.items():
+        np.testing.assert_array_equal(fused.metrics[k], v, err_msg=k)
+    for k in ("fetch_lat", "exec_lat", "mispred_prob", "dlevel"):
+        np.testing.assert_array_equal(getattr(fused, k), getattr(host, k), err_msg=k)
+    cols = trace_columns(trace, fcfg)
+    card = FusedExtractor(cols, fcfg, device=dev)
+    cpu = FusedExtractor(cols, fcfg, device="cpu")
+    for m in (8256, 8256, 13488):
+        got, ref = card.next_batch(m), cpu.next_batch(m)
+        for name in ("regbits", "flags", "brhist", "memdist"):
+            assert torch.equal(got[name].cpu().view(torch.int32), ref[name].view(torch.int32)), name
 
 
 # (B, H, Sq, Sk, D, Dv, causal, q_offset, segmented, seed); each case keeps
@@ -233,6 +268,10 @@ SCAN_CASES = {
     "pair": ((4, 3, 3), lambda: random_trace(2, np.random.default_rng(10))),
     "memory_heavy": ((16, 6, 12), lambda: random_trace(2000, np.random.default_rng(11), 0.3, 0.7, addr_hi=1 << 24)),
     "deep_queues_wide_addresses": ((8192, 40, 100), lambda: random_trace(5000, np.random.default_rng(12), addr_hi=1 << 62)),
+    # more than 8,192 buckets: shared-memory counters past 48 KB, then
+    # (60,000) counters in global scratch
+    "buckets_20000": ((20000, 32, 64), lambda: random_trace(30000, np.random.default_rng(13), pc_mod=40_000)),
+    "buckets_60000": ((60000, 32, 64), lambda: random_trace(30000, np.random.default_rng(14), pc_mod=120_000)),
 }
 
 

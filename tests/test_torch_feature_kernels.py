@@ -210,6 +210,14 @@ def test_scans_take_any_queue_depth():
     assert_scans_match_reference(trace, (4, 40, 70), "deep_queues")
 
 
+def test_scans_take_more_than_8192_buckets():
+    """Past 8,192 buckets the plain versions agree with the reference's
+    oracle and its Pallas kernels (the card's cases at 20,000 and 60,000
+    buckets are in tests/test_torch_cuda.py)."""
+    trace = random_trace(1200, np.random.default_rng(9), branch_p=0.6, pc_mod=40_000)
+    assert_scans_match_reference(trace, (9000, 4, 8), "many_buckets")
+
+
 def test_wrappers_refuse_cpu_tensors_and_bad_sizes():
     """The kernel bindings launch or raise: a CPU tensor is refused (the
     plain version is taken one level up, by the ``*_scan`` dispatchers), as
@@ -223,7 +231,7 @@ def test_wrappers_refuse_cpu_tensors_and_bad_sizes():
     with pytest.raises(ValueError, match="CUDA tensor"):
         port_kernel.memdist_delta_cuda(addr, mem, 8)
     with pytest.raises(ValueError, match="n_buckets"):
-        port_kernel.branch_history_cuda(bucket, outcome, port_kernel.MAX_BUCKETS + 1, 4)
+        port_kernel.branch_history_cuda(bucket, outcome, 0, 4)
     with pytest.raises(ValueError, match="n_queue"):
         port_kernel.branch_history_cuda(bucket, outcome, 8, 0)
     with pytest.raises(ValueError, match="n_mem"):
@@ -233,7 +241,7 @@ def test_wrappers_refuse_cpu_tensors_and_bad_sizes():
 def test_cuda_source_constants_match_python():
     """The wrappers size the kernels' scratch from the source's tiles."""
     src = (CSRC / "feature_scans.cu").read_text()
-    consts = {k: int(v) for k, v in re.findall(r"constexpr int k(BrTile|MemTile|MaxBuckets) = (\d+);", src)}
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int k(BrTile|MemTile|SmemBuckets) = (\d+);", src)}
     assert consts == {"BrTile": port_kernel.BR_TILE, "MemTile": port_kernel.MEM_TILE,
-                      "MaxBuckets": port_kernel.MAX_BUCKETS}
+                      "SmemBuckets": port_kernel.SMEM_BUCKETS}
     assert 1 << int(re.search(r"constexpr int kMaxPositions = 1 << (\d+);", src)[1]) == port_kernel.MAX_POSITIONS

@@ -113,6 +113,15 @@ def test_cuda_source_constants_match_python():
     }
 
 
+def test_fused_scratch_constants_match_python():
+    """The wrapper sizes the kernel's scratch from the source's rank tile
+    and names how many kernels one call enqueues."""
+    src = (CSRC / "fused_features.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int k(RankTile|SmemBuckets) = (\d+);", src)}
+    assert consts == {"RankTile": port_kernel.RANK_TILE, "SmemBuckets": port_kernel.SMEM_BUCKETS}
+    assert src.count("__global__") == port_kernel.KERNELS_PER_CALL
+
+
 @pytest.mark.parametrize("bench", ["dee", "lee", "mcf"])
 def test_numpy_extraction_matches_reference(bench):
     t = run_functional(get_benchmark(bench), 3000)
@@ -173,6 +182,17 @@ GEOMETRIES = {
         (16, 4, 64),
         lambda: random_trace(900, np.random.default_rng(3), branch_p=0.0, mem_p=0.05),
         (50, 350, 500),
+    ),
+    # more than 32 queue slots, more than 8,192 buckets
+    "deep_branch_queue": (
+        (8, 48, 8),
+        lambda: random_trace(1200, np.random.default_rng(4), branch_p=0.6, pc_mod=16),
+        (1, 500, 699),
+    ),
+    "many_buckets": (
+        (9000, 4, 8),
+        lambda: random_trace(1200, np.random.default_rng(6), branch_p=0.6, pc_mod=40_000),
+        (400, 400, 400),
     ),
 }
 
