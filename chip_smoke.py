@@ -23,10 +23,11 @@ and ``nvcc``.  Phases, one JSON line each:
            views the model hands over and on contiguous operands, 1024
            causal keys, q_offset / segment / masked-row cases, with its
            registers, shared memory and blocks per SM), and the Mamba-2
-           SSD scan (B5)
-           at the full mamba2-1.3b prefill shape in float32 and bfloat16,
-           with two groups, in one chunk, and against the sequential
-           recurrence;
+           SSD scan (B5) at the full mamba2-1.3b prefill shape in float32
+           and bfloat16, with two groups, in one chunk, at chunk 200, at
+           widths 40 / 72, and against the sequential recurrence, with its
+           registers, shared memory, blocks per SM and the tensor-core
+           (HMMA) instructions in its SASS;
   slice    the port's main paths at the default TaoConfig width on
            captured benchmark traces: StreamingEngine.simulate of the raw
            traces (the fused route), then the staged route — one
@@ -59,6 +60,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -69,6 +72,7 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12  # float32 on the CUDA cores, no tensor cores
+BF16_TENSOR_FLOPS_PER_S = 989e12  # dense bf16 on the tensor cores
 
 SLICE_BENCHMARKS = ("dee", "mcf", "lee")
 SLICE_INSTRUCTIONS = 150_000
@@ -164,9 +168,9 @@ def graph_ms(fn, per_graph: int = 20, replays: int = 20) -> float:
     return start.elapsed_time(stop) / (per_graph * replays)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -486,43 +490,69 @@ def ssd_inputs(B, S, H, P, G, N, dtype, seed):
     return rand(B, S, H, P), dt, A, rand(B, S, G, N, scale=0.5), rand(B, S, G, N, scale=0.5)
 
 
+def sass_hmma_counts(library: Path, kernel: str) -> dict:
+    """HMMA (tensor-core) instructions in each instantiation of ``kernel``
+    in a built library's SASS, from ``cuobjdump -sass``: {mangled name: n}."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            if name:
+                counts[name] = 0
+        elif name and re.search(r"\bHMMA\b", line):
+            counts[name] += 1
+    return counts
+
+
 def check_ssd_kernel(failures, results):
     """B5 against its plain chunked version (y and the final state) at the
     full mamba2-1.3b prefill shape in float32 and bfloat16, with two
-    groups, in one chunk, and against the sequential recurrence; timed at
-    the prefill shape in bfloat16, with the state written, as prefill
-    launches it."""
+    groups, in one chunk, at chunk 200 and at widths 40 / 72, and against
+    the sequential recurrence; its launch resources and the tensor-core
+    instructions in its SASS; timed at the prefill shape in bfloat16, with
+    the state written, as prefill launches it."""
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.ssd.kernel import ssd_scan_cuda
+    from repro_torch.kernels._cuda import build
+    from repro_torch.kernels.ssd.kernel import SSD_SCAN, launch_info, ssd_scan_cuda
     from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_sequential_ref
 
     s = get_arch("mamba2-1.3b").ssm
     d = get_arch("mamba2-1.3b").d_model
     H, P, G, N, c = s.n_heads(d), s.head_dim, s.n_groups, s.d_state, s.chunk
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = {  # name: (B, S, H, P, G, N, dtype), against the chunked version
-        "prefill_f32": (MAMBA_BATCH, MAMBA_PROMPT, H, P, G, N, f32),
-        "prefill_bf16": (MAMBA_BATCH, MAMBA_PROMPT, H, P, G, N, bf16),
-        "two_groups_f32": (MAMBA_BATCH, 512, H, P, 2, N, f32),
-        "single_chunk_f32": (MAMBA_BATCH, c, H, P, G, N, f32),
-        "vs_sequential_f32": (2, 512, H, P, G, N, f32),
+    cases = {  # name: (B, S, H, P, G, N, chunk, dtype), against the chunked version
+        "prefill_f32": (MAMBA_BATCH, MAMBA_PROMPT, H, P, G, N, c, f32),
+        "prefill_bf16": (MAMBA_BATCH, MAMBA_PROMPT, H, P, G, N, c, bf16),
+        "two_groups_f32": (MAMBA_BATCH, 512, H, P, 2, N, c, f32),
+        "single_chunk_f32": (MAMBA_BATCH, c, H, P, G, N, c, f32),
+        "vs_sequential_f32": (2, 512, H, P, G, N, c, f32),
+        # a chunk that is a multiple of neither 16 nor the 64-row tile, and
+        # widths that are not multiples of the 16-wide fragments
+        "chunk_200_f32": (2, 400, H, P, G, N, 200, f32),
+        "chunk_200_bf16": (2, 400, H, P, G, N, 200, bf16),
+        "widths_40_72_f32": (1, 256, 8, 40, G, 72, 64, f32),
+        "widths_40_72_bf16": (1, 256, 8, 40, G, 72, 64, bf16),
     }
     ok, max_err = True, 0.0
-    for i, (name, (B, S, h, p, g, n, dtype)) in enumerate(cases.items()):
+    for i, (name, (B, S, h, p, g, n, cc, dtype)) in enumerate(cases.items()):
         inp = ssd_inputs(B, S, h, p, g, n, dtype, i)
-        y, state = ssd_scan_cuda(*inp, chunk=c, return_state=True)
+        y, state = ssd_scan_cuda(*inp, chunk=cc, return_state=True)
         if name == "vs_sequential_f32":
             y_ref, state_ref = ssd_sequential_ref(*inp), None
         else:
-            y_ref, state_ref = ssd_chunked_ref(*inp, c, return_state=True)
+            y_ref, state_ref = ssd_chunked_ref(*inp, cc, return_state=True)
         torch.cuda.synchronize()
         tol = SSD_TOL[str(dtype).split(".")[-1]]
         err = float((y.float() - y_ref.float()).abs().max())
         good = bool(torch.isfinite(y.float()).all()) and bool(
             torch.all((y.float() - y_ref.float()).abs() <= tol + tol * y_ref.float().abs()))
-        line = {"phase": "kernels", "kernel": "ssd", "case": name, "shape": [B, S, h, p, g, n, c],
+        line = {"phase": "kernels", "kernel": "ssd", "case": name, "shape": [B, S, h, p, g, n, cc],
                 "dtype": str(dtype), "y_max_abs_err": err, "y_tol": tol,
                 "y_max_abs": float(y_ref.float().abs().max())}
         if state_ref is not None:
@@ -549,7 +579,16 @@ def check_ssd_kernel(failures, results):
     # over the lower triangle only (c(c+1)/2 entries per chunk, per group
     # and per head), plus the state's apply and update, 4NPH per token
     flops = B * (S // c) * (c * (c + 1) // 2) * 2 * (G * N + H * P) + B * S * 4 * N * P * H
-    b_ms, b_by = bound(nbytes, flops)
+    # priced at the bf16 tensor-core rate: the kernel's products run there
+    b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS_PER_S)
+    info = launch_info(N, c, bf16)
+    if info["spill_bytes_per_thread"]:
+        failures.append(f"ssd: {info['spill_bytes_per_thread']} spill bytes per thread")
+    if info["blocks_per_sm"] < 1:
+        failures.append("ssd: no block fits on an SM")
+    hmma = sass_hmma_counts(build([SSD_SCAN.source])[SSD_SCAN.source], "ssd_kernel")
+    if len(hmma) != 2 or not all(hmma.values()):
+        failures.append(f"ssd: no tensor-core (HMMA) instructions in an instantiation: {hmma}")
     results["ssd"] = {
         "name": "ssd", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:26",
@@ -558,8 +597,9 @@ def check_ssd_kernel(failures, results):
     }
     emit({"phase": "kernels", "kernel": "ssd", "shape": [B, S, H, P, G, N, c], "dtype": "bfloat16",
           "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-          "byte_floor_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes, "flops": flops,
-          "library_ms": None})
+          "x_bound": ms / b_ms, "fp32_cuda_core_bound_ms": flops / FP32_FLOPS_PER_S * 1e3,
+          "bytes": nbytes, "flops": flops, "library_ms": None, **info,
+          "sass_hmma": {("bfloat16" if "bfloat16" in k else "float32"): v for k, v in hmma.items()}})
 
 
 def bitwise_equal(a, b) -> bool:

@@ -1,18 +1,22 @@
 """ctypes binding of the hand-written SSD scan kernel (``csrc/ssd.cu``).
 
-The CUDA counterpart of ``repro/kernels/ssd/kernel.py`` (``ssd_kernel``);
-the source's header says how it is laid out and what bounds it.
-``SSD_SCAN.launches`` counts launches.
+The CUDA counterpart of ``repro/kernels/ssd/kernel.py`` (``ssd_kernel``).
+Its four products run on the tensor cores as ``mma.sync.m16n8k8`` TF32
+tiles in a split scheme (each float32 operand as a TF32 high part plus its
+TF32 remainder), at float32-level error; bfloat16 operands are exact in
+TF32 and need no remainder.  The source's header says how it is laid out
+and what bounds it.  ``SSD_SCAN.launches`` counts launches.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
 from .._cuda import CudaKernel, check_cuda_tensor
 
-__all__ = ["MAX_CHUNK", "MAX_HEAD_DIM", "MAX_STATE", "SSD_SCAN", "ssd_scan_cuda"]
+__all__ = ["MAX_CHUNK", "MAX_HEAD_DIM", "MAX_STATE", "SSD_SCAN", "launch_info", "ssd_scan_cuda"]
 
 # what one block holds in shared memory (see csrc/ssd.cu)
 MAX_STATE = 128    # d_state N
@@ -23,6 +27,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SSD_SCAN = CudaKernel("ssd.cu", "tao_ssd_scan", [_P] * 7 + [_I] * 8)
+_LAUNCH_INFO = CudaKernel("ssd.cu", "tao_ssd_scan_info", [_I] * 3 + [ctypes.POINTER(ctypes.c_int)])
+_INFO_KEYS = ("regs_per_thread", "smem_bytes_per_block", "threads_per_block",
+              "blocks_per_sm", "spill_bytes_per_thread")
 
 
 def ssd_scan_cuda(
@@ -63,3 +70,18 @@ def ssd_scan_cuda(
         B, S, H, G, N, P, chunk, _DTYPES[xh.dtype],
     )
     return (y, state) if return_state else y
+
+
+def launch_info(N: int, chunk: int, dtype: torch.dtype) -> Dict[str, int]:
+    """What a launch of the kernel for d_state ``N``, ``chunk`` and I/O
+    ``dtype`` gets on the current device, without launching it: registers
+    and spill bytes per thread (``cudaFuncGetAttributes``), dynamic shared
+    memory and threads per block, and resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+    info = (ctypes.c_int * len(_INFO_KEYS))()
+    err = _LAUNCH_INFO._entry()(N, chunk, _DTYPES[dtype], info, None)
+    if err != 0:
+        raise RuntimeError(f"tao_ssd_scan_info: CUDA error {err}")
+    return dict(zip(_INFO_KEYS, info))

@@ -46,6 +46,7 @@ from repro_torch.kernels.fused.kernel import FUSED_FEATURES, fused_features_cuda
 from repro_torch.kernels.fused.ops import FusedExtractor, fused_feature_columns, init_fused_state  # noqa: E402
 from repro_torch.kernels.fused.ref import fused_features_plain  # noqa: E402
 from repro_torch.kernels.ssd.kernel import SSD_SCAN, ssd_scan_cuda  # noqa: E402
+from repro_torch.kernels.ssd.kernel import launch_info as ssd_launch_info  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_sequential_ref  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
@@ -344,20 +345,27 @@ def test_staged_engine_route_equals_fused_on_card(dev):
 
 
 # (B, S, H, P, G, N, chunk): the reduced and full mamba2-1.3b widths, two
-# groups, a chunk that is not a multiple of the kernel's 64-row tile, and
-# odd head and state widths
+# groups, chunks that are not a multiple of the kernel's 64-row tile (200
+# neither of 16 nor of 64), odd head and state widths, and widths that are
+# multiples of 8 but not of the kernel's 16-column fragments and 64-wide
+# tiles
 SSD_CASES = {
     "reduced_config": (2, 64, 8, 16, 1, 16, 32),
     "full_width": (2, 512, 64, 64, 1, 128, 256),
     "two_groups": (1, 512, 8, 64, 2, 128, 256),
     "chunk_96": (2, 192, 4, 32, 1, 64, 96),
     "odd_widths": (1, 40, 3, 5, 1, 7, 8),
+    "chunk_200": (2, 400, 64, 64, 1, 128, 200),
+    "widths_40_72": (1, 256, 8, 40, 1, 72, 64),
 }
+# each case's own seed: a new case leaves the others' inputs as they were
+SSD_SEEDS = {"chunk_96": 0, "full_width": 1, "odd_widths": 2, "reduced_config": 3,
+             "two_groups": 4, "chunk_200": 5, "widths_40_72": 6}
 
 
 def ssd_inputs(case, dtype, dev):
     B, S, H, P, G, N, c = SSD_CASES[case]
-    rng = np.random.default_rng(sorted(SSD_CASES).index(case))
+    rng = np.random.default_rng(SSD_SEEDS[case])
     cast = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev, dtype)  # noqa: E731
     xh = cast(rng.standard_normal((B, S, H, P)))
     # the model's regime: softplus(dt) in [1e-3, 0.1] plus noise, A = -(1..H)
@@ -385,6 +393,15 @@ def test_ssd_kernel_matches_plain(dev, case, dtype):
     torch.testing.assert_close(state, state_ref, atol=1e-4, rtol=1e-4)
     if dtype == "float32" and xh.shape[1] <= 512:
         torch.testing.assert_close(y, ssd_sequential_ref(xh, dt, A, Bm, Cm), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_launch_info_at_the_prefill_shape(dev, dtype):
+    ssm = get_arch("mamba2-1.3b").ssm
+    info = ssd_launch_info(ssm.d_state, ssm.chunk, getattr(torch, dtype))
+    assert info["spill_bytes_per_thread"] == 0
+    assert info["blocks_per_sm"] >= 1
+    assert info["threads_per_block"] == 256 and info["regs_per_thread"] > 0
 
 
 def test_ssd_kernel_refuses_what_it_cannot_hold(dev):

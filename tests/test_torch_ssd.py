@@ -148,3 +148,41 @@ def test_kernel_limits_match_the_source():
     for const, value in (("kMaxN", port_kernel.MAX_STATE), ("kMaxP", port_kernel.MAX_HEAD_DIM),
                          ("kMaxChunk", port_kernel.MAX_CHUNK)):
         assert int(re.search(rf"constexpr int {const} = (\d+);", src)[1]) == value, const
+
+
+def _split_tf32(x: torch.Tensor):
+    """The SSD kernel's split() on float32 bits (csrc/ssd.cu, from
+    csrc/attention.cu): hi rounded to TF32 to nearest, ties away (add half a
+    TF32 ulp to the bits and mask), lo the remainder x - hi cut to TF32."""
+    mask = -8192  # 0xffffe000 as int32: sign, exponent and 10 mantissa bits
+    hi = ((x.view(torch.int32) + 0x1000) & mask).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & mask).view(torch.float32)
+    return hi, lo
+
+
+def test_split_tf32_keeps_bfloat16_exact_and_float32_within_2_pow_minus_20():
+    # every finite bfloat16 value: TF32 rounding leaves it as it is, so the
+    # bfloat16 kernel's operands read from memory need no remainder
+    bits = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32).to(torch.int16)
+    bf = bits.view(torch.bfloat16)
+    bf = bf[torch.isfinite(bf)]
+    assert bf.numel() == 65536 - 2 * 128  # all but the top exponent's NaNs and infs
+    x = bf.float()
+    hi, lo = _split_tf32(x)
+    assert torch.equal(hi.view(torch.int32), x.view(torch.int32))
+    assert torch.equal(lo, torch.zeros_like(lo))
+    # float32 values over 40 binades, plus every rounding edge of the low 13
+    # bits (ties, one below, one above): hi + lo within 2^-20 |x| (the
+    # analysis gives 2^-21)
+    rng = np.random.default_rng(0)
+    mant = rng.uniform(1.0, 2.0, 100_000) * np.exp2(rng.integers(-20, 20, 100_000))
+    v = (mant * rng.choice([-1.0, 1.0], 100_000)).astype(np.float32)
+    edges = (np.float32(1.5).view(np.int32) & ~0x1fff) + np.array([0xfff, 0x1000, 0x1001, 0x1fff])
+    v = np.concatenate([v, edges.astype(np.int32).view(np.float32), -edges.astype(np.int32).view(np.float32)])
+    x = torch.from_numpy(v)
+    hi, lo = _split_tf32(x)
+    for part in (hi, lo):  # both are TF32 values: the low 13 bits are zero
+        assert not torch.any(part.view(torch.int32) & 0x1fff)
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert torch.all(err <= 2.0 ** -20 * x.double().abs())
+    assert float((err / x.double().abs()).max()) > 0  # the cut does lose bits
