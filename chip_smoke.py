@@ -15,12 +15,13 @@ and ``nvcc``.  Phases, one JSON line each:
            benchmark trace, with wide addresses, queues of 48 and 64, 20,000
            buckets, four batches in one launch and one-position launches;
            the kernels one call enqueues), the staged whole-trace
-           branch-history and memory-distance scans (B2, B3) on whole
-           benchmark traces, a collision-heavy config, wide addresses and
-           20,000 / 60,000 buckets, the staged
+           branch-history and memory-distance scans (B2; B3 writing the
+           signed-log features) on whole benchmark traces, a
+           collision-heavy config, wide addresses, 20,000 / 60,000 buckets
+           and deltas where the signed-log rounds tightly, the staged
            extraction and the eager signed-log against the NumPy
-           specification, attention (B4: the Tao shape on the packed q/k/v
-           views the model hands over and on contiguous operands, 1024
+           specification, attention (B4: the Tao shape on the packed
+           q/k/v views the model hands over and on contiguous operands, 1024
            causal keys, q_offset / segment / masked-row cases, with its
            registers, shared memory and blocks per SM), and the Mamba-2
            SSD scan (B5) at the full mamba2-1.3b prefill shape in float32
@@ -33,9 +34,10 @@ and ``nvcc``.  Phases, one JSON line each:
            traces (the fused route), then the staged route — one
            whole-trace device_feature_arrays per trace, then
            simulate(trace, features=arrays) — each with the kernels'
-           launch counts read around it; finite-metric checks, the staged
-           route against the fused one, the fused route against the same
-           engine on the CPU (the plain versions) on one trace, both
+           launch counts read around it; the kernels one extraction
+           enqueues and its peak device memory; finite-metric checks, the
+           staged route against the fused one, the fused route against the
+           same engine on the CPU (the plain versions) on one trace, both
            routes timed side by side, and a profile of one simulate
            (with the copy kernels per batch);
   mamba2   the port's Mamba-2 serving path at the full width of
@@ -84,6 +86,9 @@ MANY_BUCKETS = (20_000, 60_000)
 # (n_buckets, n_queue, n_mem) where many branches share few buckets (three:
 # not a power of two) and the queues are short
 COLLISION_SHAPE = (3, 5, 12)
+# FLOPs per valid memory-distance slot: one subtraction, two conversions
+# and the ~27 float32 ops of the signed-log (B1 and B3)
+SIGNED_LOG_SLOT_FLOPS = 30
 # attention kernel vs its full-matrix plain version: 3xTF32 tensor-core
 # products (float32-level error) and exp2 of pre-scaled scores in the
 # kernel against float32 einsum and expf in the plain version
@@ -174,16 +179,25 @@ def bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernels_enqueued(fn) -> int:
-    """How many device kernels one ``fn()`` runs, from torch.profiler."""
+def kernels_enqueued(fn, sessions: int = 3) -> int:
+    """How many device kernels one ``fn()`` runs, from torch.profiler
+    (copies and memsets not counted): the most over ``sessions`` profiled
+    calls.  A session can miss a kernel but never counts one that did not
+    run: in a process whose kernels were already built once, the first
+    session counted B1's five kernels as four; why was not found."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    counts = []
+    for _ in range(sessions):
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                          and not e.key.startswith(("Memcpy", "Memset"))))
+    return max(counts)
 
 
 def random_trace(n: int, seed: int, pc_mod: int):
@@ -204,6 +218,19 @@ def random_trace(n: int, seed: int, pc_mod: int):
     t["is_mem"] = ~t["is_branch"] & (rng.random(n) < 0.67)
     t["is_store"] = t["is_mem"] & (rng.random(n) < 0.4)
     t["addr"] = np.where(t["is_mem"], rng.integers(0, 1 << 29, n), 0)
+    return t
+
+
+def edge_delta_trace(seed: int):
+    """Memory ops at every other position, at ``signed_log_edge_addresses``
+    (deltas of 0, x * 2^k - 1 with x next to sqrt(2), and 2^62); random
+    ops between."""
+    from repro_torch.kernels.features.ref import signed_log_edge_addresses
+
+    addr = signed_log_edge_addresses()
+    t = random_trace(2 * len(addr), seed, 64)
+    t["is_mem"][::2], t["is_branch"][::2], t["taken"][::2], t["addr"][::2] = True, False, False, addr
+    t["is_mem"][1::2] = False
     return t
 
 
@@ -361,9 +388,7 @@ def phase_kernels(failures, results, traces):
     state_bytes = 2 * (fcfg.n_buckets * fcfg.n_queue * 4 + (fcfg.n_mem + 1) * 8)
     out_bytes = n * (32 + 5 + fcfg.n_queue + fcfg.n_mem) * 4
     n_mem_slots = int((extract_features(ft[:n], fcfg, with_labels=False).memdist != 0).sum())
-    # per valid memory-distance slot: one subtraction, two conversions and
-    # the ~27 float32 ops of the signed-log
-    b_ms, b_by = bound(col_bytes + state_bytes + out_bytes, 30 * n_mem_slots)
+    b_ms, b_by = bound(col_bytes + state_bytes + out_bytes, SIGNED_LOG_SLOT_FLOPS * n_mem_slots)
     results["fused_features"] = {
         "name": "fused_features", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_features.cu",
@@ -617,7 +642,9 @@ def bitwise_equal(a, b) -> bool:
 
 def check_staged_kernels(failures, results, traces):
     """B2 and B3 bitwise against their plain versions on whole traces, the
-    staged extraction and the eager signed-log against the NumPy spec."""
+    staged extraction and the eager signed-log against the NumPy spec; the
+    eager signed-log on a trace's raw deltas, which B3's gather replaced,
+    timed beside B3."""
     import numpy as np
     import torch
 
@@ -629,7 +656,11 @@ def check_staged_kernels(failures, results, traces):
         signed_log as signed_log_torch,
         trace_columns,
     )
-    from repro_torch.kernels.features.ref import branch_history_plain, memdist_delta_plain
+    from repro_torch.kernels.features.ref import (
+        branch_history_plain,
+        memdist_delta_plain,
+        memdist_feature_plain,
+    )
 
     dev = torch.device("cuda")
     fcfg = FeatureConfig()
@@ -640,9 +671,11 @@ def check_staged_kernels(failures, results, traces):
     cases += [("mcf_wide_addresses", fcfg, wide)]
     cases += [(f"random_buckets_{nb}", FeatureConfig(n_buckets=nb), random_trace(SLICE_INSTRUCTIONS, i, 2 * nb))
               for i, nb in enumerate(MANY_BUCKETS)]
+    cases += [("edge_deltas", fcfg, edge_delta_trace(2))]
     ok = {"branch_history": True, "memdist_delta": True, "device_feature_arrays": True}
     err = {"branch_history": 0.0, "memdist_delta": 0.0}
     timing = {"branch_history": [], "memdist_delta": []}
+    eager = []  # the eager signed-log on a benchmark trace's raw deltas
     for name, cfg, trace in cases:
         cols = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                 for k, v in trace_columns(trace, cfg).items()}
@@ -655,7 +688,7 @@ def check_staged_kernels(failures, results, traces):
                 lambda: branch_history_plain(cols["bucket"], outcome, cfg.n_buckets, cfg.n_queue)),
             "memdist_delta": (
                 lambda: memdist_delta_cuda(cols["addr"], mem, cfg.n_mem),
-                lambda: memdist_delta_plain(cols["addr"], mem, cfg.n_mem)),
+                lambda: memdist_feature_plain(cols["addr"], mem, cfg.n_mem)),
         }
         line = {"phase": "kernels", "check": "staged_scans", "case": name,
                 "config": [cfg.n_buckets, cfg.n_queue, cfg.n_mem], "positions": len(trace)}
@@ -672,6 +705,11 @@ def check_staged_kernels(failures, results, traces):
                     "plain_ms": cuda_ms(plain, 5), "n": len(trace),
                     "n_mem": int(trace["is_mem"].sum()),
                 })
+                if kname == "memdist_delta":
+                    raw = memdist_delta_plain(cols["addr"], mem, cfg.n_mem)
+                    eager.append({"ms": graph_ms(lambda: signed_log_torch(raw)),
+                                  "kernels_enqueued": kernels_enqueued(lambda: signed_log_torch(raw))})
+                    del raw
         spec = extract_features(trace, cfg, with_labels=False)
         arrays = device_feature_arrays(trace_columns(trace, cfg), cfg, device=dev)
         same = all(bitwise_equal(arrays[f], getattr(spec, f))
@@ -693,7 +731,9 @@ def check_staged_kernels(failures, results, traces):
     ]).astype(np.float32)
     sl_ok = bitwise_equal(signed_log_torch(torch.from_numpy(d).to(dev)), signed_log(d))
     emit({"phase": "kernels", "check": "eager_signed_log_on_card", "values": int(d.size),
-          "bitwise_vs_numpy_spec": sl_ok})
+          "bitwise_vs_numpy_spec": sl_ok, "raw_deltas_of": list(SLICE_BENCHMARKS),
+          "raw_deltas_per_trace_ms": [e["ms"] for e in eager],
+          "raw_deltas_kernels_enqueued": [e["kernels_enqueued"] for e in eager]})
     if not sl_ok:
         failures.append("signed_log: eager torch CUDA ops differ from the NumPy spec")
     if not ok["device_feature_arrays"]:
@@ -710,9 +750,9 @@ def check_staged_kernels(failures, results, traces):
         for r in rows:
             if kname == "branch_history":  # bucket + outcome in, (n, N_q) f32 out; copies only
                 bounds.append(bound(r["n"] * (8 + 4 * width), 0))
-            else:  # addr + mask in, (n, N_m) f32 out; a subtraction and two roundings per valid slot
+            else:  # addr + mask in, (n, N_m) f32 out; the delta and its signed-log per valid slot
                 slots = sum(min(k, width) for k in range(r["n_mem"]))
-                bounds.append(bound(r["n"] * (9 + 4 * width), 3 * slots))
+                bounds.append(bound(r["n"] * (9 + 4 * width), SIGNED_LOG_SLOT_FLOPS * slots))
         mean = lambda key: sum(r[key] for r in rows) / len(rows)  # noqa: E731
         b_ms = sum(b[0] for b in bounds) / len(bounds)
         results[kname] = {
@@ -725,7 +765,8 @@ def check_staged_kernels(failures, results, traces):
               "positions": rows[0]["n"], "bitwise_vs_plain": ok[kname],
               "per_trace_ms": [r["ms"] for r in rows], "ms": mean("ms"),
               "call_ms": mean("call_ms"), "plain_ms": mean("plain_ms"),
-              "bound_ms": b_ms, "bound_by": bounds[0][1], "library_ms": None})
+              "bound_ms": b_ms, "bound_by": bounds[0][1], "x_bound": mean("ms") / b_ms,
+              "library_ms": None})
 
 
 def flip_check(got, ref, trace, cfg) -> dict:
@@ -875,13 +916,15 @@ def phase_slice(failures, results, traces):
     held_bytes = sum(v.numel() * v.element_size() for v in arrays.values())
     peak = torch.cuda.max_memory_allocated() - base
     del arrays
+    per_extraction = kernels_enqueued(lambda: extract(traces["lee"]))
     emit({"phase": "slice", "route": "staged", "traces": list(SLICE_BENCHMARKS),
           "instructions": total_n, "extraction_seconds": ext_total, "simulate_seconds": sim_total,
           "mips": total_n / 1e6 / (ext_total + sim_total),
           "simulate_only_mips": total_n / 1e6 / sim_total,
           "fused_mips": total_n / 1e6 / total_s, "launches": s_launches,
           "held_bytes_per_instruction": held_bytes / n_lee,
-          "peak_extraction_bytes_per_instruction": peak / n_lee})
+          "peak_extraction_bytes_per_instruction": peak / n_lee,
+          "kernels_enqueued_per_extraction": per_extraction})
 
     # ---- both routes side by side, in turns (fused, staged, staged, fused):
     # medians per trace of the fused simulate, the staged extraction and

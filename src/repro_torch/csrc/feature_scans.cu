@@ -7,9 +7,13 @@
 //     outcome table before its own push, most recent first; 0 rows off
 //     branches.  The table starts at zero and no state leaves the call.
 //   memdist_delta_kernel (line 71)   addr (n,) int64, mem (n,) bool ->
-//     (n, N_m) f32 RAW deltas to the last N_m memory addresses, 0 off
-//     memory ops and past the fill.  The signed-log is the caller's eager
-//     pass (kernels/features/ops.py), as in the reference.
+//     (n, N_m) f32 `memdist` features: the signed-log of the deltas to
+//     the last N_m memory addresses, 0 off memory ops and past the fill.
+//     The TPU kernel writes the raw deltas and its caller applies the
+//     signed-log; here the gather applies it (signed_log_rn,
+//     core/features.py::signed_log in one correctly rounded float32 op per
+//     step), bitwise the NumPy specification, so no raw (n, N_m) tensor
+//     reaches device memory.
 // Each runs once per trace over the whole trace, not once per batch.
 //
 // The TPU kernels walk the trace in one sequential loop with the table or
@@ -34,10 +38,11 @@
 //     per tile of kMemTile positions, the memory ops.  scan_exclusive: the
 //     tile bases.  md_compact: a block-wide ballot scan gives each access
 //     its rank r and writes its int64 address to comp[r].  md_gather: slot
-//     k is comp[r] - comp[r-1-k] while k < r, else 0, the delta taken in
+//     k is comp[r] - comp[r-1-k] while k < r, else +0, the delta taken in
 //     int64 and rounded int64 -> float64 -> float32 as the NumPy
 //     specification does, so any address is exact (the TPU kernel's int32
-//     deltas need |addr| < 2^30).
+//     deltas need |addr| < 2^30), and the slot holds the signed-log of
+//     that float32 (a zero delta gives +0, a negative one keeps its sign).
 // No pass re-reads the trace from position 0: every pass is O(n) (plus
 // O(n / kBrTile * N_b) counters for the branch partition).  Any N_b >= 1
 // is taken: counters that do not fit in shared memory live in global scratch.
@@ -45,11 +50,15 @@
 // What bounds it on the H100: bytes.  Per position the branch history
 // reads 8 B and writes 4 * N_q B (128 B at the default N_q = 32); the
 // memory distance reads 9 B and writes 4 * N_m B (256 B at N_m = 64).
-// Neither does arithmetic a tensor core serves.  The gathers, which carry
-// nearly all the bytes, run one thread per output element, so every store
-// is coalesced for any N_q or N_m; the rank passes move 4-16 B per
-// position.  The serial parts (one warp per branch tile, one block for each
-// exclusive scan) are short at trace sizes of 10^5..10^7.
+// Neither does arithmetic a tensor core serves.  The signed-log epilogue
+// costs ~27 float32 ops per valid slot, one of them an IEEE divide, on top
+// of the delta's 3: at a 150k-instruction trace's ~3.8M valid slots ~0.11
+// GFLOP, ~1.7 us at 67 TFLOP/s against ~12 us for the bytes.  The
+// gathers, which carry nearly all the bytes, run one thread per output
+// element, so every store is coalesced for any N_q or N_m; the rank passes
+// move 4-16 B per position.  The serial parts (one warp per branch tile,
+// one block for each exclusive scan) are short at trace sizes of
+// 10^5..10^7.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,6 +74,20 @@ constexpr int kSmemBuckets = 49152;  // per-bucket counters in shared memory
 constexpr int kScanThreads = 1024;
 constexpr int kMaxPositions = 1 << 30;  // int32 positions, a tile of headroom
 constexpr unsigned kFull = 0xffffffffu;
+
+// float32 bit patterns of SIGNED_LOG_SQRT2 and SIGNED_LOG_COEFFS
+// (core/features.py, k = 1, 3, ..., 13), and horner_step / signed_log_rn
+// below: verbatim copies of fused_features.cu's (each library is keyed on
+// its own source's hash; tests/test_torch_feature_kernels.py holds the
+// copies identical).
+#define SL_SQRT2 0x3fb504f3u
+#define SL_C1 0x4038aa3bu
+#define SL_C3 0x3f76384fu
+#define SL_C5 0x3f13bb63u
+#define SL_C7 0x3ed30bb1u
+#define SL_C9 0x3ea4258au
+#define SL_C11 0x3e864d42u
+#define SL_C13 0x3e6347abu
 
 #define TAO_LAUNCH_CHECK()                      \
   do {                                          \
@@ -292,7 +315,37 @@ __device__ __forceinline__ float delta_f32(int64_t a, int64_t b) {
   return __double2float_rn(__ll2double_rn(d));
 }
 
-// One thread per output element of kRows positions.
+__device__ __forceinline__ float horner_step(float p, float z, unsigned c) {
+  return __fadd_rn(__fmul_rn(p, z), __uint_as_float(c));
+}
+
+// core/features.py::signed_log, one correctly rounded float32 op per step.
+__device__ __forceinline__ float signed_log_rn(float d) {
+  const float a = fabsf(d);
+  const float x = __fadd_rn(a, 1.0f);
+  const int bits = __float_as_int(x);
+  int e = ((bits >> 23) & 0xFF) - 127;
+  float m = __int_as_float((bits & 0x007FFFFF) | 0x3F800000);
+  if (m > __uint_as_float(SL_SQRT2)) {
+    m = __fmul_rn(m, 0.5f);
+    e += 1;
+  }
+  const float s = __fdiv_rn(__fsub_rn(m, 1.0f), __fadd_rn(m, 1.0f));
+  const float z = __fmul_rn(s, s);
+  float p = __uint_as_float(SL_C13);
+  p = horner_step(p, z, SL_C11);
+  p = horner_step(p, z, SL_C9);
+  p = horner_step(p, z, SL_C7);
+  p = horner_step(p, z, SL_C5);
+  p = horner_step(p, z, SL_C3);
+  p = horner_step(p, z, SL_C1);
+  float r = __fmul_rn(p, s);
+  r = __fadd_rn(r, (float)e);  // e is a small integer: exact
+  r = __fmul_rn(r, 0.03125f);
+  return d < 0.0f ? -r : r;
+}
+
+// One thread per output element of kRows positions: the delta's signed-log.
 __global__ void __launch_bounds__(kThreads)
 md_gather(const int64_t* comp, const int32_t* rank_of, int n, int n_mem,
           float* out) {
@@ -303,7 +356,7 @@ md_gather(const int64_t* comp, const int32_t* rank_of, int n, int n_mem,
     const int row = j / n_mem;
     const int k = j - row * n_mem;
     const int r = rank_of[p0 + row];
-    o[j] = k < r ? delta_f32(comp[r], comp[r - 1 - k]) : 0.0f;
+    o[j] = k < r ? signed_log_rn(delta_f32(comp[r], comp[r - 1 - k])) : 0.0f;
   }
 }
 

@@ -5,7 +5,9 @@ The CUDA counterparts of ``repro/kernels/features/kernel.py``
 (``branch_history_kernel`` and ``memdist_delta_kernel``); the source's
 header says how the scans are laid out on the card and what bounds them.
 Each wrapper is one launch of its C entry point (several passes on one
-stream), counted by ``BRANCH_HISTORY.launches`` / ``MEMDIST_DELTA.launches``.
+stream), counted by ``BRANCH_HISTORY.launches`` / ``MEMDIST_DELTA.launches``;
+the memory distance writes the finished signed-log features, where the
+reference's kernel writes raw deltas.
 The wrappers allocate the output and the passes' scratch; scratch sizes
 mirror the source's ``*_scratch_bytes`` (the entry point refuses less).
 """
@@ -92,9 +94,10 @@ def branch_history_cuda(
 
 def memdist_delta_cuda(addr: torch.Tensor, mem: torch.Tensor, n_mem: int) -> torch.Tensor:
     """``addr`` (n,) int64 and ``mem`` (n,) bool, contiguous on the card ->
-    (n, n_mem) float32 RAW deltas to the previous ``n_mem`` memory
-    addresses (int64 delta rounded through float64), 0 off memory ops and
-    past the fill.  What ``ref.memdist_delta_plain`` computes."""
+    (n, n_mem) float32 ``memdist`` features: the signed-log of the deltas
+    to the previous ``n_mem`` memory addresses (int64 delta rounded through
+    float64), 0 off memory ops and past the fill.  What
+    ``ref.memdist_feature_plain`` computes."""
     if n_mem < 1:
         raise ValueError(f"n_mem must be >= 1, got {n_mem}")
     n = _positions(addr)

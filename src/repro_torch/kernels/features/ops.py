@@ -7,12 +7,14 @@ reference's: the device extraction is BITWISE the NumPy specification
 
   * ``trace_columns`` is the host prep of both device feature paths (bucket
     hash on the int64 pc, narrowed ids, ~32 B/instr);
-  * ``branch_history_scan`` / ``memdist_delta_scan`` run the whole-trace
+  * ``branch_history_scan`` / ``memdist_feature_scan`` run the whole-trace
     scans — the CUDA kernels (``kernel.py``, ``csrc/feature_scans.cu``)
     for tensors on the card, their plain versions (``ref.py``) on the
-    CPU.  Branch-history rows are copies of {-1, 0, +1}; memory deltas are
-    int64 subtractions rounded to float32 through float64;
-  * ``signed_log`` is the op-per-kernel torch twin of
+    CPU.  Branch-history rows are copies of {-1, 0, +1}; memory features
+    are the signed-log of int64 deltas rounded to float32 through float64,
+    written by the scan itself (the reference's ``memdist_delta_scan``
+    returns the raw deltas and its caller applies ``signed_log_device``);
+  * ``signed_log`` (from ``ref.py``) is the op-per-kernel torch twin of
     ``core.features.signed_log``: one rounded float32 op per statement,
     never compiled, so it matches the NumPy specification bit for bit on
     any device;
@@ -36,55 +38,19 @@ import numpy as np
 import torch
 
 from ... import resolve_device
-from ...core.features import (
-    FP_OPS,
-    SIGNED_LOG_COEFFS,
-    SIGNED_LOG_SQRT2,
-    FeatureConfig,
-    FeatureSet,
-    _labels,
-)
+from ...core.features import FP_OPS, FeatureConfig, FeatureSet, _labels
 from ...uarch.isa import NUM_REGS
 from .kernel import branch_history_cuda, memdist_delta_cuda
-from .ref import branch_history_plain, memdist_delta_plain
+from .ref import branch_history_plain, memdist_feature_plain, signed_log
 
 __all__ = [
     "branch_history_scan",
     "device_feature_arrays",
     "extract_features_device",
-    "memdist_delta_scan",
+    "memdist_feature_scan",
     "signed_log",
     "trace_columns",
 ]
-
-
-# tao: bitwise
-def signed_log(d: torch.Tensor) -> torch.Tensor:
-    """Bit-exact torch twin of ``core.features.signed_log``.
-
-    Each statement is one eagerly dispatched, individually rounded float32
-    op.  Never wrap it in ``torch.compile``: a fused kernel may contract
-    `a*b + c` into an fma and differ in the last ulp.
-    """
-    d = d.to(torch.float32)
-    a = torch.abs(d)
-    x = a + 1.0
-    bits = x.view(torch.int32)
-    e = ((bits >> 23) & 0xFF) - 127
-    m = ((bits & 0x007FFFFF) | 0x3F800000).view(torch.float32)
-    big = m > float(SIGNED_LOG_SQRT2)
-    m = torch.where(big, m * 0.5, m)
-    e = (e + big.to(torch.int32)).to(torch.float32)
-    s = (m - 1.0) / (m + 1.0)
-    z = s * s
-    p = torch.full_like(z, float(SIGNED_LOG_COEFFS[-1]))
-    for c in SIGNED_LOG_COEFFS[-2::-1]:
-        p = p * z
-        p = p + float(c)
-    r = p * s
-    r = r + e
-    r = r * (1.0 / 32.0)
-    return torch.where(d < 0, -r, r)
 
 
 def trace_columns(trace: np.ndarray, cfg: FeatureConfig) -> Dict[str, np.ndarray]:
@@ -114,13 +80,15 @@ def branch_history_scan(bucket, outcome, *, n_buckets: int, n_queue: int) -> tor
     return run(bucket, outcome, n_buckets, n_queue)
 
 
-def memdist_delta_scan(addr, mem, *, n_mem: int) -> torch.Tensor:
-    """(n,) addresses + memory mask -> (n, n_mem) RAW float32 deltas, on the
-    inputs' device (the kernel on the card, the plain version on the CPU).
-    Addresses are taken as int64: any address is exact."""
+def memdist_feature_scan(addr, mem, *, n_mem: int) -> torch.Tensor:
+    """(n,) addresses + memory mask -> (n, n_mem) float32 ``memdist``
+    features, the signed-log of the deltas, on the inputs' device (one
+    kernel launch on the card, no raw deltas in device memory; the plain
+    version on the CPU).  Addresses are taken as int64: any address is
+    exact."""
     addr = torch.as_tensor(addr).to(torch.int64).contiguous()
     mem = torch.as_tensor(mem).to(torch.bool).contiguous()
-    run = memdist_delta_cuda if addr.is_cuda else memdist_delta_plain
+    run = memdist_delta_cuda if addr.is_cuda else memdist_feature_plain
     return run(addr, mem, n_mem)
 
 
@@ -160,13 +128,13 @@ def device_feature_arrays(
         c["is_branch"], c["taken"], c["is_mem"], c["is_store"],
     )
     brhist = branch_history_scan(c["bucket"], outcome, n_buckets=cfg.n_buckets, n_queue=cfg.n_queue)
-    deltas = memdist_delta_scan(c["addr"], mem, n_mem=cfg.n_mem)
+    memdist = memdist_feature_scan(c["addr"], mem, n_mem=cfg.n_mem)
     return {
         "opcode": c["opcode"].to(torch.int32),
         "regbits": regbits,
         "flags": flags,
         "brhist": brhist,
-        "memdist": signed_log(deltas),  # eager: keeps NumPy bit-equality
+        "memdist": memdist,
         "is_branch": c["is_branch"],
         "is_mem": c["is_mem"],
     }

@@ -20,14 +20,61 @@ float64 — the NumPy specification's ``core/features.py::_memory_distance``
 deltas are exact, and the NumPy specification's for any address.  The
 staged plain versions run them from an empty state and drop the outgoing
 one; the fused pass (``kernels/fused/ref.py``) threads the state.
+
+``signed_log`` is the op-per-kernel torch twin of
+``core.features.signed_log``, bitwise on any device: the plain epilogue of
+the memory distance (``memdist_feature_plain``, the signed-log of the raw
+``memdist_delta_plain``) and of the fused pass.
+``signed_log_edge_addresses`` builds addresses whose deltas sit where the
+signed-log rounds tightly, the edge case of every memory-distance check.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["branch_history_plain", "branch_scan", "memdist_delta_plain", "memory_scan"]
+from ...core.features import SIGNED_LOG_COEFFS, SIGNED_LOG_SQRT2
+
+__all__ = [
+    "branch_history_plain",
+    "branch_scan",
+    "memdist_delta_plain",
+    "memdist_feature_plain",
+    "memory_scan",
+    "signed_log",
+    "signed_log_edge_addresses",
+]
+
+
+# tao: bitwise
+def signed_log(d: torch.Tensor) -> torch.Tensor:
+    """Bit-exact torch twin of ``core.features.signed_log``.
+
+    Each statement is one eagerly dispatched, individually rounded float32
+    op.  Never wrap it in ``torch.compile``: a fused kernel may contract
+    `a*b + c` into an fma and differ in the last ulp.
+    """
+    d = d.to(torch.float32)
+    a = torch.abs(d)
+    x = a + 1.0
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) & 0xFF) - 127
+    m = ((bits & 0x007FFFFF) | 0x3F800000).view(torch.float32)
+    big = m > float(SIGNED_LOG_SQRT2)
+    m = torch.where(big, m * 0.5, m)
+    e = (e + big.to(torch.int32)).to(torch.float32)
+    s = (m - 1.0) / (m + 1.0)
+    z = s * s
+    p = torch.full_like(z, float(SIGNED_LOG_COEFFS[-1]))
+    for c in SIGNED_LOG_COEFFS[-2::-1]:
+        p = p * z
+        p = p + float(c)
+    r = p * s
+    r = r + e
+    r = r * (1.0 / 32.0)
+    return torch.where(d < 0, -r, r)
 
 
 def branch_scan(
@@ -117,7 +164,27 @@ def branch_history_plain(
 
 
 def memdist_delta_plain(addr: torch.Tensor, mem: torch.Tensor, n_mem: int) -> torch.Tensor:
-    """What ``memdist_delta_cuda`` computes, on any device: (n, n_mem) raw
-    deltas from an empty address queue."""
+    """(n, n_mem) raw deltas from an empty address queue, on any device:
+    what the reference's ``memdist_delta_scan`` returns."""
     mq = torch.zeros((1, n_mem + 1), dtype=torch.int64, device=addr.device)
     return memory_scan(addr.to(torch.int64), mem != 0, mq)[0]
+
+
+def memdist_feature_plain(addr: torch.Tensor, mem: torch.Tensor, n_mem: int) -> torch.Tensor:
+    """What ``memdist_delta_cuda`` computes, on any device: the signed-log
+    of ``memdist_delta_plain``, the (n, n_mem) ``memdist`` features."""
+    return signed_log(memdist_delta_plain(addr, mem, n_mem))
+
+
+def signed_log_edge_addresses(k_max: int = 63, huge: bool = True) -> np.ndarray:
+    """int64 addresses whose consecutive deltas are +d and -d for each d
+    of: 0 (duplicate addresses); x * 2^k - 1 for the float32 x just below,
+    at and just above sqrt(2) and k < ``k_max``, where 1 + |d| in float32
+    has a mantissa next to sqrt(2) (exactly x at k = 23 and from k = 25
+    on); with ``huge``, 2^62 (two steps back: 2^63, which wraps in int64)."""
+    xs = (np.nextafter(SIGNED_LOG_SQRT2, np.float32(0)), SIGNED_LOG_SQRT2,
+          np.nextafter(SIGNED_LOG_SQRT2, np.float32(2)))
+    mants = [int(np.float64(x) * 2**23) for x in xs]  # x * 2^23, exact
+    deltas = [0] + [(m << (k - 23) if k >= 23 else round(m / 2 ** (23 - k))) - 1
+                    for m in mants for k in range(k_max)] + ([2**62] if huge else [])
+    return np.array([0] + [a for d in deltas for a in (d, 0, -d, 0)], dtype=np.int64)

@@ -16,8 +16,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..features.ops import _per_instruction_device, signed_log
-from ..features.ref import branch_scan, memory_scan
+from ..features.ops import _per_instruction_device
+from ..features.ref import branch_scan, memory_scan, signed_log
 
 __all__ = ["fused_features_plain", "fused_scan_plain"]
 

@@ -9,10 +9,11 @@ toolkit:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The feature kernels — fused (B1) and the staged whole-trace scans (B2
-branch history, B3 memory distance) — are held BITWISE to their plain
-versions and to the NumPy specification (copies, int64 deltas rounded to
-float32 through float64, and the signed-log in individually rounded
-float32 ops on every side, the eager torch one included); attention within
+branch history, B3 memory distance writing the signed-log features) — are
+held BITWISE to their plain versions and to the NumPy specification
+(copies, int64 deltas rounded to float32 through float64, and the
+signed-log in individually rounded float32 ops on every side, the eager
+torch one included); attention within
 atol = rtol = 1e-5 (3xTF32 tensor-core products, float32-level error, and
 exp2 of pre-scaled scores in the kernel against float32 einsum and expf in
 the full-matrix plain version), its output the (B, H, Sq, Dv) view of a
@@ -41,7 +42,11 @@ from repro_torch.kernels.features.kernel import (  # noqa: E402
     memdist_delta_cuda,
 )
 from repro_torch.kernels.features.ops import device_feature_arrays, trace_columns  # noqa: E402
-from repro_torch.kernels.features.ref import branch_history_plain, memdist_delta_plain  # noqa: E402
+from repro_torch.kernels.features.ref import (  # noqa: E402
+    branch_history_plain,
+    memdist_feature_plain,
+    signed_log_edge_addresses,
+)
 from repro_torch.kernels.fused.kernel import FUSED_FEATURES, fused_features_cuda  # noqa: E402
 from repro_torch.kernels.fused.ops import FusedExtractor, fused_feature_columns, init_fused_state  # noqa: E402
 from repro_torch.kernels.fused.ref import fused_features_plain  # noqa: E402
@@ -252,6 +257,15 @@ def test_attention_kernel_refuses_wide_heads(dev):
         flash_attention_cuda(q, q, q)
 
 
+def edge_delta_trace(rng):
+    """Memory ops at every other position, at ``signed_log_edge_addresses``
+    (deltas of 0, x * 2^k - 1 with x next to sqrt(2), and 2^62)."""
+    addr = signed_log_edge_addresses()
+    t = random_trace(2 * len(addr), rng, mem_p=0.0)
+    t["is_mem"][::2], t["is_branch"][::2], t["taken"][::2], t["addr"][::2] = True, False, False, addr
+    return t
+
+
 # (n_buckets, n_queue, n_mem), trace: the CPU cases of
 # test_torch_feature_kernels.py, the default config on a benchmark, and
 # shapes past one rank tile and past 32 queue slots
@@ -273,6 +287,8 @@ SCAN_CASES = {
     # (60,000) counters in global scratch
     "buckets_20000": ((20000, 32, 64), lambda: random_trace(30000, np.random.default_rng(13), pc_mod=40_000)),
     "buckets_60000": ((60000, 32, 64), lambda: random_trace(30000, np.random.default_rng(14), pc_mod=120_000)),
+    # the signed-log's tight roundings, huge and wrapping deltas, zero deltas
+    "edge_deltas": ((16, 4, 8), lambda: edge_delta_trace(np.random.default_rng(15))),
 }
 
 
@@ -287,7 +303,7 @@ def test_staged_scan_kernels_bitwise_equal_plain(dev, case):
     br = branch_history_cuda(cols["bucket"], outcome, nb, nq)
     md = memdist_delta_cuda(cols["addr"], cols["is_mem"], nm)
     br_p = branch_history_plain(cols["bucket"], outcome, nb, nq)
-    md_p = memdist_delta_plain(cols["addr"], cols["is_mem"], nm)
+    md_p = memdist_feature_plain(cols["addr"], cols["is_mem"], nm)
     torch.cuda.synchronize()
     assert (BRANCH_HISTORY.launches, MEMDIST_DELTA.launches) == (launches[0] + 1, launches[1] + 1)
     assert torch.equal(br.view(torch.int32), br_p.view(torch.int32)), case

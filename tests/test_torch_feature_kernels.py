@@ -1,20 +1,24 @@
 """The staged whole-trace feature path of the port, bitwise against the
 reference.
 
-The port's ``branch_history_scan`` / ``memdist_delta_scan`` (on the CPU:
-the plain versions of ``csrc/feature_scans.cu``) against the reference's
-scan oracles (``repro.kernels.features.ref``) and its Pallas kernels in
-interpret mode (``repro.kernels.features.ops``, ``interpret=True``), and
-the port's ``extract_features_device`` against the reference's and the
-NumPy specification.  Every value is a copy ({0, ±1}), an int64 delta
-rounded to float32 through float64, or the signed-log of one in
+The port's ``branch_history_scan`` / ``memdist_feature_scan`` (on the
+CPU: the plain versions of ``csrc/feature_scans.cu``) and the raw deltas
+under the latter (``memdist_delta_plain``) against the reference's scan
+oracles (``repro.kernels.features.ref``), its Pallas kernels in interpret
+mode (``repro.kernels.features.ops``, ``interpret=True``; the memory
+features against the reference's ``signed_log_device`` of its Pallas scan)
+and the NumPy specification, and the port's ``extract_features_device``
+against the reference's and the NumPy specification.  Every value is a
+copy ({0, ±1}), an int64 delta rounded to float32 through float64, or the
+signed-log of one in
 individually rounded float32 ops, so every comparison is BITWISE.  The
 cases mirror ``tests/test_feature_kernels.py``: benchmark traces,
 collision-heavy bucket counts (1, 2 and the non-power-of-two 3), empty
 queues, a memory-heavy trace with negative, zero and duplicate deltas,
-labels passed through from an adjusted trace — and, past the reference's
-int32 window (where it raises by design), wide addresses against the
-NumPy specification.
+labels passed through from an adjusted trace, deltas where the
+signed-log's rounding is tight — and, past the reference's int32 window
+(where it raises by design), wide addresses against the NumPy
+specification.
 """
 import re
 from pathlib import Path
@@ -34,6 +38,7 @@ from repro_torch.core import features as port_features  # noqa: E402
 from repro_torch.core.dataset import INPUT_KEYS  # noqa: E402
 from repro_torch.kernels.features import kernel as port_kernel  # noqa: E402
 from repro_torch.kernels.features import ops as port_ops  # noqa: E402
+from repro_torch.kernels.features import ref as port_ref  # noqa: E402
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 FIELDS = ("opcode", "regbits", "flags", "brhist", "memdist")
@@ -69,8 +74,11 @@ def configs(shape):
 
 
 def assert_scans_match_reference(trace, shape, msg, chunk=256):
-    """The port's two scans (plain, CPU) against the reference's oracle and
-    its Pallas kernels in interpret mode, from the reference's columns."""
+    """The port's scans (plain, CPU) against the reference's oracle and its
+    Pallas kernels in interpret mode, from the reference's columns: the
+    raw deltas to the reference's raw scans, the memory features to the
+    reference's signed-log of its Pallas scan and the NumPy
+    specification's ``memdist``."""
     pcfg, rcfg = configs(shape)
     cols = ref_ops.trace_columns(trace, rcfg)
     assert cols is not None, "the reference takes |addr| < 2^30 only"
@@ -78,14 +86,19 @@ def assert_scans_match_reference(trace, shape, msg, chunk=256):
     mem = cols["is_mem"].astype(np.int32)
     launches = (port_kernel.BRANCH_HISTORY.launches, port_kernel.MEMDIST_DELTA.launches)
     br = port_ops.branch_history_scan(cols["bucket"], outcome, n_buckets=pcfg.n_buckets, n_queue=pcfg.n_queue)
-    md = port_ops.memdist_delta_scan(cols["addr"].astype(np.int64), cols["is_mem"], n_mem=pcfg.n_mem)
+    md = port_ref.memdist_delta_plain(torch.as_tensor(cols["addr"].astype(np.int64)),
+                                      torch.as_tensor(cols["is_mem"]), pcfg.n_mem)
+    mf = port_ops.memdist_feature_scan(cols["addr"].astype(np.int64), cols["is_mem"], n_mem=pcfg.n_mem)
     kw = dict(n_buckets=rcfg.n_buckets, n_queue=rcfg.n_queue)
     assert_bitwise(br, branch_history_scan_ref(cols["bucket"], outcome, **kw), f"{msg}/brhist oracle")
     assert_bitwise(br, ref_ops.branch_history_scan(cols["bucket"], outcome, chunk=chunk, interpret=True, **kw),
                    f"{msg}/brhist pallas")
     assert_bitwise(md, memdist_delta_scan_ref(cols["addr"], mem, n_mem=rcfg.n_mem), f"{msg}/memdist oracle")
-    assert_bitwise(md, ref_ops.memdist_delta_scan(cols["addr"], mem, n_mem=rcfg.n_mem, chunk=chunk, interpret=True),
-                   f"{msg}/memdist pallas")
+    md_pallas = ref_ops.memdist_delta_scan(cols["addr"], mem, n_mem=rcfg.n_mem, chunk=chunk, interpret=True)
+    assert_bitwise(md, md_pallas, f"{msg}/memdist pallas")
+    assert_bitwise(mf, ref_ops.signed_log_device(md_pallas), f"{msg}/memdist features pallas")
+    assert_bitwise(mf, ref_features.extract_features(trace, rcfg, with_labels=False).memdist,
+                   f"{msg}/memdist features numpy spec")
     # the CPU route is the plain version: no kernel launch
     assert (port_kernel.BRANCH_HISTORY.launches, port_kernel.MEMDIST_DELTA.launches) == launches
 
@@ -153,6 +166,41 @@ def test_memory_heavy_negative_zero_duplicate_deltas(addr_hi):
     assert (got.memdist < 0).any() and (got.memdist > 0).any()
     mem_rows = got.memdist[trace["is_mem"]][12:]  # full queues: every slot valid
     assert (mem_rows == 0).any() == (addr_hi == 48)  # zero deltas only from duplicates
+
+
+def edge_delta_trace(k_max, rng, huge=False):
+    """Memory ops at every other position, at ``signed_log_edge_addresses``;
+    branches and other ops fill the positions between."""
+    addr = port_ref.signed_log_edge_addresses(k_max, huge)
+    t = random_trace(2 * len(addr), rng, mem_p=0.0)
+    t["is_mem"][::2], t["is_branch"][::2], t["addr"][::2] = True, False, addr
+    return t
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["int32_deltas", "int64_deltas"])
+def test_memdist_features_at_tight_rounding_deltas(wide):
+    """Deltas whose signed-log rounds tightly (1 + |d| next to sqrt(2) in
+    float32), huge and wrapping deltas, and zero deltas: the memory
+    feature scan is bitwise the NumPy specification's ``memdist`` (and, inside the
+    reference's int32 window, its Pallas scan with ``signed_log_device``);
+    a zero delta gives +0 and a negative one keeps its sign."""
+    shape = (8, 4, 6)
+    trace = edge_delta_trace(63 if wide else 30, np.random.default_rng(21), huge=wide)
+    pcfg, rcfg = configs(shape)
+    if not wide:
+        assert_scans_match_reference(trace, shape, "tight_rounding", chunk=128)
+    addr, is_mem = np.ascontiguousarray(trace["addr"]), np.ascontiguousarray(trace["is_mem"])
+    got = port_ops.memdist_feature_scan(addr, is_mem, n_mem=pcfg.n_mem)
+    spec = port_features.extract_features(trace, pcfg, with_labels=False).memdist
+    assert_bitwise(got, spec, "tight_rounding")
+    raw = port_ref.memdist_delta_plain(torch.from_numpy(addr), torch.from_numpy(is_mem), pcfg.n_mem).numpy()
+    mem_idx = np.nonzero(trace["is_mem"])[0]
+    valid = np.zeros(raw.shape, dtype=bool)  # slot k of the access of rank r holds a delta while k < r
+    valid[mem_idx] = np.arange(pcfg.n_mem)[None, :] < np.arange(len(mem_idx))[:, None]
+    bits = got.numpy().view(np.int32)
+    assert (valid & (raw == 0)).any() and (bits[valid & (raw == 0)] == 0).all()  # +0, not -0
+    assert ((got.numpy() < 0) == (raw < 0)).all() and (raw < 0).any()
+    assert (np.abs(raw) >= (2.0**62 if wide else 2.0**29)).any()
 
 
 def test_labels_pass_through_from_adjusted_trace(small_tao_setup):
@@ -245,3 +293,19 @@ def test_cuda_source_constants_match_python():
     assert consts == {"BrTile": port_kernel.BR_TILE, "MemTile": port_kernel.MEM_TILE,
                       "SmemBuckets": port_kernel.SMEM_BUCKETS}
     assert 1 << int(re.search(r"constexpr int kMaxPositions = 1 << (\d+);", src)[1]) == port_kernel.MAX_POSITIONS
+
+
+def test_signed_log_source_copies_identical():
+    """``feature_scans.cu`` carries verbatim copies of ``fused_features.cu``'s
+    signed-log constants and device functions (each library is built from
+    its own source alone): the two texts are identical."""
+    def pieces(name):
+        src = (CSRC / name).read_text()
+        defs = re.findall(r"^#define SL_\w+ 0x[0-9a-f]+u$", src, flags=re.M)
+        funcs = re.findall(r"^__device__ __forceinline__ float (?:horner_step|signed_log_rn)\(.*?^}$",
+                           src, flags=re.M | re.S)
+        return defs, funcs
+
+    defs, funcs = pieces("fused_features.cu")
+    assert len(defs) == 8 and len(funcs) == 2
+    assert pieces("feature_scans.cu") == (defs, funcs)
