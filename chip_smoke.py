@@ -17,10 +17,11 @@ and ``nvcc``.  Phases, one JSON line each:
            the kernels one call enqueues), the staged whole-trace
            branch-history and memory-distance scans (B2; B3 writing the
            signed-log features) on whole benchmark traces, a
-           collision-heavy config, wide addresses, 20,000 / 60,000 buckets
-           and deltas where the signed-log rounds tightly, the staged
-           extraction and the eager signed-log against the NumPy
-           specification, attention (B4: the Tao shape on the packed
+           collision-heavy config, wide addresses, 20,000 / 60,000
+           buckets, deltas where the signed-log rounds tightly and
+           all-branch traces around B2's rank tile (B2's passes timed
+           apart), the staged extraction and the eager signed-log against
+           the NumPy specification, attention (B4: the Tao shape on the packed
            q/k/v views the model hands over and on contiguous operands, 1024
            causal keys, q_offset / segment / masked-row cases, with its
            registers, shared memory and blocks per SM), and the Mamba-2
@@ -86,6 +87,10 @@ MANY_BUCKETS = (20_000, 60_000)
 # (n_buckets, n_queue, n_mem) where many branches share few buckets (three:
 # not a power of two) and the queues are short
 COLLISION_SHAPE = (3, 5, 12)
+# trace lengths around B2's 1,024-position rank tile: one short, one full,
+# one past, and a lone position after three tiles
+TILE_EDGE_LENGTHS = (1023, 1024, 1025, 3 * 1024 + 1)
+PASS_CALLS = 20            # calls profiled for B2's per-pass device times
 # FLOPs per valid memory-distance slot: one subtraction, two conversions
 # and the ~27 float32 ops of the signed-log (B1 and B3)
 SIGNED_LOG_SLOT_FLOPS = 30
@@ -221,6 +226,18 @@ def random_trace(n: int, seed: int, pc_mod: int):
     return t
 
 
+def tile_edge_trace(n: int, alternate: bool, seed: int):
+    """Every position a branch at pc 0 (bucket 0 under any config), or at pcs
+    0 and 4 in turn (buckets 0 and 1); random outcomes, no memory ops."""
+    import numpy as np
+
+    t = random_trace(n, seed, 1)
+    t["is_branch"], t["is_mem"], t["is_store"], t["addr"] = True, False, False, 0
+    t["taken"] = np.random.default_rng(seed).random(n) < 0.5
+    t["pc"] = (np.arange(n) % 2) * 4 if alternate else 0
+    return t
+
+
 def edge_delta_trace(seed: int):
     """Memory ops at every other position, at ``signed_log_edge_addresses``
     (deltas of 0, x * 2^k - 1 with x next to sqrt(2), and 2^62); random
@@ -254,14 +271,15 @@ def read_counts() -> dict:
     return {name: c.launches for name, c in launch_counters().items()}
 
 
-def profile_breakdown(fn, track: str = "") -> dict:
+def profile_breakdown(fn, track: tuple = ()) -> dict:
     """Device time by kernel over one ``fn()``, from torch.profiler (CUPTI):
     busy = summed time of the device's kernel events (one stream: kernels
     do not overlap; the host ops that launched them are not counted again),
     idle share = 1 - busy / wall.  The profiler's own host overhead
     inflates the wall time here; the unprofiled runs report the real rates.
-    ``track``: also the device ms of each kernel whose name holds it, by
-    the name from there to its argument list.  Raises when the profile
+    ``track``: also the device ms of each kernel whose name holds one of
+    these pieces, by the name from there to its argument list.  Raises when
+    the profile
     cannot be taken or shows no device time."""
     import torch
     from torch.autograd import DeviceType
@@ -278,8 +296,8 @@ def profile_breakdown(fn, track: str = "") -> dict:
         raise RuntimeError("torch.profiler recorded no device time")
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
-    tracked = {e.key[e.key.index(track):].split("(")[0]: e.self_device_time_total / 1e3
-               for e in events if track and track in e.key}
+    tracked = {e.key[e.key.index(t):].split("(")[0]: e.self_device_time_total / 1e3
+               for e in events for t in track if t in e.key}
     return {
         "wall_s": wall,
         "device_busy_s": busy_us / 1e6,
@@ -640,16 +658,29 @@ def bitwise_equal(a, b) -> bool:
                 else np.array_equal(a, b))
 
 
+def b2_pass_ms(kern) -> dict:
+    """Device ms per call of each of B2's kernels (named br_*, and the
+    bucket starts' scan_exclusive), over PASS_CALLS profiled calls."""
+    prof = profile_breakdown(lambda: [kern() for _ in range(PASS_CALLS)],
+                             track=("br_", "scan_exclusive"))
+    return {k: ms / PASS_CALLS for k, ms in prof["tracked_ms"].items()}
+
+
 def check_staged_kernels(failures, results, traces):
     """B2 and B3 bitwise against their plain versions on whole traces, the
     staged extraction and the eager signed-log against the NumPy spec; the
     eager signed-log on a trace's raw deltas, which B3's gather replaced,
-    timed beside B3."""
+    timed beside B3; B2's passes timed apart, on the benchmark traces and
+    the random-bucket cases."""
     import numpy as np
     import torch
 
     from repro_torch.core.features import FeatureConfig, extract_features, signed_log
-    from repro_torch.kernels.features.kernel import branch_history_cuda, memdist_delta_cuda
+    from repro_torch.kernels.features.kernel import (
+        KERNELS_PER_CALL,
+        branch_history_cuda,
+        memdist_delta_cuda,
+    )
     from repro_torch.kernels.features.ops import (
         _per_instruction_device,
         device_feature_arrays,
@@ -672,10 +703,14 @@ def check_staged_kernels(failures, results, traces):
     cases += [(f"random_buckets_{nb}", FeatureConfig(n_buckets=nb), random_trace(SLICE_INSTRUCTIONS, i, 2 * nb))
               for i, nb in enumerate(MANY_BUCKETS)]
     cases += [("edge_deltas", fcfg, edge_delta_trace(2))]
+    cases += [(f"tile_edge_{'two_buckets' if alt else 'one_bucket'}_{n}", fcfg, tile_edge_trace(n, alt, 3))
+              for alt in (False, True) for n in TILE_EDGE_LENGTHS]
     ok = {"branch_history": True, "memdist_delta": True, "device_feature_arrays": True}
     err = {"branch_history": 0.0, "memdist_delta": 0.0}
     timing = {"branch_history": [], "memdist_delta": []}
     eager = []  # the eager signed-log on a benchmark trace's raw deltas
+    b2_cases = {}  # B2 on the random-bucket cases
+    b2_kernels = None  # kernels one B2 call enqueues
     for name, cfg, trace in cases:
         cols = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                 for k, v in trace_columns(trace, cfg).items()}
@@ -705,11 +740,20 @@ def check_staged_kernels(failures, results, traces):
                     "plain_ms": cuda_ms(plain, 5), "n": len(trace),
                     "n_mem": int(trace["is_mem"].sum()),
                 })
+                if kname == "branch_history":
+                    timing[kname][-1]["pass_ms"] = b2_pass_ms(kern)
+                    b2_kernels = b2_kernels or kernels_enqueued(kern)
                 if kname == "memdist_delta":
                     raw = memdist_delta_plain(cols["addr"], mem, cfg.n_mem)
                     eager.append({"ms": graph_ms(lambda: signed_log_torch(raw)),
                                   "kernels_enqueued": kernels_enqueued(lambda: signed_log_torch(raw))})
                     del raw
+            if kname == "branch_history" and name.startswith("random_buckets"):
+                b_ms = bound(len(trace) * (8 + 4 * cfg.n_queue), 0)[0]
+                b2_cases[name] = {"ms": graph_ms(kern), "pass_ms": b2_pass_ms(kern),
+                                  "bound_ms": b_ms}
+                b2_cases[name]["x_bound"] = b2_cases[name]["ms"] / b_ms
+                line["branch_history_ms"] = b2_cases[name]["ms"]
         spec = extract_features(trace, cfg, with_labels=False)
         arrays = device_feature_arrays(trace_columns(trace, cfg), cfg, device=dev)
         same = all(bitwise_equal(arrays[f], getattr(spec, f))
@@ -761,12 +805,19 @@ def check_staged_kernels(failures, results, traces):
             "plain_ms": mean("plain_ms"), "bound_ms": b_ms, "bound_by": bounds[0][1],
             "library_ms": None,
         }
+        passes = {}
+        if kname == "branch_history":
+            if b2_kernels != KERNELS_PER_CALL:
+                failures.append(f"branch_history: one call ran {b2_kernels} kernels, not {KERNELS_PER_CALL}")
+            names = sorted({k for r in rows for k in r["pass_ms"]})
+            passes = {"pass_ms": {k: sum(r["pass_ms"].get(k, 0.0) for r in rows) / len(rows) for k in names},
+                      "kernels_per_call": b2_kernels, "per_case": b2_cases}
         emit({"phase": "kernels", "kernel": kname, "traces": list(SLICE_BENCHMARKS),
               "positions": rows[0]["n"], "bitwise_vs_plain": ok[kname],
               "per_trace_ms": [r["ms"] for r in rows], "ms": mean("ms"),
               "call_ms": mean("call_ms"), "plain_ms": mean("plain_ms"),
               "bound_ms": b_ms, "bound_by": bounds[0][1], "x_bound": mean("ms") / b_ms,
-              "library_ms": None})
+              "library_ms": None, **passes})
 
 
 def flip_check(got, ref, trace, cfg) -> dict:
@@ -963,7 +1014,7 @@ def phase_slice(failures, results, traces):
     emit({"phase": "slice", "check": "gpu_vs_cpu", "trace": name, "positions": gpu.num_instructions,
           **check, "gpu_mips": gpu.mips, "cpu_mips": cpu.mips})
     # B1's passes are its source's kernels, named fx_*
-    prof = profile_breakdown(lambda: engine.simulate(traces["lee"]), track="fx_")
+    prof = profile_breakdown(lambda: engine.simulate(traces["lee"]), track=("fx_",))
     lee_batches = -(-(res["lee"].num_instructions // cfg.window) // ecfg.batch_size)
     b1_passes = {k: ms / lee_batches for k, ms in prof.pop("tracked_ms").items()}
     emit({"phase": "slice", "check": "profile", "trace": "lee", "batches": lee_batches,

@@ -23,17 +23,24 @@
 // known.  The ranks come from tile counts, an exclusive scan over the
 // tiles, and a stable rank inside each tile — all computed here:
 //   * branch history — a stable partition of the branches by bucket.
-//     br_count: per tile of kBrTile positions, the branches of each bucket
-//     (a histogram in shared memory while N_b <= kSmemBuckets, past that in
-//     the tile's own row of the counts scratch).  br_tile_offsets: per bucket, the
-//     exclusive scan of its counts over the tiles and its total.
-//     scan_exclusive: the bucket totals to bucket starts.  br_scatter: one
-//     warp walks each tile in trace order, its next-slot counters where
-//     br_count kept its histogram; __match_any_sync groups the
-//     lanes of one bucket and __popc(peers & lanemask_lt) ranks them, so
-//     each branch's outcome goes to slot s of its bucket's list in trace
-//     order.  br_gather: row slot k is list[s-1-k] while k < r (r = the
-//     branch's rank in its bucket), else 0.
+//     br_rank: one block per tile of kBrTile positions; each of its
+//     warps loads the keys of its run of kBrRun positions into registers
+//     once, coalesced, and names each bucket by a tile id (the bucket's
+//     last position in the tile, by an atomicMax on a map of N_b entries:
+//     in shared memory while N_b <= kSmemBuckets, past that the tile's row
+//     of the counts scratch).  Each warp walks its run in trace order, 32
+//     positions a step: __match_any_sync groups the lanes of one bucket,
+//     __popc(peers & lanemask_lt) ranks them, and the group's first lane
+//     moves the warp's counter of that tile id, in shared memory.  A scan
+//     over the warps per tile id gives each branch its stable rank in the
+//     tile (to slot_of) and the tile's row of counts.  br_tile_offsets: per
+//     bucket, the exclusive scan of its counts over the tiles and its
+//     total.  scan_exclusive: the bucket totals to bucket starts.
+//     br_place: one thread per position; a branch of bucket b in tile t
+//     takes slot s = starts[b] + offsets[t][b] + its in-tile rank in the
+//     bucket-sorted list, writes its outcome there and keeps s in slot_of.
+//     br_gather: row slot k is list[s-1-k] while k < r (r = the branch's
+//     rank in its bucket), else 0.
 //   * memory distance — a compaction of the memory addresses.  md_count:
 //     per tile of kMemTile positions, the memory ops.  scan_exclusive: the
 //     tile bases.  md_compact: a block-wide ballot scan gives each access
@@ -56,9 +63,10 @@
 // GFLOP, ~1.7 us at 67 TFLOP/s against ~12 us for the bytes.  The
 // gathers, which carry nearly all the bytes, run one thread per output
 // element, so every store is coalesced for any N_q or N_m; the rank passes
-// move 4-16 B per position.  The serial parts (one warp per branch tile,
-// one block for each exclusive scan) are short at trace sizes of
-// 10^5..10^7.
+// move 4-16 B per position.  The serial parts (each warp of a branch tile
+// walking its keys from registers, kBrSteps steps of a shared-memory
+// counter update each; one block for each exclusive scan) are short at
+// trace sizes of 10^5..10^7.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,7 +75,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBrTile = 1024;      // positions per branch rank tile (one warp)
+constexpr int kBrTile = 1024;      // positions per branch rank tile (one block)
+constexpr int kBrRun = kBrTile / kWarps;  // positions each warp of a rank tile walks
+constexpr int kBrSteps = kBrRun / 32;      // its steps, one key per lane each
+constexpr int kBrRankStatic = kWarps * kBrTile * 4;  // br_rank's static shared memory
 constexpr int kMemTile = 2048;     // positions per compaction tile
 constexpr int kRows = 64;          // positions per gather block
 constexpr int kSmemBuckets = 49152;  // per-bucket counters in shared memory
@@ -148,28 +159,88 @@ scan_exclusive(int32_t* data, int len) {
 
 // ---- branch history ------------------------------------------------------
 
-// counts[t * N_b + b] = branches of bucket b in tile t, counted in shared
-// memory (kSmem) or in the row itself.  kSmem is a template argument so that
-// the shared-memory build addresses cnt as shared memory, not generically.
+// Per tile (one block): each branch's stable rank among its bucket's
+// branches in the tile to slot_of (-1 off branches), and the tile's counts
+// to counts[t * N_b + b].  Each warp loads its run of kBrRun positions'
+// keys into registers, coalesced, and names each bucket by a tile id (its
+// last position in the tile, by an atomicMax on a map of N_b entries: in
+// shared memory (kSmem, a template argument so that the map is addressed
+// as shared memory) or the tile's row).  Each warp then walks its run in
+// trace order with its own counters by tile id, in shared memory, so no
+// global load sits inside the walk; a scan over the warps per tile id
+// turns their counts into each warp's offsets and the tile's totals.
 template <bool kSmem>
 __global__ void __launch_bounds__(kThreads)
-br_count(const int32_t* bucket, const float* outcome, int n, int n_buckets,
-         int32_t* counts) {
-  extern __shared__ int smem_cnt[];  // [n_buckets] when kSmem
+br_rank(const int32_t* bucket, const float* outcome, int n, int n_buckets,
+        int32_t* counts, int32_t* slot_of) {
+  extern __shared__ int smem_map[];   // [n_buckets] when kSmem
+  __shared__ int cnt[kWarps][kBrTile];  // per warp by tile id; then offsets, row 0 the totals
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int p0 = blockIdx.x * kBrTile;
   const int p1 = min(p0 + kBrTile, n);
+  const int r0 = warp * kBrRun;  // this warp's run of the tile
   int32_t* row = counts + (size_t)blockIdx.x * n_buckets;
-  int* cnt = kSmem ? smem_cnt : row;
-  for (int b = tid; b < n_buckets; b += kThreads) cnt[b] = 0;
+  int* map = kSmem ? smem_map : row;
+  int key[kBrSteps];
+#pragma unroll
+  for (int j = 0; j < kBrSteps; ++j) {
+    const int p = p0 + r0 + j * 32 + lane;
+    key[j] = p < p1 ? branch_key(bucket, outcome, p, n_buckets) : -1;
+  }
+  for (int b = tid; b < n_buckets; b += kThreads) map[b] = 0;
+  for (int i = tid; i < kWarps * kBrTile; i += kThreads) (&cnt[0][0])[i] = 0;
   __syncthreads();
-  for (int p = p0 + tid; p < p1; p += kThreads) {
-    const int key = branch_key(bucket, outcome, p, n_buckets);
-    if (key >= 0) atomicAdd(&cnt[key], 1);
+#pragma unroll
+  for (int j = 0; j < kBrSteps; ++j)
+    if (key[j] >= 0) atomicMax(&map[key[j]], r0 + j * 32 + lane + 1);
+  __syncthreads();
+  int id[kBrSteps];  // the bucket's tile id, -1 off branches
+#pragma unroll
+  for (int j = 0; j < kBrSteps; ++j)
+    id[j] = key[j] < 0 ? -1 : (kSmem ? map[key[j]] : __ldcg(&map[key[j]])) - 1;
+  // __match_any_sync groups one bucket's lanes, __popc(peers & lanemask_lt)
+  // ranks them, and the group's first lane moves the warp's counter
+  int rank[kBrSteps];
+  int* wc = cnt[warp];
+#pragma unroll
+  for (int j = 0; j < kBrSteps; ++j) {
+    const unsigned peers = __match_any_sync(kFull, id[j]);
+    const int leader = __ffs(peers) - 1;
+    int base = 0;
+    if (id[j] >= 0 && lane == leader) {
+      base = wc[id[j]];
+      wc[id[j]] = base + __popc(peers);
+    }
+    rank[j] = __shfl_sync(kFull, base, leader) + __popc(peers & lanemask_lt());
+    __syncwarp();  // the leaders' counters are written before the next step reads them
+  }
+  __syncthreads();
+  for (int i = tid; i < kBrTile; i += kThreads) {
+    int run = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = cnt[w][i];
+      cnt[w][i] = run;
+      run += c;
+    }
+    cnt[0][i] = run;  // warp 0's offsets are 0: its row takes the totals
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kBrSteps; ++j) {
+    const int p = p0 + r0 + j * 32 + lane;
+    if (p < p1) slot_of[p] = id[j] < 0 ? -1 : rank[j] + (warp > 0 ? cnt[warp][id[j]] : 0);
   }
   if (kSmem) {
-    __syncthreads();
-    for (int b = tid; b < n_buckets; b += kThreads) row[b] = cnt[b];
+    for (int b = tid; b < n_buckets; b += kThreads) {
+      const int m = map[b];
+      row[b] = m > 0 ? cnt[0][m - 1] : 0;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kBrSteps; ++j)  // each bucket's last position writes its count
+      if (id[j] == r0 + j * 32 + lane) row[key[j]] = cnt[0][id[j]];
   }
 }
 
@@ -210,37 +281,22 @@ br_tile_offsets(int32_t* counts, int tiles, int n_buckets, int32_t* totals) {
     }
 }
 
-// One warp per tile, in trace order: each branch's slot s in the
-// bucket-sorted list (stable), and list[s] = its outcome.  The next slot of
-// each bucket is counted in shared memory (kSmem) or in the tile's row of
-// offsets, which nothing reads after this pass.
-template <bool kSmem>
-__global__ void __launch_bounds__(32)
-br_scatter(const int32_t* bucket, const float* outcome, int n, int n_buckets,
-           int32_t* offsets, const int32_t* starts, float* list,
-           int32_t* slot_of) {
-  extern __shared__ int smem_cnt[];  // [n_buckets] when kSmem
-  const int lane = threadIdx.x;
-  const int p0 = blockIdx.x * kBrTile;
-  const int p1 = min(p0 + kBrTile, n);
-  int32_t* row = offsets + (size_t)blockIdx.x * n_buckets;
-  int* cnt = kSmem ? smem_cnt : row;
-  for (int b = lane; b < n_buckets; b += 32) cnt[b] = starts[b] + row[b];
-  __syncwarp();
-  for (int i = p0; i < p1; i += 32) {
-    const int p = i + lane;
-    const int key = p < p1 ? branch_key(bucket, outcome, p, n_buckets) : -1;
-    const unsigned peers = __match_any_sync(kFull, key);
-    int s = -1;
-    if (key >= 0) {
-      s = cnt[key] + __popc(peers & lanemask_lt());
-      list[s] = outcome[p];
-    }
-    if (p < p1) slot_of[p] = s;
-    __syncwarp();  // every lane has read cnt before the leaders move it
-    if (key >= 0 && lane == __ffs(peers) - 1) cnt[key] += __popc(peers);
-    __syncwarp();
-  }
+// One thread per position: a branch of bucket b in tile t goes to slot
+// s = starts[b] + offsets[t][b] + its in-tile rank in the bucket-sorted
+// list (stable: tiles in order, ranks in trace order); list[s] = its
+// outcome, and slot_of[p] = s.
+__global__ void __launch_bounds__(kThreads)
+br_place(const int32_t* bucket, const float* outcome, int n, int n_buckets,
+         const int32_t* offsets, const int32_t* starts, float* list,
+         int32_t* slot_of) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= n) return;
+  const int r = slot_of[p];
+  if (r < 0) return;
+  const int b = bucket[p];
+  const int s = starts[b] + offsets[(size_t)(p / kBrTile) * n_buckets + b] + r;
+  list[s] = outcome[p];
+  slot_of[p] = s;
 }
 
 // One thread per output element of kRows positions.
@@ -398,33 +454,25 @@ extern "C" int tao_branch_history(const int32_t* bucket, const float* outcome,
   const cudaStream_t s = (cudaStream_t)stream;
   const bool smem_counts = n_buckets <= kSmemBuckets;
   const size_t smem = smem_counts ? (size_t)n_buckets * sizeof(int) : 0;
-  if (smem > 48 * 1024) {  // opt in past the default 48 KB
-    cudaError_t e = cudaFuncSetAttribute(
-        br_count<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(br_scatter<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+  if (smem + kBrRankStatic > 48 * 1024) {  // opt in past the default 48 KB
+    const cudaError_t e = cudaFuncSetAttribute(
+        br_rank<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   if (smem_counts)
-    br_count<true><<<tiles, kThreads, smem, s>>>(bucket, outcome, n, n_buckets,
-                                                 counts);
+    br_rank<true><<<tiles, kThreads, smem, s>>>(bucket, outcome, n, n_buckets,
+                                                counts, slot_of);
   else
-    br_count<false><<<tiles, kThreads, 0, s>>>(bucket, outcome, n, n_buckets,
-                                               counts);
+    br_rank<false><<<tiles, kThreads, 0, s>>>(bucket, outcome, n, n_buckets,
+                                              counts, slot_of);
   TAO_LAUNCH_CHECK();
   br_tile_offsets<<<(n_buckets + 31) / 32, dim3(32, 32), 0, s>>>(
       counts, tiles, n_buckets, starts);
   TAO_LAUNCH_CHECK();
   scan_exclusive<<<1, kScanThreads, 0, s>>>(starts, n_buckets);
   TAO_LAUNCH_CHECK();
-  if (smem_counts)
-    br_scatter<true><<<tiles, 32, smem, s>>>(bucket, outcome, n, n_buckets,
-                                             counts, starts, list, slot_of);
-  else
-    br_scatter<false><<<tiles, 32, 0, s>>>(bucket, outcome, n, n_buckets,
-                                           counts, starts, list, slot_of);
+  br_place<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      bucket, outcome, n, n_buckets, counts, starts, list, slot_of);
   TAO_LAUNCH_CHECK();
   br_gather<<<(n + kRows - 1) / kRows, kThreads, 0, s>>>(
       bucket, starts, list, slot_of, n, n_queue, out);

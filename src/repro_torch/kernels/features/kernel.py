@@ -5,9 +5,13 @@ The CUDA counterparts of ``repro/kernels/features/kernel.py``
 (``branch_history_kernel`` and ``memdist_delta_kernel``); the source's
 header says how the scans are laid out on the card and what bounds them.
 Each wrapper is one launch of its C entry point (several passes on one
-stream), counted by ``BRANCH_HISTORY.launches`` / ``MEMDIST_DELTA.launches``;
-the memory distance writes the finished signed-log features, where the
-reference's kernel writes raw deltas.
+stream), counted by ``BRANCH_HISTORY.launches`` / ``MEMDIST_DELTA.launches``.
+The branch history's passes rank each tile's branches by bucket (each
+warp walking its run of keys held in registers), turn the tiles' counts
+into offsets and bucket starts, place each branch in the bucket-sorted
+list with one thread, and gather each row from that list.  The memory distance writes
+the finished signed-log features, where the reference's kernel writes raw
+deltas.
 The wrappers allocate the output and the passes' scratch; scratch sizes
 mirror the source's ``*_scratch_bytes`` (the entry point refuses less).
 """
@@ -22,6 +26,7 @@ from .._cuda import CudaKernel, check_cuda_tensor
 __all__ = [
     "BRANCH_HISTORY",
     "BR_TILE",
+    "KERNELS_PER_CALL",
     "MAX_POSITIONS",
     "MEMDIST_DELTA",
     "MEM_TILE",
@@ -35,6 +40,9 @@ __all__ = [
 BR_TILE = 1024        # positions per branch rank tile
 MEM_TILE = 2048       # positions per address compaction tile
 SMEM_BUCKETS = 49152  # up to this N_b the per-bucket counters sit in shared memory
+# kernels one branch_history_cuda call enqueues: br_rank, br_tile_offsets,
+# scan_exclusive, br_place, br_gather
+KERNELS_PER_CALL = 5
 # positions are int32 on the card, with headroom for a tile past the end
 # (2^30 positions of features would need ~580 GB at the default config)
 MAX_POSITIONS = 2**30

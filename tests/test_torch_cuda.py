@@ -266,6 +266,15 @@ def edge_delta_trace(rng):
     return t
 
 
+def tile_edge_trace(n, alternate, rng):
+    """Every position a branch: at pc 0 (bucket 0), or at pcs 0 and 4 in
+    turn (buckets 0 and 1)."""
+    t = random_trace(n, rng, branch_p=1.0, mem_p=0.0, pc_mod=1)
+    if alternate:
+        t["pc"] = np.arange(n) % 2 * 4
+    return t
+
+
 # (n_buckets, n_queue, n_mem), trace: the CPU cases of
 # test_torch_feature_kernels.py, the default config on a benchmark, and
 # shapes past one rank tile and past 32 queue slots
@@ -283,12 +292,20 @@ SCAN_CASES = {
     "pair": ((4, 3, 3), lambda: random_trace(2, np.random.default_rng(10))),
     "memory_heavy": ((16, 6, 12), lambda: random_trace(2000, np.random.default_rng(11), 0.3, 0.7, addr_hi=1 << 24)),
     "deep_queues_wide_addresses": ((8192, 40, 100), lambda: random_trace(5000, np.random.default_rng(12), addr_hi=1 << 62)),
-    # more than 8,192 buckets: shared-memory counters past 48 KB, then
-    # (60,000) counters in global scratch
+    # more than 8,192 buckets: shared-memory counters past 48 KB, the most
+    # that shared memory takes (49,152), then (60,000) counters in global
+    # scratch
     "buckets_20000": ((20000, 32, 64), lambda: random_trace(30000, np.random.default_rng(13), pc_mod=40_000)),
+    "buckets_49152": ((49152, 32, 64), lambda: random_trace(30000, np.random.default_rng(16), pc_mod=98_304)),
     "buckets_60000": ((60000, 32, 64), lambda: random_trace(30000, np.random.default_rng(14), pc_mod=120_000)),
     # the signed-log's tight roundings, huge and wrapping deltas, zero deltas
     "edge_deltas": ((16, 4, 8), lambda: edge_delta_trace(np.random.default_rng(15))),
+    # all branches, of bucket 0 (every walk step one 32-lane group, one
+    # bucket across tiles) or buckets 0 and 1 in turn, around B2's
+    # 1,024-position rank tile
+    **{f"tile_edge_{'two_buckets' if alt else 'one_bucket'}_{n}":
+       ((1024, 32, 64), lambda n=n, alt=alt: tile_edge_trace(n, alt, np.random.default_rng(n)))
+       for alt in (False, True) for n in (1023, 1024, 1025, 3 * 1024 + 1)},
 }
 
 

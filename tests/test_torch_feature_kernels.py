@@ -14,7 +14,8 @@ signed-log of one in
 individually rounded float32 ops, so every comparison is BITWISE.  The
 cases mirror ``tests/test_feature_kernels.py``: benchmark traces,
 collision-heavy bucket counts (1, 2 and the non-power-of-two 3), empty
-queues, a memory-heavy trace with negative, zero and duplicate deltas,
+queues, all-branch traces of one or two buckets around the card's rank
+tile, a memory-heavy trace with negative, zero and duplicate deltas,
 labels passed through from an adjusted trace, deltas where the
 signed-log's rounding is tight — and, past the reference's int32 window
 (where it raises by design), wide addresses against the NumPy
@@ -264,6 +265,32 @@ def test_scans_take_more_than_8192_buckets():
     buckets are in tests/test_torch_cuda.py)."""
     trace = random_trace(1200, np.random.default_rng(9), branch_p=0.6, pc_mod=40_000)
     assert_scans_match_reference(trace, (9000, 4, 8), "many_buckets")
+
+
+def tile_edge_trace(n, alternate, rng):
+    """Every position a branch: at pc 0 (bucket 0), or at pcs 0 and 4 in
+    turn (buckets 0 and 1 of two)."""
+    t = random_trace(n, rng, branch_p=1.0, mem_p=0.0, pc_mod=1)
+    if alternate:
+        t["pc"] = np.arange(n) % 2 * 4
+    return t
+
+
+# trace lengths around the card's branch rank tile: one short, one full,
+# one past, and a lone position after three tiles
+TILE_EDGE_LENGTHS = tuple(port_kernel.BR_TILE * k + d for k, d in ((1, -1), (1, 0), (1, 1), (3, 1)))
+
+
+@pytest.mark.parametrize("alternate", [False, True], ids=["one_bucket", "two_buckets"])
+@pytest.mark.parametrize("n", TILE_EDGE_LENGTHS)
+def test_branch_history_at_rank_tile_edges(n, alternate):
+    """Where the card's rank walk and placement pass can go wrong: one
+    bucket spanning tiles with all 32 lanes in one group at every step, or
+    two buckets in turn, at lengths around a tile.  The plain version
+    against the reference's oracle and its Pallas scan (the card's cases
+    are in tests/test_torch_cuda.py)."""
+    trace = tile_edge_trace(n, alternate, np.random.default_rng(n))
+    assert_scans_match_reference(trace, (2, 8, 4), f"tile_edge/{n}/{'two' if alternate else 'one'}")
 
 
 def test_wrappers_refuse_cpu_tensors_and_bad_sizes():
