@@ -14,7 +14,8 @@ and ``nvcc``.  Phases, one JSON line each:
            fused feature kernel (B1: state threaded over batches of a
            benchmark trace, with wide addresses, queues of 48 and 64, 20,000
            buckets, four batches in one launch and one-position launches;
-           the kernels one call enqueues), the staged whole-trace
+           the kernels one call enqueues, by the profiler and by the
+           nodes of a graph of one call), the staged whole-trace
            branch-history and memory-distance scans (B2; B3 writing the
            signed-log features) on whole benchmark traces, a
            collision-heavy config, wide addresses, 20,000 / 60,000
@@ -31,16 +32,22 @@ and ``nvcc``.  Phases, one JSON line each:
            registers, shared memory, blocks per SM and the tensor-core
            (HMMA) instructions in its SASS;
   slice    the port's main paths at the default TaoConfig width on
-           captured benchmark traces: StreamingEngine.simulate of the raw
-           traces (the fused route), then the staged route — one
-           whole-trace device_feature_arrays per trace, then
-           simulate(trace, features=arrays) — each with the kernels'
-           launch counts read around it; the kernels one extraction
-           enqueues and its peak device memory; finite-metric checks, the
-           staged route against the fused one, the fused route against the
-           same engine on the CPU (the plain versions) on one trace, both
-           routes timed side by side, and a profile of one simulate
-           (with the copy kernels per batch);
+           captured benchmark traces: the engine's step captured ahead of
+           time (StreamingEngine.warmup: one CUDA graph, its capture time
+           and retained bytes), then StreamingEngine.simulate of the raw
+           traces (the fused route, replaying the graph per batch), then
+           the staged route — one whole-trace device_feature_arrays per
+           trace, then simulate(trace, features=arrays) — each with the
+           kernels' launch counts read around it (attention's, run inside
+           the graph, also from the graph's own kernel nodes times the
+           replays); the kernels one extraction enqueues and its peak
+           device memory; finite-metric checks, the staged route against
+           the fused one, the fused route against the same engine on the
+           CPU (the plain versions) on one trace, both routes timed side
+           by side, a profile of one simulate (with the copy kernels per
+           batch), and the graphed simulate against the eager step driven
+           through its cache entry, in turns on both routes (MIPS, host
+           and device ms per batch, idle share, results held);
   mamba2   the port's Mamba-2 serving path at the full width of
            mamba2-1.3b (48 layers, bfloat16, random weights from a CUDA
            generator, seed 0): prefill of 4 prompts x 2048 tokens, then 32
@@ -108,6 +115,10 @@ ATTN_RTOL = 1e-5
 FLIP_FRACTION = 1e-3
 PROB_ATOL = 1e-4           # sigmoid(mispred_logit), logits differ ~1e-6
 ROUTE_ROUNDS = 3           # turns of the fused / staged side-by-side timing
+# graphed step vs eager step: cpi_phase's float32 per-chunk sums go
+# through index_add_'s atomics, whose order changes from run to run; one
+# batch adds its 64 window sums to a chunk in any order
+GRAPH_PHASE_RTOL = 64 * 2.0**-24
 
 # SSD kernel vs its plain chunked version, float32 on both sides: the
 # summation order and the chunk's prefix sum differ.  bfloat16 outputs
@@ -203,6 +214,24 @@ def kernels_enqueued(fn, sessions: int = 3) -> int:
         counts.append(sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                           and not e.key.startswith(("Memcpy", "Memset"))))
     return max(counts)
+
+
+def captured_kernel_names(fn, piece: str) -> list:
+    """The names of the kernel nodes holding ``piece`` in a CUDA graph of
+    one ``fn()``, read from the graph (``engine/aot.py::graph_kernel_names``)."""
+    import torch
+
+    from repro_torch.engine.aot import graph_kernel_names
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    return [k for k in graph_kernel_names(graph) if piece in k]
 
 
 def random_trace(n: int, seed: int, pc_mod: int):
@@ -400,6 +429,13 @@ def phase_kernels(failures, results, traces):
     per_call = kernels_enqueued(lambda: fused_features_cuda(sl, t_state["table"], t_state["mq"]))
     if per_call != KERNELS_PER_CALL:
         failures.append(f"fused_features: one call ran {per_call} kernels, not {KERNELS_PER_CALL}")
+    # the same count from the kernel nodes of a graph of one call, in three
+    # throwaway captures, as kernels_enqueued profiles three calls
+    node_counts = [len(captured_kernel_names(
+        lambda: fused_features_cuda(sl, t_state["table"], t_state["mq"]), "fx_")) for _ in range(3)]
+    if node_counts != [KERNELS_PER_CALL] * 3:
+        failures.append(f"fused_features: graphs of one call held {node_counts} kernels, "
+                        f"not {KERNELS_PER_CALL}")
     p_state = init_fused_state(fcfg, dev)
     plain_ms = cuda_ms(lambda: fused_features_plain(sl, p_state["table"], p_state["mq"]), 10)
     col_bytes = n * (5 * 4 + 8 + 4 * 1)
@@ -419,7 +455,8 @@ def phase_kernels(failures, results, traces):
           "wide_address_offset": WIDE_ADDR_OFFSET,
           "positions_per_launch": n, "bitwise_vs_plain_and_numpy_spec": bitwise,
           "max_abs_err": max_err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-          "bound_ms": b_ms, "bound_by": b_by, "x_bound": ms / b_ms, "kernels_per_call": per_call})
+          "bound_ms": b_ms, "bound_by": b_by, "x_bound": ms / b_ms, "kernels_per_call": per_call,
+          "kernels_per_call_graph_nodes": node_counts})
 
     check_staged_kernels(failures, results, traces)
 
@@ -878,7 +915,9 @@ def phase_slice(failures, results, traces):
     import torch
 
     from repro_torch.core.model import TaoConfig, init_tao
-    from repro_torch.engine import EngineConfig, StreamingEngine
+    from repro_torch.engine import EngineConfig, StreamingEngine, cache_stats
+    from repro_torch.engine.aot import graph_kernel_names
+    from repro_torch.kernels.attention.kernel import FLASH_ATTENTION
     from repro_torch.kernels.features.ops import device_feature_arrays, trace_columns
 
     cfg = TaoConfig()
@@ -894,13 +933,23 @@ def phase_slice(failures, results, traces):
 
     model = init_tao(cfg, torch.Generator().manual_seed(0), device="cuda")
     engine = StreamingEngine(model, cfg, ecfg, device="cuda")
-    engine.simulate(traces["lee"])  # warm-up: cuBLAS handles, allocator pools
+    # the step captured ahead of time: one CUDA graph for every trace
+    t0 = time.perf_counter()
+    entry = engine.warmup(SLICE_INSTRUCTIONS)
+    capture_s = time.perf_counter() - t0
+    emit({"phase": "slice", "check": "capture", "seconds": capture_s, "compiles": entry.compiles,
+          "retained_bytes_est": entry.est_bytes,
+          "launches_per_replay": {k.symbol: n for k, n in entry.aot.launches.items()},
+          "cache_stats": cache_stats()})
+    engine.simulate(traces["lee"])  # warm-up: allocator pools, the column copies
     engine.simulate(traces["lee"], features=extract(traces["lee"]))
 
     # ---- the fused route: raw traces
     zero_counts()
+    replays = entry.aot.replays
     res = {b: engine.simulate(t) for b, t in traces.items()}
     launches = read_counts()
+    replays = entry.aot.replays - replays
     batches = sum(-(-(r.num_instructions // cfg.window) // ecfg.batch_size) for r in res.values())
     for b, r in res.items():
         scalars = [r.cpi, r.total_cycles, r.branch_mpki, r.l1d_mpki]
@@ -912,17 +961,31 @@ def phase_slice(failures, results, traces):
               "seconds": r.seconds, "mips": r.mips, "cpi": r.cpi,
               "total_cycles": r.total_cycles, "branch_mpki": r.branch_mpki,
               "l1d_mpki": r.l1d_mpki})
-    expected = {"fused_features": batches, "flash_attention": cfg.n_layers * batches,
-                "branch_history": 0, "memdist_delta": 0, "ssd": 0}
-    if launches != expected:
-        failures.append(f"slice: fused route launches {launches}, expected {expected}")
+    expected = {"fused_features": batches, "branch_history": 0, "memdist_delta": 0, "ssd": 0}
+    got = {k: v for k, v in launches.items() if k != "flash_attention"}
+    if got != expected:
+        failures.append(f"slice: fused route launches {got}, expected {expected}")
+    # B4 runs inside the replayed graph: its launches by the graph's own
+    # kernel nodes and by the capture-time count, each times the replays,
+    # against the wrapper's count (which the replays add to)
+    attn_nodes = sum("attention_kernel" in k for k in graph_kernel_names(entry.aot.graph))
+    b4 = {"counter": launches["flash_attention"], "graph_nodes_x_replays": attn_nodes * replays,
+          "captured_x_replays": entry.aot.launches.get(FLASH_ATTENTION, 0) * replays}
+    if not (attn_nodes == cfg.n_layers and replays == batches
+            and set(b4.values()) == {cfg.n_layers * batches}):
+        failures.append(f"slice: attention nodes {attn_nodes} per graph, {replays} replays for "
+                        f"{batches} batches, launches {b4}")
+    if engine.num_compiles != 1:
+        failures.append(f"slice: {engine.num_compiles} captures, expected the warmup's one")
     for name in ("fused_features", "flash_attention"):
         results[name]["launches"] = launches[name]
     total_n = sum(r.num_instructions for r in res.values())
     total_s = sum(r.seconds for r in res.values())
     emit({"phase": "slice", "route": "fused", "traces": list(SLICE_BENCHMARKS),
           "instructions": total_n, "simulate_seconds": total_s, "mips": total_n / 1e6 / total_s,
-          "batches": batches, "launches": launches})
+          "batches": batches, "launches": launches, "replays": replays,
+          "attention_nodes_per_graph": attn_nodes, "flash_attention_counts": b4,
+          "captures": engine.num_compiles})
 
     # ---- the staged route: one whole-trace extraction per trace, on the card
     zero_counts()
@@ -1020,6 +1083,88 @@ def phase_slice(failures, results, traces):
     emit({"phase": "slice", "check": "profile", "trace": "lee", "batches": lee_batches,
           "copy_kernels_per_batch": prof["copy_kernels"] / lee_batches,
           "fused_features_pass_ms_per_batch": b1_passes, **prof})
+
+    graph_vs_eager(failures, engine, traces, {b: extract(t) for b, t in traces.items()}, total_n,
+                   batches, lee_batches)
+
+
+def eager_entry_loop(engine, trace, features=None):
+    """The engine's own batches folded through its cache entry called
+    directly: the eager step, one dispatch per torch op (what simulate ran
+    before the step was captured)."""
+    import torch
+
+    t0 = time.perf_counter()
+    n, count, batches = engine._batches(trace, features)
+    entry = engine.step_entry_for(n)
+    carry = engine.init_carry(n)
+    with torch.inference_mode():
+        for b in batches:
+            carry, _ = entry(engine.params, carry, b)
+        return engine._result(carry, [], count, t0)
+
+
+def graphed_vs_eager_diffs(graphed, eager, eager2) -> dict:
+    """Which metrics the graphed simulate holds bitwise to the eager loop,
+    and the relative spread of the float32 phase sums that go through
+    index_add_'s atomics: eager against eager, graphed against eager."""
+    import numpy as np
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+    bitwise = {k: bool(np.array_equal(graphed.metrics[k], v)) for k, v in eager.metrics.items()}
+    return {"bitwise": bitwise,
+            "cpi_phase_rel_eager_vs_eager": rel(eager2.metrics["cpi_phase"], eager.metrics["cpi_phase"]),
+            "cpi_phase_rel_graphed_vs_eager": rel(graphed.metrics["cpi_phase"], eager.metrics["cpi_phase"])}
+
+
+def graph_vs_eager(failures, engine, traces, arrays, total_n, batches, lee_batches):
+    """The graphed simulate against the eager entry loop, in turns (graphed,
+    eager, eager, graphed) per trace, on both routes (the staged one
+    reusing one extraction per trace): medians per trace, MIPS, host ms per
+    batch (host clock around each run, which ends in the packed copy's
+    sync), and from one profiled run of each on ``lee`` the device ms per
+    batch and the idle share.  Results held bitwise, except ``cpi_phase``
+    within GRAPH_PHASE_RTOL."""
+    import numpy as np
+
+    from repro_torch.engine import cache_stats
+
+    for route in ("fused", "staged"):
+        secs = {b: {"graphed": [], "eager": []} for b in traces}
+        held = {}
+        for _ in range(ROUTE_ROUNDS):
+            for b, t in traces.items():
+                feats = None if route == "fused" else arrays[b]
+                runs = {}
+                for mode in ("graphed", "eager", "eager2", "graphed2"):
+                    r = (engine.simulate(t, features=feats) if mode.startswith("graphed")
+                         else eager_entry_loop(engine, t, feats))
+                    secs[b][mode.rstrip("2")].append(r.seconds)
+                    runs[mode] = r
+                held[b] = graphed_vs_eager_diffs(runs["graphed"], runs["eager"], runs["eager2"])
+                ok = all(v for k, v in held[b]["bitwise"].items() if k != "cpi_phase") and \
+                    held[b]["cpi_phase_rel_graphed_vs_eager"] <= GRAPH_PHASE_RTOL
+                if not ok:
+                    failures.append(f"slice: graphed {route} simulate differs from the eager step "
+                                    f"on {b}: {held[b]}")
+        med = {b: {k: float(np.median(v)) for k, v in d.items()} for b, d in secs.items()}
+        feats = None if route == "fused" else arrays["lee"]
+        prof = {mode: profile_breakdown(fn) for mode, fn in (
+            ("graphed", lambda: engine.simulate(traces["lee"], features=feats)),
+            ("eager", lambda: eager_entry_loop(engine, traces["lee"], feats)))}
+        out = {"phase": "slice", "check": "graph_vs_eager", "route": route, "rounds": ROUTE_ROUNDS,
+               "instructions": total_n, "batches": batches, "per_trace_median_s": med, "held": held}
+        for mode in ("graphed", "eager"):
+            s = sum(m[mode] for m in med.values())
+            out[mode] = {"mips": total_n / 1e6 / s, "host_ms_per_batch": s * 1e3 / batches,
+                         "device_ms_per_batch": prof[mode]["device_busy_s"] * 1e3 / lee_batches,
+                         "idle_share": prof[mode]["idle_share"],
+                         "top_device_ms": prof[mode]["top_device_ms"]}
+        out["captures"] = engine.num_compiles
+        out["cache_stats"] = cache_stats()
+        emit(out)
 
 
 def rel_diff(a, b) -> float:

@@ -1,5 +1,5 @@
-"""The streaming simulation engine and its metric registry (PyTorch port
-of ``repro.engine``'s single-device inference path)."""
+"""The streaming simulation engine, its step cache and its metric registry
+(PyTorch port of ``repro.engine``'s single-device inference path)."""
 from .metrics import (
     DEFAULT_METRICS,
     METRIC_REGISTRY,
@@ -15,6 +15,8 @@ from .runner import (
     MetricNotComputedError,
     SimulationResult,
     StreamingEngine,
+    cache_stats,
+    clear_step_cache,
     simulate_trace_engine,
 )
 
@@ -28,6 +30,8 @@ __all__ = [
     "SimulationResult",
     "StepContext",
     "StreamingEngine",
+    "cache_stats",
+    "clear_step_cache",
     "register_metric",
     "resolve_metrics",
     "simulate_trace_engine",

@@ -1,0 +1,180 @@
+"""Ahead-of-time capture of the engine's step: one CUDA graph per geometry.
+
+Counterpart of the AOT helpers of ``repro/engine/aot.py``.  The reference
+lowers its jitted step from ``ShapeDtypeStruct``s and compiles it once per
+geometry; here the step is captured once per geometry as a
+``torch.cuda.CUDAGraph`` and replayed once per batch, so a batch costs one
+replay instead of ~100 eager dispatches:
+
+  * ``static_like`` — zero tensors of a tree's shapes and dtypes (the
+    counterpart of ``abstract_like``; a ``meta`` tensor plays the
+    ``ShapeDtypeStruct``);
+  * ``capture_bytes_estimate`` — the device bytes an entry retains: its
+    static buffers plus the graph's private memory pool (the counterpart
+    of ``compile_bytes_estimate``);
+  * ``CapturedStep`` — the capture itself and the replay;
+  * ``graph_kernel_names`` — the kernel nodes of a captured graph, read
+    from the graph (``csrc/graph_nodes.cu``): what one replay launches.
+
+The graph reads three sets of static buffers that it owns: a device copy
+of a ``Tao`` of the entry's shape (engines copy their weights in with one
+``torch._foreach_copy_`` per simulate, so engines of one shape share the
+entry), the carry, which every replay updates in place, and the step's
+eight batch inputs.  A hand-written kernel's launch during a capture is
+recorded, not run: ``CudaKernel.captured`` counts it, and each replay adds
+the graph's launches of each kernel to that kernel's ``launches``.  The
+persistent-compilation-cache functions of the reference module have no
+counterpart: a graph does not outlive its process.
+"""
+from __future__ import annotations
+
+import contextlib
+import copy
+import ctypes
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from ..core.model import Tao
+from ..kernels._cuda import KERNELS, CudaKernel
+
+__all__ = [
+    "WARMUP_RUNS",
+    "CapturedStep",
+    "capture_bytes_estimate",
+    "graph_kernel_names",
+    "static_like",
+]
+
+# eager runs of the step on the static inputs before the capture: each
+# kernel's first-use build and attribute setup, and cuBLAS's handles and
+# workspaces, happen there and not inside the capture
+WARMUP_RUNS = 2
+
+_GRAPH_NODES = CudaKernel(
+    "graph_nodes.cu",
+    "tao_graph_kernel_names",
+    [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)],
+)
+_NAMES_BYTES = 1 << 20
+
+
+def _leaves(tree: Any) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _copy_tree_(dst: Any, src: Any) -> None:
+    if isinstance(dst, dict):
+        for k, v in dst.items():
+            _copy_tree_(v, src[k])
+    elif dst is not src:
+        dst.copy_(src)
+
+
+def static_like(tree: Any, device: Optional[torch.device] = None) -> Any:
+    """Zero tensors of ``tree``'s shapes and dtypes (on ``device``, default
+    each leaf's own): the buffers a graph reads its inputs from.  ``meta``
+    leaves declare a shape without data, as the reference's
+    ``ShapeDtypeStruct``s do."""
+    if isinstance(tree, dict):
+        return {k: static_like(v, device) for k, v in tree.items()}
+    return torch.zeros(tree.shape, dtype=tree.dtype, device=device or tree.device)
+
+
+def capture_bytes_estimate(static: Any, pool_bytes: int) -> int:
+    """Device bytes a captured entry retains: its static tensors (a tree of
+    dicts, lists and tuples) plus the ``pool_bytes`` its graph's private
+    memory pool reserved during the capture."""
+    return sum(t.numel() * t.element_size() for t in _leaves(static)) + pool_bytes
+
+
+def graph_kernel_names(graph: torch.cuda.CUDAGraph) -> List[str]:
+    """The function name of every kernel node of a graph captured with
+    ``keep_graph=True`` (child graphs included), in the graph's node
+    order: the kernels one replay launches."""
+    buf = ctypes.create_string_buffer(_NAMES_BYTES)
+    count = ctypes.c_int(0)
+    err = _GRAPH_NODES._entry()(graph.raw_cuda_graph(), buf, _NAMES_BYTES, ctypes.byref(count), None)
+    if err != 0:
+        raise RuntimeError(f"tao_graph_kernel_names: CUresult {err}")
+    names = buf.value.decode().splitlines()
+    if len(names) != count.value:
+        raise RuntimeError(f"tao_graph_kernel_names: {count.value} kernel nodes, {len(names)} names")
+    return names
+
+
+class CapturedStep:
+    """One step captured as a CUDA graph, with the static buffers it reads.
+
+    ``fn(params, carry, batch) -> (new_carry, per)`` is the engine's eager
+    step.  The capture runs it ``WARMUP_RUNS`` times on a side stream on
+    zero inputs, then once under capture, where it also writes the new
+    carry into the static carry (``copy_``); the graph's outputs ``per``
+    (the per-instruction arrays under ``collect``) are overwritten by the
+    next replay.  Any error of the capture raises: nothing falls back to
+    the eager step.  One simulate at a time may use an instance.
+    """
+
+    def __init__(self, fn: Callable, params: Tao, carry: Dict, batch: Dict):
+        """``carry``: a trace's initial carry; ``batch``: one batch's tensors
+        (``meta`` ones will do); their shapes and dtypes are captured."""
+        with torch.inference_mode(False):  # plain tensors, updated in place
+            self.params = copy.deepcopy(params).requires_grad_(False)
+        self._param_list = [*self.params.parameters(), *self.params.buffers()]
+        with torch.inference_mode():
+            self._capture(fn, carry, batch)
+
+    def _capture(self, fn: Callable, carry: Dict, batch: Dict) -> None:
+        dev = self._param_list[0].device
+        self.carry = static_like(carry)
+        self.batch = static_like(batch, dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_RUNS):
+                fn(self.params, self.carry, self.batch)
+        torch.cuda.synchronize(dev)
+        reserved = torch.cuda.memory_reserved(dev)
+        captured = {k: k.captured for k in KERNELS}
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.stream(side):
+            self.graph.capture_begin()
+            try:
+                new, self.per = fn(self.params, self.carry, self.batch)
+                _copy_tree_(self.carry, new)
+            except BaseException:
+                # the capture is invalid already; end it and raise the cause
+                with contextlib.suppress(RuntimeError):
+                    self.graph.capture_end()
+                raise
+            self.graph.capture_end()
+        self.graph.instantiate()
+        torch.cuda.synchronize(dev)
+        # each hand-written kernel's launches per replay
+        self.launches: Dict[CudaKernel, int] = {
+            k: k.captured - n for k, n in captured.items() if k.captured > n}
+        self.replays = 0
+        self.bytes_estimate = capture_bytes_estimate(
+            (self._param_list, self.carry, self.batch),
+            torch.cuda.memory_reserved(dev) - reserved,
+        )
+
+    def load(self, params: Tao, carry: Dict) -> None:
+        """Copy an engine's weights and a trace's initial carry in."""
+        torch._foreach_copy_(self._param_list, [*params.parameters(), *params.buffers()])
+        _copy_tree_(self.carry, carry)
+
+    def replay(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Copy one batch into the static inputs and run the graph; returns
+        the static per-instruction outputs (valid until the next replay)."""
+        for k, dst in self.batch.items():
+            dst.copy_(batch[k])
+        self.graph.replay()
+        self.replays += 1
+        for k, n in self.launches.items():
+            k.launches += n
+        return self.per

@@ -51,7 +51,9 @@ class StepContext:
 
     Arrays are flattened to ``(B * W,)`` device tensors.  ``is_branch`` /
     ``is_mem`` are already masked to valid positions; the raw batch is in
-    ``batch``.
+    ``batch``.  Nothing here reads a value back to the host (no ``.item()``,
+    no Python branch on a tensor), so a step built from these helpers can
+    be captured in a CUDA graph; a spec's ``update`` must keep to that too.
     """
 
     valid: torch.Tensor         # float32 validity mask (0.0 on padding)
@@ -70,7 +72,8 @@ class StepContext:
     win_index: Optional[torch.Tensor] = None  # (B,) int32 trace-global
                                 # window index of each row (>= num_windows
                                 # on padding rows)
-    num_windows: int = 0        # real windows in the whole trace
+    num_windows: Optional[torch.Tensor] = None  # int32 device scalar: real
+                                # windows in the whole trace
     # the reference's cross-shard reducers: the identity on one device
     psum: Callable[[Any], Any] = _identity
     pmax: Callable[[Any], Any] = _identity
@@ -78,7 +81,9 @@ class StepContext:
     def at_last(self, x: torch.Tensor) -> torch.Tensor:
         """Value of ``x`` at the last valid position of the batch
         (meaningful only when ``last_key >= 0``)."""
-        return x[torch.argmax(torch.where(self.on, self.gidx, -1.0))]
+        i = torch.argmax(torch.where(self.on, self.gidx, -1.0))
+        # index_select, not x[i]: indexing by a 0-d tensor may read it back
+        return x.index_select(0, i.reshape(1)).reshape(())
 
     def per_window(self, x: torch.Tensor) -> torch.Tensor:
         """``(B*W,)`` -> ``(B, W)``."""
@@ -88,9 +93,9 @@ class StepContext:
         """Each window's phase-chunk bucket in ``[0, num_chunks)``: the
         trace's window grid cut into ``num_chunks`` contiguous phases.
         Padding windows clamp into the last bucket (their contribution is
-        masked).  int32 math: the engine enforces
+        masked).  int32 math on the device: the engine enforces
         ``num_windows * num_chunks < 2^31``."""
-        b = (self.win_index * num_chunks) // max(self.num_windows, 1)
+        b = (self.win_index * num_chunks) // torch.clamp(self.num_windows, min=1)
         return torch.clamp(b, 0, num_chunks - 1)
 
     def windowed_sum(self, values: torch.Tensor, num_chunks: int) -> torch.Tensor:

@@ -28,7 +28,21 @@ there is no ``feature_backend`` setting:
 Every route's features are bitwise the NumPy specification's for any
 address (the deltas are taken in int64).  Carries stay on the device; the
 only device-to-host transfer is one packed copy of every carry (and
-collected array) after the last batch.
+collected array) after the last batch.  The carry holds, beside the
+specs', the reserved ``"__grid__"`` slot: the trace's running window
+offset and window count as int32 device scalars, so the step's shapes and
+code do not depend on the trace's length.
+
+The step is built once per geometry and kept in a process-wide cache
+(``_STEP_CACHE``; ``cache_stats`` / ``clear_step_cache``), keyed on what it
+depends on — the config, batch size, ``collect``, precision, metric specs,
+effective window and device — and not on the weights, so engines of one
+shape share an entry.  On a CUDA device the entry holds the step captured
+as one CUDA graph (``engine/aot.py``): ``warmup(n)`` captures ahead of
+time, a first ``simulate`` of a geometry captures lazily, and every batch
+of every route is copied into the graph's static inputs and replayed.  On
+the CPU the entry runs the eager step.  A capture or replay that fails on
+CUDA raises; nothing falls back to the eager step.
 ``precision="int8"`` is not ported yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -46,6 +60,8 @@ from ..core.features import FeatureSet
 from ..core.model import Tao, TaoConfig, tao_forward
 from ..kernels.features.ops import trace_columns
 from ..kernels.fused.ops import FusedExtractor
+from ..uarch.isa import NUM_REGS
+from .aot import CapturedStep
 from .metrics import DEFAULT_METRICS, MetricSpec, StepContext, resolve_metrics
 
 __all__ = [
@@ -56,6 +72,8 @@ __all__ = [
     "MetricNotComputedError",
     "SimulationResult",
     "StreamingEngine",
+    "cache_stats",
+    "clear_step_cache",
     "device_get",
     "simulate_trace_engine",
 ]
@@ -73,6 +91,10 @@ _DEVICE_ARRAY_KEYS = INPUT_KEYS + ("is_branch", "is_mem")
 _RESERVED_RESULT_ATTRS = frozenset(
     ("num_instructions", "seconds", "mips", "metrics")
 )
+
+# reserved carry slot threading the trace's window grid (running window
+# offset + total windows) through the step for windowed MetricSpecs
+_GRID_KEY = "__grid__"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,12 +252,76 @@ def device_get(tree: Any) -> Any:
     return rebuild(tree)
 
 
+class _CachedStep:
+    """The step of one geometry, shared across engines with identical
+    (cfg, ecfg, device): params are an argument, so engines of one shape
+    reuse one entry.
+
+    ``fn`` is the eager step.  ``aot`` holds the ``CapturedStep`` (one CUDA
+    graph) once ``StreamingEngine.warmup`` or a first ``simulate`` on a
+    CUDA device captured the geometry; ``compiles`` counts captures and
+    ``est_bytes`` is the device bytes the capture retains
+    (``capture_bytes_estimate``).  On the CPU ``aot`` stays None.
+    """
+
+    __slots__ = ("fn", "compiles", "aot", "est_bytes")
+
+    def __init__(self):
+        self.fn = None
+        self.compiles = 0
+        self.aot: Optional[CapturedStep] = None
+        self.est_bytes: Optional[int] = None
+
+    def __call__(self, params, carry, batch):
+        # code that runs the step directly (tests, custom loops) calls the
+        # entry like a bare step: always the eager ``fn``, on any device;
+        # engines replay ``aot`` themselves in simulate()
+        return self.fn(params, carry, batch)
+
+
+_STEP_CACHE: Dict[tuple, _CachedStep] = {}
+
+# entry-reuse counters behind cache_stats(): a hit means an engine needed a
+# step and an already-built entry (its own or the process cache's) served
+# it; a miss means a new step was built
+_STEP_STATS: Dict[str, int] = {"hits": 0, "misses": 0}
+
+
+def cache_stats() -> Dict[str, int]:
+    """Inspect the process-wide step cache: entry count, hit/miss
+    counters, captures, and the estimated device bytes the captured
+    entries retain (``entries_unmeasured`` counts entries with no capture,
+    whose retained bytes the estimate does not see)."""
+    measured = [e.est_bytes for e in _STEP_CACHE.values() if e.est_bytes]
+    return {
+        "entries": len(_STEP_CACHE),
+        "hits": _STEP_STATS["hits"],
+        "misses": _STEP_STATS["misses"],
+        "compiles": sum(e.compiles for e in _STEP_CACHE.values()),
+        "aot_compiled": sum(1 for e in _STEP_CACHE.values() if e.aot is not None),
+        "retained_bytes_est": sum(measured),
+        "entries_unmeasured": sum(1 for e in _STEP_CACHE.values() if not e.est_bytes),
+    }
+
+
+def clear_step_cache() -> int:
+    """Drop every cached step (returns how many were dropped).  Engines
+    already holding an entry keep it alive until they are collected; new
+    engines re-build.  Hit/miss counters keep accumulating — snapshot
+    ``cache_stats()`` around a region to attribute its traffic."""
+    n = len(_STEP_CACHE)
+    _STEP_CACHE.clear()
+    return n
+
+
 class StreamingEngine:
     """Stream any number of traces through one model on one device.
 
     ``params`` (a ``core.model.Tao``) is moved to ``device`` in place, as
     ``nn.Module.to`` does (default ``cuda``; without CUDA this raises
-    unless ``device="cpu"``).
+    unless ``device="cpu"``).  ``num_compiles`` counts the captures of the
+    steps this engine used (shared with engines of the same shape: at most
+    one per effective window either way; 0 on the CPU).
     """
 
     def __init__(
@@ -258,14 +344,110 @@ class StreamingEngine:
                 "(ROADMAP A6), not ported yet"
             )
         self._specs: Tuple[MetricSpec, ...] = resolve_metrics(ecfg.metrics)
+        for s in self._specs:
+            if s.name == _GRID_KEY:
+                raise ValueError(
+                    f"metric name {_GRID_KEY!r} is reserved for the "
+                    "engine's window-grid carry"
+                )
         self.device = resolve_device(device)
         self.params = params.to(self.device)
         self.cfg = cfg
         self.ecfg = ecfg
+        self._steps: Dict[int, _CachedStep] = {}  # effective window -> step
+
+    @property
+    def num_compiles(self) -> int:
+        """Captures of the steps this engine used (shared with engines of
+        identical shape: at most one per effective window either way)."""
+        return sum(e.compiles for e in self._steps.values())
+
+    # ---- the step ---------------------------------------------------------
+
+    def _build_step(self, w_eff: int):
+        """The eager step ``(params, carry, batch) -> (carry, per)`` for
+        (batch_size, ``w_eff``) batches.  It reads nothing of the engine
+        but its shape, and nothing back to the host, so it is shared and
+        captured as it is."""
+        cfg = self.cfg
+        specs = self._specs
+        collect = self.ecfg.collect
+        bsz = self.ecfg.batch_size
+
+        @torch.inference_mode()
+        def step(params: Tao, carry: Dict, batch: Dict[str, torch.Tensor]):
+            valid = batch["valid"].reshape(-1)
+            dev = valid.device
+            out = tao_forward(params, {k: batch[k] for k in INPUT_KEYS}, cfg)
+            fetch = torch.clamp(out["fetch_lat"], min=0.0).reshape(-1)
+            execl = torch.clamp(out["exec_lat"], min=0.0).reshape(-1)
+            misp = torch.sigmoid(out["mispred_logit"]).reshape(-1)
+            dlev = torch.argmax(out["dlevel_logits"], dim=-1).to(torch.int32).reshape(-1)
+            on = valid > 0
+            gidx = torch.arange(valid.shape[0], dtype=torch.float32, device=dev)
+            # trace-global window index of each row, from the grid carry
+            grid = carry[_GRID_KEY]
+            b_local = batch["valid"].shape[0]
+            ctx = StepContext(
+                valid=valid,
+                on=on,
+                is_branch=batch["is_branch"].reshape(-1) & on,
+                is_mem=batch["is_mem"].reshape(-1) & on,
+                fetch_lat=fetch,
+                exec_lat=execl,
+                mispred_prob=misp,
+                dlevel=dlev,
+                gidx=gidx,
+                last_key=torch.max(torch.where(on, gidx, -1.0)),
+                batch=batch,
+                window=w_eff,
+                win_index=grid["seen"] + torch.arange(b_local, dtype=torch.int32, device=dev),
+                num_windows=grid["total"],
+            )
+            new_carry = {s.name: s.update(carry[s.name], ctx) for s in specs}
+            new_carry[_GRID_KEY] = {"seen": grid["seen"] + bsz, "total": grid["total"]}
+            per = {}
+            if collect:
+                per = {"fetch_lat": fetch, "exec_lat": execl, "mispred_prob": misp, "dlevel": dlev}
+            return new_carry, per
+
+        return step
+
+    def _get_step(self, w_eff: int) -> _CachedStep:
+        entry = self._steps.get(w_eff)
+        if entry is None:
+            # keyed on exactly what the step depends on; the device stands
+            # where the reference's plan does, and the weights are not in
+            # the key (they are an argument, copied in per simulate)
+            key = (
+                self.cfg,
+                self.ecfg.batch_size,
+                self.ecfg.collect,
+                self.ecfg.precision,
+                self.device,
+                self._specs,
+                w_eff,
+            )
+            entry = _STEP_CACHE.get(key)
+            if entry is None:
+                _STEP_STATS["misses"] += 1
+                entry = _CachedStep()
+                entry.fn = self._build_step(w_eff)
+                _STEP_CACHE[key] = entry
+            else:
+                _STEP_STATS["hits"] += 1
+            self._steps[w_eff] = entry
+        else:
+            _STEP_STATS["hits"] += 1
+        return entry
 
     def init_carry(self, n: int) -> Dict[str, Any]:
-        """Every requested spec's ``init()`` on the engine's device, for a
-        trace of ``n`` instructions."""
+        """The initial carry for a trace of ``n`` instructions: every
+        requested spec's ``init()`` on the engine's device plus the
+        reserved window-grid slot (``seen``: the running window offset,
+        ``total``: the trace's windows; int32 device scalars).  Code driving
+        the step directly (``step_entry_for(n)(params, carry, batch)``)
+        starts from this."""
         if n < 1:
             raise ValueError("cannot simulate an empty trace")
         nw = num_windows(n, self.cfg.window, self.cfg.window)
@@ -279,45 +461,60 @@ class StreamingEngine:
                     "chunk-index envelope; reduce num_chunks or split "
                     "the trace"
                 )
-        return {s.name: s.init(self.device) for s in self._specs}
+        carry = {s.name: s.init(self.device) for s in self._specs}
+        carry[_GRID_KEY] = {
+            "seen": torch.zeros((), dtype=torch.int32, device=self.device),
+            "total": torch.tensor(nw, dtype=torch.int32, device=self.device),
+        }
+        return carry
 
-    def _step(
-        self, carry: Dict, batch: Dict[str, torch.Tensor], seen: int, total: int, w_eff: int
-    ) -> Tuple[Dict, Dict[str, torch.Tensor]]:
-        """Fold one (batch_size, W) batch into the carry; ``seen`` is the
-        trace-global index of the batch's first window, ``total`` the
-        trace's window count."""
-        dev = self.device
-        valid = batch["valid"].reshape(-1)
-        out = tao_forward(self.params, {k: batch[k] for k in INPUT_KEYS}, self.cfg)
-        fetch = torch.clamp(out["fetch_lat"], min=0.0).reshape(-1)
-        execl = torch.clamp(out["exec_lat"], min=0.0).reshape(-1)
-        misp = torch.sigmoid(out["mispred_logit"]).reshape(-1)
-        dlev = torch.argmax(out["dlevel_logits"], dim=-1).to(torch.int32).reshape(-1)
-        on = valid > 0
-        gidx = torch.arange(valid.shape[0], dtype=torch.float32, device=dev)
-        b_local = batch["valid"].shape[0]
-        ctx = StepContext(
-            valid=valid,
-            on=on,
-            is_branch=batch["is_branch"].reshape(-1) & on,
-            is_mem=batch["is_mem"].reshape(-1) & on,
-            fetch_lat=fetch,
-            exec_lat=execl,
-            mispred_prob=misp,
-            dlevel=dlev,
-            gidx=gidx,
-            last_key=torch.max(torch.where(on, gidx, -1.0)),
-            batch=batch,
-            window=w_eff,
-            win_index=torch.arange(seen, seen + b_local, dtype=torch.int32, device=dev),
-            num_windows=total,
-        )
-        new_carry = {s.name: s.update(carry[s.name], ctx) for s in self._specs}
-        per = {}
-        if self.ecfg.collect:
-            per = {"fetch_lat": fetch, "exec_lat": execl, "mispred_prob": misp, "dlevel": dlev}
-        return new_carry, per
+    def step_entry_for(self, n: int) -> _CachedStep:
+        """The cached step entry ``simulate`` uses for a trace of length
+        ``n`` (created lazily; its ``compiles`` counter attributes
+        captures)."""
+        if n < 1:
+            raise ValueError("cannot simulate an empty trace")
+        return self._get_step(min(self.cfg.window, n))
+
+    # ---- ahead-of-time capture ------------------------------------------
+
+    def _abstract_batch(self, w_eff: int) -> Dict[str, torch.Tensor]:
+        """``meta`` tensors of one step batch: the shapes and dtypes every
+        route's batches have for this engine's geometry."""
+        b = self.ecfg.batch_size
+        f = self.cfg.features
+
+        def meta(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        return {
+            "opcode": meta((b, w_eff), torch.int32),
+            "regbits": meta((b, w_eff, NUM_REGS), torch.float32),
+            "flags": meta((b, w_eff, f.flags_dim), torch.float32),
+            "brhist": meta((b, w_eff, f.n_queue), torch.float32),
+            "memdist": meta((b, w_eff, f.n_mem), torch.float32),
+            "valid": meta((b, w_eff), torch.float32),
+            "is_branch": meta((b, w_eff), torch.bool),
+            "is_mem": meta((b, w_eff), torch.bool),
+        }
+
+    def _capture(self, entry: _CachedStep, n: int) -> CapturedStep:
+        w_eff = min(self.cfg.window, n)
+        captured = CapturedStep(entry.fn, self.params, self.init_carry(n), self._abstract_batch(w_eff))
+        entry.aot = captured
+        entry.compiles += 1
+        entry.est_bytes = captured.bytes_estimate
+        return captured
+
+    def warmup(self, n: int) -> _CachedStep:
+        """Capture the step for traces of length ``n`` ahead of time, so the
+        first real batch replays a ready graph.  On the CPU there is no
+        graph: the entry is returned with ``aot`` None.  Idempotent per
+        geometry; raises if the capture fails."""
+        entry = self.step_entry_for(n)
+        if entry.aot is None and self.device.type == "cuda":
+            self._capture(entry, n)
+        return entry
 
     def _host_batches(self, fs: FeatureSet, func_trace: np.ndarray) -> Iterator[Dict]:
         """Precomputed features: host batches copied to the device."""
@@ -401,16 +598,15 @@ class StreamingEngine:
                 batch["valid"] = valid
             yield batch
 
-    def simulate(
+    def _batches(
         self,
         func_trace: np.ndarray,
-        features: Optional[Union[FeatureSet, Dict[str, torch.Tensor]]] = None,
-    ) -> SimulationResult:
-        """Simulate one trace; ``features`` picks the route (module note):
-        None (the fused route from ``func_trace``), the dict of
-        ``device_feature_arrays`` on this engine's device, or a host
-        ``FeatureSet``."""
-        t0 = time.perf_counter()
+        features: Optional[Union[FeatureSet, Dict[str, torch.Tensor]]],
+    ) -> Tuple[int, int, Iterator[Dict]]:
+        """``(n, count, batches)`` of one trace on the route ``features``
+        picks: its length, the instructions the window grid simulates (the
+        tail past the last whole window is not, as in the reference) and
+        the iterator of its step batches."""
         cfg = self.cfg
         if features is None:
             n = len(func_trace)
@@ -426,33 +622,26 @@ class StreamingEngine:
         if n == 0:
             raise ValueError("cannot simulate an empty trace")
         w_eff = min(cfg.window, n)
-        nw = num_windows(n, cfg.window, cfg.window)
-        # exact instruction count from the window grid (the tail past the
-        # last whole window is not simulated, as in the reference)
-        count = nw * w_eff
-        carry = self.init_carry(n)
-
+        count = num_windows(n, cfg.window, cfg.window) * w_eff
         if features is None:
             batches = self._fused_batches(trace_columns(func_trace, cfg.features), w_eff, count)
         elif isinstance(features, FeatureSet):
             batches = self._host_batches(features, func_trace)
         else:
             batches = self._device_batches(features, w_eff, count)
+        return n, count, batches
 
-        pers: List[Dict[str, torch.Tensor]] = []
-        with torch.inference_mode():
-            for i, batch in enumerate(batches):
-                seen = i * self.ecfg.batch_size
-                carry, per = self._step(carry, batch, seen, nw, w_eff)
-                if self.ecfg.collect:
-                    pers.append(per)
-            collected = {}
-            if pers:
-                collected = {
-                    k: torch.cat([p[k] for p in pers])[:count] for k in PER_INSTRUCTION_KEYS
-                }
-            host = device_get({"carry": carry, "arrays": collected})
-
+    def _result(
+        self, carry: Dict, pers: List[Dict[str, torch.Tensor]], count: int, t0: float
+    ) -> SimulationResult:
+        """One packed device-to-host copy of the final carry and the
+        collected arrays, then every spec's ``finalize``."""
+        collected = {}
+        if pers:
+            collected = {
+                k: torch.cat([p[k] for p in pers])[:count] for k in PER_INSTRUCTION_KEYS
+            }
+        host = device_get({"carry": carry, "arrays": collected})
         metrics: Dict[str, Any] = {}
         for s in self._specs:
             out = s.finalize(host["carry"][s.name], count)
@@ -480,6 +669,38 @@ class StreamingEngine:
             metrics=metrics,
             arrays=arrays,
         )
+
+    def simulate(
+        self,
+        func_trace: np.ndarray,
+        features: Optional[Union[FeatureSet, Dict[str, torch.Tensor]]] = None,
+    ) -> SimulationResult:
+        """Simulate one trace; ``features`` picks the route (module note):
+        None (the fused route from ``func_trace``), the dict of
+        ``device_feature_arrays`` on this engine's device, or a host
+        ``FeatureSet``.  On a CUDA device every batch replays the step's
+        graph, captured at the geometry's first simulate unless ``warmup``
+        captured it."""
+        t0 = time.perf_counter()
+        n, count, batches = self._batches(func_trace, features)
+        entry = self._get_step(min(self.cfg.window, n))
+        carry = self.init_carry(n)
+        pers: List[Dict[str, torch.Tensor]] = []
+        with torch.inference_mode():
+            if self.device.type == "cuda":
+                graph = entry.aot if entry.aot is not None else self._capture(entry, n)
+                graph.load(self.params, carry)
+                for batch in batches:
+                    per = graph.replay(batch)
+                    if self.ecfg.collect:
+                        pers.append({k: v.clone() for k, v in per.items()})
+                carry = graph.carry
+            else:
+                for batch in batches:
+                    carry, per = entry(self.params, carry, batch)
+                    if self.ecfg.collect:
+                        pers.append(per)
+            return self._result(carry, pers, count, t0)
 
 
 def simulate_trace_engine(

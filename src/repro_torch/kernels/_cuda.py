@@ -11,8 +11,11 @@ A ``CudaKernel`` is one C entry point.  Every entry point takes the CUDA
 stream as its last argument, launches on it without synchronising, and
 returns ``cudaGetLastError()``; ``launch`` raises when that is not 0 and
 otherwise adds one to ``launches`` — the count that shows a run went
-through the kernel.  Every source also exports ``tao_error_string`` (the
-text of a CUDA error code) for that message.
+through the kernel.  On a stream that is being captured into a CUDA graph
+the kernel is recorded, not run, so ``launch`` adds one to ``captured``
+instead; whoever replays the graph adds its launches (``engine/aot.py``).
+``KERNELS`` lists every entry point.  Every source also exports
+``tao_error_string`` (the text of a CUDA error code) for that message.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import torch
 
 __all__ = [
-    "CSRC", "BUILD_DIR", "NVCC_FLAGS", "CudaKernel", "build", "check_cuda_tensor",
+    "CSRC", "BUILD_DIR", "KERNELS", "NVCC_FLAGS", "CudaKernel", "build", "check_cuda_tensor",
     "library_path",
 ]
 
@@ -39,6 +42,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / spills per kernel into the build log
 )
+
+
+# every C entry point, in the order the modules made them
+KERNELS: List["CudaKernel"] = []
 
 
 def _nvcc() -> str:
@@ -113,8 +120,10 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes) + [ctypes.c_void_p]  # + the stream
         self.launches = 0
+        self.captured = 0
         self._lib = None
         self._fn = None
+        KERNELS.append(self)
 
     def _entry(self):
         if self._fn is None:
@@ -126,7 +135,8 @@ class CudaKernel:
         return self._fn
 
     def launch(self, *args) -> None:
-        """Launch on the current stream; raise on a launch error."""
+        """Launch on the current stream (or record the launch, while the
+        stream is captured); raise on a launch error."""
         err = self._entry()(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             describe = self._lib.tao_error_string
@@ -135,4 +145,7 @@ class CudaKernel:
             raise RuntimeError(
                 f"{self.symbol}: CUDA error {err} ({describe(err).decode()})"
             )
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1

@@ -23,6 +23,17 @@ version within atol = rtol = 1e-4 in float32 (summation order and the
 chunk's prefix sum differ) and 2e-2 on bfloat16 outputs (one rounding of
 nearly equal float32 values), its float32 final state within 1e-4 either
 way; one Mamba-2 prefill launches it once per layer, a decode step never.
+
+The engine's graphed step (one CUDA graph per geometry, replayed per
+batch) is held to the eager step driven through its cache entry, on every
+route and under ``collect=True``: bitwise, except ``cpi_phase``, whose
+float32 per-chunk sums go through ``index_add_``'s atomics in an order
+that changes from run to run, even between two eager runs; it is held
+within ``batch_size * 2^-24`` relative (the batch's window sums added to a
+chunk in any order).  One capture serves traces of any length, ``warmup``
+captures ahead of time, engines of one shape share an entry with their own
+weights, the replays launch attention ``n_layers`` times each (counted from
+the graph's own kernel nodes), and a step that cannot be captured raises.
 """
 import numpy as np
 import pytest
@@ -31,7 +42,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.features import FeatureConfig, extract_features, signed_log  # noqa: E402
 from repro_torch.core.model import TaoConfig, init_tao  # noqa: E402
-from repro_torch.engine import EngineConfig, StreamingEngine  # noqa: E402
+from repro_torch.engine import EngineConfig, MetricSpec, StreamingEngine, cache_stats  # noqa: E402
+from repro_torch.engine.aot import graph_kernel_names  # noqa: E402
 from repro_torch.kernels.attention.kernel import FLASH_ATTENTION, flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.attention.ref import attention_plain  # noqa: E402
 from repro_torch.kernels.features import ops as feature_ops  # noqa: E402
@@ -462,3 +474,155 @@ def test_mamba2_prefill_launches_ssd_once_per_layer(dev):
     torch.testing.assert_close(logits.cpu(), ref, atol=2e-4, rtol=2e-4)
     for k in cache:
         torch.testing.assert_close(cache[k].cpu(), ref_cache[k], atol=2e-4, rtol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# The engine's graphed step
+# ---------------------------------------------------------------------------
+
+GRAPH_METRICS = ("cpi", "branch_mpki", "l1d_mpki", "dlevel_hist", "cpi_phase", "l1d_phase")
+# float32 per-chunk sums accumulated with atomics (see the module note)
+ATOMIC_FLOAT_METRICS = ("cpi_phase",)
+
+
+def graph_engine(dev, seed=0, **kw):
+    cfg = TaoConfig()
+    ecfg = EngineConfig(metrics=GRAPH_METRICS, **kw)
+    return StreamingEngine(init_tao(cfg, torch.Generator().manual_seed(seed), device=dev), cfg, ecfg,
+                           device=dev)
+
+
+def eager_entry_loop(engine, trace, features=None):
+    """The engine's own batches through its cache entry called directly:
+    the eager step, on the card."""
+    import time
+
+    t0 = time.perf_counter()
+    n, count, batches = engine._batches(trace, features)
+    entry = engine.step_entry_for(n)
+    carry = engine.init_carry(n)
+    pers = []
+    with torch.inference_mode():
+        for b in batches:
+            carry, per = entry(engine.params, carry, b)
+            if engine.ecfg.collect:
+                pers.append(per)
+        return engine._result(carry, pers, count, t0)
+
+
+def assert_graph_equals_eager(got, ref, batch_size):
+    assert got.num_instructions == ref.num_instructions
+    assert got.metrics.keys() == ref.metrics.keys()
+    for k, v in ref.metrics.items():
+        if k in ATOMIC_FLOAT_METRICS:
+            np.testing.assert_allclose(got.metrics[k], v, rtol=batch_size * 2.0**-24, atol=0, err_msg=k)
+        else:
+            np.testing.assert_array_equal(got.metrics[k], v, err_msg=k)
+    for k in ("fetch_lat", "exec_lat", "mispred_prob", "dlevel"):
+        if k in ref.available_metrics:
+            np.testing.assert_array_equal(getattr(got, k), getattr(ref, k), err_msg=k)
+
+
+def route_features(route, trace, fcfg, dev):
+    if route == "fused":
+        return None
+    if route == "staged":
+        return device_feature_arrays(trace_columns(trace, fcfg), fcfg, device=dev)
+    return extract_features(trace, fcfg, with_labels=False)
+
+
+@pytest.mark.parametrize("collect", [False, True])
+@pytest.mark.parametrize("route", ["fused", "staged", "host"])
+def test_graphed_simulate_equals_eager_entry_loop(dev, route, collect):
+    engine = graph_engine(dev, collect=collect)
+    trace = run_functional(get_benchmark("mcf"), 40000)
+    feats = route_features(route, trace, engine.cfg.features, dev)
+    got = engine.simulate(trace, features=feats)
+    assert engine.step_entry_for(len(trace)).aot is not None
+    ref = eager_entry_loop(engine, trace, feats)
+    assert_graph_equals_eager(got, ref, engine.ecfg.batch_size)
+    if collect:
+        assert got.fetch_lat.shape == (got.num_instructions,)
+
+
+def test_one_capture_across_uneven_trace_lengths(dev):
+    engine = graph_engine(dev, batch_size=56)
+    base = run_functional(get_benchmark("lee"), 60000)
+    before = cache_stats()["compiles"]
+    for n in (60000, 12345, 8256, 129 * 64 + 1, 33333):
+        got = engine.simulate(base[:n])
+        assert_graph_equals_eager(got, eager_entry_loop(engine, base[:n]), 56)
+    assert engine.num_compiles == 1
+    assert cache_stats()["compiles"] == before + 1
+    # a trace shorter than the window is another geometry: one more capture
+    engine.simulate(base[:100])
+    assert engine.num_compiles == 2
+
+
+def test_warmup_then_simulate_makes_no_capture(dev):
+    engine = graph_engine(dev, batch_size=32)
+    trace = run_functional(get_benchmark("dee"), 20000)
+    entry = engine.warmup(len(trace))
+    assert entry.aot is not None and entry.compiles == 1 and entry.est_bytes > 0
+    assert engine.warmup(len(trace)) is entry and entry.compiles == 1
+    stats = cache_stats()
+    got = engine.simulate(trace)
+    assert entry.compiles == 1 and cache_stats()["compiles"] == stats["compiles"]
+    assert stats["aot_compiled"] >= 1 and stats["retained_bytes_est"] >= entry.est_bytes
+    assert_graph_equals_eager(got, eager_entry_loop(engine, trace), 32)
+
+
+def test_engines_share_one_entry_with_their_own_weights(dev):
+    """Two engines of one shape, different weights, in turns on one shared
+    captured entry: each gives its own eager result, and no second capture
+    is made."""
+    a, b = graph_engine(dev, seed=0, batch_size=48), graph_engine(dev, seed=1, batch_size=48)
+    trace = run_functional(get_benchmark("lee"), 30000)
+    runs = [(e, e.simulate(trace)) for e in (a, b, a)]
+    entry = a.step_entry_for(len(trace))
+    assert entry is b.step_entry_for(len(trace)) and entry.compiles == 1
+    assert a.num_compiles == b.num_compiles == 1
+    for e, got in runs:
+        assert_graph_equals_eager(got, eager_entry_loop(e, trace), 48)
+    assert runs[0][1].cpi != runs[1][1].cpi
+
+
+def test_replays_launch_attention_per_layer(dev):
+    """The graph holds ``n_layers`` attention kernel nodes, and a simulate
+    adds ``n_layers`` launches per batch, one fused-feature launch per
+    batch on the fused route and none at capture."""
+    engine = graph_engine(dev, batch_size=24)
+    trace = run_functional(get_benchmark("mcf"), 20000)
+    entry = engine.warmup(len(trace))
+    names = graph_kernel_names(entry.aot.graph)
+    assert sum("attention_kernel" in k for k in names) == engine.cfg.n_layers
+    assert not any("fx_" in k for k in names)
+    assert entry.aot.launches == {FLASH_ATTENTION: engine.cfg.n_layers}
+    batches = -(-(len(trace) // engine.cfg.window) // 24)
+    launches = (FLASH_ATTENTION.launches, FUSED_FEATURES.launches)
+    engine.simulate(trace)
+    assert (FLASH_ATTENTION.launches, FUSED_FEATURES.launches) == (
+        launches[0] + engine.cfg.n_layers * batches, launches[1] + batches)
+
+
+def test_failed_capture_raises(dev):
+    """A spec whose update reads the device cannot be captured: simulate
+    raises, the entry keeps no graph and no capture is counted, and the
+    card runs the next engine as before."""
+    def reads_device(carry, ctx):
+        return carry + int(ctx.is_branch.sum().item())
+
+    spec = MetricSpec("reads_device", lambda device: torch.zeros((), dtype=torch.int32, device=device),
+                      reads_device, lambda carry, n: {"reads_device": float(carry)})
+    cfg = TaoConfig()
+    engine = StreamingEngine(init_tao(cfg, device=dev), cfg, EngineConfig(metrics=("cpi", spec)), device=dev)
+    trace = run_functional(get_benchmark("dee"), 10000)
+    with pytest.raises(RuntimeError):
+        engine.simulate(trace)
+    entry = engine.step_entry_for(len(trace))
+    assert entry.aot is None and entry.compiles == 0
+    with pytest.raises(RuntimeError):
+        engine.warmup(len(trace))
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    good = graph_engine(dev, batch_size=40)
+    assert_graph_equals_eager(good.simulate(trace), eager_entry_loop(good, trace), 40)

@@ -9,6 +9,12 @@ and extracted once for the whole trace by the staged kernels' path
 (``"staged"``, ``simulate(trace, features=device_feature_arrays(...))``),
 which is held to the reference's ``feature_backend="pallas"``.
 
+The step cache, the window-grid carry and AOT warmup are held to the
+reference's: ``cache_stats()``'s keys, hit and miss counts, the reserved
+``"__grid__"`` slot, and the cached entry driven directly.  On the CPU no
+CUDA graph exists, so ``warmup`` captures nothing (the graphed step is held
+on the card, in test_torch_cuda.py).
+
 Tolerance.  Features are bitwise equal on both sides (see
 test_torch_features.py); the model's float32 logits differ in the last
 bits (XLA vs torch CPU BLAS summation order).  A decoded value — the argmax
@@ -28,19 +34,31 @@ import jax  # noqa: E402
 
 from repro.core import features as ref_features  # noqa: E402
 from repro.core import model as ref_model  # noqa: E402
+from repro.core.dataset import stream_batches as ref_stream_batches  # noqa: E402
 from repro.engine import EngineConfig as RefEngineConfig  # noqa: E402
+from repro.engine import MetricSpec as RefMetricSpec  # noqa: E402
 from repro.engine import StreamingEngine as RefEngine  # noqa: E402
+from repro.engine import cache_stats as ref_cache_stats  # noqa: E402
+from repro.engine import clear_step_cache as ref_clear_step_cache  # noqa: E402
 from repro.uarch import get_benchmark, run_functional  # noqa: E402
 
 from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.core.dataset import num_windows, stream_batches  # noqa: E402
 from repro_torch.core.features import FeatureConfig, extract_features  # noqa: E402
 from repro_torch.core.model import TaoConfig, init_tao  # noqa: E402
 from repro_torch.engine import (  # noqa: E402
+    METRIC_REGISTRY,
     EngineConfig,
     MetricNotCollectedError,
     MetricNotComputedError,
+    MetricSpec,
+    SimulationResult,
+    StepContext,
     StreamingEngine,
+    cache_stats,
+    clear_step_cache,
     simulate_trace_engine,
+    windowed_spec,
 )
 from repro_torch.engine.runner import device_get  # noqa: E402
 from repro_torch.kernels.features.kernel import BRANCH_HISTORY, MEMDIST_DELTA  # noqa: E402
@@ -275,3 +293,208 @@ def test_device_get_is_exact():
     np.testing.assert_array_equal(host["a"], tree["a"].numpy())
     np.testing.assert_array_equal(host["b"]["c"].view(np.int32), tree["b"]["c"].numpy().view(np.int32))
     assert host["e"] == {}
+
+
+# ---------------------------------------------------------------------------
+# The step cache, the window-grid carry and AOT warmup
+# ---------------------------------------------------------------------------
+
+STAT_KEYS = {"entries", "hits", "misses", "compiles", "aot_compiled", "retained_bytes_est",
+             "entries_unmeasured"}
+
+
+def test_cache_stats_keys_equal_reference():
+    assert set(cache_stats()) == set(ref_cache_stats()) == STAT_KEYS
+
+
+def test_step_cache_hits_and_misses_match_reference(weights, traces):
+    """The same engine traffic on both sides: a first simulate misses, a
+    repeat hits, a second engine of the same shape shares the entry (a
+    hit), a short trace (w_eff < window) adds a second entry (a miss), and
+    step_entry_for / warmup of a known geometry hit.  clear_step_cache
+    returns what it dropped."""
+    t = traces["lee"][:1000]
+    params, _ = weights
+    counts = {}
+    for side in ("reference", "port"):
+        if side == "reference":
+            make = lambda: RefEngine(params, REF_CFG, RefEngineConfig(batch_size=BATCH, metrics=METRICS))  # noqa: E731
+            stats, clear = ref_cache_stats, ref_clear_step_cache
+        else:
+            make = lambda: port_engine(weights)  # noqa: E731
+            stats, clear = cache_stats, clear_step_cache
+        clear()
+        before = stats()
+        a, b = make(), make()
+        a.simulate(t)
+        a.simulate(t)
+        b.simulate(t)
+        assert a.step_entry_for(len(t)) is b.step_entry_for(len(t))
+        a.simulate(t[:10])
+        b.warmup(10)
+        after = stats()
+        counts[side] = {k: after[k] - before[k] for k in ("hits", "misses")}
+        counts[side]["entries"] = after["entries"]
+        counts[side]["cleared"] = clear()
+        assert stats()["entries"] == 0
+    assert counts["port"] == counts["reference"] == {"hits": 5, "misses": 2, "entries": 2, "cleared": 2}
+
+
+def test_clear_step_cache_returns_dropped_count(weights, traces):
+    clear_step_cache()
+    eng = port_engine(weights)
+    for n in (3, 9, 500):
+        eng.step_entry_for(n)
+    assert cache_stats()["entries"] == 3
+    assert clear_step_cache() == 3
+    assert clear_step_cache() == 0
+    # the engine keeps its entries; a new engine builds anew (a miss)
+    misses = cache_stats()["misses"]
+    assert eng.step_entry_for(500) is not port_engine(weights).step_entry_for(500)
+    assert cache_stats()["misses"] == misses + 1
+
+
+def test_grid_spec_name_is_reserved(weights):
+    grid = MetricSpec("__grid__", lambda device: {}, lambda carry, ctx: carry, lambda carry, n: {})
+    with pytest.raises(ValueError, match="reserved"):
+        port_engine(weights, metrics=("cpi", grid))
+    ref_grid = RefMetricSpec("__grid__", lambda: {}, lambda carry, ctx: carry, lambda carry, n: {})
+    with pytest.raises(ValueError, match="reserved"):
+        RefEngine(weights[0], REF_CFG, RefEngineConfig(metrics=("cpi", ref_grid)))
+
+
+@pytest.mark.parametrize("n", [10, 17, 1000, TRACE_LEN])
+def test_init_carry_holds_the_grid(weights, n):
+    """The specs' carries plus ``"__grid__"``: ``seen`` 0 and ``total`` the
+    trace's windows, int32 scalars, as the reference's."""
+    carry = port_engine(weights).init_carry(n)
+    ref = RefEngine(weights[0], REF_CFG, RefEngineConfig(batch_size=BATCH, metrics=METRICS)).init_carry(n)
+    assert list(carry) == list(ref) == list(METRICS) + ["__grid__"]
+    grid = carry["__grid__"]
+    assert set(grid) == set(ref["__grid__"]) == {"seen", "total"}
+    for k in ("seen", "total"):
+        assert grid[k].dtype == torch.int32 and grid[k].shape == () and grid[k].device.type == "cpu"
+        assert int(grid[k]) == int(ref["__grid__"][k])
+    assert int(grid["total"]) == num_windows(n, PORT_CFG.window, PORT_CFG.window)
+
+
+def _drive(entry, params, carry, batches, specs, count, finalize_host):
+    """Fold every batch through a cached entry called directly, then
+    finalize on the host: a SimulationResult of the entry loop."""
+    pers = []
+    for b in batches:
+        carry, per = entry(params, carry, b)
+        pers.append(per)
+    host = finalize_host(carry)
+    metrics = {}
+    for s in specs:
+        metrics.update(s.finalize(host[s.name], count))
+    arrays = {k: np.concatenate([np.asarray(p[k]) for p in pers])[:count]
+              for k in ("fetch_lat", "exec_lat", "mispred_prob", "dlevel")}
+    return SimulationResult(count, 1.0, 0.0, metrics=metrics, arrays=arrays)
+
+
+@pytest.mark.parametrize("bench", ["dee", "lee"])
+def test_step_entry_loop_equals_simulate(weights, traces, bench):
+    """Driving ``step_entry_for(n)(params, carry, batch)`` over host batches
+    from ``init_carry(n)`` gives exactly what ``simulate`` gives; the same
+    loop through the reference's entry stays within the flip tolerance."""
+    t = traces[bench]
+    n = len(t)
+    count = num_windows(n, PORT_CFG.window, PORT_CFG.window) * PORT_CFG.window
+    extra = {"is_branch": t["is_branch"], "is_mem": t["is_mem"]}
+    eng = port_engine(weights, collect=True)
+    fs = extract_features(t, PORT_CFG.features, with_labels=False)
+    batches = ({k: torch.from_numpy(v) for k, v in b.items()}
+               for b in stream_batches(fs, PORT_CFG.window, BATCH, stride=PORT_CFG.window, extra=extra))
+    got = _drive(eng.step_entry_for(n), eng.params, eng.init_carry(n), batches, eng._specs, count,
+                 lambda c: device_get(c))
+    sim = eng.simulate(t, features=fs)
+    assert got.metrics.keys() == sim.metrics.keys()
+    for k, v in sim.metrics.items():
+        np.testing.assert_array_equal(got.metrics[k], v, err_msg=k)
+    for k in ("fetch_lat", "exec_lat", "mispred_prob", "dlevel"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(sim, k), err_msg=k)
+
+    ref_eng = RefEngine(weights[0], REF_CFG, RefEngineConfig(batch_size=BATCH, collect=True, metrics=METRICS))
+    ref_fs = ref_features.extract_features(t, REF_CFG.features, with_labels=False)
+    ref = _drive(ref_eng.step_entry_for(n), weights[0], ref_eng.init_carry(n),
+                 ref_stream_batches(ref_fs, REF_CFG.window, BATCH, stride=REF_CFG.window, extra=extra),
+                 ref_eng._specs, count, jax.device_get)
+    assert_explained_by_flips(got, ref)
+
+
+class _IntGridContext(StepContext):
+    """The step context as it was with a host int ``num_windows``."""
+
+    def chunk_of(self, num_chunks):
+        b = (self.win_index * num_chunks) // max(self.num_windows, 1)
+        return torch.clamp(b, 0, num_chunks - 1)
+
+
+PHASE_SPECS = sorted(name for name, s in METRIC_REGISTRY.items() if s.num_chunks is not None)
+
+
+@pytest.mark.parametrize("spec_name", PHASE_SPECS + ["chunks_7"])
+def test_chunk_of_device_grid_is_bitwise_int_grid(spec_name):
+    """``chunk_of`` and every phase spec's ``update`` with the grid as int32
+    tensors are bitwise what they were with host ints: empty, short and
+    long traces, first, middle and padding batches."""
+    spec = (windowed_spec("chunks_7", lambda ctx: ctx.exec_lat, num_chunks=7)
+            if spec_name == "chunks_7" else METRIC_REGISTRY[spec_name])
+    rng = np.random.default_rng(len(spec_name))
+    W = PORT_CFG.window
+    for total, seen in ((0, 0), (1, 0), (5, 0), (40, 13), (40, 39), (1000, 520), (2**20, 2**20 - 3)):
+        valid = torch.from_numpy((rng.random((BATCH, W)) < 0.9).astype(np.float32))
+        valid[max(0, total - seen):] = 0.0  # padding rows past the trace's windows
+        on = valid.reshape(-1) > 0
+        fields = dict(
+            valid=valid.reshape(-1), on=on,
+            is_branch=torch.from_numpy(rng.random(BATCH * W) < 0.3) & on,
+            is_mem=torch.from_numpy(rng.random(BATCH * W) < 0.4) & on,
+            fetch_lat=torch.from_numpy(rng.exponential(4.0, BATCH * W).astype(np.float32)),
+            exec_lat=torch.from_numpy(rng.exponential(9.0, BATCH * W).astype(np.float32)),
+            mispred_prob=torch.from_numpy(rng.random(BATCH * W).astype(np.float32)),
+            dlevel=torch.from_numpy(rng.integers(0, 4, BATCH * W).astype(np.int32)),
+            gidx=torch.arange(BATCH * W, dtype=torch.float32),
+            last_key=torch.tensor(float(BATCH * W - 1)), batch={}, window=W,
+        )
+        win_index = seen + torch.arange(BATCH, dtype=torch.int32)
+        dev = StepContext(**fields, win_index=torch.tensor(seen, dtype=torch.int32)
+                          + torch.arange(BATCH, dtype=torch.int32),
+                          num_windows=torch.tensor(total, dtype=torch.int32))
+        host = _IntGridContext(**fields, win_index=win_index, num_windows=total)
+        assert torch.equal(dev.chunk_of(spec.num_chunks), host.chunk_of(spec.num_chunks)), (total, seen)
+        got = spec.update(spec.init("cpu"), dev)
+        ref = spec.update(spec.init("cpu"), host)
+        for k in ref:
+            assert got[k].dtype == ref[k].dtype and torch.equal(got[k], ref[k]), (total, seen, k)
+
+
+def test_at_last_reads_the_last_valid_position():
+    """``at_last`` by ``index_select`` (no read back to the host) is the
+    element at the last valid position, as indexing gives it."""
+    x = torch.arange(10, dtype=torch.float32) * 1.5
+    for mask in ([1] * 10, [1] * 4 + [0] * 6, [0, 1, 0, 0, 1, 0, 0, 0, 0, 0], [0] * 10):
+        on = torch.tensor(mask, dtype=torch.bool)
+        gidx = torch.arange(10, dtype=torch.float32)
+        ctx = StepContext(valid=on.float(), on=on, is_branch=on, is_mem=on, fetch_lat=x, exec_lat=x,
+                          mispred_prob=x, dlevel=x.int(), gidx=gidx, last_key=torch.tensor(0.0), batch={})
+        got = ctx.at_last(x)
+        assert got.shape == () and torch.equal(got, x[torch.argmax(torch.where(on, gidx, -1.0))])
+
+
+def test_warmup_on_cpu_captures_nothing(weights, traces):
+    """No CUDA graph on the CPU: warmup returns the entry the geometry's
+    simulate uses, with ``aot`` None, no capture and no byte estimate; the
+    entry counts as unmeasured."""
+    clear_step_cache()
+    eng = port_engine(weights)
+    entry = eng.warmup(TRACE_LEN)
+    assert entry is eng.warmup(TRACE_LEN) is eng.step_entry_for(TRACE_LEN)
+    assert entry.aot is None and entry.compiles == 0 and entry.est_bytes is None
+    eng.simulate(traces["dee"])
+    assert eng.num_compiles == 0
+    s = cache_stats()
+    assert (s["entries"], s["compiles"], s["aot_compiled"], s["retained_bytes_est"],
+            s["entries_unmeasured"]) == (1, 0, 0, 0, 1)
