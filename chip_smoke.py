@@ -47,7 +47,16 @@ and ``nvcc``.  Phases, one JSON line each:
            by side, a profile of one simulate (with the copy kernels per
            batch), and the graphed simulate against the eager step driven
            through its cache entry, in turns on both routes (MIPS, host
-           and device ms per batch, idle share, results held);
+           and device ms per batch, idle share, results held); then the
+           same under precision="int8" (the W8A8 forward, cuBLASLt IMMA
+           products): qdense on the card against the CPU at every layer
+           shape, the int8 step's own capture (seconds, bytes, kernel and
+           IMMA nodes), both routes on the three traces with the launch
+           counts (B4 also from the int8 graph's nodes), int8 beside fp32
+           in turns (MIPS, device ms per batch, idle share, IMMA device
+           ms) and int8 on the GPU against int8 on the CPU on one trace,
+           beside a control that must fail (float32 on the GPU against
+           int8 on the CPU);
   mamba2   the port's Mamba-2 serving path at the full width of
            mamba2-1.3b (48 layers, bfloat16, random weights from a CUDA
            generator, seed 0): prefill of 4 prompts x 2048 tokens, then 32
@@ -68,6 +77,7 @@ Imports nothing of JAX or of the reference package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -114,6 +124,23 @@ ATTN_RTOL = 1e-5
 # metric difference must be explained by the flips that occurred.
 FLIP_FRACTION = 1e-3
 PROB_ATOL = 1e-4           # sigmoid(mispred_logit), logits differ ~1e-6
+# int8 on the GPU vs int8 on the CPU: the float32 parts around the int8
+# products differ in the last bits there too, and an activation that lands
+# on the other side of a rounding boundary takes the neighbouring int8
+# code; causal attention carries that to the rest of its window, so
+# mispred_prob moves at most later positions of such a window and a few
+# decodes flip.  Each limit lies between the sound run and a control that
+# must fail: float32 on the card against int8 on the CPU (the step running
+# float32 where int8 was asked for).  On dee on the H100: int8 against int8
+# 0.127% of the decodes flipped, mispred_prob within 0.0107; the control
+# 4.06% and 0.0445.
+INT8_FLIP_FRACTION = 5e-3
+INT8_PROB_ATOL = 0.02
+# the int8 step's cuBLASLt IMMA kernels, by name (cutlass_80_tensorop_
+# i16832gemm_s8_*, sm90_xmma_gemm_i8i32_*), and the float32 GEMM / GEMV
+# kernels that must not be in its graph
+INT8_GEMM_PIECES = ("gemm_s8", "gemm_i8")
+FLOAT_GEMM_PIECES = ("gemm_f32", "gemv")
 ROUTE_ROUNDS = 3           # turns of the fused / staged side-by-side timing
 # graphed step vs eager step: cpi_phase's float32 per-chunk sums go
 # through index_add_'s atomics, whose order changes from run to run; one
@@ -857,15 +884,18 @@ def check_staged_kernels(failures, results, traces):
               "library_ms": None, **passes})
 
 
-def flip_check(got, ref, trace, cfg) -> dict:
+def flip_check(got, ref, trace, cfg, flip_fraction=FLIP_FRACTION, prob_atol=PROB_ATOL) -> dict:
     """Whether every metric difference between two collected runs of one
     trace is explained by the decodes that flipped (see FLIP_FRACTION): a
     fetch flip moves the cycle sum by at most the top bucket (256), the
     last exec latency by 256 once, a miss count by one per flip; a phase
-    chunk holds at least its share of instructions / memory ops."""
+    chunk holds at least its share of instructions / memory ops.
+    ``flip_fraction`` and ``prob_atol``: the limits (int8: see
+    INT8_FLIP_FRACTION)."""
     import numpy as np
 
     n = got.num_instructions
+    prob_diff = np.abs(got.mispred_prob - ref.mispred_prob)
     flipped = {
         "fetch_lat": got.fetch_lat != ref.fetch_lat,
         "exec_lat": got.exec_lat != ref.exec_lat,
@@ -874,7 +904,7 @@ def flip_check(got, ref, trace, cfg) -> dict:
         "l1d_miss": (got.dlevel >= 2) != (ref.dlevel >= 2),
     }
     flips = {k: int(v.sum()) for k, v in flipped.items()}
-    prob_err = float(np.abs(got.mispred_prob - ref.mispred_prob).max())
+    prob_err = float(prob_diff.max())
     tr = trace[:n]
     chunk_of = (np.arange(n) // cfg.window) * 32 // (n // cfg.window)
     min_chunk = np.bincount(chunk_of, minlength=32).min()
@@ -895,12 +925,15 @@ def flip_check(got, ref, trace, cfg) -> dict:
     }
     ok = (
         got.num_instructions == ref.num_instructions
-        and max(flips.values()) <= FLIP_FRACTION * n
-        and prob_err <= PROB_ATOL
+        and max(flips.values()) <= flip_fraction * n
+        and prob_err <= prob_atol
         and all(diffs[k] <= tols[k] * (1 + 1e-6) + 1e-9 for k in diffs)
     )
-    return {"flips": flips, "mispred_prob_max_abs": prob_err, "diffs": diffs, "tols": tols,
-            "ok": ok}
+    return {"flips": flips, "flip_share": max(flips.values()) / n, "flip_limit": flip_fraction,
+            "mispred_prob_max_abs": prob_err, "mispred_prob_limit": prob_atol,
+            "mispred_prob_p99_abs": float(np.quantile(prob_diff, 0.99)),
+            "mispred_prob_moved_share": float(np.mean(prob_diff > PROB_ATOL)),
+            "diffs": diffs, "tols": tols, "ok": ok}
 
 
 def same_metrics(a, b) -> bool:
@@ -1084,8 +1117,9 @@ def phase_slice(failures, results, traces):
           "copy_kernels_per_batch": prof["copy_kernels"] / lee_batches,
           "fused_features_pass_ms_per_batch": b1_passes, **prof})
 
-    graph_vs_eager(failures, engine, traces, {b: extract(t) for b, t in traces.items()}, total_n,
-                   batches, lee_batches)
+    arrays = {b: extract(t) for b, t in traces.items()}
+    graph_vs_eager(failures, engine, traces, arrays, total_n, batches, lee_batches)
+    slice_int8(failures, traces, arrays, model, engine, extract, batches, lee_batches)
 
 
 def eager_entry_loop(engine, trace, features=None):
@@ -1165,6 +1199,171 @@ def graph_vs_eager(failures, engine, traces, arrays, total_n, batches, lee_batch
         out["captures"] = engine.num_compiles
         out["cache_stats"] = cache_stats()
         emit(out)
+
+
+def int8_gemm_ms(prof_tracked: dict) -> float:
+    return sum(ms for k, ms in prof_tracked.items() if k.startswith(INT8_GEMM_PIECES))
+
+
+def check_qdense_on_card(failures, qshapes):
+    """``qdense`` on the card against the CPU at every dense layer shape of
+    the default TaoConfig, at the step's 8,256 rows and at 16 (IMMA's row
+    padding): quantized buffers, codes, int32 sums (cuBLASLt IMMA) and
+    float output bitwise (``core.quant.qdense_device_vs_cpu``, as the cuda
+    tests run it)."""
+    from repro_torch.core.quant import qdense_device_vs_cpu
+
+    cases = {f"{k}x{n}@{rows}": qdense_device_vs_cpu(k, n, rows, "cuda")
+             for k, n in qshapes for rows in (8256, 16)}
+    bad = {c: same for c, same in cases.items() if not all(same.values())}
+    if bad:
+        failures.append(f"slice int8: qdense on the card differs from the CPU: {bad}")
+    emit({"phase": "slice", "check": "int8_qdense_gpu_vs_cpu",
+          "bitwise": {c: all(same.values()) for c, same in cases.items()}, "ok": not bad})
+
+
+def slice_int8(failures, traces, arrays, model, engine, extract, batches, lee_batches):
+    """The main path under precision="int8" (the W8A8 forward): its own
+    captured graph (warmup: seconds, bytes, kernel nodes, IMMA nodes), the
+    fused and the staged route on the three traces with the kernels' counts
+    zeroed before each and read after (B4 by the counter and by the int8
+    graph's nodes x replays), int8 beside fp32 in turns (MIPS, device ms per
+    batch, idle share, the IMMA kernels' device ms), int8 on the GPU against
+    int8 on the CPU on one trace beside its control (float32 on the GPU
+    against int8 on the CPU, which must fail), the int8-vs-fp32 metric
+    differences for the record (no gate: a band needs trained weights), and
+    qdense on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.model import init_tao
+    from repro_torch.core.quant import dense_layers, dense_shapes
+    from repro_torch.engine import StreamingEngine, cache_stats
+    from repro_torch.engine.aot import graph_kernel_names
+    from repro_torch.kernels.attention.kernel import FLASH_ATTENTION
+
+    cfg = engine.cfg
+    ecfg8 = dataclasses.replace(engine.ecfg, precision="int8")
+    engine8 = StreamingEngine(model, cfg, ecfg8, device="cuda")
+    qdense_calls = len(dense_layers(engine8._run_params()))  # each QDense runs once per step
+    check_qdense_on_card(failures, dense_shapes(engine8._run_params()))
+    t0 = time.perf_counter()
+    entry8 = engine8.warmup(SLICE_INSTRUCTIONS)
+    capture_s = time.perf_counter() - t0
+    entry32 = engine.step_entry_for(SLICE_INSTRUCTIONS)
+    names8, names32 = graph_kernel_names(entry8.aot.graph), graph_kernel_names(entry32.aot.graph)
+    gemm8 = [k for k in names8 if any(p in k for p in INT8_GEMM_PIECES)]
+    float_gemm8 = [k for k in names8 if any(p in k for p in FLOAT_GEMM_PIECES)]
+    emit({"phase": "slice", "check": "int8_capture", "seconds": capture_s, "compiles": entry8.compiles,
+          "retained_bytes_est": entry8.est_bytes, "fp32_retained_bytes_est": entry32.est_bytes,
+          "launches_per_replay": {k.symbol: n for k, n in entry8.aot.launches.items()},
+          "kernels_per_replay": {"int8": len(names8), "fp32": len(names32)},
+          "int8_gemm_nodes": len(gemm8), "qdense_calls": qdense_calls,
+          "int8_gemm_kernels": sorted({k[:72] for k in gemm8}), "float_gemm_nodes": len(float_gemm8),
+          "cache_stats": cache_stats()})
+    if entry8 is entry32 or entry8.compiles != 1 or len(gemm8) != qdense_calls or float_gemm8:
+        failures.append(f"slice int8: capture {entry8.compiles}, {len(gemm8)} IMMA nodes for "
+                        f"{qdense_calls} projections, float GEMMs {float_gemm8[:3]}")
+    engine8.simulate(traces["lee"])  # warm-up
+    engine8.simulate(traces["lee"], features=arrays["lee"])
+
+    # ---- the fused route under int8
+    zero_counts()
+    replays = entry8.aot.replays
+    res8 = {b: engine8.simulate(t) for b, t in traces.items()}
+    launches = read_counts()
+    replays = entry8.aot.replays - replays
+    attn_nodes = sum("attention_kernel" in k for k in names8)
+    b4 = {"counter": launches["flash_attention"], "graph_nodes_x_replays": attn_nodes * replays,
+          "captured_x_replays": entry8.aot.launches.get(FLASH_ATTENTION, 0) * replays}
+    expected = {"fused_features": batches, "flash_attention": cfg.n_layers * batches,
+                "branch_history": 0, "memdist_delta": 0, "ssd": 0}
+    if launches != expected or attn_nodes != cfg.n_layers or set(b4.values()) != {cfg.n_layers * batches}:
+        failures.append(f"slice int8: fused launches {launches}, expected {expected}; attention "
+                        f"nodes {attn_nodes}, counts {b4}")
+    for b, r in res8.items():
+        scalars = [r.cpi, r.total_cycles, r.branch_mpki, r.l1d_mpki]
+        if not (all(math.isfinite(x) for x in scalars)
+                and all(np.isfinite(c).all() and c.shape == (32,) for c in (r.cpi_phase, r.l1d_phase))):
+            failures.append(f"slice int8: non-finite or misshapen metrics on {b}")
+    total_n = sum(r.num_instructions for r in res8.values())
+    emit({"phase": "slice", "route": "fused", "precision": "int8", "traces": list(SLICE_BENCHMARKS),
+          "instructions": total_n, "mips": total_n / 1e6 / sum(r.seconds for r in res8.values()),
+          "per_trace": {b: {"cpi": r.cpi, "branch_mpki": r.branch_mpki, "l1d_mpki": r.l1d_mpki,
+                            "seconds": r.seconds} for b, r in res8.items()},
+          "launches": launches, "replays": replays, "attention_nodes_per_graph": attn_nodes,
+          "flash_attention_counts": b4, "captures": engine8.num_compiles})
+
+    # ---- the staged route under int8: one extraction per trace, then simulate
+    zero_counts()
+    staged8 = {b: engine8.simulate(t, features=extract(t)) for b, t in traces.items()}
+    s_launches = read_counts()
+    expected = {"fused_features": 0, "flash_attention": cfg.n_layers * batches,
+                "branch_history": len(traces), "memdist_delta": len(traces), "ssd": 0}
+    if s_launches != expected:
+        failures.append(f"slice int8: staged launches {s_launches}, expected {expected}")
+    vs_fused = {b: same_metrics(r, res8[b]) for b, r in staged8.items()}
+    if not all(vs_fused.values()):
+        failures.append(f"slice int8: staged and fused int8 results differ: {vs_fused}")
+    emit({"phase": "slice", "route": "staged", "precision": "int8", "launches": s_launches,
+          "bitwise_vs_fused": vs_fused, "captures": engine8.num_compiles})
+
+    # ---- int8 beside fp32, in turns (fp32, int8, int8, fp32) on both routes
+    secs = {route: {p: [] for p in ("fp32", "int8")} for route in ("fused", "staged")}
+    fp32 = {}
+    for _ in range(ROUTE_ROUNDS):
+        for b, t in traces.items():
+            for route in ("fused", "staged"):
+                feats = None if route == "fused" else arrays[b]
+                for prec in ("fp32", "int8", "int8", "fp32"):
+                    r = (engine if prec == "fp32" else engine8).simulate(t, features=feats)
+                    secs[route][prec].append((b, r.seconds))
+                    if prec == "fp32" and route == "fused":
+                        fp32[b] = r
+    side = {}
+    for route in ("fused", "staged"):
+        out = {}
+        for prec in ("fp32", "int8"):
+            med = {b: float(np.median([s for bb, s in secs[route][prec] if bb == b])) for b in traces}
+            feats = None if route == "fused" else arrays["lee"]
+            eng = engine if prec == "fp32" else engine8
+            prof = profile_breakdown(functools.partial(eng.simulate, traces["lee"], features=feats),
+                                     track=INT8_GEMM_PIECES)
+            out[prec] = {"mips": total_n / 1e6 / sum(med.values()), "per_trace_median_s": med,
+                         "device_ms_per_batch": prof["device_busy_s"] * 1e3 / lee_batches,
+                         "idle_share": prof["idle_share"],
+                         "int8_gemm_ms_per_batch": int8_gemm_ms(prof["tracked_ms"]) / lee_batches,
+                         "top_device_ms": prof["top_device_ms"]}
+        side[route] = out
+    emit({"phase": "slice", "check": "int8_vs_fp32", "rounds": ROUTE_ROUNDS, "instructions": total_n,
+          "batches": batches, "fused": side["fused"], "staged_simulate_only": side["staged"],
+          # for the record, not a gate: a band needs trained weights
+          "metric_diffs": {b: {"cpi_rel": (r.cpi - fp32[b].cpi) / fp32[b].cpi,
+                               "branch_mpki_abs": r.branch_mpki - fp32[b].branch_mpki,
+                               "l1d_mpki_abs": r.l1d_mpki - fp32[b].l1d_mpki}
+                           for b, r in res8.items()}})
+
+    # ---- int8 on the card against int8 on the CPU (plain versions), one trace
+    name = SLICE_BENCHMARKS[0]
+    ecfg8c = dataclasses.replace(ecfg8, collect=True)
+    gpu = StreamingEngine(model, cfg, ecfg8c, device="cuda").simulate(traces[name])
+    cpu_model = init_tao(cfg, torch.Generator().manual_seed(0), device="cpu")
+    t0 = time.perf_counter()
+    cpu = StreamingEngine(cpu_model, cfg, ecfg8c, device="cpu").simulate(traces[name])
+    cpu_s = time.perf_counter() - t0
+    check = flip_check(gpu, cpu, traces[name], cfg, INT8_FLIP_FRACTION, INT8_PROB_ATOL)
+    if not check["ok"]:
+        failures.append(f"slice int8: GPU and CPU int8 engines disagree beyond tolerance on {name}")
+    emit({"phase": "slice", "check": "int8_gpu_vs_cpu", "trace": name, "positions": gpu.num_instructions,
+          **check, "cpu_seconds": cpu_s})
+    # the control: float32 on the card against the same int8 on the CPU
+    gpu32 = StreamingEngine(model, cfg, dataclasses.replace(ecfg8c, precision="fp32"),
+                            device="cuda").simulate(traces[name])
+    control = flip_check(gpu32, cpu, traces[name], cfg, INT8_FLIP_FRACTION, INT8_PROB_ATOL)
+    if control["ok"]:
+        failures.append(f"slice int8: float32 on the card passes the int8 GPU-vs-CPU check on {name}")
+    emit({"phase": "slice", "check": "int8_gpu_vs_cpu_control", "trace": name, "gpu_precision": "fp32",
+          "cpu_precision": "int8", **control, "fails_as_it_must": not control["ok"]})
 
 
 def rel_diff(a, b) -> float:

@@ -1,5 +1,5 @@
-"""Feature specification, windowing and the Tao model (PyTorch port of
-``repro.core``'s inference half)."""
+"""Feature specification, windowing, the Tao model and its int8 W8A8 twin
+(PyTorch port of ``repro.core``'s inference half)."""
 from .dataset import INPUT_KEYS, num_windows, stream_batches, window_view
 from .features import (
     NUM_OPCODES,
@@ -20,12 +20,27 @@ from .model import (
     init_tao,
     tao_forward,
 )
+from .quant import (
+    QUANT_VERSION,
+    QDense,
+    QEmbed,
+    QuantTao,
+    int8_matmul,
+    qdense,
+    qembed,
+    quantize_tao_params,
+    tao_forward_int8,
+)
 
 __all__ = [
     "INPUT_KEYS",
     "NUM_OPCODES",
+    "QUANT_VERSION",
     "FeatureConfig",
     "FeatureSet",
+    "QDense",
+    "QEmbed",
+    "QuantTao",
     "Tao",
     "TaoConfig",
     "apply_adapt",
@@ -36,9 +51,14 @@ __all__ = [
     "extract_features",
     "extract_features_reference",
     "init_tao",
+    "int8_matmul",
     "num_windows",
+    "qdense",
+    "qembed",
+    "quantize_tao_params",
     "signed_log",
     "stream_batches",
     "tao_forward",
+    "tao_forward_int8",
     "window_view",
 ]

@@ -225,6 +225,8 @@ def apply_pred(
 
 
 def tao_forward(params: Tao, batch: Dict[str, torch.Tensor], cfg: TaoConfig) -> Dict[str, torch.Tensor]:
+    """The whole model over one batch.  ``params`` may also be the int8
+    ``core.quant.QuantTao``: its layers are called as the float32 ones."""
     h = apply_embed(params.embed, batch, cfg)
     h = apply_adapt(params.adapt, h)
     return apply_pred(params.pred, h, cfg)

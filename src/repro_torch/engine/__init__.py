@@ -10,6 +10,7 @@ from .metrics import (
     windowed_spec,
 )
 from .runner import (
+    PRECISIONS,
     EngineConfig,
     MetricNotCollectedError,
     MetricNotComputedError,
@@ -23,6 +24,7 @@ from .runner import (
 __all__ = [
     "DEFAULT_METRICS",
     "METRIC_REGISTRY",
+    "PRECISIONS",
     "EngineConfig",
     "MetricNotCollectedError",
     "MetricNotComputedError",

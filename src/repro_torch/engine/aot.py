@@ -17,8 +17,10 @@ replay instead of ~100 eager dispatches:
     from the graph (``csrc/graph_nodes.cu``): what one replay launches.
 
 The graph reads three sets of static buffers that it owns: a device copy
-of a ``Tao`` of the entry's shape (engines copy their weights in with one
-``torch._foreach_copy_`` per simulate, so engines of one shape share the
+of the parameter module of the entry's shape (a ``Tao``, or under int8 a
+``QuantTao``, whose int8 codes, scales and padded weights are buffers;
+engines copy theirs in with one ``torch._foreach_copy_`` of every
+parameter and buffer per simulate, so engines of one shape share the
 entry), the carry, which every replay updates in place, and the step's
 eight batch inputs.  A hand-written kernel's launch during a capture is
 recorded, not run: ``CudaKernel.captured`` counts it, and each replay adds
@@ -34,8 +36,8 @@ import ctypes
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+from torch import nn
 
-from ..core.model import Tao
 from ..kernels._cuda import KERNELS, CudaKernel
 
 __all__ = [
@@ -119,9 +121,11 @@ class CapturedStep:
     the eager step.  One simulate at a time may use an instance.
     """
 
-    def __init__(self, fn: Callable, params: Tao, carry: Dict, batch: Dict):
-        """``carry``: a trace's initial carry; ``batch``: one batch's tensors
-        (``meta`` ones will do); their shapes and dtypes are captured."""
+    def __init__(self, fn: Callable, params: nn.Module, carry: Dict, batch: Dict):
+        """``params``: the module ``fn`` reads (its parameters and buffers
+        are copied); ``carry``: a trace's initial carry; ``batch``: one
+        batch's tensors (``meta`` ones will do); their shapes and dtypes
+        are captured."""
         with torch.inference_mode(False):  # plain tensors, updated in place
             self.params = copy.deepcopy(params).requires_grad_(False)
         self._param_list = [*self.params.parameters(), *self.params.buffers()]
@@ -163,7 +167,7 @@ class CapturedStep:
             torch.cuda.memory_reserved(dev) - reserved,
         )
 
-    def load(self, params: Tao, carry: Dict) -> None:
+    def load(self, params: nn.Module, carry: Dict) -> None:
         """Copy an engine's weights and a trace's initial carry in."""
         torch._foreach_copy_(self._param_list, [*params.parameters(), *params.buffers()])
         _copy_tree_(self.carry, carry)

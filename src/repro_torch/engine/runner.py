@@ -43,7 +43,13 @@ time, a first ``simulate`` of a geometry captures lazily, and every batch
 of every route is copied into the graph's static inputs and replayed.  On
 the CPU the entry runs the eager step.  A capture or replay that fails on
 CUDA raises; nothing falls back to the eager step.
-``precision="int8"`` is not ported yet and raises ``NotImplementedError``.
+
+``precision="int8"`` runs the same forward over the W8A8 quantized
+parameters (``core/quant.py``): the step reads a ``QuantTao``, quantized
+once per engine on its device, or the pre-quantized ``qparams=`` the
+caller passes (the counterpart of the reference's registry / store
+injection).  The precision is in the cache key, so int8 has its own entry
+and, on the card, its own graph, shared across routes.
 """
 from __future__ import annotations
 
@@ -58,6 +64,7 @@ from .. import resolve_device
 from ..core.dataset import INPUT_KEYS, num_windows, stream_batches
 from ..core.features import FeatureSet
 from ..core.model import Tao, TaoConfig, tao_forward
+from ..core.quant import QuantTao, quantize_tao_params
 from ..kernels.features.ops import trace_columns
 from ..kernels.fused.ops import FusedExtractor
 from ..uarch.isa import NUM_REGS
@@ -319,7 +326,9 @@ class StreamingEngine:
 
     ``params`` (a ``core.model.Tao``) is moved to ``device`` in place, as
     ``nn.Module.to`` does (default ``cuda``; without CUDA this raises
-    unless ``device="cpu"``).  ``num_compiles`` counts the captures of the
+    unless ``device="cpu"``), and so is ``qparams``, a pre-quantized
+    ``QuantTao`` of ``params`` that ``precision="int8"`` then uses in place
+    of quantizing them itself.  ``num_compiles`` counts the captures of the
     steps this engine used (shared with engines of the same shape: at most
     one per effective window either way; 0 on the CPU).
     """
@@ -331,17 +340,13 @@ class StreamingEngine:
         ecfg: EngineConfig = EngineConfig(),
         *,
         device: Optional[Union[str, torch.device]] = None,
+        qparams: Optional[QuantTao] = None,
     ):
         if ecfg.batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {ecfg.batch_size}")
         if ecfg.precision not in PRECISIONS:
             raise ValueError(
                 f"precision must be one of {PRECISIONS}, got {ecfg.precision!r}"
-            )
-        if ecfg.precision == "int8":
-            raise NotImplementedError(
-                "precision='int8' needs the W8A8 quantized forward "
-                "(ROADMAP A6), not ported yet"
             )
         self._specs: Tuple[MetricSpec, ...] = resolve_metrics(ecfg.metrics)
         for s in self._specs:
@@ -352,6 +357,7 @@ class StreamingEngine:
                 )
         self.device = resolve_device(device)
         self.params = params.to(self.device)
+        self._qparams = None if qparams is None else qparams.to(self.device)
         self.cfg = cfg
         self.ecfg = ecfg
         self._steps: Dict[int, _CachedStep] = {}  # effective window -> step
@@ -375,7 +381,7 @@ class StreamingEngine:
         bsz = self.ecfg.batch_size
 
         @torch.inference_mode()
-        def step(params: Tao, carry: Dict, batch: Dict[str, torch.Tensor]):
+        def step(params: Union[Tao, QuantTao], carry: Dict, batch: Dict[str, torch.Tensor]):
             valid = batch["valid"].reshape(-1)
             dev = valid.device
             out = tao_forward(params, {k: batch[k] for k in INPUT_KEYS}, cfg)
@@ -500,11 +506,22 @@ class StreamingEngine:
 
     def _capture(self, entry: _CachedStep, n: int) -> CapturedStep:
         w_eff = min(self.cfg.window, n)
-        captured = CapturedStep(entry.fn, self.params, self.init_carry(n), self._abstract_batch(w_eff))
+        captured = CapturedStep(entry.fn, self._run_params(), self.init_carry(n),
+                                self._abstract_batch(w_eff))
         entry.aot = captured
         entry.compiles += 1
         entry.est_bytes = captured.bytes_estimate
         return captured
+
+    def _run_params(self) -> Union[Tao, QuantTao]:
+        """The parameters the step reads: the engine's ``Tao``, or under
+        ``precision="int8"`` its ``QuantTao`` — the injected ``qparams``, or
+        quantized here once per engine on its device."""
+        if self.ecfg.precision != "int8":
+            return self.params
+        if self._qparams is None:
+            self._qparams = quantize_tao_params(self.params)
+        return self._qparams
 
     def warmup(self, n: int) -> _CachedStep:
         """Capture the step for traces of length ``n`` ahead of time, so the
@@ -685,11 +702,12 @@ class StreamingEngine:
         n, count, batches = self._batches(func_trace, features)
         entry = self._get_step(min(self.cfg.window, n))
         carry = self.init_carry(n)
+        params = self._run_params()
         pers: List[Dict[str, torch.Tensor]] = []
         with torch.inference_mode():
             if self.device.type == "cuda":
                 graph = entry.aot if entry.aot is not None else self._capture(entry, n)
-                graph.load(self.params, carry)
+                graph.load(params, carry)
                 for batch in batches:
                     per = graph.replay(batch)
                     if self.ecfg.collect:
@@ -697,7 +715,7 @@ class StreamingEngine:
                 carry = graph.carry
             else:
                 for batch in batches:
-                    carry, per = entry(self.params, carry, batch)
+                    carry, per = entry(params, carry, batch)
                     if self.ecfg.collect:
                         pers.append(per)
             return self._result(carry, pers, count, t0)

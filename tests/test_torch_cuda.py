@@ -34,6 +34,15 @@ chunk in any order).  One capture serves traces of any length, ``warmup``
 captures ahead of time, engines of one shape share an entry with their own
 weights, the replays launch attention ``n_layers`` times each (counted from
 the graph's own kernel nodes), and a step that cannot be captured raises.
+
+The int8 W8A8 path (``core/quant.py``): quantization on the card is bitwise
+the CPU's; ``qdense``'s codes, int32 accumulations (cuBLASLt IMMA through
+``torch._int_mm``, zero-padded to its multiples of 8 and past 16 rows) and
+float output are bitwise the CPU's at every default-width layer shape and
+at 16 rows or fewer: the card's ``addcmul`` is one fused multiply-add, as
+the CPU's is.  The int8 step has its own graph, with ``n_layers``
+attention nodes, and is held to the eager int8 step as the float32 one
+is.
 """
 import numpy as np
 import pytest
@@ -42,6 +51,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.features import FeatureConfig, extract_features, signed_log  # noqa: E402
 from repro_torch.core.model import TaoConfig, init_tao  # noqa: E402
+from repro_torch.core.quant import dense_shapes, qdense_device_vs_cpu, quantize_tao_params  # noqa: E402
 from repro_torch.engine import EngineConfig, MetricSpec, StreamingEngine, cache_stats  # noqa: E402
 from repro_torch.engine.aot import graph_kernel_names  # noqa: E402
 from repro_torch.kernels.attention.kernel import FLASH_ATTENTION, flash_attention_cuda  # noqa: E402
@@ -501,10 +511,11 @@ def eager_entry_loop(engine, trace, features=None):
     n, count, batches = engine._batches(trace, features)
     entry = engine.step_entry_for(n)
     carry = engine.init_carry(n)
+    params = engine._run_params()
     pers = []
     with torch.inference_mode():
         for b in batches:
-            carry, per = entry(engine.params, carry, b)
+            carry, per = entry(params, carry, b)
             if engine.ecfg.collect:
                 pers.append(per)
         return engine._result(carry, pers, count, t0)
@@ -626,3 +637,62 @@ def test_failed_capture_raises(dev):
     assert torch.cuda.current_stream() == torch.cuda.default_stream()
     good = graph_engine(dev, batch_size=40)
     assert_graph_equals_eager(good.simulate(trace), eager_entry_loop(good, trace), 40)
+
+
+# ---------------------------------------------------------------------------
+# The int8 W8A8 path
+# ---------------------------------------------------------------------------
+
+# every dense layer shape (in, out) of the default TaoConfig
+INT8_LAYER_SHAPES = dense_shapes(quantize_tao_params(init_tao(TaoConfig(), device="cpu")))
+
+
+def test_quantize_tao_params_on_card_bitwise_cpu(dev):
+    cfg = TaoConfig()
+    cpu = quantize_tao_params(init_tao(cfg, torch.Generator().manual_seed(3), device="cpu"))
+    card = quantize_tao_params(init_tao(cfg, torch.Generator().manual_seed(3), device=dev))
+    a, b = dict(cpu.named_buffers()), dict(card.named_buffers())
+    assert a.keys() == b.keys()
+    for k, v in a.items():
+        assert b[k].is_cuda and b[k].dtype == v.dtype, k
+        assert torch.equal(b[k].cpu().view(torch.uint8), v.view(torch.uint8)), k
+
+
+@pytest.mark.parametrize("rows", [8256, 16, 3])
+@pytest.mark.parametrize("shape", INT8_LAYER_SHAPES, ids=[f"{k}x{n}" for k, n in INT8_LAYER_SHAPES])
+def test_qdense_on_card_equals_cpu(dev, shape, rows):
+    """Quantized buffers, codes, int32 sums and output bitwise."""
+    same = qdense_device_vs_cpu(*shape, rows, dev)
+    assert all(same.values()), same
+
+
+@pytest.mark.parametrize("route", ["fused", "staged", "host"])
+def test_graphed_int8_simulate_equals_eager_entry_loop(dev, route):
+    """The int8 step's own graph: ``n_layers`` attention nodes, and every
+    route's graphed simulate held to the eager int8 step (module note)."""
+    engine = graph_engine(dev, collect=True, precision="int8")
+    trace = run_functional(get_benchmark("mcf"), 40000)
+    feats = route_features(route, trace, engine.cfg.features, dev)
+    got = engine.simulate(trace, features=feats)
+    entry = engine.step_entry_for(len(trace))
+    assert entry.aot is not None and entry.compiles == 1
+    assert sum("attention_kernel" in k for k in graph_kernel_names(entry.aot.graph)) == engine.cfg.n_layers
+    assert entry.aot.launches == {FLASH_ATTENTION: engine.cfg.n_layers}
+    assert_graph_equals_eager(got, eager_entry_loop(engine, trace, feats), engine.ecfg.batch_size)
+
+
+def test_int8_entry_shared_by_engines_apart_from_fp32(dev):
+    """int8 engines of one shape share one captured entry, each with its own
+    quantized weights copied in per simulate; the fp32 engine of the same
+    shape has another entry."""
+    a = graph_engine(dev, seed=0, batch_size=40, precision="int8")
+    b = graph_engine(dev, seed=1, batch_size=40, precision="int8")
+    fp = graph_engine(dev, seed=0, batch_size=40)
+    trace = run_functional(get_benchmark("lee"), 30000)
+    runs = [(e, e.simulate(trace)) for e in (a, b, fp, a)]
+    n = len(trace)
+    assert a.step_entry_for(n) is b.step_entry_for(n) is not fp.step_entry_for(n)
+    assert a.num_compiles == b.num_compiles == fp.num_compiles == 1
+    for e, got in runs:
+        assert_graph_equals_eager(got, eager_entry_loop(e, trace), 40)
+    assert runs[0][1].cpi != runs[1][1].cpi and runs[0][1].cpi != runs[2][1].cpi
