@@ -25,7 +25,12 @@ and ``nvcc``.  Phases, one JSON line each:
            the NumPy specification, attention (B4: the Tao shape on the packed
            q/k/v views the model hands over and on contiguous operands, 1024
            causal keys, q_offset / segment / masked-row cases, with its
-           registers, shared memory and blocks per SM), and the Mamba-2
+           registers, shared memory and blocks per SM), its backward (the
+           port's own kernel: the Tao training shapes at batch 16 and 64,
+           S 17 / 200, D 16 / 64 / 128, causal and not, against the plain
+           formulas, two calls bitwise, the forward's output bitwise with
+           and without its log-sum-exp, timed beside SDPA's backward),
+           and the Mamba-2
            SSD scan (B5) at the full mamba2-1.3b prefill shape in float32
            and bfloat16, with two groups, in one chunk, at chunk 200, at
            widths 40 / 72, and against the sequential recurrence, with its
@@ -57,6 +62,17 @@ and ``nvcc``.  Phases, one JSON line each:
            ms) and int8 on the GPU against int8 on the CPU on one trace,
            beside a control that must fail (float32 on the GPU against
            int8 on the CPU);
+  train    the port's training path at the default TaoConfig width: the
+           detailed simulator on lee and mcf (30,000 instructions each,
+           UARCH_A), alignment, labelled features, windows; train_tao_impl
+           for 2 epochs at batch 16 on the card, then transfer_finetune
+           (frozen embeddings) for 1 epoch on dee under UARCH_B, with the
+           launch counts read around both (2 attention forward and 2
+           backward launches a step, no other kernel), the step's host and
+           device ms, idle share and windows/s from a profile that must
+           show only the port's attention kernels, the losses (finite,
+           falling), the embeddings bitwise unchanged by the fine-tune,
+           and the first 3 steps on the card against the CPU's;
   mamba2   the port's Mamba-2 serving path at the full width of
            mamba2-1.3b (48 layers, bfloat16, random weights from a CUDA
            generator, seed 0): prefill of 4 prompts x 2048 tokens, then 32
@@ -116,6 +132,41 @@ SIGNED_LOG_SLOT_FLOPS = 30
 # kernel against float32 einsum and expf in the plain version
 ATTN_ATOL = 1e-5
 ATTN_RTOL = 1e-5
+# attention backward vs its plain version (explicit formulas, einsum): both
+# float32 sums over at most S keys or rows, in other orders; the forward's
+# base-2 log-sum-exp (3xTF32 scores, ex2.approx, log2f) against
+# logsumexp of the float32 scores, values up to ~10
+ATTN_BWD_ATOL = 1e-5
+ATTN_BWD_RTOL = 1e-5
+LSE_ATOL = 2e-5
+LSE_RTOL = 1e-5
+# (B, H, S, D, causal) of the backward's checks: the Tao training shape at
+# batch 16 and 64, then short and long windows and narrow and wide heads
+ATTN_BWD_CASES = {
+    "tao_b16_causal": (16, 4, 129, 32, True),
+    "tao_b64_causal": (64, 4, 129, 32, True),
+    "tao_b16_noncausal": (16, 4, 129, 32, False),
+    "s17_d16_causal": (4, 4, 17, 16, True),
+    "s17_d16_noncausal": (4, 4, 17, 16, False),
+    "s200_d64_causal": (4, 4, 200, 64, True),
+    "s200_d64_noncausal": (4, 4, 200, 64, False),
+    "s200_d16_causal": (4, 4, 200, 16, True),
+    "s129_d128_causal": (2, 2, 129, 128, True),
+}
+# the train cell: detailed-simulator labels on UARCH_A for the training
+# traces, on UARCH_B for the transfer trace, at the default TaoConfig and
+# FeatureConfig; Adam's lr as the trainer's default
+TRAIN_TRACES = ("lee", "mcf")
+TRANSFER_TRACE = "dee"
+TRAIN_INSTRUCTIONS = 30_000
+TRAIN_EPOCHS, TRANSFER_EPOCHS, TRAIN_BATCH, TRAIN_LR = 2, 1, 16, 3e-4
+# the card's first steps against the same steps on the CPU: the forward
+# differs in the last bits (cuBLAS vs CPU BLAS order, 3xTF32 attention), so
+# the losses agree within 1e-4 relative; Adam moves each parameter by at
+# most ~lr a step, and where a gradient is ~0 its sign can differ between
+# the two, so a parameter may differ by up to 2 lr a step
+TRAIN_CHECK_STEPS = 3
+TRAIN_LOSS_RTOL = 1e-4
 
 # GPU vs CPU engine on one trace.  Features are bitwise equal on both; the
 # model's float32 logits differ in the last bits (cuBLAS vs CPU BLAS
@@ -309,13 +360,14 @@ def edge_delta_trace(seed: int):
 
 def launch_counters() -> dict:
     """Every kernel wrapper of the port, by the name the kernels line uses."""
-    from repro_torch.kernels.attention.kernel import FLASH_ATTENTION
+    from repro_torch.kernels.attention.kernel import FLASH_ATTENTION, FLASH_ATTENTION_BWD
     from repro_torch.kernels.features.kernel import BRANCH_HISTORY, MEMDIST_DELTA
     from repro_torch.kernels.fused.kernel import FUSED_FEATURES
     from repro_torch.kernels.ssd.kernel import SSD_SCAN
 
     return {"fused_features": FUSED_FEATURES, "flash_attention": FLASH_ATTENTION,
-            "branch_history": BRANCH_HISTORY, "memdist_delta": MEMDIST_DELTA, "ssd": SSD_SCAN}
+            "branch_history": BRANCH_HISTORY, "memdist_delta": MEMDIST_DELTA, "ssd": SSD_SCAN,
+            "flash_attention_bwd": FLASH_ATTENTION_BWD}
 
 
 def zero_counts() -> None:
@@ -488,6 +540,7 @@ def phase_kernels(failures, results, traces):
     check_staged_kernels(failures, results, traces)
 
     check_attention_kernel(failures, results)
+    check_attention_bwd_kernel(failures, results)
     check_ssd_kernel(failures, results)
 
 
@@ -578,6 +631,111 @@ def check_attention_kernel(failures, results):
           "library_packed_ms": lib_packed_ms, "bound_ms": b_ms, "bound_by": b_by,
           "x_bound": ms / b_ms, "x_library": ms / lib_ms,
           **info})
+
+
+def attention_bwd_bound(B, H, S, D, causal):
+    """The backward's least time: 7 tensors of B H S D floats moved (q, k,
+    v, o, dO in; dq, dk, dv out) against 10 D FLOPs per visible (query,
+    key) pair: the five products the function needs (s, dP, dV, dQ, dK),
+    2 D each.  The kernel's second pass recomputes s and dP; that is its
+    choice, not the function's work."""
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    return bound(7 * B * H * S * D * 4, pairs * 10 * D)
+
+
+def check_attention_bwd_kernel(failures, results):
+    """B4's backward (the port's own kernel) against its plain version at
+    the Tao training shapes and around them, causal and not: gradients
+    within tolerance, two calls bitwise equal, the forward's output bitwise
+    the same with and without its log-sum-exp, which is held to the plain
+    one; then its times beside its bound, the plain version's and SDPA's
+    backward at the training shape."""
+    import torch
+
+    from repro_torch.kernels.attention.kernel import flash_attention_bwd_cuda, flash_attention_cuda
+    from repro_torch.kernels.attention.ref import attention_bwd_plain, attention_lse_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(1)
+    worst, all_ok, timed = 0.0, True, {}
+    for name, (B, H, S, D, causal) in ATTN_BWD_CASES.items():
+        # q, k, v as the Tao block hands them over: views of one packed projection
+        q, k, v = packed_qkv(B, S, H, D, lambda *shape: torch.randn(*shape, generator=g).to(dev))
+        do = torch.randn(B, S, H, D, generator=g).to(dev).transpose(1, 2)
+        out_only = flash_attention_cuda(q, k, v, causal=causal)
+        out, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+        got = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+        again = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+        ref = attention_bwd_plain(q, k, v, out, lse, do, causal)
+        lse_ref = attention_lse_plain(q, k, causal=causal)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        within = all(bool(torch.all((a - b).abs() <= ATTN_BWD_ATOL + ATTN_BWD_RTOL * b.abs()))
+                     for a, b in zip(got, ref))
+        lse_err = float((lse - lse_ref).abs().max())
+        lse_ok = bool(torch.all((lse - lse_ref).abs() <= LSE_ATOL + LSE_RTOL * lse_ref.abs()))
+        deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+        out_bitwise = torch.equal(out, out_only)
+        ok = within and lse_ok and deterministic and out_bitwise
+        worst, all_ok = max(worst, err), all_ok and ok
+        emit({"phase": "kernels", "kernel": "flash_attention_bwd", "case": name,
+              "shape": [B, H, S, D], "causal": causal, "max_abs_err": err,
+              "atol": ATTN_BWD_ATOL, "rtol": ATTN_BWD_RTOL, "lse_max_abs_err": lse_err,
+              "lse_atol": LSE_ATOL, "two_calls_bitwise": deterministic,
+              "forward_out_bitwise_with_and_without_lse": out_bitwise, "ok": ok})
+        if name.startswith("tao_b") and causal:
+            timed[B] = (q, k, v, out, lse, do)
+    # a row that sees no key (segments, q_offset past Sk): lse +inf, out 0
+    q, k, v = (torch.randn(2, 2, 12, 16, generator=g).to(dev) for _ in range(3))
+    seg = torch.zeros(2, 12, dtype=torch.int32, device=dev)
+    out, lse = flash_attention_cuda(q, k, v, seg, causal=False, q_offset=6, return_lse=True)
+    ref = attention_lse_plain(q, k, seg, causal=False, q_offset=6)
+    torch.cuda.synchronize()
+    past = lse[:, :, 6:]
+    no_key_ok = bool(torch.all(torch.isinf(past) & (past > 0)) and torch.all(out[:, :, 6:] == 0)
+                     and torch.equal(torch.isinf(ref), torch.isinf(lse)))
+    emit({"phase": "kernels", "kernel": "flash_attention", "check": "lse_of_rows_without_keys",
+          "rows": int(past[0, 0].numel()), "lse_plus_inf_and_out_zero": no_key_ok})
+    if not (all_ok and no_key_ok):
+        failures.append("flash_attention_bwd: kernel outside tolerance of the plain version, "
+                        "not deterministic, or the forward's lse / out wrong")
+
+    # times at the training shapes: the kernel (graph replay: device time),
+    # its eager call, the plain version, and SDPA's backward (its kernels'
+    # device time from the profiler, over 20 calls of autograd.grad)
+    lines = {}
+    for B, (q, k, v, out, lse, do) in sorted(timed.items()):
+        _, H, S, D = q.shape
+        ms = graph_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=True))
+        call_ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=True), 100)
+        plain_ms = cuda_ms(lambda: attention_bwd_plain(q, k, v, out, lse, do, True), 20)
+        qs, ks, vs = (x.detach().contiguous().requires_grad_() for x in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        dc = do.contiguous()
+
+        def sdpa_bwd():
+            for _ in range(20):
+                torch.autograd.grad(lib_out, (qs, ks, vs), dc, retain_graph=True)
+
+        sdpa_bwd()
+        prof = profile_breakdown(sdpa_bwd)
+        lib_ms = prof["device_busy_s"] * 1e3 / 20
+        b_ms, b_by = attention_bwd_bound(B, H, S, D, True)
+        lines[B] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "kernels", "kernel": "flash_attention_bwd", "shape": [B, H, S, D],
+              "causal": True, "operands": "packed_qkv_views", **lines[B], "x_bound": ms / b_ms,
+              "x_library": ms / lib_ms, "library": "scaled_dot_product_attention backward",
+              "library_kernels": [t[0] for t in prof["top_device_ms"][:4]]})
+    at = lines[TRAIN_BATCH]
+    results["flash_attention_bwd"] = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/attention_bwd.cu",
+        # no TPU kernel: the reference's trainer differentiates its jnp attention
+        "replaces": "src/repro/core/model.py:217",
+        "max_abs_err": worst, "ms": at["ms"], "plain_ms": at["plain_ms"],
+        "bound_ms": at["bound_ms"], "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+    }
 
 
 def ssd_inputs(B, S, H, P, G, N, dtype, seed):
@@ -994,7 +1152,8 @@ def phase_slice(failures, results, traces):
               "seconds": r.seconds, "mips": r.mips, "cpi": r.cpi,
               "total_cycles": r.total_cycles, "branch_mpki": r.branch_mpki,
               "l1d_mpki": r.l1d_mpki})
-    expected = {"fused_features": batches, "branch_history": 0, "memdist_delta": 0, "ssd": 0}
+    expected = {"fused_features": batches, "branch_history": 0, "memdist_delta": 0, "ssd": 0,
+                "flash_attention_bwd": 0}
     got = {k: v for k, v in launches.items() if k != "flash_attention"}
     if got != expected:
         failures.append(f"slice: fused route launches {got}, expected {expected}")
@@ -1031,7 +1190,8 @@ def phase_slice(failures, results, traces):
         del arrays
     s_launches = read_counts()
     expected = {"fused_features": 0, "flash_attention": cfg.n_layers * batches,
-                "branch_history": len(traces), "memdist_delta": len(traces), "ssd": 0}
+                "branch_history": len(traces), "memdist_delta": len(traces), "ssd": 0,
+                "flash_attention_bwd": 0}
     if s_launches != expected:
         failures.append(f"slice: staged route launches {s_launches}, expected {expected}")
     for name in ("branch_history", "memdist_delta"):
@@ -1277,7 +1437,7 @@ def slice_int8(failures, traces, arrays, model, engine, extract, batches, lee_ba
     b4 = {"counter": launches["flash_attention"], "graph_nodes_x_replays": attn_nodes * replays,
           "captured_x_replays": entry8.aot.launches.get(FLASH_ATTENTION, 0) * replays}
     expected = {"fused_features": batches, "flash_attention": cfg.n_layers * batches,
-                "branch_history": 0, "memdist_delta": 0, "ssd": 0}
+                "branch_history": 0, "memdist_delta": 0, "ssd": 0, "flash_attention_bwd": 0}
     if launches != expected or attn_nodes != cfg.n_layers or set(b4.values()) != {cfg.n_layers * batches}:
         failures.append(f"slice int8: fused launches {launches}, expected {expected}; attention "
                         f"nodes {attn_nodes}, counts {b4}")
@@ -1299,7 +1459,8 @@ def slice_int8(failures, traces, arrays, model, engine, extract, batches, lee_ba
     staged8 = {b: engine8.simulate(t, features=extract(t)) for b, t in traces.items()}
     s_launches = read_counts()
     expected = {"fused_features": 0, "flash_attention": cfg.n_layers * batches,
-                "branch_history": len(traces), "memdist_delta": len(traces), "ssd": 0}
+                "branch_history": len(traces), "memdist_delta": len(traces), "ssd": 0,
+                "flash_attention_bwd": 0}
     if s_launches != expected:
         failures.append(f"slice int8: staged launches {s_launches}, expected {expected}")
     vs_fused = {b: same_metrics(r, res8[b]) for b, r in staged8.items()}
@@ -1364,6 +1525,165 @@ def slice_int8(failures, traces, arrays, model, engine, extract, batches, lee_ba
         failures.append(f"slice int8: float32 on the card passes the int8 GPU-vs-CPU check on {name}")
     emit({"phase": "slice", "check": "int8_gpu_vs_cpu_control", "trace": name, "gpu_precision": "fp32",
           "cpu_precision": "int8", **control, "fails_as_it_must": not control["ok"]})
+
+
+def labelled_windows(names, uarch, cfg):
+    """The training data path: the detailed simulator's records for each
+    trace on ``uarch``, aligned to the functional trace (§4.1), features
+    with labels, windows (dedup per trace), concatenated."""
+    from repro_torch.core import build_adjusted_trace, build_windows, concat_datasets
+    from repro_torch.core import extract_features, verify_alignment
+    from repro_torch.uarch import get_benchmark, run_detailed, run_functional
+
+    parts, aligned_ok = [], True
+    for name in names:
+        prog = get_benchmark(name)
+        ft = run_functional(prog, TRAIN_INSTRUCTIONS)
+        det, _ = run_detailed(prog, ft, uarch)
+        al = build_adjusted_trace(det)
+        check = verify_alignment(al, ft)
+        aligned_ok &= check["stream_match"] and check["cycles_match"]
+        parts.append(build_windows(extract_features(al.adjusted, cfg.features), cfg.window))
+    return concat_datasets(parts), aligned_ok
+
+
+def params_diff(a, b) -> float:
+    sa, sb = a.state_dict(), b.state_dict()
+    return max(float((sa[k].cpu() - sb[k].cpu()).abs().max()) for k in sa)
+
+
+def phase_train(failures, results, traces):
+    """The port's training path at the default TaoConfig width: labelled
+    windows from the detailed simulator, train_tao_impl for TRAIN_EPOCHS at
+    batch 16 on the card, then Tao's transfer (frozen embeddings) to
+    UARCH_B on another trace; the attention kernels' launches per step, the
+    step's host and device time, idle share and windows/s; the first steps
+    on the card against the same steps on the CPU."""
+    import torch
+
+    from repro_torch.core import TaoConfig, multi_metric_loss, tao_forward, train_tao_impl
+    from repro_torch.core import transfer_finetune
+    from repro_torch.core.model import init_tao
+    from repro_torch.core.transfer import _make_step, to_device, trainable_params
+    from repro_torch.train import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.uarch import UARCH_A, UARCH_B
+
+    import numpy as np
+
+    cfg = TaoConfig()
+    t0 = time.perf_counter()
+    ds, aligned_ok = labelled_windows(TRAIN_TRACES, UARCH_A, cfg)
+    small, small_ok = labelled_windows((TRANSFER_TRACE,), UARCH_B, cfg)
+    data_s = time.perf_counter() - t0
+    emit({"phase": "train", "check": "data", "traces": list(TRAIN_TRACES), "uarch": UARCH_A.name,
+          "transfer_trace": TRANSFER_TRACE, "transfer_uarch": UARCH_B.name,
+          "instructions_each": TRAIN_INSTRUCTIONS, "windows": len(ds), "transfer_windows": len(small),
+          "window": cfg.window, "seconds": data_s, "aligned": aligned_ok and small_ok})
+    if not (aligned_ok and small_ok):
+        failures.append("train: the adjusted trace does not align with the functional trace")
+
+    # warm-up: cuBLAS handles, allocator pools, the kernels' first launches
+    train_tao_impl(cfg, ds.subsample(2 * TRAIN_BATCH), epochs=1, batch_size=TRAIN_BATCH,
+                   lr=TRAIN_LR, device="cuda")
+    torch.cuda.synchronize()
+    zero_counts()
+    res = train_tao_impl(cfg, ds, epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH, lr=TRAIN_LR,
+                         seed=0, device="cuda")
+    ft = transfer_finetune(cfg, res.params.embed, res.params, small, epochs=TRANSFER_EPOCHS,
+                           batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    steps = res.steps + ft.steps
+    expected = {k: 0 for k in launches} | {"flash_attention": cfg.n_layers * steps,
+                                           "flash_attention_bwd": cfg.n_layers * steps}
+    if launches != expected:
+        failures.append(f"train: launches {launches}, expected {expected}")
+    results["flash_attention_bwd"]["launches"] = launches["flash_attention_bwd"]
+    finite = all(math.isfinite(x) for x in res.losses + ft.losses)
+    falls = len(res.losses) == TRAIN_EPOCHS and res.losses[1] < res.losses[0]
+    frozen = all(torch.equal(a, b) for a, b in zip(ft.params.embed.state_dict().values(),
+                                                 res.params.embed.state_dict().values()))
+    moved = params_diff(ft.params.pred, res.params.pred) > 0
+    if not (finite and falls and frozen and moved):
+        failures.append(f"train: losses {res.losses} / {ft.losses} (finite {finite}, falling "
+                        f"{falls}), embed unchanged by the fine-tune {frozen}, pred moved {moved}")
+
+    # the step's device time and idle share: one profiled epoch of 10
+    # steps (model and optimizer made before the window)
+    model = init_tao(cfg, torch.Generator().manual_seed(0), device="cuda")
+    step = _make_step(cfg, AdamWConfig(lr=TRAIN_LR), "all")
+    opt = adamw_init(trainable_params(model, "all"))
+    batches = list(ds.batches(TRAIN_BATCH, rng=np.random.default_rng(0)))[:10]
+
+    def ten_steps():
+        nonlocal opt
+        for b in batches:
+            opt, loss = step(model, opt, to_device(b, torch.device("cuda")))
+        loss.item()
+
+    ten_steps()
+    prof = profile_breakdown(ten_steps, track=("attention_kernel", "bwd_delta", "bwd_dkdv",
+                                               "bwd_dq", "fmha", "flash_fwd", "flash_bwd",
+                                               "efficient_attention"))
+    names = set(prof["tracked_ms"])
+    ours = {"attention_kernel", "bwd_delta", "bwd_dkdv", "bwd_dq"}
+    library = [n for n in names if not any(n.startswith(o) for o in ours)]
+    if library or not all(any(n.startswith(o) for n in names) for o in ours):
+        failures.append(f"train: step profile attention kernels {sorted(names)}")
+    # where the host's time goes: each part of the step on the host clock,
+    # no synchronisation between them (the device idles most of the step),
+    # and the kernels one step enqueues
+    split = dict.fromkeys(("copy", "forward_loss", "backward", "adamw"), 0.0)
+    params = trainable_params(model, "all")
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    for b in batches:
+        t0 = time.perf_counter()
+        tb = to_device(b, torch.device("cuda"))
+        t1 = time.perf_counter()
+        loss, _ = multi_metric_loss(tao_forward(model, tb, cfg), tb["labels"])
+        t2 = time.perf_counter()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        t3 = time.perf_counter()
+        opt = adamw_update(params, dict(zip(params, grads)), opt, opt_cfg)[1]
+        t4 = time.perf_counter()
+        for k, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            split[k] += dt * 1e3 / len(batches)
+    torch.cuda.synchronize()
+    per_step = kernels_enqueued(lambda: step(model, opt, to_device(batches[0], torch.device("cuda"))))
+    host_ms = res.seconds / res.steps * 1e3
+    emit({"phase": "train", "check": "train", "epochs": TRAIN_EPOCHS, "batch": TRAIN_BATCH,
+          "lr": TRAIN_LR, "steps": res.steps, "losses": res.losses, "seconds": res.seconds,
+          "ms_per_step_host": host_ms, "ms_per_step_device": prof["device_busy_s"] * 1e3 / 10,
+          "idle_share_profiled": prof["idle_share"], "windows_per_s": res.steps * TRAIN_BATCH / res.seconds,
+          "flash_attention_per_step": launches["flash_attention"] / steps,
+          "flash_attention_bwd_per_step": launches["flash_attention_bwd"] / steps,
+          "host_ms_per_step_split": split, "kernels_per_step": per_step,
+          "launches": launches, "attention_kernels_ms": prof["tracked_ms"],
+          "top_device_ms": prof["top_device_ms"], "ok": finite and falls})
+    emit({"phase": "train", "check": "transfer", "epochs": TRANSFER_EPOCHS, "steps": ft.steps,
+          "losses": ft.losses, "seconds": ft.seconds, "embed_bitwise_unchanged": frozen,
+          "pred_max_change": params_diff(ft.params.pred, res.params.pred)})
+
+    # the first steps on the card against the same steps on the CPU (the
+    # plain versions): one batch of TRAIN_BATCH windows, one step an epoch
+    sub = ds.subsample(TRAIN_BATCH, seed=1)
+    init = init_tao(cfg, torch.Generator().manual_seed(1), device="cpu").state_dict()
+    kw = dict(epochs=TRAIN_CHECK_STEPS, batch_size=TRAIN_BATCH, lr=TRAIN_LR, init_params=init, seed=1)
+    t0 = time.perf_counter()
+    cpu = train_tao_impl(cfg, sub, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    gpu = train_tao_impl(cfg, sub, device="cuda", **kw)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gpu.losses, cpu.losses))
+    p_diff = params_diff(gpu.params, cpu.params)
+    p_tol = 2 * TRAIN_LR * TRAIN_CHECK_STEPS
+    ok = loss_rel <= TRAIN_LOSS_RTOL and p_diff <= p_tol
+    emit({"phase": "train", "check": "gpu_vs_cpu", "steps": TRAIN_CHECK_STEPS,
+          "gpu_losses": gpu.losses, "cpu_losses": cpu.losses, "loss_max_rel": loss_rel,
+          "loss_rtol": TRAIN_LOSS_RTOL, "params_max_abs": p_diff, "params_atol": p_tol,
+          "cpu_seconds": cpu_s, "ok": ok})
+    if not ok:
+        failures.append(f"train: the card's first steps differ from the CPU's: losses {loss_rel}, "
+                        f"params {p_diff}")
 
 
 def rel_diff(a, b) -> float:
@@ -1502,7 +1822,7 @@ def main() -> int:
     emit({"phase": "capture", "traces": list(SLICE_BENCHMARKS),
           "instructions_each": SLICE_INSTRUCTIONS, "seconds": time.perf_counter() - t0})
     failures, results = [], {}
-    for phase in (phase_build, phase_kernels, phase_slice, phase_mamba2):
+    for phase in (phase_build, phase_kernels, phase_slice, phase_train, phase_mamba2):
         phase(failures, results, traces)
         if failures:
             break
@@ -1511,7 +1831,8 @@ def main() -> int:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)
         return 1
     emit({"kernels": [results[k] for k in
-                      ("fused_features", "branch_history", "memdist_delta", "flash_attention", "ssd")]})
+                      ("fused_features", "branch_history", "memdist_delta", "flash_attention",
+                       "flash_attention_bwd", "ssd")]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

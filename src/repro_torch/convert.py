@@ -16,6 +16,13 @@ stacked on a leading axis: it unstacks them into ``layers.{i}``, maps
 ``table`` / ``scale`` -> ``weight`` and the mixer's ``in_proj`` /
 ``out_proj`` ``(in, out)`` arrays to ``nn.Linear`` weights, transposed.
 
+``params_to_jax`` is the inverse of ``params_from_jax``: a ``Tao`` state
+dict back to the reference's nested tree of NumPy arrays, each layer
+named by what its leaves are (a 1-D ``weight`` is a layernorm's
+``scale``, a 2-D ``weight`` beside a ``bias`` a dense layer's ``w``,
+untransposed, and one without a bias an embedding's ``table``), so that
+the tests can compare params trained on both sides.
+
 ``qparams_from_jax`` does it for the reference's quantized tree
 (``repro/core/quant.py::quantize_tao_params``) and the port's
 ``core.quant.QuantTao``: int8 leaves (``w_q``, ``table_q``) stay int8 and
@@ -24,12 +31,12 @@ untransposed, a quantized layer's ``scale`` keeps its name, ``b`` becomes
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
 
-__all__ = ["lm_params_from_jax", "params_from_jax", "qparams_from_jax"]
+__all__ = ["lm_params_from_jax", "params_from_jax", "params_to_jax", "qparams_from_jax"]
 
 # reference leaf name -> the port's, and the leaves stored (in, out) that
 # become nn.Linear weights, transposed
@@ -84,6 +91,43 @@ def params_from_jax(np_tree: Mapping) -> Dict[str, torch.Tensor]:
     """Reference param tree of NumPy arrays -> ``Tao`` state dict (CPU
     float32 tensors); load it with ``model.load_state_dict``."""
     return _state_dict(np_tree, _TAO_LEAVES, _TAO_TRANSPOSED)
+
+
+def params_to_jax(params: Union[torch.nn.Module, Mapping[str, torch.Tensor]]) -> Dict:
+    """``Tao`` module or state dict -> the reference's param tree of NumPy
+    float32 arrays (``blocks`` a list); ``params_from_jax`` of it gives the
+    state dict back bitwise."""
+    sd = params.state_dict() if isinstance(params, torch.nn.Module) else params
+    layers: Dict[tuple, Dict[str, np.ndarray]] = {}
+    for name, t in sd.items():
+        *path, leaf = name.split(".")
+        layers.setdefault(tuple(path), {})[leaf] = t.detach().cpu().numpy()
+    tree: Dict = {}
+    for path, leaves in layers.items():
+        w = leaves.get("weight")
+        if w is None:
+            node = dict(leaves)  # bare parameters (``pos``) keep their names
+        elif w.ndim == 1:
+            node = {"scale": w, "bias": leaves["bias"]}
+        elif "bias" in leaves:
+            node = {"w": np.ascontiguousarray(w.T), "b": leaves["bias"]}
+        else:
+            node = {"table": w}
+        parent = tree
+        for key in path:
+            parent = parent.setdefault(key, {})
+        parent.update(node)
+    return _lists(tree)
+
+
+def _lists(node):
+    """Nested dicts whose keys are all indices become lists, in order."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _lists(v) for k, v in node.items()}
+    if out and all(k.isdigit() for k in out):
+        return [out[str(i)] for i in range(len(out))]
+    return out
 
 
 def lm_params_from_jax(np_tree: Mapping) -> Dict[str, torch.Tensor]:

@@ -11,13 +11,15 @@ submodules — ``embed`` (shared, µarch-agnostic), ``adapt`` (per-µarch
 adaptation) and ``pred`` (per-µarch attention network + heads) — so the
 state-dict paths follow the reference's param tree (see ``convert``).
 Attention goes through ``kernels/attention/ops.flash_attention``: the
-hand-written CUDA kernel on the card, its plain version on the CPU.
+hand-written CUDA kernel on the card (and, when autograd records the call,
+its hand-written backward), its plain version on the CPU.
+``multi_metric_loss`` is the reference's training loss.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +28,7 @@ from torch.nn.utils import skip_init
 
 from .. import resolve_device
 from ..kernels.attention.ops import flash_attention
-from ..nn.core import dense, embed, gelu, layernorm
+from ..nn.core import dense, embed, gelu, layernorm, softmax_cross_entropy
 from ..uarch.isa import NUM_DLEVELS, NUM_REGS
 from .features import NUM_OPCODES, FeatureConfig
 
@@ -38,10 +40,13 @@ __all__ = [
     "apply_adapt",
     "apply_pred",
     "tao_forward",
+    "multi_metric_loss",
     "expected_latency",
     "bucketize_latency",
     "LAT_EDGES",
     "LAT_REPS",
+    "LAT_SCALE",
+    "LOSS_WEIGHTS",
     "NUM_LAT_BUCKETS",
 ]
 
@@ -71,6 +76,18 @@ NUM_LAT_BUCKETS = len(LAT_EDGES)
 LAT_REPS = np.concatenate(
     [LAT_EDGES[:-1] + (np.diff(LAT_EDGES) - 1) / 2.0, [256.0]]
 ).astype(np.float32)
+LAT_SCALE = 1.0  # kept beside the reference's; expectations are in cycles
+
+# Linear combination ratios of the multi-metric loss (all heads trained
+# jointly with a linear ratio).
+LOSS_WEIGHTS = {
+    "fetch_lat": 1.0,
+    "exec_lat": 1.0,
+    "mispred": 0.5,
+    "dlevel": 0.5,
+    "icache_miss": 0.25,
+    "tlb_miss": 0.25,
+}
 
 
 def bucketize_latency(x: torch.Tensor) -> torch.Tensor:
@@ -230,3 +247,51 @@ def tao_forward(params: Tao, batch: Dict[str, torch.Tensor], cfg: TaoConfig) -> 
     h = apply_embed(params.embed, batch, cfg)
     h = apply_adapt(params.adapt, h)
     return apply_pred(params.pred, h, cfg)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def _masked_bce(logit: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean over ``mask`` of the logistic loss, in the reference's stable
+    form ``max(l, 0) - l t + log1p(exp(-|l|))``."""
+    per = torch.clamp(logit, min=0) - logit * target + torch.log1p(torch.exp(-logit.abs()))
+    return (per * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def multi_metric_loss(
+    preds: Dict[str, torch.Tensor],
+    labels: Dict[str, torch.Tensor],
+    weights: Optional[Dict[str, float]] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's combined loss (linear ratio ``LOSS_WEIGHTS``):
+    cross-entropy over the latency buckets, the branch head masked to
+    branches, the data-level and TLB heads to memory ops.  Returns the
+    total and its parts."""
+    w = weights or LOSS_WEIGHTS
+    br_mask = labels["is_branch"]
+    mem_mask = labels["is_mem"]
+    lat_f = softmax_cross_entropy(
+        preds["fetch_lat_logits"], bucketize_latency(labels["fetch_lat"])
+    ).mean()
+    lat_e = softmax_cross_entropy(
+        preds["exec_lat_logits"], bucketize_latency(labels["exec_lat"])
+    ).mean()
+    bce_br = _masked_bce(preds["mispred_logit"], labels["mispred"], br_mask)
+    ce_dl = (
+        softmax_cross_entropy(preds["dlevel_logits"], labels["dlevel"]) * mem_mask
+    ).sum() / torch.clamp(mem_mask.sum(), min=1.0)
+    bce_ic = _masked_bce(preds["icache_logit"], labels["icache_miss"], torch.ones_like(br_mask))
+    bce_tlb = _masked_bce(preds["tlb_logit"], labels["tlb_miss"], mem_mask)
+    parts = {
+        "fetch_lat": lat_f,
+        "exec_lat": lat_e,
+        "mispred": bce_br,
+        "dlevel": ce_dl,
+        "icache_miss": bce_ic,
+        "tlb_miss": bce_tlb,
+    }
+    total = sum(w[k] * v for k, v in parts.items())
+    return total, parts

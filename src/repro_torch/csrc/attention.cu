@@ -8,7 +8,12 @@
 //   * optional segment ids (B, Sk): a row sees only keys of its own
 //     segment; a row whose absolute position is past Sk has segment -2;
 //   * rows that see no key finalizing to 0;
-//   * Sq != Sk and a value width Dv != D (both 1..128).
+//   * Sq != Sk and a value width Dv != D (both 1..128);
+//   * optionally, each row's log-sum-exp in base 2, lse = m + log2(l) in
+//     the units of the scores it exponentiates (scale * log2(e) folded
+//     in, see below), for the backward (attention_bwd.cu): P = 2^(s - lse).
+//     A row that sees no key gets +inf, so that 2^(s - lse) is 0 there as
+//     its output is.  With a null lse pointer nothing else changes.
 // q, k and v are read at the strides they come with (the last dimension
 // contiguous), and out is written at the strides the caller gives, so the
 // Tao block hands over views of its packed (B, S, 3, H, D) projection and
@@ -90,6 +95,7 @@ struct Params {
   const float* v;
   const int32_t* seg;
   float* out;
+  float* lse;           // (B, H, Sq) contiguous, or null
   long long sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos;
   int H, Sq, Sk, D, Dv;
   int dk;               // D padded to a multiple of 8
@@ -389,6 +395,11 @@ attention_kernel(const Params p) {
   const float inv1 = 1.0f / fmaxf(l1, 1e-30f);
   float* ob = p.out + b * p.sob + h * p.soh;
   const int ra = w.r0 + g, rb = w.r0 + g + 8;
+  if (p.lse != nullptr && t == 0) {
+    float* lb = p.lse + (long long)bh * p.Sq;
+    if (ra < p.Sq) lb[ra] = l0 > 0.0f ? w.m0 + log2f(l0) : __int_as_float(0x7f800000);
+    if (rb < p.Sq) lb[rb] = l1 > 0.0f ? w.m1 + log2f(l1) : __int_as_float(0x7f800000);
+  }
 #pragma unroll
   for (int n = 0; n < DV8; ++n) {
     const int c = 8 * n + 2 * t;
@@ -453,11 +464,11 @@ extern "C" const char* tao_error_string(int err) {
 
 // q (B,H,Sq,D), k (B,H,Sk,D), v (B,H,Sk,Dv), out (B,H,Sq,Dv): float32
 // device pointers with element strides (batch, head, sequence) and a
-// contiguous last dimension; seg (B,Sk) int32 contiguous or null.
-// 1 <= D, Dv <= 128.
+// contiguous last dimension; seg (B,Sk) int32 contiguous or null; lse
+// (B,H,Sq) float32 contiguous or null.  1 <= D, Dv <= 128.
 extern "C" int tao_flash_attention(
     const float* q, const float* k, const float* v, const int32_t* seg, float* out,
-    long long sqb, long long sqh, long long sqs, long long skb, long long skh,
+    float* lse, long long sqb, long long sqh, long long sqs, long long skb, long long skh,
     long long sks, long long svb, long long svh, long long svs, long long sob,
     long long soh, long long sos, int B, int H, int Sq, int Sk, int D, int Dv,
     int causal, int q_offset, float scale, void* stream) {
@@ -470,7 +481,7 @@ extern "C" int tao_flash_attention(
   if (err != 0) return err;
   const long long strides = sqb | sqh | sqs | skb | skh | sks | svb | svh | svs;
   const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
-  Params p{q, k, v, seg, out,
+  Params p{q, k, v, seg, out, lse,
            sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos,
            H, Sq, Sk, D, Dv, c.dk, causal, q_offset,
            D % 4 == 0 && Dv % 4 == 0 && strides % 4 == 0 && ptrs % 16 == 0,

@@ -20,7 +20,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
 
-__all__ = ["RMSNorm", "dense", "embed", "gelu", "layernorm", "rmsnorm", "trunc_normal_param", "truncated_normal_"]
+__all__ = ["RMSNorm", "dense", "embed", "gelu", "layernorm", "rmsnorm", "softmax_cross_entropy",
+           "trunc_normal_param", "truncated_normal_"]
 
 # std of a unit normal truncated to [-2, 2]: dividing by it keeps the
 # requested stddev after truncation (as the reference's initializer does)
@@ -62,6 +63,17 @@ def layernorm(dim: int) -> nn.LayerNorm:
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-element cross-entropy of integer ``labels`` under ``logits``
+    (classes on the last axis), as the reference computes it:
+    ``-sum(onehot * log_softmax)`` in float32, a label outside the classes
+    matching no class (its one-hot row is zeros)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    classes = torch.arange(logits.shape[-1], device=labels.device)
+    onehot = (labels[..., None] == classes).to(logp.dtype)
+    return -(onehot * logp).sum(-1)
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -10,6 +10,14 @@ Inputs are made with a NumPy seed and go through
 
 and the port's ``attention_plain`` / ``flash_attention`` on the CPU.
 
+The backward's plain version, ``attention_bwd_plain`` (the explicit
+formulas the CUDA backward is held to on the card), is held to torch
+autograd through ``attention_plain`` and to ``jax.vjp`` of the reference
+model's jnp attention, within atol = rtol = 2e-6 (float32 einsums in other
+orders, gradients of magnitude <= ~10); ``FlashAttentionFn``'s wiring (the
+forward's lse saved, the gradients returned in order) is checked on the
+CPU with the two kernel calls swapped for their plain versions.
+
 Tolerance: atol = rtol = 2e-6.  Every path computes in float32; they differ
 only in summation order (einsum vs blocked online softmax) and in
 multiplying by 1/sqrt(D) vs dividing by sqrt(D) — a few ulp on outputs of
@@ -26,9 +34,16 @@ from repro.core.model import _attention as ref_model_attention  # noqa: E402
 from repro.kernels.attention.kernel import flash_attention_pallas  # noqa: E402
 from repro.kernels.attention.ref import attention_ref  # noqa: E402
 
+import jax  # noqa: E402
+
 from repro_torch.kernels.attention import kernel as port_kernel  # noqa: E402
+from repro_torch.kernels.attention import ops as port_ops  # noqa: E402
 from repro_torch.kernels.attention.ops import flash_attention  # noqa: E402
-from repro_torch.kernels.attention.ref import attention_plain  # noqa: E402
+from repro_torch.kernels.attention.ref import (  # noqa: E402
+    attention_bwd_plain,
+    attention_lse_plain,
+    attention_plain,
+)
 
 ATOL = RTOL = 2e-6
 
@@ -134,3 +149,105 @@ def test_packed_qkv_views_match_contiguous_call_and_reference(causal):
     jq, jk, jv = (jnp.asarray(np.ascontiguousarray(x[:, :, i].transpose(0, 2, 1, 3)))
                   for i in range(3))
     close(got, attention_ref(jq, jk, jv, None, causal=causal), "packed views vs attention_ref")
+
+
+# (B, H, S, D, causal)
+BWD_CASES = {
+    "tao": (2, 4, 129, 32, True),
+    "tao_noncausal": (2, 4, 129, 32, False),
+    "short_narrow": (3, 2, 17, 16, True),
+    "odd_width": (2, 2, 40, 20, False),
+}
+
+
+def bwd_inputs(case):
+    B, H, S, D, causal = BWD_CASES[case]
+    rng = np.random.default_rng(20 + sorted(BWD_CASES).index(case))
+    q, k, v, do = (rng.standard_normal((B, H, S, D)).astype(np.float32) for _ in range(4))
+    return q, k, v, do, causal
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_bwd_plain_matches_autograd_and_reference_vjp(case):
+    q, k, v, do, causal = bwd_inputs(case)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = attention_plain(*leaves, causal=causal)
+    out.backward(torch.from_numpy(do))
+    tq, tk, tv = (x.detach() for x in leaves)
+    lse = attention_lse_plain(tq, tk, causal=causal)
+    got = attention_bwd_plain(tq, tk, tv, out.detach(), lse, torch.from_numpy(do), causal)
+    _, vjp = jax.vjp(lambda a, b, c: ref_model_attention(a, b, c, causal, False),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for name, g, leaf, ref in zip("qkv", got, leaves, vjp(jnp.asarray(do))):
+        close(g, leaf.grad, f"{case} d{name} vs autograd")
+        close(g, ref, f"{case} d{name} vs jax.vjp of the reference attention")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_lse_plain_normalizes_rows_and_marks_rows_without_keys(causal):
+    """2^(s log2(e) - lse) sums to 1 over each row's visible keys; a row
+    that sees no key (segment -2 past Sk) has lse = +inf."""
+    q, k, v, seg = make(9, 2, 2, 12, 20, 8, 8, True)
+    tq, tk, tseg = torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(seg)
+    lse = attention_lse_plain(tq, tk, tseg, causal=causal, q_offset=15)
+    s = torch.einsum("bhqd,bhkd->bhqk", tq, tk) / np.sqrt(8)
+    p = torch.exp2(s * 1.4426950408889634 - lse[..., None])
+    out = attention_plain(tq, tk, torch.from_numpy(v), tseg, causal=causal, q_offset=15)
+    qpos = 15 + np.arange(12)
+    past = qpos >= 20
+    assert torch.all(torch.isposinf(lse[:, :, torch.from_numpy(past)]))
+    segq = np.where(past, -2, seg[:, np.minimum(qpos, 19)])
+    visible = segq[:, :, None] == seg[:, None, :]
+    if causal:
+        visible &= np.arange(20)[None, None, :] <= qpos[None, :, None]
+    p = torch.where(torch.from_numpy(visible)[:, None], p, torch.zeros(()))
+    # the visible keys' probabilities reproduce the output of the rows that see keys
+    pv = torch.einsum("bhqk,bhkd->bhqd", p, torch.from_numpy(v))
+    live = torch.from_numpy(~past)
+    close(pv[:, :, live], out[:, :, live], "2^(s - lse) v vs attention_plain")
+
+
+def test_flash_attention_fn_wiring_with_plain_kernels(monkeypatch):
+    """``FlashAttentionFn`` saves the forward's lse and returns (dq, dk, dv)
+    in order: with the kernel calls swapped for their plain versions it
+    gives autograd's gradients through ``attention_plain`` bitwise."""
+    q, k, v, do, causal = bwd_inputs("tao")
+
+    def fwd(q, k, v, *, causal, return_lse):
+        assert return_lse
+        return attention_plain(q, k, v, causal=causal), attention_lse_plain(q, k, causal=causal)
+
+    def bwd(q, k, v, out, lse, dout, *, causal):
+        return attention_bwd_plain(q, k, v, out, lse, dout, causal)
+
+    monkeypatch.setattr(port_ops, "flash_attention_cuda", fwd)
+    monkeypatch.setattr(port_ops, "flash_attention_bwd_cuda", bwd)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = port_ops.FlashAttentionFn.apply(*leaves, causal)
+    out.backward(torch.from_numpy(do))
+    plain = [x.detach() for x in leaves]
+    ref = attention_bwd_plain(*plain, attention_plain(*plain, causal=causal),
+                              attention_lse_plain(plain[0], plain[1], causal=causal),
+                              torch.from_numpy(do), causal)
+    for leaf, g in zip(leaves, ref):
+        assert torch.equal(leaf.grad, g)
+
+
+def test_cpu_autograd_stays_on_the_plain_version():
+    """On CPU tensors ``flash_attention`` under autograd is the plain
+    version (no launch of either kernel), differentiated by autograd."""
+    q, k, v, do, causal = bwd_inputs("short_narrow")
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    counts = (port_kernel.FLASH_ATTENTION.launches, port_kernel.FLASH_ATTENTION_BWD.launches)
+    flash_attention(*leaves, causal=causal).backward(torch.from_numpy(do))
+    assert (port_kernel.FLASH_ATTENTION.launches, port_kernel.FLASH_ATTENTION_BWD.launches) == counts
+    plain = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    attention_plain(*plain, causal=causal).backward(torch.from_numpy(do))
+    for a, b in zip(leaves, plain):
+        assert torch.equal(a.grad, b.grad)
+
+
+def test_bwd_cuda_wrapper_refuses_what_it_does_not_take():
+    q = torch.zeros(1, 1, 4, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        port_kernel.flash_attention_bwd_cuda(q, q, q, q, torch.zeros(1, 1, 4), q)

@@ -35,6 +35,19 @@ captures ahead of time, engines of one shape share an entry with their own
 weights, the replays launch attention ``n_layers`` times each (counted from
 the graph's own kernel nodes), and a step that cannot be captured raises.
 
+Training: the attention backward (``csrc/attention_bwd.cu``, the port's
+own kernel) is held to its plain formulas within atol = rtol = 1e-5 and is
+bitwise equal over two calls (no atomics); the forward's output is bitwise
+the same with and without its log-sum-exp, which is +inf on a row that
+sees no key.  Under autograd ``flash_attention`` launches the forward and,
+in backward, the backward kernel; without grad only the forward.
+``loss.backward()`` through ``tao_forward`` on the card gives every
+parameter a gradient (``qkv`` included) within 1e-4 of its tensor's
+largest CPU gradient; the engine's graph holds no backward node; 3 steps
+of ``train_tao_impl`` launch 2 forward and 2 backward attention kernels a
+step and track the CPU's (losses 1e-4 relative, parameters 2 lr a step);
+the fine-tune leaves ``embed`` bitwise unchanged.
+
 The int8 W8A8 path (``core/quant.py``): quantization on the card is bitwise
 the CPU's; ``qdense``'s codes, int32 accumulations (cuBLASLt IMMA through
 ``torch._int_mm``, zero-padded to its multiples of 8 and past 16 rows) and
@@ -54,8 +67,17 @@ from repro_torch.core.model import TaoConfig, init_tao  # noqa: E402
 from repro_torch.core.quant import dense_shapes, qdense_device_vs_cpu, quantize_tao_params  # noqa: E402
 from repro_torch.engine import EngineConfig, MetricSpec, StreamingEngine, cache_stats  # noqa: E402
 from repro_torch.engine.aot import graph_kernel_names  # noqa: E402
-from repro_torch.kernels.attention.kernel import FLASH_ATTENTION, flash_attention_cuda  # noqa: E402
-from repro_torch.kernels.attention.ref import attention_plain  # noqa: E402
+from repro_torch.core import build_adjusted_trace, build_windows, multi_metric_loss  # noqa: E402
+from repro_torch.core import tao_forward, train_tao_impl, transfer_finetune  # noqa: E402
+from repro_torch.core.transfer import to_device  # noqa: E402
+from repro_torch.kernels.attention.kernel import (  # noqa: E402
+    FLASH_ATTENTION,
+    FLASH_ATTENTION_BWD,
+    flash_attention_bwd_cuda,
+    flash_attention_cuda,
+)
+from repro_torch.kernels.attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.attention.ref import attention_bwd_plain, attention_lse_plain, attention_plain  # noqa: E402
 from repro_torch.kernels.features import ops as feature_ops  # noqa: E402
 from repro_torch.kernels.features.kernel import (  # noqa: E402
     BRANCH_HISTORY,
@@ -77,7 +99,7 @@ from repro_torch.kernels.ssd.kernel import launch_info as ssd_launch_info  # noq
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_sequential_ref  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
-from repro_torch.uarch import get_benchmark, run_functional  # noqa: E402
+from repro_torch.uarch import UARCH_A, get_benchmark, run_detailed, run_functional  # noqa: E402
 from repro_torch.uarch.isa import FUNC_TRACE_DTYPE, Op  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -696,3 +718,166 @@ def test_int8_entry_shared_by_engines_apart_from_fp32(dev):
     for e, got in runs:
         assert_graph_equals_eager(got, eager_entry_loop(e, trace), 40)
     assert runs[0][1].cpi != runs[1][1].cpi and runs[0][1].cpi != runs[2][1].cpi
+
+
+# ---------------------------------------------------------------------------
+# Training: the attention backward (B4's, the port's own kernel) and the
+# trainer on the card
+# ---------------------------------------------------------------------------
+
+# (B, H, S, D, causal, seed): the Tao training shape, short and long
+# windows, narrow, odd and wide heads
+ATTN_BWD_CASES = {
+    "tao_b16": (16, 4, 129, 32, True, 0),
+    "tao_noncausal": (4, 4, 129, 32, False, 1),
+    "s17_d16": (4, 4, 17, 16, True, 2),
+    "s200_d64_noncausal": (2, 4, 200, 64, False, 3),
+    "s77_d20": (3, 2, 77, 20, True, 4),
+    "s129_d128": (2, 2, 129, 128, True, 5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_BWD_CASES))
+def test_attention_bwd_kernel_matches_plain(dev, case):
+    """The backward kernel against the explicit formulas within atol = rtol
+    = 1e-5 (float32 sums over at most S terms in other orders), bitwise
+    equal over two calls (no atomics), on the packed q/k/v views; the
+    forward's output bitwise the same with and without its log-sum-exp,
+    which is within 2e-5 + 1e-5 |lse| of the plain one."""
+    B, H, S, D, causal, seed = ATTN_BWD_CASES[case]
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = torch.randn(B, S, 3, H, D, generator=g).to(dev).permute(2, 0, 3, 1, 4).unbind(0)
+    do = torch.randn(B, H, S, D, generator=g).to(dev)
+    out_only = flash_attention_cuda(q, k, v, causal=causal)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    launches = FLASH_ATTENTION_BWD.launches
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+    again = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+    ref = attention_bwd_plain(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION_BWD.launches == launches + 2
+    assert torch.equal(out, out_only)
+    torch.testing.assert_close(lse, attention_lse_plain(q, k, causal=causal), atol=2e-5, rtol=1e-5)
+    for a, b, c in zip(got, again, ref):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, atol=1e-5, rtol=1e-5)
+
+
+def test_attention_lse_of_rows_without_keys_is_inf(dev):
+    """A row that sees no key (past Sk under segments) gets lse = +inf, so
+    the backward's 2^(s - lse) is 0 there, as its output is."""
+    g = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn(2, 2, 12, 16, generator=g).to(dev) for _ in range(3))
+    seg = torch.zeros(2, 12, dtype=torch.int32, device=dev)
+    out, lse = flash_attention_cuda(q, k, v, seg, causal=False, q_offset=6, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.all(torch.isposinf(lse[:, :, 6:])) and torch.all(out[:, :, 6:] == 0)
+    torch.testing.assert_close(lse[:, :, :6], attention_lse_plain(q, k, seg, causal=False,
+                                                                  q_offset=6)[:, :, :6],
+                               atol=2e-5, rtol=1e-5)
+
+
+def test_flash_attention_records_the_kernel_backward(dev):
+    """Under autograd, ``flash_attention`` launches the forward with its
+    lse and, in backward, the backward kernel once: its gradients are the
+    kernel's.  Without grad it is the plain forward launch; a call the
+    backward does not take raises."""
+    g = torch.Generator().manual_seed(7)
+    q, k, v, do = (torch.randn(2, 4, 129, 32, generator=g).to(dev) for _ in range(4))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    counts = (FLASH_ATTENTION.launches, FLASH_ATTENTION_BWD.launches)
+    out = flash_attention(*leaves, causal=True)
+    out.backward(do)
+    assert (FLASH_ATTENTION.launches, FLASH_ATTENTION_BWD.launches) == (counts[0] + 1, counts[1] + 1)
+    ref_out, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    for x, ref in zip(leaves, flash_attention_bwd_cuda(q, k, v, ref_out, lse, do, causal=True)):
+        assert torch.equal(x.grad, ref)
+    counts = (FLASH_ATTENTION.launches, FLASH_ATTENTION_BWD.launches)
+    with torch.no_grad():
+        plain_launch = flash_attention(*leaves, causal=True)
+    with torch.inference_mode():
+        flash_attention(q, k, v, causal=True)
+    assert (FLASH_ATTENTION.launches, FLASH_ATTENTION_BWD.launches) == (counts[0] + 2, counts[1])
+    assert plain_launch.grad_fn is None and torch.equal(plain_launch, ref_out)
+    with pytest.raises(ValueError, match="backward takes"):
+        flash_attention(*leaves, torch.zeros(2, 129, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="backward takes"):
+        flash_attention(*leaves, q_offset=3)
+
+
+def labelled_batch(cfg, n, seed=0):
+    """``n`` labelled windows of lee on UARCH_A: the training data path."""
+    fs = extract_features(build_adjusted_trace(run_detailed(
+        get_benchmark("lee"), run_functional(get_benchmark("lee"), 6000), UARCH_A)[0]).adjusted,
+        cfg.features)
+    return build_windows(fs, cfg.window).subsample(n, seed=seed)
+
+
+def test_tao_gradients_on_card_match_cpu(dev):
+    """``loss.backward()`` through ``tao_forward`` on the card at the
+    default width gives every parameter a gradient — the attention
+    projection ``qkv`` included, whose gradient comes back through the
+    packed q/k/v views and the backward kernel — each within 1e-4 of its
+    tensor's largest CPU gradient of the same model's CPU gradient (the
+    forward differs in the last bits: cuBLAS and 3xTF32 attention)."""
+    cfg = TaoConfig()
+    batch = next(labelled_batch(cfg, 4).batches(4))
+    model_cpu = init_tao(cfg, torch.Generator().manual_seed(0), device="cpu")
+    model_gpu = init_tao(cfg, torch.Generator().manual_seed(0), device=dev)
+    grads = {}
+    for name, model, device in (("cpu", model_cpu, torch.device("cpu")), ("gpu", model_gpu, dev)):
+        loss, _ = multi_metric_loss(tao_forward(model, to_device(batch, device), cfg),
+                                    to_device(batch, device)["labels"])
+        loss.backward()
+        grads[name] = {k: p.grad for k, p in model.named_parameters()}
+    assert model_gpu.pred.blocks[0].qkv.weight.grad is not None
+    assert all(g is not None for g in grads["gpu"].values())
+    for k, ref in grads["cpu"].items():
+        err = float((grads["gpu"][k].cpu() - ref).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()), (k, err, float(ref.abs().max()))
+
+
+def test_inference_graph_holds_no_backward(dev):
+    """The engine runs under inference mode: its graph holds ``n_layers``
+    attention forward nodes and none of the backward's, and a simulate
+    launches no backward."""
+    engine = graph_engine(dev, batch_size=24)
+    trace = run_functional(get_benchmark("mcf"), 20000)
+    entry = engine.warmup(len(trace))
+    names = graph_kernel_names(entry.aot.graph)
+    assert sum("attention_kernel" in k for k in names) == engine.cfg.n_layers
+    assert not any("bwd_" in k for k in names)
+    launches = FLASH_ATTENTION_BWD.launches
+    engine.simulate(trace)
+    assert FLASH_ATTENTION_BWD.launches == launches
+
+
+def test_train_on_card_launches_the_kernels_and_tracks_cpu(dev):
+    """3 steps of ``train_tao_impl`` at the default width on the card: 2
+    attention forward and 2 backward launches a step, losses within 1e-4
+    relative of the same steps on the CPU, parameters within 2 lr a step
+    (Adam moves a parameter by at most ~lr a step, and the sign of a ~0
+    gradient may differ between the two)."""
+    cfg = TaoConfig()
+    ds = labelled_batch(cfg, 16, seed=1)
+    init = init_tao(cfg, torch.Generator().manual_seed(1), device="cpu").state_dict()
+    kw = dict(epochs=3, batch_size=16, lr=3e-4, init_params=init, seed=1)
+    cpu = train_tao_impl(cfg, ds, device="cpu", **kw)
+    counts = (FLASH_ATTENTION.launches, FLASH_ATTENTION_BWD.launches)
+    gpu = train_tao_impl(cfg, ds, device=dev, **kw)
+    assert gpu.steps == 3
+    assert (FLASH_ATTENTION.launches - counts[0], FLASH_ATTENTION_BWD.launches - counts[1]) == (
+        cfg.n_layers * 3, cfg.n_layers * 3)
+    np.testing.assert_allclose(gpu.losses, cpu.losses, rtol=1e-4)
+    sg, sc = gpu.params.state_dict(), cpu.params.state_dict()
+    assert max(float((sg[k].cpu() - sc[k]).abs().max()) for k in sc) <= 2 * 3e-4 * 3
+
+
+def test_transfer_on_card_keeps_embed_bitwise(dev):
+    cfg = TaoConfig()
+    ds = labelled_batch(cfg, 32, seed=2)
+    donor = init_tao(cfg, torch.Generator().manual_seed(2), device=dev)
+    ft = transfer_finetune(cfg, donor.embed, donor, ds, epochs=1, batch_size=16, device=dev)
+    for (k, a), b in zip(ft.params.embed.state_dict().items(), donor.embed.state_dict().values()):
+        assert torch.equal(a, b), k
+    assert not torch.equal(ft.params.adapt.weight, donor.adapt.weight)

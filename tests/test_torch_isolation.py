@@ -74,7 +74,15 @@ def test_default_device_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
     from repro_torch import resolve_device
-    from repro_torch.core import FeatureConfig, TaoConfig, init_tao
+    from repro_torch.core import (
+        FeatureConfig,
+        TaoConfig,
+        build_windows,
+        extract_features,
+        init_tao,
+        train_tao_impl,
+        transfer_finetune,
+    )
     from repro_torch.engine import StreamingEngine, simulate_trace_engine
     from repro_torch.kernels.features.ops import (
         device_feature_arrays,
@@ -88,6 +96,7 @@ def test_default_device_entry_points_raise_without_cuda():
     cfg = TaoConfig(window=9, d_model=16, n_heads=2, n_layers=1, d_ff=32, d_cat=8, features=fcfg)
     trace = run_functional(get_benchmark("lee"), 100)
     cpu_model = init_tao(cfg, device="cpu")
+    windows = build_windows(extract_features(trace, fcfg), cfg.window)
     calls = {
         "resolve_device": lambda: resolve_device(),
         "init_tao": lambda: init_tao(cfg),
@@ -97,6 +106,8 @@ def test_default_device_entry_points_raise_without_cuda():
         "extract_features_device": lambda: extract_features_device(trace, fcfg),
         "StreamingEngine": lambda: StreamingEngine(cpu_model, cfg),
         "simulate_trace_engine": lambda: simulate_trace_engine(cpu_model, trace, cfg),
+        "train_tao_impl": lambda: train_tao_impl(cfg, windows, epochs=1),
+        "transfer_finetune": lambda: transfer_finetune(cfg, cpu_model.embed, cpu_model, windows),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="device='cpu'"):
