@@ -27,9 +27,13 @@ and ``nvcc``.  Phases, one JSON line each:
            causal keys, q_offset / segment / masked-row cases, with its
            registers, shared memory and blocks per SM), its backward (the
            port's own kernel: the Tao training shapes at batch 16 and 64,
-           S 17 / 200, D 16 / 64 / 128, causal and not, against the plain
-           formulas, two calls bitwise, the forward's output bitwise with
-           and without its log-sum-exp, timed beside SDPA's backward),
+           S 17 / 200, D 16 / 64 / 128, causal and not, the edges of its
+           16-row and 64-row tiles, widths and strides that are not
+           multiples of 4 floats, against the plain formulas, two calls
+           bitwise, the forward's output bitwise with and without its
+           log-sum-exp; what each of its kernels gets, no spills; timed
+           beside SDPA's backward, with each kernel's device time and one
+           (batch, head) alone),
            and the Mamba-2
            SSD scan (B5) at the full mamba2-1.3b prefill shape in float32
            and bfloat16, with two groups, in one chunk, at chunk 200, at
@@ -141,7 +145,10 @@ ATTN_BWD_RTOL = 1e-5
 LSE_ATOL = 2e-5
 LSE_RTOL = 1e-5
 # (B, H, S, D, causal) of the backward's checks: the Tao training shape at
-# batch 16 and 64, then short and long windows and narrow and wide heads
+# batch 16 and 64, short and long windows, narrow and wide heads, then the
+# edges of the kernel's 16-row tiles and 64-row streamed tiles (S 1, 15,
+# 16, 17, 144, 145) at widths 8 and 20, and a long window, whose sums run
+# over 1,000 rows
 ATTN_BWD_CASES = {
     "tao_b16_causal": (16, 4, 129, 32, True),
     "tao_b64_causal": (64, 4, 129, 32, True),
@@ -152,7 +159,14 @@ ATTN_BWD_CASES = {
     "s200_d64_noncausal": (4, 4, 200, 64, False),
     "s200_d16_causal": (4, 4, 200, 16, True),
     "s129_d128_causal": (2, 2, 129, 128, True),
+    **{f"tile_s{S}_d{D}_causal": (2, 3, S, D, True)
+       for S in (1, 15, 16, 17, 144, 145) for D in (8, 20)},
+    "tile_s145_d20_noncausal": (2, 3, 145, 20, False),
+    "long_s1000_d64_causal": (1, 2, 1000, 64, True),
 }
+# the backward's unaligned case: widths and strides that are not multiples
+# of 4 floats (the kernel's 4-byte copies), dO a strided view
+ATTN_BWD_UNALIGNED = (2, 3, 77, 21)
 # the train cell: detailed-simulator labels on UARCH_A for the training
 # traces, on UARCH_B for the transfer trace, at the default TaoConfig and
 # FeatureConfig; Adam's lr as the trainer's default
@@ -645,23 +659,30 @@ def attention_bwd_bound(B, H, S, D, causal):
 
 def check_attention_bwd_kernel(failures, results):
     """B4's backward (the port's own kernel) against its plain version at
-    the Tao training shapes and around them, causal and not: gradients
-    within tolerance, two calls bitwise equal, the forward's output bitwise
-    the same with and without its log-sum-exp, which is held to the plain
-    one; then its times beside its bound, the plain version's and SDPA's
-    backward at the training shape."""
+    the Tao training shapes, around them and at the edges of its tiles,
+    causal and not, and at widths and strides that are not multiples of 4
+    floats: gradients within tolerance, two calls bitwise equal, the
+    forward's output bitwise the same with and without its log-sum-exp,
+    which is held to the plain one; then what each of its kernels gets
+    (registers, spills, shared memory, blocks) and its times beside its
+    bound, the plain version's and SDPA's backward at the training shape."""
     import torch
 
-    from repro_torch.kernels.attention.kernel import flash_attention_bwd_cuda, flash_attention_cuda
+    from repro_torch.kernels.attention.kernel import (
+        BWD_KERNEL_NAMES,
+        bwd_launch_info,
+        flash_attention_bwd_cuda,
+        flash_attention_cuda,
+    )
     from repro_torch.kernels.attention.ref import attention_bwd_plain, attention_lse_plain
 
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(1)
     worst, all_ok, timed = 0.0, True, {}
-    for name, (B, H, S, D, causal) in ATTN_BWD_CASES.items():
-        # q, k, v as the Tao block hands them over: views of one packed projection
-        q, k, v = packed_qkv(B, S, H, D, lambda *shape: torch.randn(*shape, generator=g).to(dev))
-        do = torch.randn(B, S, H, D, generator=g).to(dev).transpose(1, 2)
+
+    def held(q, k, v, do, causal):
+        """The kernel against the plain version on one input: the line's
+        checks, and the forward's (out, lse)."""
         out_only = flash_attention_cuda(q, k, v, causal=causal)
         out, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
         got = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
@@ -669,22 +690,39 @@ def check_attention_bwd_kernel(failures, results):
         ref = attention_bwd_plain(q, k, v, out, lse, do, causal)
         lse_ref = attention_lse_plain(q, k, causal=causal)
         torch.cuda.synchronize()
-        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
         within = all(bool(torch.all((a - b).abs() <= ATTN_BWD_ATOL + ATTN_BWD_RTOL * b.abs()))
                      for a, b in zip(got, ref))
-        lse_err = float((lse - lse_ref).abs().max())
         lse_ok = bool(torch.all((lse - lse_ref).abs() <= LSE_ATOL + LSE_RTOL * lse_ref.abs()))
-        deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
-        out_bitwise = torch.equal(out, out_only)
-        ok = within and lse_ok and deterministic and out_bitwise
-        worst, all_ok = max(worst, err), all_ok and ok
+        r = {"max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
+             "atol": ATTN_BWD_ATOL, "rtol": ATTN_BWD_RTOL,
+             "lse_max_abs_err": float((lse - lse_ref).abs().max()), "lse_atol": LSE_ATOL,
+             "two_calls_bitwise": all(torch.equal(a, b) for a, b in zip(got, again)),
+             "forward_out_bitwise_with_and_without_lse": torch.equal(out, out_only)}
+        r["ok"] = (within and lse_ok and r["two_calls_bitwise"]
+                   and r["forward_out_bitwise_with_and_without_lse"])
+        return r, out, lse
+
+    for name, (B, H, S, D, causal) in ATTN_BWD_CASES.items():
+        # q, k, v as the Tao block hands them over: views of one packed projection
+        q, k, v = packed_qkv(B, S, H, D, lambda *shape: torch.randn(*shape, generator=g).to(dev))
+        do = torch.randn(B, S, H, D, generator=g).to(dev).transpose(1, 2)
+        r, out, lse = held(q, k, v, do, causal)
+        worst, all_ok = max(worst, r["max_abs_err"]), all_ok and r["ok"]
         emit({"phase": "kernels", "kernel": "flash_attention_bwd", "case": name,
-              "shape": [B, H, S, D], "causal": causal, "max_abs_err": err,
-              "atol": ATTN_BWD_ATOL, "rtol": ATTN_BWD_RTOL, "lse_max_abs_err": lse_err,
-              "lse_atol": LSE_ATOL, "two_calls_bitwise": deterministic,
-              "forward_out_bitwise_with_and_without_lse": out_bitwise, "ok": ok})
+              "shape": [B, H, S, D], "causal": causal, **r})
         if name.startswith("tao_b") and causal:
             timed[B] = (q, k, v, out, lse, do)
+    # widths and strides that are not multiples of 4 floats: q, k, v cut
+    # from one (B, H, S, 2D + 1) tensor, dO from a wider one
+    B, H, S, D = ATTN_BWD_UNALIGNED
+    base = torch.randn(B, H, S, 2 * D + 1, generator=g).to(dev)
+    q, k, v = base[..., :D], base[..., D:2 * D], base[..., 1:D + 1]
+    do = torch.randn(B, H, S, 2 * D + 1, generator=g).to(dev)[..., 2:D + 2]
+    r, _, _ = held(q, k, v, do, True)
+    worst, all_ok = max(worst, r["max_abs_err"]), all_ok and r["ok"]
+    emit({"phase": "kernels", "kernel": "flash_attention_bwd", "case": "unaligned_strides",
+          "shape": [B, H, S, D], "causal": True, "q_strides": list(q.stride()),
+          "dout_strides": list(do.stride()), **r})
     # a row that sees no key (segments, q_offset past Sk): lse +inf, out 0
     q, k, v = (torch.randn(2, 2, 12, 16, generator=g).to(dev) for _ in range(3))
     seg = torch.zeros(2, 12, dtype=torch.int32, device=dev)
@@ -700,14 +738,30 @@ def check_attention_bwd_kernel(failures, results):
         failures.append("flash_attention_bwd: kernel outside tolerance of the plain version, "
                         "not deterministic, or the forward's lse / out wrong")
 
+    # what each kernel gets at the training shapes; no spills at batch 16
+    info = {B: bwd_launch_info(B, *timed[B][0].shape[1:]) for B in sorted(timed)}
+    spills = {n: i["spill_bytes_per_thread"] for n, i in info[TRAIN_BATCH].items()}
+    if any(spills.values()):
+        failures.append(f"flash_attention_bwd: spill bytes per thread {spills}")
+    emit({"phase": "kernels", "kernel": "flash_attention_bwd", "check": "launch_info",
+          "per_batch": {str(B): i for B, i in info.items()}})
+
     # times at the training shapes: the kernel (graph replay: device time),
-    # its eager call, the plain version, and SDPA's backward (its kernels'
-    # device time from the profiler, over 20 calls of autograd.grad)
+    # its eager call, the device ms of each of its kernels (profiler, 20
+    # calls), one (batch, head) alone (what a single block chain takes), the
+    # plain version, and SDPA's backward (its kernels' device time from the
+    # profiler, over 20 calls of autograd.grad)
     lines = {}
     for B, (q, k, v, out, lse, do) in sorted(timed.items()):
         _, H, S, D = q.shape
         ms = graph_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=True))
         call_ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=True), 100)
+        kprof = profile_breakdown(
+            lambda: [flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=True) for _ in range(20)],
+            track=BWD_KERNEL_NAMES)
+        kernel_ms = {n: t / 20 for n, t in kprof["tracked_ms"].items()}
+        one = tuple(x[:1, :1] for x in (q, k, v, out, lse, do))
+        one_bh_ms = graph_ms(lambda: flash_attention_bwd_cuda(*one, causal=True))
         plain_ms = cuda_ms(lambda: attention_bwd_plain(q, k, v, out, lse, do, True), 20)
         qs, ks, vs = (x.detach().contiguous().requires_grad_() for x in (q, k, v))
         lib_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
@@ -725,7 +779,8 @@ def check_attention_bwd_kernel(failures, results):
                     "bound_ms": b_ms, "bound_by": b_by}
         emit({"phase": "kernels", "kernel": "flash_attention_bwd", "shape": [B, H, S, D],
               "causal": True, "operands": "packed_qkv_views", **lines[B], "x_bound": ms / b_ms,
-              "x_library": ms / lib_ms, "library": "scaled_dot_product_attention backward",
+              "x_library": ms / lib_ms, "kernel_ms": kernel_ms, "one_batch_head_ms": one_bh_ms,
+              "library": "scaled_dot_product_attention backward",
               "library_kernels": [t[0] for t in prof["top_device_ms"][:4]]})
     at = lines[TRAIN_BATCH]
     results["flash_attention_bwd"] = {
@@ -1565,6 +1620,7 @@ def phase_train(failures, results, traces):
     from repro_torch.core import transfer_finetune
     from repro_torch.core.model import init_tao
     from repro_torch.core.transfer import _make_step, to_device, trainable_params
+    from repro_torch.kernels.attention.kernel import BWD_KERNEL_NAMES
     from repro_torch.train import AdamWConfig, adamw_init, adamw_update
     from repro_torch.uarch import UARCH_A, UARCH_B
 
@@ -1622,11 +1678,10 @@ def phase_train(failures, results, traces):
         loss.item()
 
     ten_steps()
-    prof = profile_breakdown(ten_steps, track=("attention_kernel", "bwd_delta", "bwd_dkdv",
-                                               "bwd_dq", "fmha", "flash_fwd", "flash_bwd",
-                                               "efficient_attention"))
+    prof = profile_breakdown(ten_steps, track=("attention_kernel", *BWD_KERNEL_NAMES, "fmha",
+                                               "flash_fwd", "flash_bwd", "efficient_attention"))
     names = set(prof["tracked_ms"])
-    ours = {"attention_kernel", "bwd_delta", "bwd_dkdv", "bwd_dq"}
+    ours = {"attention_kernel", *BWD_KERNEL_NAMES}
     library = [n for n in names if not any(n.startswith(o) for o in ours)]
     if library or not all(any(n.startswith(o) for n in names) for o in ours):
         failures.append(f"train: step profile attention kernels {sorted(names)}")

@@ -1,5 +1,5 @@
 // The backward of the online-softmax attention (attention.cu), for Hopper
-// (sm_90a), float32.
+// (sm_90a), float32, on the tensor cores.
 //
 // The port's own kernel: the reference has no backward of its attention
 // kernel (no custom_vjp under src/repro/kernels/); its trainer
@@ -18,44 +18,79 @@
 // D == Dv <= 128; q, k, v, o, dO read and dq, dk, dv written at their
 // (batch, head, sequence) strides with the last dimension contiguous.
 //
-// Three kernels on one stream, no atomics, so two calls give the same bits:
+// Two kernels on one stream, no atomics, so two calls give the same bits:
 //   * bwd_delta: one warp per row, delta = rowsum(dO o) by a fixed
 //     shuffle tree;
-//   * bwd_dkdv: one block per (batch, head, 64-key tile), walking the
-//     64-row query tiles that can see its keys (under causal masking, the
-//     ones from the tile's diagonal on); per query tile it recomputes the
-//     64 x 64 P and dS in registers, stores them in shared memory, then
-//     each thread adds its keys' rows of dV and dK;
-//   * bwd_dq: one block per (batch, head, 64-row query tile), walking the
-//     key tiles its rows can see (up to its diagonal), recomputing dS the
-//     same way and adding its rows of dQ.
-// Both recompute P and dP (the cost of having no atomics: the scores are
-// computed twice).  Every product is a plain float32 FMA on the CUDA
-// cores.  Phase A (scores) gives each thread a 4 x 4 tile of (query, key)
-// pairs, rows ty + 16i and keys tx + 16j, so a warp reads 16 consecutive
-// key rows (pitch D + 1: 16 banks) and 2 query rows (broadcasts); phase B
-// (the products with dS and P) gives each thread one output row and every
-// fourth column, so a warp reads one shared row of dS or P per step and
-// broadcasts the other operand.
+//   * bwd_dkdv_dq: both passes in one grid, side by side.  In the dK / dV
+//     pass a warp owns 16 keys and keeps their dK and dV in registers; it
+//     walks the queries that see them (under causal masking, from its
+//     diagonal on) in steps of 8.  In the dQ pass a warp owns 16 query
+//     rows and keeps their dQ in registers; it walks the keys they see (up
+//     to its diagonal) in steps of 8.
+// Both passes recompute the scores and dP (the cost of having no atomics:
+// every output element is summed by one lane in a fixed order).
+//
+// Arithmetic: 3xTF32, as the forward's.  All five products (S^T or S,
+// dP^T or dP, dV, dK, dQ) run as mma.sync.m16n8k8 TF32 tensor-core
+// instructions with each float32 operand split into a TF32 high part and
+// its TF32 remainder, three products accumulated in float32 (see
+// attention.cu).  A step's two score tiles (16 own rows x 8 streamed rows)
+// stay in registers in the mma C layout, where P and dS are formed in
+// place, and are fed unchanged as the A operand of the next products by
+// taking the 8 streamed rows of a step in the order 2c <-> column c, 2c + 1
+// <-> column c + 4 (the other operand's rows read in the same order): no
+// shuffle, no staging of P or dS in shared memory, no barrier per step.
+// Exponents are ex2.approx of s * scale * log2(e) - lse, one FMA from the
+// product.  The gradients' sums run over up to S rows, and the tensor
+// cores add an addend cut to the accumulator's alignment (no rounding), so
+// a chain of mma.sync through the running sum lets that error grow with S;
+// each chunk of steps therefore sums into a zeroed tile that is then added
+// to the running sum in float32.
+//
+// Tiles: 16 own rows per warp, so a 129-row window is 9 row tiles and only
+// the last carries padding; causal 8-row steps above a warp's diagonal are
+// skipped.  At S = 129, causal, a pass computes 81 steps of 16 x 8 pairs
+// per (batch, head), 10,368 pairs for 8,385 visible ones (a 64-row tile
+// took 24,576).  The other pair of operands streams through shared memory
+// 64 rows at a time, staged with 16-byte cp.async (4-byte where strides or
+// widths are not multiples of 4) as far as the steps read them (a partial
+// tile to its next 8 rows), double-buffered; rows are zero-padded to
+// the template's width (32, 64 or 128) and pitched at that + 4 floats, so
+// every fragment load of a warp hits 32 banks.  Steps run in chunks of 1,
+// 2 or 4 (2 at width 128, for registers), a template argument: a branch
+// around an mma.sync is a convergence point.  A block holds up to 4 warps,
+// one per scheduler, and each pass gets at least one block per SM where
+// the row tiles allow it: at batch 16 (64 (batch, head)) the grid is 384
+// blocks of 3 warps, 4 resident per SM, one wave.  The heaviest blocks of
+// both passes come first: block 0 of a (batch, head) holds the first keys
+// (dK / dV) or the last query rows (dQ).  ptxas -v for sm_90a: 157
+// registers at width 32 and no spills; 253 at 64, no spills; 255 at 128
+// with a 168-byte stack frame of spills.
 //
 // What bounds it on the H100: at the Tao training shape (16, 4, 129, 32),
 // causal, it must move 7 tensors of B*H*S*D floats (q, k, v, o, dO in; dq,
 // dk, dv out), 7.4 MB, 2.2 us at 3.35 TB/s, and do ~10 D FLOPs per visible
-// (query, key) pair (the scores and dP twice each, dV, dK, dQ; 8,385 pairs
-// per (batch, head)), 172 MFLOP, 2.6 us at 67 TFLOP/s float32: operations
-// bind, barely.  This first version does not come near: it computes whole
-// 64 x 64 tiles (129 keys take three tiles, the last holding one key), and
-// phase B reads shared memory about once per FMA, so shared-memory
-// bandwidth and the tiles' waste set its time.  mma.sync or wgmma tiles
-// (as the forward's 3xTF32 split) are the redesign; PERF.md has the times.
+// (query, key) pair (8,385 per (batch, head)), 172 MFLOP, 2.6 us at 67
+// TFLOP/s float32.  Neither binds, nor do the tensor cores: the two
+// passes' 3xTF32 products are 0.9 GFLOP of TF32, 1.8 us at the dense 495
+// TFLOP/s.  What is left is latency: every block first reads its own rows
+// and a streamed tile, then the longest warp's chain of dependent steps
+// (the warp of keys 0-15, or of rows 128-143, 17 steps of split, mma,
+// exponent, split, mma) runs with two or three warps per scheduler to
+// hide it, so one (batch, head) alone takes most of batch 16's time.
+// PERF.md has the times.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 64;      // query rows and keys per tile
-constexpr int kThreads = 256;  // 16 x 16 threads in phase A
+constexpr int kTile = 64;        // streamed rows per shared-memory tile
+constexpr int kSteps = kTile / 8;
+constexpr int kRows = 16;        // own rows per warp (the mma's M)
+constexpr int kMaxWarps = 4;     // warps per block at most: one per scheduler
+constexpr int kPad = 4;          // row pitch = template width + 4 floats
+constexpr int kDeltaThreads = 256;
 constexpr int kMaxSmem = 232448;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -78,101 +113,97 @@ struct Params {
   Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
   int H, S, D;
   int causal;
+  int vec16;         // 16-byte copies of q, k, v, dO: widths, strides, pointers allow it
+  int vec2;          // float2 stores of dq, dk, dv
   float scale;       // 1 / sqrt(D)
   float qscale;      // scale * log2(e)
 };
 
-__device__ __forceinline__ const float* row_ptr(const float* base, const Strides& st, int b, int h,
-                                                int s) {
-  return base + b * st.b + h * st.h + s * st.s;
+// x = hi + lo in TF32: hi rounded to nearest (ties away), lo the exact
+// remainder cut to TF32 (attention.cu)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
 
-// rows [r0, r0 + kTile) of one (batch, head) into dst at pitch D + 1,
-// zero past S
-__device__ __forceinline__ void load_tile(float* dst, const float* base, const Strides& st, int b,
-                                          int h, int r0, const Params& p) {
-  const int pitch = p.D + 1;
-  for (int i = threadIdx.x; i < kTile * p.D; i += blockDim.x) {
-    const int r = i / p.D;
-    const int c = i - r * p.D;
-    const int s = r0 + r;
-    dst[r * pitch + c] = s < p.S ? row_ptr(base, st, b, h, s)[c] : 0.0f;
-  }
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// per-row statistics of a query tile: lse and delta (+inf / 0 past S, so
-// those rows' P is 0)
-__device__ __forceinline__ void load_rows(float* lse_s, float* delta_s, int bh, int r0,
-                                          const Params& p) {
-  for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-    const int s = r0 + i;
-    const long long at = (long long)bh * p.S + s;
-    lse_s[i] = s < p.S ? p.lse[at] : __int_as_float(0x7f800000);
-    delta_s[i] = s < p.S ? p.delta[at] : 0.0f;
-  }
+// c += a b for one m16n8k8 TF32 tile
+__device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Phase A for one (query tile, key tile): this thread's 4 x 4 of P and
-// dS, rows ty + 16i of the query tile and keys tx + 16j of the key tile.
-// Masked pairs (past S, or a key after the row under causal masking) get
-// P = dS = 0.
-__device__ __forceinline__ void scores(float (&P)[4][4], float (&dS)[4][4], const float* q_s,
-                                       const float* do_s, const float* k_s, const float* v_s,
-                                       const float* lse_s, const float* delta_s, int q0, int k0,
-                                       const Params& p) {
-  const int pitch = p.D + 1;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
-  for (int c = 0; c < p.D; ++c) {
-    float qa[4], da[4], kb[4], vb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qa[i] = q_s[(ty + 16 * i) * pitch + c];
-      da[i] = do_s[(ty + 16 * i) * pitch + c];
+// c += a b in 3xTF32: the two small cross terms first, then hi * hi
+__device__ __forceinline__ void mma3(float* c, const uint32_t* ahi, const uint32_t* alo,
+                                     const uint32_t* bhi, const uint32_t* blo) {
+  mma(c, alo, bhi);
+  mma(c, ahi, blo);
+  mma(c, ahi, bhi);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage nrows rows of `width` floats (row stride rs) into dst at `pitch`,
+// zero-filling the columns up to `wpad` and the rows from `nvalid` on.
+__device__ __forceinline__ void stage_rows(float* dst, int pitch, const float* src,
+                                           long long rs, int nvalid, int nrows,
+                                           int width, int wpad, bool vec16) {
+  if (vec16) {
+    // a thread keeps one 16-byte column of every step-th row: 8, 16 or 32
+    // chunks per row divide the block's threads
+    const int cpr = wpad >> 2;
+    const int step = blockDim.x / cpr;
+    const int c = (threadIdx.x % cpr) << 2;
+    int r = threadIdx.x / cpr;
+    const float* s = src + r * rs + c;
+    float* d = dst + r * pitch + c;
+    for (; r < nrows; r += step, s += step * rs, d += step * pitch) {
+      const bool ok = r < nvalid && c < width;
+      cp_async16(d, ok ? s : src, ok ? 16 : 0);
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kb[j] = k_s[(tx + 16 * j) * pitch + c];
-      vb[j] = v_s[(tx + 16 * j) * pitch + c];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-        dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int qpos = q0 + r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kpos = k0 + tx + 16 * j;
-      const bool ok = qpos < p.S && kpos < p.S && (!p.causal || kpos <= qpos);
-      const float pr = ok ? exp2f(s[i][j] * p.qscale - lse_s[r]) : 0.0f;
-      P[i][j] = pr;
-      dS[i][j] = pr * (dp[i][j] - delta_s[r]);
+  } else {
+    for (int i = threadIdx.x; i < nrows * wpad; i += blockDim.x) {
+      const int r = i / wpad;
+      const int c = i - r * wpad;
+      const bool ok = r < nvalid && c < width;
+      cp_async4(dst + r * pitch + c, ok ? src + r * rs + c : src, ok ? 4 : 0);
     }
   }
 }
 
 // delta = rowsum(dO o): one warp per row
-__global__ void __launch_bounds__(kThreads) bwd_delta(const Params p, int rows) {
+__global__ void __launch_bounds__(kDeltaThreads) bwd_delta(const Params p, int rows) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int row = blockIdx.x * (kDeltaThreads / 32) + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int bh = row / p.S;
   const int s = row - bh * p.S;
   const int b = bh / p.H, h = bh - (bh / p.H) * p.H;
-  const float* o = row_ptr(p.o, p.so, b, h, s);
-  const float* d = row_ptr(p.dout, p.sdo, b, h, s);
+  const float* o = p.o + b * p.so.b + h * p.so.h + s * p.so.s;
+  const float* d = p.dout + b * p.sdo.b + h * p.sdo.h + s * p.sdo.s;
   float acc = 0.0f;
   for (int c = lane; c < p.D; c += 32) acc = fmaf(d[c], o[c], acc);
 #pragma unroll
@@ -180,170 +211,352 @@ __global__ void __launch_bounds__(kThreads) bwd_delta(const Params p, int rows) 
   if (lane == 0) p.delta[row] = acc;
 }
 
-// One block per (batch, head, key tile): dK and dV of the tile's keys.
-template <int DP>  // D rounded up to 32, 64 or 128
-__global__ void __launch_bounds__(kThreads) bwd_dkdv(const Params p) {
-  extern __shared__ float smem[];
-  const int pitch = p.D + 1;
-  float* k_s = smem;                    // [kTile][pitch]
-  float* v_s = k_s + kTile * pitch;
-  float* q_s = v_s + kTile * pitch;
-  float* do_s = q_s + kTile * pitch;
-  float* p_s = do_s + kTile * pitch;    // [kTile query rows][kTile + 1]
-  float* ds_s = p_s + kTile * (kTile + 1);
-  float* lse_s = ds_s + kTile * (kTile + 1);
-  float* delta_s = lse_s + kTile;
+// One chunk of NN 8-row steps of the streamed pair (u, z) against a warp's
+// 16 own rows (x, y).  s = x u^T and dp = y z^T are 16 x 8NN C tiles (s[n]:
+// own rows g, g + 8 at streamed rows 8n + 2t, + 1).  KV, the dK / dV pass:
+// own (K, V), streamed (Q, dO) with each streamed row's lse and delta in
+// `st`; P^T and dS^T in place, then acc1 (dV) += P^T dO and acc2 (dK) +=
+// dS^T Q.  Otherwise the dQ pass: own (Q, dO) with their lse and delta in
+// registers, streamed (K, V); then acc1 (dQ) += dS K.  `masked`: some pair
+// of the chunk lies past S or across the causal diagonal.
+template <bool KV, int NN, int W8>
+__device__ __forceinline__ void chunk(float (&acc1)[W8][4], float (&acc2)[KV ? W8 : 1][4],
+                                      const float* xa, const float* ya, const float* us,
+                                      const float* zs, const float* st, const float (&own_lse)[2],
+                                      const float (&own_delta)[2], bool masked, int own0,
+                                      int str0, const Params& p, int g, int t) {
+  constexpr int pitch = W8 * 8 + kPad;
+
+  // ---- s = x u^T and dp = y z^T: x's and y's fragments once per 8 columns
+  float s[NN][4], dp[NN][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+  const float* ub = us + g * pitch + t;
+  const float* zb = zs + g * pitch + t;
+#pragma unroll
+  for (int kk = 0; kk < W8 * 8; kk += 8) {
+    uint32_t xh[4], xl[4], yh[4], yl[4];
+    split(xa[kk], xh[0], xl[0]);
+    split(xa[kk + 8 * pitch], xh[1], xl[1]);
+    split(xa[kk + 4], xh[2], xl[2]);
+    split(xa[kk + 4 + 8 * pitch], xh[3], xl[3]);
+    split(ya[kk], yh[0], yl[0]);
+    split(ya[kk + 8 * pitch], yh[1], yl[1]);
+    split(ya[kk + 4], yh[2], yl[2]);
+    split(ya[kk + 4 + 8 * pitch], yh[3], yl[3]);
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      uint32_t bh[2], bl[2];
+      split(ub[n * 8 * pitch + kk], bh[0], bl[0]);
+      split(ub[n * 8 * pitch + kk + 4], bh[1], bl[1]);
+      mma3(s[n], xh, xl, bh, bl);
+      split(zb[n * 8 * pitch + kk], bh[0], bl[0]);
+      split(zb[n * 8 * pitch + kk + 4], bh[1], bl[1]);
+      mma3(dp[n], yh, yl, bh, bl);
+    }
+  }
+
+  // ---- P = 2^(s scale log2(e) - lse) into s, dS = P (dp - delta) into dp
+#pragma unroll
+  for (int n = 0; n < NN; ++n) {
+    float l[4], d[4];
+    if constexpr (KV) {  // per streamed row: columns 2t, 2t + 1
+      const float2 l2 = *reinterpret_cast<const float2*>(st + 8 * n + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(st + kTile + 8 * n + 2 * t);
+      l[0] = l[2] = l2.x;
+      l[1] = l[3] = l2.y;
+      d[0] = d[2] = d2.x;
+      d[1] = d[3] = d2.y;
+    } else {  // per own row: rows g, g + 8
+      l[0] = l[1] = own_lse[0];
+      l[2] = l[3] = own_lse[1];
+      d[0] = d[1] = own_delta[0];
+      d[2] = d[3] = own_delta[1];
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float pr = ex2(fmaf(s[n][e], p.qscale, -l[e]));
+      if (masked) {
+        const int own = own0 + g + (e >> 1) * 8;
+        const int str = str0 + 8 * n + 2 * t + (e & 1);
+        const bool ok = str < p.S && (!p.causal || (KV ? own <= str : str <= own));
+        if (!ok) pr = 0.0f;
+      }
+      s[n][e] = pr;
+      dp[n][e] = pr * (dp[n][e] - d[e]);
+    }
+  }
+
+  // ---- the products with P and dS: their C fragments are the A fragments,
+  // with the streamed rows of step n taken in the order 2t (column t),
+  // 2t + 1 (column t + 4); the B operand's rows read in the same order.
+  // Each output tile sums the chunk's steps from zero and is then added to
+  // the running gradient in float32: the tensor cores' accumulation cuts
+  // the bits an addend loses to alignment (no rounding), so an mma chain
+  // through the running sum lets that error grow with the sequence, enough
+  // to leave a 1,000-row window outside 1e-5; this way it grows with the
+  // chunk.
+  uint32_t dh[NN][4], dl[NN][4], ph[KV ? NN : 1][4], pl[KV ? NN : 1][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n) {
+    split(dp[n][0], dh[n][0], dl[n][0]);
+    split(dp[n][2], dh[n][1], dl[n][1]);
+    split(dp[n][1], dh[n][2], dl[n][2]);
+    split(dp[n][3], dh[n][3], dl[n][3]);
+    if constexpr (KV) {
+      split(s[n][0], ph[n][0], pl[n][0]);
+      split(s[n][2], ph[n][1], pl[n][1]);
+      split(s[n][1], ph[n][2], pl[n][2]);
+      split(s[n][3], ph[n][3], pl[n][3]);
+    }
+  }
+  const float* uc = us + 2 * t * pitch + g;
+  const float* zc = zs + 2 * t * pitch + g;
+#pragma unroll
+  for (int m = 0; m < W8; ++m) {
+    float c1[4] = {0.0f, 0.0f, 0.0f, 0.0f}, c2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      uint32_t bh[2], bl[2];
+      split(uc[8 * n * pitch + 8 * m], bh[0], bl[0]);
+      split(uc[(8 * n + 1) * pitch + 8 * m], bh[1], bl[1]);
+      if constexpr (KV) {
+        mma3(c2, dh[n], dl[n], bh, bl);  // dK += dS^T Q
+        split(zc[8 * n * pitch + 8 * m], bh[0], bl[0]);
+        split(zc[(8 * n + 1) * pitch + 8 * m], bh[1], bl[1]);
+        mma3(c1, ph[n], pl[n], bh, bl);  // dV += P^T dO
+      } else {
+        mma3(c1, dh[n], dl[n], bh, bl);  // dQ += dS K
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc1[m][e] += c1[e];
+      if constexpr (KV) acc2[m][e] += c2[e];
+    }
+  }
+}
+
+// Write a warp's 16 rows (r0 + g, r0 + g + 8) of one gradient from its C
+// fragments, times `mul`.
+template <int W8>
+__device__ __forceinline__ void store_rows(float* base, long long rs, const float (&acc)[W8][4],
+                                           float mul, int r0, const Params& p, int g, int t) {
+  const int ra = r0 + g, rb = r0 + g + 8;
+#pragma unroll
+  for (int m = 0; m < W8; ++m) {
+    const int c = 8 * m + 2 * t;
+    if (c >= p.D) continue;
+    if (p.vec2) {
+      if (ra < p.S)
+        *reinterpret_cast<float2*>(base + ra * rs + c) = make_float2(acc[m][0] * mul, acc[m][1] * mul);
+      if (rb < p.S)
+        *reinterpret_cast<float2*>(base + rb * rs + c) = make_float2(acc[m][2] * mul, acc[m][3] * mul);
+    } else {
+      const bool c1ok = c + 1 < p.D;
+      if (ra < p.S) {
+        base[ra * rs + c] = acc[m][0] * mul;
+        if (c1ok) base[ra * rs + c + 1] = acc[m][1] * mul;
+      }
+      if (rb < p.S) {
+        base[rb * rs + c] = acc[m][2] * mul;
+        if (c1ok) base[rb * rs + c + 1] = acc[m][3] * mul;
+      }
+    }
+  }
+}
+
+// Block `blk` of `nb` of one pass: KV the dK / dV pass, otherwise the dQ
+// pass.  The block owns nw row tiles of 16 of one (batch, head) and streams
+// the other pair of operands through shared memory in 64-row tiles.
+template <bool KV, int W>
+__device__ __forceinline__ void bwd_pass(const Params& p, int blk, int nb) {
+  constexpr int W8 = W / 8;
+  constexpr int pitch = W + kPad;
+  constexpr int kMaxNN = W8 <= 8 ? 4 : 2;  // steps per chunk at most (registers)
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;  // the mma's group: rows g and g + 8
+  const int t = lane & 3;   // thread in group
+  const int nw = blockDim.x >> 5;
+  const int rows = nw * kRows;
+  float* x_s = smem;                    // [rows][pitch]: K (KV) or Q
+  float* y_s = x_s + rows * pitch;      // V or dO
+  float* u_s = y_s + rows * pitch;      // [2][kTile][pitch]: Q (KV) or K
+  float* z_s = u_s + 2 * kTile * pitch; // dO or V
+  float* st_s = z_s + 2 * kTile * pitch;  // KV: [2][lse, delta][kTile]
 
   const int bh = blockIdx.x;
-  const int b = bh / p.H, h = bh - (bh / p.H) * p.H;
-  const int k0 = blockIdx.y * kTile;
-  load_tile(k_s, p.k, p.sk, b, h, k0, p);
-  load_tile(v_s, p.v, p.sv, b, h, k0, p);
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  // heaviest causal block first: the first keys, or the last query rows
+  const int base = (KV ? blk : nb - 1 - blk) * rows;
+  const Strides& sx = KV ? p.sk : p.sq;
+  const Strides& sy = KV ? p.sv : p.sdo;
+  const Strides& su = KV ? p.sq : p.sk;
+  const Strides& sz = KV ? p.sdo : p.sv;
+  const float* xg = (KV ? p.k : p.q) + b * sx.b + h * sx.h;
+  const float* yg = (KV ? p.v : p.dout) + b * sy.b + h * sy.h;
+  const float* ug = (KV ? p.q : p.k) + b * su.b + h * su.h;
+  const float* zg = (KV ? p.dout : p.v) + b * sz.b + h * sz.h;
+  const float* lse_bh = p.lse + (long long)bh * p.S;
+  const float* delta_bh = p.delta + (long long)bh * p.S;
 
-  // phase B: this thread's key row and every fourth column
-  const int kr = threadIdx.x & (kTile - 1);
-  const int cg = threadIdx.x >> 6;  // 0..3
-  float dk[DP / 4], dv[DP / 4];
-#pragma unroll
-  for (int u = 0; u < DP / 4; ++u) dk[u] = dv[u] = 0.0f;
+  // streamed tiles: KV the queries from the block's first key on (all,
+  // without causal masking); dQ the keys up to the block's last row
+  const int it0 = KV && p.causal ? base / kTile : 0;
+  const int send = KV || !p.causal ? p.S : min(p.S, base + rows);
+  const int it1 = (send + kTile - 1) / kTile;
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int qt0 = p.causal ? k0 / kTile : 0;  // query tiles from the diagonal on
-  const int nqt = (p.S + kTile - 1) / kTile;
-  for (int qt = qt0; qt < nqt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(q_s, p.q, p.sq, b, h, q0, p);
-    load_tile(do_s, p.dout, p.sdo, b, h, q0, p);
-    load_rows(lse_s, delta_s, bh, q0, p);
-    __syncthreads();
-    float P[4][4], dS[4][4];
-    scores(P, dS, q_s, do_s, k_s, v_s, lse_s, delta_s, q0, k0, p);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p_s[(ty + 16 * i) * (kTile + 1) + tx + 16 * j] = P[i][j];
-        ds_s[(ty + 16 * i) * (kTile + 1) + tx + 16 * j] = dS[i][j];
-      }
-    __syncthreads();
-    const int rows = min(kTile, p.S - q0);
-    for (int r = 0; r < rows; ++r) {
-      const float pr = p_s[r * (kTile + 1) + kr];
-      const float dsr = ds_s[r * (kTile + 1) + kr];
-#pragma unroll
-      for (int u = 0; u < DP / 4; ++u) {
-        const int c = cg + 4 * u;
-        if (c < p.D) {
-          dv[u] = fmaf(pr, do_s[r * pitch + c], dv[u]);
-          dk[u] = fmaf(dsr, q_s[r * pitch + c], dk[u]);
-        }
+  auto issue = [&](int it) {
+    const int r = it * kTile;
+    const int n = min(kTile, p.S - r);
+    const int n8 = (n + 7) & ~7;  // the steps read no row past these
+    const int buf = (it - it0) & 1;
+    stage_rows(u_s + buf * kTile * pitch, pitch, ug + r * su.s, su.s, n, n8, p.D, W, p.vec16);
+    stage_rows(z_s + buf * kTile * pitch, pitch, zg + r * sz.s, sz.s, n, n8, p.D, W, p.vec16);
+    if (KV) {
+      float* st = st_s + buf * 2 * kTile;
+      for (int i = threadIdx.x; i < 2 * kTile; i += blockDim.x) {
+        const int j = i & (kTile - 1);
+        const float* src = (i < kTile ? lse_bh : delta_bh) + r + j;
+        cp_async4(st + i, j < n ? src : lse_bh, j < n ? 4 : 0);
       }
     }
-  }
-  const int kpos = k0 + kr;
-  if (kpos >= p.S) return;
-  float* dkr = p.dk + b * p.sdk.b + h * p.sdk.h + kpos * p.sdk.s;
-  float* dvr = p.dv + b * p.sdv.b + h * p.sdv.h + kpos * p.sdv.s;
-#pragma unroll
-  for (int u = 0; u < DP / 4; ++u) {
-    const int c = cg + 4 * u;
-    if (c < p.D) {
-      dkr[c] = dk[u] * p.scale;
-      dvr[c] = dv[u];
-    }
-  }
-}
+    cp_async_commit();
+  };
+  const int own_n = min(rows, p.S - base);
+  const int own16 = (own_n + kRows - 1) & ~(kRows - 1);  // the active warps' tiles
+  stage_rows(x_s, pitch, xg + base * sx.s, sx.s, own_n, own16, p.D, W, p.vec16);
+  stage_rows(y_s, pitch, yg + base * sy.s, sy.s, own_n, own16, p.D, W, p.vec16);
+  issue(it0);  // one group: the own rows and the first streamed tile
+  if (it0 + 1 < it1) issue(it0 + 1);
 
-// One block per (batch, head, query tile): dQ of the tile's rows.
-template <int DP>
-__global__ void __launch_bounds__(kThreads) bwd_dq(const Params p) {
-  extern __shared__ float smem[];
-  const int pitch = p.D + 1;
-  float* q_s = smem;
-  float* do_s = q_s + kTile * pitch;
-  float* k_s = do_s + kTile * pitch;
-  float* v_s = k_s + kTile * pitch;
-  float* ds_s = v_s + kTile * pitch;    // [kTile rows][kTile + 1]
-  float* lse_s = ds_s + kTile * (kTile + 1);
-  float* delta_s = lse_s + kTile;
+  // This warp's row tile, heaviest first
+  const int tile = KV ? warp : nw - 1 - warp;
+  const int r0 = base + tile * kRows;
+  const bool active = r0 < p.S;
+  // streamed rows this warp sees end here
+  const int wend = KV || !p.causal ? p.S : min(p.S, r0 + kRows);
 
-  const int bh = blockIdx.x;
-  const int b = bh / p.H, h = bh - (bh / p.H) * p.H;
-  const int q0 = blockIdx.y * kTile;
-  load_tile(q_s, p.q, p.sq, b, h, q0, p);
-  load_tile(do_s, p.dout, p.sdo, b, h, q0, p);
-  load_rows(lse_s, delta_s, bh, q0, p);
-
-  const int qr = threadIdx.x & (kTile - 1);
-  const int cg = threadIdx.x >> 6;
-  float dq[DP / 4];
+  float own_lse[2] = {__int_as_float(0x7f800000), __int_as_float(0x7f800000)};
+  float own_delta[2] = {0.0f, 0.0f};
+  if (!KV && active) {  // a row past S keeps lse = +inf: P = 0 there
 #pragma unroll
-  for (int u = 0; u < DP / 4; ++u) dq[u] = 0.0f;
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int kend = p.causal ? min(p.S, q0 + kTile) : p.S;  // keys its rows can see
-  for (int k0 = 0; k0 < kend; k0 += kTile) {
-    __syncthreads();
-    load_tile(k_s, p.k, p.sk, b, h, k0, p);
-    load_tile(v_s, p.v, p.sv, b, h, k0, p);
-    __syncthreads();
-    float P[4][4], dS[4][4];
-    scores(P, dS, q_s, do_s, k_s, v_s, lse_s, delta_s, q0, k0, p);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ds_s[(ty + 16 * i) * (kTile + 1) + tx + 16 * j] = dS[i][j];
-    __syncthreads();
-    const int keys = min(kTile, kend - k0);
-    for (int j = 0; j < keys; ++j) {
-      const float dsr = ds_s[qr * (kTile + 1) + j];
-#pragma unroll
-      for (int u = 0; u < DP / 4; ++u) {
-        const int c = cg + 4 * u;
-        if (c < p.D) dq[u] = fmaf(dsr, k_s[j * pitch + c], dq[u]);
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + g + 8 * i;
+      if (row < p.S) {
+        own_lse[i] = lse_bh[row];
+        own_delta[i] = delta_bh[row];
       }
     }
   }
-  const int qpos = q0 + qr;
-  if (qpos >= p.S) return;
-  float* dqr = p.dq + b * p.sdq.b + h * p.sdq.h + qpos * p.sdq.s;
+  float acc1[W8][4], acc2[KV ? W8 : 1][4];
 #pragma unroll
-  for (int u = 0; u < DP / 4; ++u) {
-    const int c = cg + 4 * u;
-    if (c < p.D) dqr[c] = dq[u] * p.scale;
+  for (int m = 0; m < W8; ++m) acc1[m][0] = acc1[m][1] = acc1[m][2] = acc1[m][3] = 0.0f;
+#pragma unroll
+  for (int m = 0; m < (KV ? W8 : 1); ++m) acc2[m][0] = acc2[m][1] = acc2[m][2] = acc2[m][3] = 0.0f;
+  const float* xa = x_s + (tile * kRows + g) * pitch + t;
+  const float* ya = y_s + (tile * kRows + g) * pitch + t;
+
+  for (int it = it0; it < it1; ++it) {
+    if (it + 1 < it1) cp_async_wait<1>(); else cp_async_wait<0>();
+    __syncthreads();
+    const int r = it * kTile;
+    if (active && r < wend) {
+      const int buf = (it - it0) & 1;
+      const float* us = u_s + buf * kTile * pitch;
+      const float* zs = z_s + buf * kTile * pitch;
+      const float* st = st_s + buf * 2 * kTile;
+      // steps of this tile holding a pair this warp sees: KV under causal
+      // masking from its diagonal on; dQ up to it
+      int s0 = KV && p.causal ? max(0, (r0 - r) >> 3) : 0;
+      const int e = min(kSteps, (wend - r + 7) >> 3);
+      while (s0 < e) {
+        const int c = e - s0;
+        const int str0 = r + 8 * s0;
+        const float* u0 = us + 8 * s0 * pitch;
+        const float* z0 = zs + 8 * s0 * pitch;
+        const float* st0 = st + 8 * s0;
+        const int nn = c >= kMaxNN ? kMaxNN : c >= 2 ? 2 : 1;
+        const int str1 = str0 + 8 * nn;
+        const bool masked = str1 > p.S ||
+                            (p.causal && (KV ? str0 < r0 + kRows - 1 : str1 - 1 > r0));
+        if (nn == kMaxNN)
+          chunk<KV, kMaxNN, W8>(acc1, acc2, xa, ya, u0, z0, st0, own_lse, own_delta, masked, r0, str0, p, g, t);
+        else if (nn == 2)
+          chunk<KV, 2, W8>(acc1, acc2, xa, ya, u0, z0, st0, own_lse, own_delta, masked, r0, str0, p, g, t);
+        else
+          chunk<KV, 1, W8>(acc1, acc2, xa, ya, u0, z0, st0, own_lse, own_delta, masked, r0, str0, p, g, t);
+        s0 += nn;
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer
+    if (it + 2 < it1) issue(it + 2);
+  }
+
+  if (!active) return;
+  if constexpr (KV) {
+    store_rows<W8>(p.dv + b * p.sdv.b + h * p.sdv.h, p.sdv.s, acc1, 1.0f, r0, p, g, t);
+    store_rows<W8>(p.dk + b * p.sdk.b + h * p.sdk.h, p.sdk.s, acc2, p.scale, r0, p, g, t);
+  } else {
+    store_rows<W8>(p.dq + b * p.sdq.b + h * p.sdq.h, p.sdq.s, acc1, p.scale, r0, p, g, t);
   }
 }
 
-size_t dkdv_smem(int D) {
-  return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * (kTile + 1) + 2 * kTile);
+// Both passes in one grid, so that they run side by side: even blocks
+// (y = 2i) take the dK / dV pass's block i, odd ones the dQ pass's, the
+// heaviest of each first.
+template <int W>  // D padded to 32, 64 or 128
+__global__ void __launch_bounds__(kMaxWarps * 32) bwd_dkdv_dq(const Params p) {
+  if (blockIdx.y & 1)
+    bwd_pass<false, W>(p, blockIdx.y >> 1, gridDim.y >> 1);
+  else
+    bwd_pass<true, W>(p, blockIdx.y >> 1, gridDim.y >> 1);
 }
 
-size_t dq_smem(int D) {
-  return sizeof(float) * (4 * kTile * (D + 1) + kTile * (kTile + 1) + 2 * kTile);
+// The launch a call gets: kernel, warps (own row tiles) per block, blocks
+// per pass and (batch, head), dynamic shared memory (the dK / dV pass's,
+// the larger).
+struct Config {
+  void (*kernel)(Params);
+  int nw, nb;
+  size_t smem;
+};
+
+Config configure(long long bhs, int S, int D, int sms) {
+  const int w = D <= 32 ? 32 : D <= 64 ? 64 : 128;
+  Config c;
+  c.kernel = w == 32 ? bwd_dkdv_dq<32> : w == 64 ? bwd_dkdv_dq<64> : bwd_dkdv_dq<128>;
+  const int tiles = (S + kRows - 1) / kRows;
+  int nb = (tiles + kMaxWarps - 1) / kMaxWarps;
+  while (nb < tiles && bhs * nb < sms) ++nb;  // each pass a block per SM where the tiles allow it
+  c.nw = (tiles + nb - 1) / nb;
+  c.nb = (tiles + c.nw - 1) / c.nw;         // equal blocks
+  const int pitch = w + kPad;
+  c.smem = sizeof(float) * ((size_t)2 * c.nw * kRows * pitch + 2 * 2 * kTile * pitch + 2 * kTile * 2);
+  return c;
 }
 
-template <int DP>
-int launch(const Params& p, int B, cudaStream_t stream) {
-  const size_t s1 = dkdv_smem(p.D), s2 = dq_smem(p.D);
-  if (s1 > kMaxSmem) return (int)cudaErrorInvalidValue;
-  int err = (int)cudaFuncSetAttribute(bwd_dkdv<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      (int)s1);
+int allow_smem(const Config& c) {
+  if (c.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (c.smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(c.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)c.smem);
+}
+
+int sm_count(int* sms) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
   if (err != 0) return err;
-  err = (int)cudaFuncSetAttribute(bwd_dq<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
-  if (err != 0) return err;
-  const int rows = B * p.H * p.S;
-  bwd_delta<<<(rows + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, stream>>>(p, rows);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  const dim3 grid(B * p.H, (p.S + kTile - 1) / kTile);
-  bwd_dkdv<DP><<<grid, kThreads, s1, stream>>>(p);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  bwd_dq<DP><<<grid, kThreads, s2, stream>>>(p);
-  return (int)cudaGetLastError();
+  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+bool valid(int B, int H, int S, int D) {
+  return B >= 1 && H >= 1 && S >= 1 && D >= 1 && D <= 128 && (long long)B * H <= 2147483647LL;
 }
 
 }  // namespace
@@ -361,16 +574,70 @@ extern "C" int tao_flash_attention_bwd(
     const float* q, const float* k, const float* v, const float* o, const float* lse,
     const float* dout, float* dq, float* dk, float* dv, float* delta, const long long* strides,
     int B, int H, int S, int D, int causal, float scale, void* stream) {
-  if (B < 1 || H < 1 || S < 1 || D < 1 || D > 128 || (long long)B * H > 2147483647LL ||
-      (S + kTile - 1) / kTile > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (!valid(B, H, S, D)) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  int err = sm_count(&sms);
+  if (err != 0) return err;
+  const long long bhs = (long long)B * H;
+  const Config c = configure(bhs, S, D, sms);
+  if (2 * c.nb > 65535) return (int)cudaErrorInvalidValue;
+  if ((err = allow_smem(c)) != 0) return err;
   Strides st[8];
   for (int i = 0; i < 8; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  long long in_strides = 0, out_strides = 0;  // q, k, v, dout; dq, dk, dv
+  for (int i = 0; i < 8; ++i) {
+    const long long all = st[i].b | st[i].h | st[i].s;
+    if (i < 3 || i == 4) in_strides |= all;
+    if (i > 4) out_strides |= all;
+  }
+  const uintptr_t in_ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout;
+  const uintptr_t out_ptrs = (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv;
   Params p{q, k, v, o, lse, dout, dq, dk, dv, delta,
            st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-           H, S, D, causal, scale, scale * kLog2e};
+           H, S, D, causal,
+           D % 4 == 0 && in_strides % 4 == 0 && in_ptrs % 16 == 0,
+           D % 2 == 0 && out_strides % 2 == 0 && out_ptrs % 8 == 0,
+           scale, scale * kLog2e};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (D <= 32) return launch<32>(p, B, s);
-  if (D <= 64) return launch<64>(p, B, s);
-  return launch<128>(p, B, s);
+  const int rows = B * H * S;
+  bwd_delta<<<(rows + kDeltaThreads / 32 - 1) / (kDeltaThreads / 32), kDeltaThreads, 0, s>>>(p, rows);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  c.kernel<<<dim3((unsigned)bhs, 2 * c.nb), c.nw * 32, c.smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// What the two kernels of a call for (B, H, S, D) get, without launching:
+// for bwd_delta and bwd_dkdv_dq in turn, 6 ints each: registers per
+// thread, dynamic shared bytes per block, threads per block, resident
+// blocks per SM, local (spill) bytes per thread, blocks per call.
+template <typename F>
+int report(F* kernel, int threads, size_t smem, long long blocks_per_call, int* out) {
+  cudaFuncAttributes attr;
+  int err = (int)cudaFuncGetAttributes(&attr, kernel);
+  if (err != 0) return err;
+  int blocks = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (err != 0) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)smem;
+  out[2] = threads;
+  out[3] = blocks;
+  out[4] = (int)attr.localSizeBytes;
+  out[5] = (int)blocks_per_call;
+  return 0;
+}
+
+extern "C" int tao_flash_attention_bwd_info(int B, int H, int S, int D, int* info, void* stream) {
+  (void)stream;
+  if (!valid(B, H, S, D)) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  int err = sm_count(&sms);
+  if (err != 0) return err;
+  const long long bhs = (long long)B * H;
+  const int rows_per_block = kDeltaThreads / 32;
+  err = report(bwd_delta, kDeltaThreads, 0, (bhs * S + rows_per_block - 1) / rows_per_block, info);
+  if (err != 0) return err;
+  const Config c = configure(bhs, S, D, sms);
+  if ((err = allow_smem(c)) != 0) return err;
+  return report(c.kernel, c.nw * 32, c.smem, bhs * 2 * c.nb, info + 6);
 }

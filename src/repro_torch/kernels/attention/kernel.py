@@ -24,10 +24,13 @@ exponentiates, +inf for a row that sees no key), what the backward needs.
 
 ``flash_attention_bwd_cuda`` binds the backward (``csrc/attention_bwd.cu``),
 the port's own kernel, for what the Tao trainer gives it (causal or not,
-no segment ids, q_offset 0, Sq == Sk, D == Dv <= 128): three kernels on
-one stream (delta = rowsum(dO o), dK / dV per key tile, dQ per query
-tile), plain float32 FMAs, no atomics, so two calls give the same bits.
-``FLASH_ATTENTION_BWD.launches`` counts its calls.
+no segment ids, q_offset 0, Sq == Sk, D == Dv <= 128): two kernels on
+one stream, delta = rowsum(dO o), then the dK / dV pass (a warp per 16
+keys) and the dQ pass (a warp per 16 query rows) side by side in one grid;
+every product on the tensor cores in the forward's 3xTF32 split, P and dS
+kept in registers, no atomics, so two calls give the same bits.
+``FLASH_ATTENTION_BWD.launches`` counts its calls and ``bwd_launch_info``
+reports what each of its kernels (``BWD_KERNEL_NAMES``) gets.
 """
 from __future__ import annotations
 
@@ -40,9 +43,11 @@ import torch
 from .._cuda import CudaKernel, check_cuda_tensor
 
 __all__ = [
+    "BWD_KERNEL_NAMES",
     "FLASH_ATTENTION",
     "FLASH_ATTENTION_BWD",
     "MAX_HEAD_DIM",
+    "bwd_launch_info",
     "flash_attention_bwd_cuda",
     "flash_attention_cuda",
     "launch_info",
@@ -67,6 +72,11 @@ _LAUNCH_INFO = CudaKernel(
 )
 _INFO_KEYS = ("regs_per_thread", "smem_bytes_per_block", "threads_per_block",
               "blocks_per_sm", "spill_bytes_per_thread", "query_blocks")
+_BWD_LAUNCH_INFO = CudaKernel(
+    "attention_bwd.cu", "tao_flash_attention_bwd_info", [_I] * 4 + [ctypes.POINTER(ctypes.c_int)]
+)
+BWD_KERNEL_NAMES = ("bwd_delta", "bwd_dkdv_dq")
+_BWD_INFO_KEYS = _INFO_KEYS[:5] + ("blocks_per_call",)
 
 
 def _check(name: str, t: torch.Tensor) -> None:
@@ -166,3 +176,17 @@ def launch_info(Sq: int, D: int, Dv: int, segmented: bool = False) -> Dict[str, 
     if err != 0:
         raise RuntimeError(f"tao_flash_attention_info: CUDA error {err}")
     return dict(zip(_INFO_KEYS, info))
+
+
+def bwd_launch_info(B: int, H: int, S: int, D: int) -> Dict[str, Dict[str, int]]:
+    """What each kernel of a backward call for (B, H, S, D) gets on the
+    current device, without launching it: {kernel name: registers and
+    spill bytes per thread, dynamic shared memory and threads per block,
+    resident blocks per SM, blocks per call}."""
+    info = (ctypes.c_int * (len(BWD_KERNEL_NAMES) * len(_BWD_INFO_KEYS)))()
+    err = _BWD_LAUNCH_INFO._entry()(B, H, S, D, info, None)
+    if err != 0:
+        raise RuntimeError(f"tao_flash_attention_bwd_info: CUDA error {err}")
+    n = len(_BWD_INFO_KEYS)
+    return {name: dict(zip(_BWD_INFO_KEYS, info[i * n:(i + 1) * n]))
+            for i, name in enumerate(BWD_KERNEL_NAMES)}

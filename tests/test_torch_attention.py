@@ -151,12 +151,17 @@ def test_packed_qkv_views_match_contiguous_call_and_reference(causal):
     close(got, attention_ref(jq, jk, jv, None, causal=causal), "packed views vs attention_ref")
 
 
-# (B, H, S, D, causal)
+# (B, H, S, D, causal); the tile_ cases sit on the edges of the CUDA
+# backward's 16-row tiles and 64-row streamed tiles
 BWD_CASES = {
     "tao": (2, 4, 129, 32, True),
     "tao_noncausal": (2, 4, 129, 32, False),
     "short_narrow": (3, 2, 17, 16, True),
     "odd_width": (2, 2, 40, 20, False),
+    "tile_s16": (2, 2, 16, 8, True),
+    "tile_s16_noncausal": (2, 2, 16, 8, False),
+    "tile_s145": (2, 2, 145, 20, True),
+    "tile_s145_noncausal": (2, 2, 145, 20, False),
 }
 
 

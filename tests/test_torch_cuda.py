@@ -37,7 +37,10 @@ the graph's own kernel nodes), and a step that cannot be captured raises.
 
 Training: the attention backward (``csrc/attention_bwd.cu``, the port's
 own kernel) is held to its plain formulas within atol = rtol = 1e-5 and is
-bitwise equal over two calls (no atomics); the forward's output is bitwise
+bitwise equal over two calls (no atomics), at the training shapes, the
+edges of its 16-row and 64-row tiles, a 1,000-row window and widths and
+strides that are not multiples of 4 floats; its kernels do not spill at
+the training shape; the forward's output is bitwise
 the same with and without its log-sum-exp, which is +inf on a row that
 sees no key.  Under autograd ``flash_attention`` launches the forward and,
 in backward, the backward kernel; without grad only the forward.
@@ -71,8 +74,10 @@ from repro_torch.core import build_adjusted_trace, build_windows, multi_metric_l
 from repro_torch.core import tao_forward, train_tao_impl, transfer_finetune  # noqa: E402
 from repro_torch.core.transfer import to_device  # noqa: E402
 from repro_torch.kernels.attention.kernel import (  # noqa: E402
+    BWD_KERNEL_NAMES,
     FLASH_ATTENTION,
     FLASH_ATTENTION_BWD,
+    bwd_launch_info,
     flash_attention_bwd_cuda,
     flash_attention_cuda,
 )
@@ -725,8 +730,11 @@ def test_int8_entry_shared_by_engines_apart_from_fp32(dev):
 # trainer on the card
 # ---------------------------------------------------------------------------
 
-# (B, H, S, D, causal, seed): the Tao training shape, short and long
-# windows, narrow, odd and wide heads
+# (B, H, S, D, causal, seed): the Tao training shape at batch 16 and 64,
+# short and long windows, narrow, odd and wide heads, then the edges of the
+# kernel's 16-row tiles and 64-row streamed tiles (S 1, 15, 16, 17, 144,
+# 145) at widths 8 and 20, and a long window, whose sums run over 1,000
+# rows
 ATTN_BWD_CASES = {
     "tao_b16": (16, 4, 129, 32, True, 0),
     "tao_noncausal": (4, 4, 129, 32, False, 1),
@@ -734,6 +742,11 @@ ATTN_BWD_CASES = {
     "s200_d64_noncausal": (2, 4, 200, 64, False, 3),
     "s77_d20": (3, 2, 77, 20, True, 4),
     "s129_d128": (2, 2, 129, 128, True, 5),
+    "tao_b64": (64, 4, 129, 32, True, 6),
+    **{f"tile_s{S}_d{D}": (2, 3, S, D, True, 7 + i)
+       for i, (S, D) in enumerate((S, D) for S in (1, 15, 16, 17, 144, 145) for D in (8, 20))},
+    "tile_s145_d20_noncausal": (2, 3, 145, 20, False, 19),
+    "long_s1000_d64": (1, 2, 1000, 64, True, 21),
 }
 
 
@@ -761,6 +774,37 @@ def test_attention_bwd_kernel_matches_plain(dev, case):
     for a, b, c in zip(got, again, ref):
         assert torch.equal(a, b)
         torch.testing.assert_close(a, c, atol=1e-5, rtol=1e-5)
+
+
+def test_attention_bwd_kernel_takes_unaligned_strides(dev):
+    """Widths and strides that are not multiples of 4 floats take the
+    backward's 4-byte copies and scalar stores, with dO a strided view:
+    within atol = rtol = 1e-5 of the plain formulas, two calls bitwise."""
+    g = torch.Generator().manual_seed(20)
+    base = torch.randn(2, 3, 77, 2 * 21 + 1, generator=g).to(dev)
+    q, k, v = base[..., :21], base[..., 21:42], base[..., 1:22]
+    do = torch.randn(2, 3, 77, 2 * 21 + 1, generator=g).to(dev)[..., 2:23]
+    assert q.stride() == k.stride() == v.stride() == do.stride() == (3 * 77 * 43, 77 * 43, 43, 1)
+    out, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=True)
+    again = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=True)
+    ref = attention_bwd_plain(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, again, ref):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, atol=1e-5, rtol=1e-5)
+
+
+def test_attention_bwd_launch_info_at_the_training_shape(dev):
+    """What the backward's kernels get at (16, 4, 129, 32): no spills, the
+    dK / dV and dQ grid at least one block per SM and resident in one
+    wave."""
+    info = bwd_launch_info(16, 4, 129, 32)
+    assert tuple(info) == BWD_KERNEL_NAMES
+    assert all(i["spill_bytes_per_thread"] == 0 for i in info.values()), info
+    main = info["bwd_dkdv_dq"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert sms <= main["blocks_per_call"] <= main["blocks_per_sm"] * sms, (main, sms)
 
 
 def test_attention_lse_of_rows_without_keys_is_inf(dev):
