@@ -77,6 +77,21 @@ and ``nvcc``.  Phases, one JSON line each:
            show only the port's attention kernels, the losses (finite,
            falling), the embeddings bitwise unchanged by the fine-tune,
            and the first 3 steps on the card against the CPU's;
+  persist  crash-resumable training and the legacy simulate loop: the
+           train phase's windows and the three 150k traces' FeatureSets put
+           into an ArtifactStore and read back bitwise (put / get ms and
+           bytes, FeatureSet.digest stable); train_tao_impl for
+           PERSIST_EPOCHS epochs at batch 16 with a manifest per epoch
+           (publish ms, bytes per manifest), then the same recipe in a
+           child process (PYTHONPATH=src, the same build/) that loads the
+           windows from the store and is SIGKILLed once its first manifest
+           lands, then resumed here: losses, steps, parameters and
+           optimizer state bitwise the uninterrupted run's, the resume's
+           load ms, and 2 + 2 attention launches per step run, none for
+           the epochs skipped; then simulate_trace_legacy at batch 64 on
+           the three traces (2 attention launches per ragged batch) held
+           to the engine's fused route by the flip check, legacy MIPS
+           beside the engine's and the engine's speedup;
   mamba2   the port's Mamba-2 serving path at the full width of
            mamba2-1.3b (48 layers, bfloat16, random weights from a CUDA
            generator, seed 0): prefill of 4 prompts x 2048 tokens, then 32
@@ -100,10 +115,13 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -174,6 +192,27 @@ TRAIN_TRACES = ("lee", "mcf")
 TRANSFER_TRACE = "dee"
 TRAIN_INSTRUCTIONS = 30_000
 TRAIN_EPOCHS, TRANSFER_EPOCHS, TRAIN_BATCH, TRAIN_LR = 2, 1, 16, 3e-4
+# the persist cell: the train cell's windows and recipe for PERSIST_EPOCHS
+# epochs (29 steps each), a manifest per epoch.  The killed child is sent
+# SIGKILL once its first manifest lands: with six epochs of ~0.5 s each
+# after it, at least one epoch is published and not all of them
+PERSIST_EPOCHS = 6
+PERSIST_POLL_S = 0.005
+PERSIST_CHILD_TIMEOUT_S = 300
+LEGACY_BATCH = 64
+# the child of the persist phase: loads the windows from the store and runs
+# the recipe under its resume key on the card (nothing of JAX)
+PERSIST_CHILD = r"""
+import sys
+from repro_torch.core import TaoConfig, WindowDataset, train_tao_impl
+from repro_torch.store import ArtifactStore
+root, windows_key, resume_key, epochs, batch, lr = sys.argv[1:7]
+store = ArtifactStore(root)
+tree, _ = store.get("train_windows", windows_key)
+ds = WindowDataset(inputs=tree["inputs"], labels=tree["labels"])
+train_tao_impl(TaoConfig(), ds, epochs=int(epochs), batch_size=int(batch), lr=float(lr), seed=0,
+               store=store, resume_key=resume_key, device="cuda")
+"""
 # the card's first steps against the same steps on the CPU: the forward
 # differs in the last bits (cuBLAS vs CPU BLAS order, 3xTF32 attention), so
 # the losses agree within 1e-4 relative; Adam moves each parameter by at
@@ -1118,24 +1157,25 @@ def flip_check(got, ref, trace, cfg, flip_fraction=FLIP_FRACTION, prob_atol=PROB
     }
     flips = {k: int(v.sum()) for k, v in flipped.items()}
     prob_err = float(prob_diff.max())
-    tr = trace[:n]
-    chunk_of = (np.arange(n) // cfg.window) * 32 // (n // cfg.window)
-    min_chunk = np.bincount(chunk_of, minlength=32).min()
-    min_mem_chunk = max(1, np.bincount(chunk_of, weights=tr["is_mem"], minlength=32).min())
     diffs = {
         "cpi_abs": abs(got.cpi - ref.cpi),
         "branch_mpki_abs": abs(got.branch_mpki - ref.branch_mpki),
         "l1d_mpki_abs": abs(got.l1d_mpki - ref.l1d_mpki),
-        "cpi_phase_max_abs": float(np.abs(got.cpi_phase - ref.cpi_phase).max()),
-        "l1d_phase_max_abs": float(np.abs(got.l1d_phase - ref.l1d_phase).max()),
     }
     tols = {
         "cpi_abs": 256.0 * (flips["fetch_lat"] + 1) / n,
         "branch_mpki_abs": 1000.0 * flips["mispredict"] / n,
         "l1d_mpki_abs": 1000.0 * flips["l1d_miss"] / n,
-        "cpi_phase_max_abs": 256.0 * flips["fetch_lat"] / min_chunk,
-        "l1d_phase_max_abs": flips["l1d_miss"] / min_mem_chunk,
     }
+    if "cpi_phase" in ref.metrics:  # the legacy loop computes no phase curves
+        tr = trace[:n]
+        chunk_of = (np.arange(n) // cfg.window) * 32 // (n // cfg.window)
+        min_chunk = np.bincount(chunk_of, minlength=32).min()
+        min_mem_chunk = max(1, np.bincount(chunk_of, weights=tr["is_mem"], minlength=32).min())
+        diffs["cpi_phase_max_abs"] = float(np.abs(got.cpi_phase - ref.cpi_phase).max())
+        diffs["l1d_phase_max_abs"] = float(np.abs(got.l1d_phase - ref.l1d_phase).max())
+        tols["cpi_phase_max_abs"] = 256.0 * flips["fetch_lat"] / min_chunk
+        tols["l1d_phase_max_abs"] = flips["l1d_miss"] / min_mem_chunk
     ok = (
         got.num_instructions == ref.num_instructions
         and max(flips.values()) <= flip_fraction * n
@@ -1582,10 +1622,12 @@ def slice_int8(failures, traces, arrays, model, engine, extract, batches, lee_ba
           "cpu_precision": "int8", **control, "fails_as_it_must": not control["ok"]})
 
 
+@functools.lru_cache(maxsize=None)
 def labelled_windows(names, uarch, cfg):
     """The training data path: the detailed simulator's records for each
     trace on ``uarch``, aligned to the functional trace (§4.1), features
-    with labels, windows (dedup per trace), concatenated."""
+    with labels, windows (dedup per trace), concatenated.  Kept for the
+    process: the ``persist`` phase trains on the ``train`` phase's windows."""
     from repro_torch.core import build_adjusted_trace, build_windows, concat_datasets
     from repro_torch.core import extract_features, verify_alignment
     from repro_torch.uarch import get_benchmark, run_detailed, run_functional
@@ -1741,6 +1783,207 @@ def phase_train(failures, results, traces):
                         f"params {p_diff}")
 
 
+def timed_store(root: str):
+    """An ``ArtifactStore`` whose ``put`` and ``get`` record ``(kind, ms,
+    done)`` in ``store.timings`` (done: the put created the entry, the get
+    hit)."""
+    from repro_torch.store import ArtifactStore
+
+    store = ArtifactStore(root)
+    store.timings = {"put": [], "get": []}
+    for name in ("put", "get"):
+        def timed(kind, *args, _fn=getattr(store, name), _name=name, **kw):
+            t0 = time.perf_counter()
+            out = _fn(kind, *args, **kw)
+            store.timings[_name].append((kind, (time.perf_counter() - t0) * 1e3, bool(out)))
+            return out
+        setattr(store, name, timed)
+    return store
+
+
+def entry_bytes(store, kind: str, key: str) -> int:
+    edir = store._entry_dir(kind, key)
+    return sum(os.path.getsize(os.path.join(edir, f)) for f in os.listdir(edir))
+
+
+def trees_bitwise(a, b) -> bool:
+    """Two trees of NumPy arrays equal in structure, dtype, shape and bytes."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and sorted(a) == sorted(b) and all(trees_bitwise(a[k], b[k]) for k in a)
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def kill_mid_run(store, resume_key: str, windows_key: str) -> dict:
+    """Run the persist recipe in a child process (``PERSIST_CHILD``: this
+    interpreter, ``PYTHONPATH=src``, the same ``build/``) and SIGKILL it
+    once its first epoch manifest has landed in ``store``."""
+    from repro_torch.resilience.manifest import train_epoch_key
+
+    keys = [train_epoch_key(resume_key, ep) for ep in range(PERSIST_EPOCHS)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    args = [store.root, windows_key, resume_key, str(PERSIST_EPOCHS), str(TRAIN_BATCH), str(TRAIN_LR)]
+    with tempfile.TemporaryFile() as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-c", PERSIST_CHILD, *args], env=env,
+                                stdout=subprocess.DEVNULL, stderr=err)
+        first = None
+        try:
+            while proc.poll() is None and time.perf_counter() - t0 < PERSIST_CHILD_TIMEOUT_S:
+                if any(store.has("train_epoch", k) for k in keys):
+                    first = time.perf_counter() - t0
+                    proc.send_signal(signal.SIGKILL)
+                    break
+                time.sleep(PERSIST_POLL_S)
+        finally:
+            if proc.poll() is None and first is None:
+                proc.kill()
+            rc = proc.wait(timeout=60)
+        err.seek(0)
+        tail = err.read().decode(errors="replace")[-2000:]
+    published = [ep for ep, k in enumerate(keys) if store.has("train_epoch", k)]
+    return {"returncode": rc, "first_manifest_after_s": first, "child_seconds": time.perf_counter() - t0,
+            "published_epochs": published, "stderr_tail": tail if rc != -signal.SIGKILL else ""}
+
+
+def phase_persist(failures, results, traces):
+    """Crash-resumable training and the legacy simulate loop on the card:
+    the train cell's windows and three 150k traces' features through an
+    ``ArtifactStore``; ``train_tao_impl`` with a manifest per epoch,
+    uninterrupted, then in a child process SIGKILLed mid-run, then resumed
+    here, held bitwise to the uninterrupted run; ``simulate_trace_legacy``
+    on the three traces against the engine's fused route."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import TaoConfig, WindowDataset, extract_features, init_tao
+    from repro_torch.core import simulate_trace_legacy, train_tao_impl
+    from repro_torch.engine import EngineConfig, StreamingEngine
+    from repro_torch.resilience.manifest import load_train_epoch, train_epoch_key
+    from repro_torch.store import content_key, features_to_tree, tree_digest, tree_to_features
+    from repro_torch.uarch import UARCH_A
+
+    cfg = TaoConfig()
+    fcfg = cfg.features
+    ds, _ = labelled_windows(TRAIN_TRACES, UARCH_A, cfg)
+    with tempfile.TemporaryDirectory() as root:
+        store = timed_store(root)
+
+        # ---- the store: windows and feature sets in, read back bitwise
+        windows = {"inputs": ds.inputs, "labels": ds.labels}
+        wkey = content_key("train_windows", tree_digest(windows), fcfg, cfg.window)
+        store.put("train_windows", wkey, windows, {"windows": len(ds)})
+        got, extra = store.get("train_windows", wkey)
+        (_, w_put_ms, w_put), (_, w_get_ms, w_hit) = store.timings["put"][-1], store.timings["get"][-1]
+        w_ok = w_put and w_hit and trees_bitwise(got, windows) and extra == {"windows": len(ds)}
+        feats, fs_lines = {}, {}
+        for b, t in traces.items():
+            fs = feats[b] = extract_features(t, fcfg, with_labels=False)
+            digest = fs.digest
+            again = type(fs)(**{k: getattr(fs, k) for k in ("opcode", "regbits", "flags", "brhist",
+                                                              "memdist", "labels")}).digest
+            key = content_key("features", digest, fcfg)
+            store.put("features", key, features_to_tree(fs))
+            back = tree_to_features(store.get("features", key)[0])
+            fs_lines[b] = {"put_ms": store.timings["put"][-1][1], "get_ms": store.timings["get"][-1][1],
+                           "bytes": entry_bytes(store, "features", key),
+                           "bitwise": trees_bitwise(features_to_tree(back), features_to_tree(fs)),
+                           "digest_stable": digest == again == back.digest}
+        s_ok = w_ok and all(v["bitwise"] and v["digest_stable"] for v in fs_lines.values())
+        emit({"phase": "persist", "check": "store", "windows": len(ds), "windows_put_ms": w_put_ms,
+              "windows_get_ms": w_get_ms, "windows_bytes": entry_bytes(store, "train_windows", wkey),
+              "windows_bitwise": w_ok, "features": fs_lines, "counters": store.counters, "ok": s_ok})
+        if not s_ok:
+            failures.append(f"persist: store round trip: windows {w_ok}, features {fs_lines}")
+
+        # ---- uninterrupted: a manifest per epoch
+        kw = dict(epochs=PERSIST_EPOCHS, batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=0, device="cuda",
+                  store=store)
+        n_put = len(store.timings["put"])
+        base = train_tao_impl(cfg, ds, resume_key="base", **kw)
+        publish_ms = [ms for kind, ms, _ in store.timings["put"][n_put:] if kind == "train_epoch"]
+        manifest_bytes = entry_bytes(store, "train_epoch", train_epoch_key("base", 0))
+        emit({"phase": "persist", "check": "uninterrupted", "epochs": PERSIST_EPOCHS, "steps": base.steps,
+              "losses": base.losses, "seconds": base.seconds, "publish_ms": publish_ms,
+              "manifest_bytes": manifest_bytes})
+
+        # ---- killed: a child process, SIGKILLed once its first manifest lands
+        killed = kill_mid_run(store, "killed", wkey)
+        published = killed["published_epochs"]
+        k_ok = (killed["returncode"] == -signal.SIGKILL and 1 <= len(published) < PERSIST_EPOCHS
+                and published == list(range(len(published))))
+        emit({"phase": "persist", "check": "killed", **killed, "last_published": max(published, default=None),
+              "ok": k_ok})
+        if not k_ok:
+            failures.append(f"persist: the child was not killed mid-run: {killed}")
+            return
+
+        # ---- resumed: the same recipe and key, here; bitwise the uninterrupted run
+        n_get = len(store.timings["get"])
+        zero_counts()
+        resumed = train_tao_impl(cfg, ds, resume_key="killed", **kw)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        lookups = [(ms, hit) for kind, ms, hit in store.timings["get"][n_get:] if kind == "train_epoch"]
+        last = max(published)
+        steps_per_epoch = base.steps // PERSIST_EPOCHS
+        ran = resumed.steps - (last + 1) * steps_per_epoch
+        expected = {k: 0 for k in launches} | {"flash_attention": cfg.n_layers * ran,
+                                               "flash_attention_bwd": cfg.n_layers * ran}
+        a, b = load_train_epoch(store, "base", PERSIST_EPOCHS), load_train_epoch(store, "killed", PERSIST_EPOCHS)
+        opt_bitwise = trees_bitwise(a["opt"], b["opt"]) and a["rng_state"] == b["rng_state"]
+        params_bitwise = all(torch.equal(x, y) for x, y in zip(resumed.params.state_dict().values(),
+                                                               base.params.state_dict().values()))
+        checks = {"losses_bitwise": resumed.losses == base.losses, "steps_equal": resumed.steps == base.steps,
+                  "params_bitwise": params_bitwise, "optimizer_bitwise": opt_bitwise,
+                  "launches_as_expected": launches == expected and ran == (PERSIST_EPOCHS - last - 1) * steps_per_epoch}
+        emit({"phase": "persist", "check": "resumed", "resumed_from_epoch": last,
+              "epochs_run": list(range(last + 1, PERSIST_EPOCHS)), "steps_run": ran, "steps": resumed.steps,
+              "seconds": resumed.seconds, "resume_load_ms": [ms for ms, hit in lookups if hit],
+              "resume_lookup_ms": sum(ms for ms, _ in lookups), "launches": launches, "expected": expected,
+              "flash_attention_per_step": launches["flash_attention"] / max(ran, 1),
+              "flash_attention_bwd_per_step": launches["flash_attention_bwd"] / max(ran, 1),
+              **checks, "ok": all(checks.values())})
+        if not all(checks.values()):
+            failures.append(f"persist: the resumed run differs from the uninterrupted one: {checks}")
+
+    # ---- the legacy loop against the engine's fused route, the same weights
+    model = init_tao(cfg, torch.Generator().manual_seed(0), device="cuda")
+    engine = StreamingEngine(model, cfg, EngineConfig(batch_size=LEGACY_BATCH), device="cuda")
+    engine_c = StreamingEngine(model, cfg, EngineConfig(batch_size=LEGACY_BATCH, collect=True), device="cuda")
+    name = SLICE_BENCHMARKS[0]
+    simulate_trace_legacy(model, traces[name], cfg, LEGACY_BATCH, features=feats[name], device="cuda")
+    lines, legacy_s, engine_s, total_n = {}, 0.0, 0.0, 0
+    for b, t in traces.items():
+        zero_counts()
+        legacy = simulate_trace_legacy(model, t, cfg, LEGACY_BATCH, features=feats[b], device="cuda")
+        torch.cuda.synchronize()
+        launches = read_counts()
+        batches = -(-(len(t) // cfg.window) // LEGACY_BATCH)
+        expected = {k: 0 for k in launches} | {"flash_attention": cfg.n_layers * batches}
+        engine.simulate(t)  # warm: the geometry's graph, the column copies
+        fused = engine.simulate(t)
+        check = flip_check(legacy, engine_c.simulate(t), t, cfg)
+        ok = check["ok"] and launches == expected and math.isfinite(legacy.cpi)
+        lines[b] = {"num_instructions": legacy.num_instructions, "batches": batches,
+                    "legacy_seconds": legacy.seconds, "legacy_mips": legacy.mips,
+                    "engine_seconds": fused.seconds, "engine_mips": fused.mips,
+                    "engine_speedup": fused.mips / legacy.mips, "launches": launches,
+                    "cpi": [legacy.cpi, fused.cpi], "vs_engine": check, "ok": ok}
+        legacy_s += legacy.seconds
+        engine_s += fused.seconds
+        total_n += legacy.num_instructions
+        if not ok:
+            failures.append(f"persist: legacy loop on {b}: launches {launches} (expected {expected}), "
+                            f"flip check {check['ok']}")
+    emit({"phase": "persist", "check": "legacy", "batch": LEGACY_BATCH, "per_trace": lines,
+          "instructions": total_n, "legacy_mips": total_n / 1e6 / legacy_s,
+          "engine_mips": total_n / 1e6 / engine_s, "engine_speedup": legacy_s / engine_s,
+          "ok": all(v["ok"] for v in lines.values())})
+
+
 def rel_diff(a, b) -> float:
     """max |a - b| relative to max |b|."""
     return float((a.float() - b.float()).abs().max() / b.float().abs().max())
@@ -1877,7 +2120,7 @@ def main() -> int:
     emit({"phase": "capture", "traces": list(SLICE_BENCHMARKS),
           "instructions_each": SLICE_INSTRUCTIONS, "seconds": time.perf_counter() - t0})
     failures, results = [], {}
-    for phase in (phase_build, phase_kernels, phase_slice, phase_train, phase_mamba2):
+    for phase in (phase_build, phase_kernels, phase_slice, phase_train, phase_persist, phase_mamba2):
         phase(failures, results, traces)
         if failures:
             break

@@ -1,5 +1,6 @@
 """Feature specification, windowing, alignment, the Tao model, its int8
-W8A8 twin and its training (PyTorch port of ``repro.core``)."""
+W8A8 twin, its training with crash-resume, and the legacy simulate loop
+(PyTorch port of ``repro.core``)."""
 from .align import AlignedTrace, build_adjusted_trace, verify_alignment
 from .dataset import (
     INPUT_KEYS,
@@ -45,6 +46,26 @@ from .quant import (
 )
 from .transfer import TrainResult, train_tao_impl, transfer_finetune
 
+# .simulate imports engine.runner, and engine.runner imports this package
+# (core.dataset / core.features / core.model) — so the simulate symbols are
+# exposed lazily (PEP 562), as the reference's are, to keep
+# `import repro_torch.engine` working as the FIRST import.
+_SIMULATE_SYMBOLS = (
+    "SimulationResult",
+    "simulate_trace",
+    "simulate_trace_legacy",
+    "phase_curves",
+)
+
+
+def __getattr__(name):
+    if name in _SIMULATE_SYMBOLS:
+        from . import simulate as _simulate
+
+        return getattr(_simulate, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "AlignedTrace",
     "INPUT_KEYS",
@@ -56,6 +77,7 @@ __all__ = [
     "QDense",
     "QEmbed",
     "QuantTao",
+    "SimulationResult",
     "Tao",
     "TaoConfig",
     "TrainResult",
@@ -75,10 +97,13 @@ __all__ = [
     "iter_window_digests",
     "multi_metric_loss",
     "num_windows",
+    "phase_curves",
     "qdense",
     "qembed",
     "quantize_tao_params",
     "signed_log",
+    "simulate_trace",
+    "simulate_trace_legacy",
     "stream_batches",
     "tao_forward",
     "tao_forward_int8",

@@ -60,6 +60,29 @@ class FeatureSet:
     def __len__(self) -> int:
         return len(self.opcode)
 
+    @property
+    def digest(self) -> str:
+        """Stable content digest (blake2b over every array, labels
+        included) — the identity the artifact store keys on, the
+        reference's for the same arrays.  Cached on first use; treat the
+        arrays as immutable once hashed."""
+        d = getattr(self, "_digest", None)
+        if d is None:
+            from ..store.content import tree_digest  # lazy: keep features import light
+
+            d = tree_digest(
+                {
+                    "opcode": self.opcode,
+                    "regbits": self.regbits,
+                    "flags": self.flags,
+                    "brhist": self.brhist,
+                    "memdist": self.memdist,
+                    "labels": self.labels,
+                }
+            )
+            self._digest = d
+        return d
+
     def slice(self, lo: int, hi: int) -> "FeatureSet":
         lab = None
         if self.labels is not None:

@@ -83,6 +83,7 @@ def _make_step(cfg: TaoConfig, opt_cfg: AdamWConfig, trainable: str):
     return step
 
 
+# tao: hot
 def _run_epochs(
     model: Tao,
     step: Callable,
@@ -94,12 +95,22 @@ def _run_epochs(
     eval_fn: Optional[Callable] = None,
     seed: int = 0,
     target_loss: Optional[float] = None,
+    start_epoch: int = 0,
+    rng_state: Optional[Dict] = None,
+    losses: Optional[List[float]] = None,
+    evals: Optional[List[float]] = None,
+    steps: int = 0,
+    checkpoint_cb: Optional[Callable] = None,
 ) -> Tuple[List[float], List[float], int]:
     rng = np.random.default_rng(seed)
-    losses: List[float] = []
-    evals: List[float] = []
-    steps = 0
-    for _ in range(epochs):
+    if rng_state is not None:
+        # crash-resume: fast-forward the shuffle stream to where the
+        # checkpointed epoch left it, so the remaining epochs draw exactly
+        # the batches an uninterrupted run would have drawn
+        rng.bit_generator.state = rng_state
+    losses = list(losses) if losses else []
+    evals = list(evals) if evals else []
+    for ep in range(start_epoch, epochs):
         ep_losses: List[torch.Tensor] = []
         for batch in dataset.batches(batch_size, rng=rng):
             opt, loss = step(model, opt, to_device(batch, device))
@@ -108,12 +119,16 @@ def _run_epochs(
             steps += 1
         # one read per epoch, summed on the host in step order
         ep_loss = 0.0
-        for x in torch.stack(ep_losses).cpu().tolist() if ep_losses else ():
+        for x in torch.stack(ep_losses).cpu().tolist() if ep_losses else ():  # tao: noqa[TAO002] the epoch's one read of its step losses, after its last step
             ep_loss += x
         ep_loss /= max(len(ep_losses), 1)
         losses.append(ep_loss)
         if eval_fn is not None:
-            evals.append(float(eval_fn(model)))
+            evals.append(float(eval_fn(model)))  # tao: noqa[TAO002] one eval read per epoch, as the reference's
+        if checkpoint_cb is not None:
+            # rng state captured AFTER this epoch's batches were drawn —
+            # exactly what the next epoch of a resumed run must start from
+            checkpoint_cb(ep, model, opt, losses, evals, steps, rng.bit_generator.state)
         if target_loss is not None and ep_loss <= target_loss:
             break
     return losses, evals, steps
@@ -121,6 +136,30 @@ def _run_epochs(
 
 def _state_dict(params: Params) -> Mapping[str, torch.Tensor]:
     return params.state_dict() if isinstance(params, torch.nn.Module) else params
+
+
+def _host_tree(tree):
+    """A nested dict of tensors as host copies (the step updates the
+    originals in place)."""
+    if isinstance(tree, Mapping):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", copy=True)
+
+
+def _load_state(model: Tao, opt: AdamWState, params: Mapping, opt_tree: Mapping) -> AdamWState:
+    """A manifest's host trees loaded back: the state dict into ``model``
+    (in place, on its device), the optimizer state as a new ``AdamWState``
+    on the device and in the dtypes of ``opt``'s tensors."""
+
+    def like(arr, ref: torch.Tensor) -> torch.Tensor:
+        return torch.as_tensor(arr).to(device=ref.device, dtype=ref.dtype)
+
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()})
+    return AdamWState(
+        step=like(opt_tree["step"], opt.step),
+        mu={k: like(opt_tree["mu"][k], v) for k, v in opt.mu.items()},
+        nu={k: like(opt_tree["nu"][k], v) for k, v in opt.nu.items()},
+    )
 
 
 def train_tao_impl(
@@ -135,6 +174,9 @@ def train_tao_impl(
     eval_fn: Optional[Callable] = None,
     seed: int = 0,
     target_loss: Optional[float] = None,
+    store=None,
+    resume_key: Optional[str] = None,
+    manifest_every: int = 1,
     device: Optional[Union[str, torch.device]] = None,
 ) -> TrainResult:
     """Train (or fine-tune) a single-µarch Tao model on ``device``
@@ -150,7 +192,19 @@ def train_tao_impl(
     also seeds the NumPy generator that shuffles the batches, as in the
     reference.  Stops early once an epoch's mean loss is at or below
     ``target_loss``.
+
+    With ``store`` (an ``ArtifactStore``) and ``resume_key`` (the run's
+    recipe identity), every ``manifest_every``-th epoch and the last one
+    publish a crash-resume manifest (``resilience.manifest``): the model's
+    state dict, the AdamW state, the loss history and the shuffle rng's
+    state, as host copies.  A re-run after a SIGKILL loads the latest one
+    back into the model and the optimizer on ``device`` and goes on from
+    the next epoch: its losses, step count, parameters and optimizer state
+    are bitwise those of an uninterrupted run on the same device.  A
+    recipe that has finished replays its last manifest and runs no step.
     """
+    if manifest_every < 1:
+        raise ValueError(f"manifest_every must be >= 1, got {manifest_every}")
     dev = resolve_device(device)
     model = init_tao(cfg, torch.Generator().manual_seed(seed), device=dev)
     if init_params is not None:
@@ -161,9 +215,35 @@ def train_tao_impl(
     opt_cfg = AdamWConfig(lr=lr)
     step = _make_step(cfg, opt_cfg, trainable)
     opt = adamw_init(trainable_params(model, trainable), opt_cfg.m_dtype)
+
+    start_epoch, rng_state, steps0 = 0, None, 0
+    losses0: List[float] = []
+    evals0: List[float] = []
+    checkpoint_cb = None
+    if store is not None and resume_key is not None:
+        # lazy: resilience.manifest pulls in the store package
+        from ..resilience.manifest import load_train_epoch, publish_train_epoch
+
+        state = load_train_epoch(store, resume_key, epochs)
+        if state is not None and state.get("rng_state") is not None:
+            opt = _load_state(model, opt, state["params"], state["opt"])
+            start_epoch = state["epoch"] + 1
+            rng_state = state["rng_state"]
+            losses0 = state["losses"]
+            evals0 = state["eval_losses"]
+            steps0 = state["steps"]
+
+        def checkpoint_cb(ep, m, o, ls, ev, st, rs):
+            if (ep + 1) % manifest_every and ep != epochs - 1:
+                return
+            publish_train_epoch(store, resume_key, ep, _host_tree(m.state_dict()),
+                                _host_tree(o._asdict()), ls, ev, st, rs)
+
     t0 = time.perf_counter()
     losses, evals, steps = _run_epochs(
-        model, step, dataset, epochs, batch_size, opt, dev, eval_fn, seed, target_loss
+        model, step, dataset, epochs, batch_size, opt, dev, eval_fn, seed, target_loss,
+        start_epoch=start_epoch, rng_state=rng_state, losses=losses0, evals=evals0,
+        steps=steps0, checkpoint_cb=checkpoint_cb,
     )
     return TrainResult(params=model, losses=losses, eval_losses=evals,
                        seconds=time.perf_counter() - t0, steps=steps)

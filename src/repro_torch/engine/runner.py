@@ -50,6 +50,11 @@ once per engine on its device, or the pre-quantized ``qparams=`` the
 caller passes (the counterpart of the reference's registry / store
 injection).  The precision is in the cache key, so int8 has its own entry
 and, on the card, its own graph, shared across routes.
+
+Two fault-injection sites (``resilience.faults``) sit where the
+reference's do, outside the captured graph and no-ops unless a plan is
+injected: ``engine.compile`` on a step-cache miss and ``engine.simulate``
+at the top of ``simulate``.
 """
 from __future__ import annotations
 
@@ -67,6 +72,7 @@ from ..core.model import Tao, TaoConfig, tao_forward
 from ..core.quant import QuantTao, quantize_tao_params
 from ..kernels.features.ops import trace_columns
 from ..kernels.fused.ops import FusedExtractor
+from ..resilience.faults import fault_point
 from ..uarch.isa import NUM_REGS
 from .aot import CapturedStep
 from .metrics import DEFAULT_METRICS, MetricSpec, StepContext, resolve_metrics
@@ -436,6 +442,7 @@ class StreamingEngine:
             )
             entry = _STEP_CACHE.get(key)
             if entry is None:
+                fault_point("engine.compile", payload=f"w{w_eff}")
                 _STEP_STATS["misses"] += 1
                 entry = _CachedStep()
                 entry.fn = self._build_step(w_eff)
@@ -699,6 +706,7 @@ class StreamingEngine:
         graph, captured at the geometry's first simulate unless ``warmup``
         captured it."""
         t0 = time.perf_counter()
+        fault_point("engine.simulate")
         n, count, batches = self._batches(func_trace, features)
         entry = self._get_step(min(self.cfg.window, n))
         carry = self.init_carry(n)

@@ -51,6 +51,15 @@ of ``train_tao_impl`` launch 2 forward and 2 backward attention kernels a
 step and track the CPU's (losses 1e-4 relative, parameters 2 lr a step);
 the fine-tune leaves ``embed`` bitwise unchanged.
 
+Persistence: a training run resumed from its first epoch's manifest is
+bitwise the uninterrupted run on the card (losses, steps, parameters,
+optimizer state) and launches the attention kernels only for the epochs
+it runs; card tensors (bfloat16 included) go through the artifact store
+and the checkpoint manager to the host bitwise and restore onto a card
+template; the legacy simulate loop on the card launches attention
+``n_layers`` times per ragged batch and is held to the same loop on the
+CPU by the engine's flip contract.
+
 The int8 W8A8 path (``core/quant.py``): quantization on the card is bitwise
 the CPU's; ``qdense``'s codes, int32 accumulations (cuBLASLt IMMA through
 ``torch._int_mm``, zero-padded to its multiples of 8 and past 16 rows) and
@@ -925,3 +934,106 @@ def test_transfer_on_card_keeps_embed_bitwise(dev):
     for (k, a), b in zip(ft.params.embed.state_dict().items(), donor.embed.state_dict().values()):
         assert torch.equal(a, b), k
     assert not torch.equal(ft.params.adapt.weight, donor.adapt.weight)
+
+
+# ---------------------------------------------------------------------------
+# persistence: the store, checkpoints, crash-resume, the legacy loop
+# ---------------------------------------------------------------------------
+
+
+def test_train_resume_bitwise_on_card(dev, tmp_path):
+    """One epoch with manifests, then a resume to three, on the card at
+    the default width: losses, steps, every parameter and the optimizer
+    state bitwise the uninterrupted run's (no kernel of the step uses
+    atomics); the resumed run launches the attention kernels only for the
+    epochs it ran."""
+    from repro_torch.resilience.manifest import load_train_epoch
+    from repro_torch.store import ArtifactStore
+
+    cfg = TaoConfig()
+    ds = labelled_batch(cfg, 32, seed=3)  # 2 steps an epoch
+    kw = dict(batch_size=16, lr=3e-4, seed=0, device=dev)
+    base_st, st = ArtifactStore(str(tmp_path / "base")), ArtifactStore(str(tmp_path / "ck"))
+    base = train_tao_impl(cfg, ds, epochs=3, store=base_st, resume_key="run", **kw)
+    part = train_tao_impl(cfg, ds, epochs=1, store=st, resume_key="run", **kw)
+    assert part.losses == base.losses[:1]
+    counts = (FLASH_ATTENTION.launches, FLASH_ATTENTION_BWD.launches)
+    resumed = train_tao_impl(cfg, ds, epochs=3, store=st, resume_key="run", **kw)
+    ran = resumed.steps - part.steps
+    assert part.steps == 2 and ran == 4
+    assert (FLASH_ATTENTION.launches - counts[0], FLASH_ATTENTION_BWD.launches - counts[1]) == (
+        cfg.n_layers * ran, cfg.n_layers * ran)
+    assert resumed.losses == base.losses and resumed.steps == base.steps
+    for (k, a), b in zip(resumed.params.state_dict().items(), base.params.state_dict().values()):
+        assert a.device.type == "cuda" and torch.equal(a, b), k
+    a, b = load_train_epoch(base_st, "run", 3), load_train_epoch(st, "run", 3)
+    for group in ("mu", "nu"):
+        for k in a["opt"][group]:
+            np.testing.assert_array_equal(a["opt"][group][k], b["opt"][group][k])
+    assert int(a["opt"]["step"]) == int(b["opt"]["step"]) == base.steps
+
+
+def test_store_and_checkpoints_round_trip_card_tensors(dev, tmp_path):
+    """Card tensors (float32, int32, bfloat16) go through the store and the
+    checkpoint manager to the host bitwise, digest as their host copies,
+    and restore onto a template on the card."""
+    from repro_torch.ckpt import CheckpointManager, restore_pytree
+    from repro_torch.store import ArtifactStore, array_digest, tree_digest
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    tree = {"w": torch.randn(64, 33, generator=g, device=dev),
+            "bf": torch.randn(17, 5, generator=g, device=dev).to(torch.bfloat16),
+            "n": torch.arange(10, dtype=torch.int32, device=dev)}
+    host = {k: v.cpu().clone() for k, v in tree.items()}
+    assert tree_digest(tree) == tree_digest(host)
+    assert array_digest(tree["bf"]) == array_digest(host["bf"])
+    st = ArtifactStore(str(tmp_path / "s"))
+    assert st.put("params", "k" * 32, tree)
+    got, _ = st.get("params", "k" * 32)
+    assert got["bf"].dtype == torch.bfloat16 and torch.equal(got["bf"], host["bf"])
+    np.testing.assert_array_equal(got["w"], host["w"].numpy())
+    np.testing.assert_array_equal(got["n"], host["n"].numpy())
+    mgr = CheckpointManager(str(tmp_path / "c"), use_async=True)
+    mgr.save(tree, 1)
+    for v in tree.values():  # the loop overwrites its tensors after the save
+        v.zero_()
+    mgr.wait()
+    restored, extra = mgr.restore_latest(tree)
+    mgr.close()
+    assert extra["step"] == 1
+    for k, v in restored.items():
+        assert v.device.type == "cuda" and v.dtype == host[k].dtype and torch.equal(v.cpu(), host[k]), k
+    on_cpu = restore_pytree(host, str(tmp_path / "c" / "step_1"))
+    assert all(torch.equal(on_cpu[k], host[k]) for k in host)
+
+
+def test_simulate_trace_legacy_on_card_matches_cpu(dev):
+    """The legacy loop on the card against the same loop on the CPU at the
+    default width: 2 attention launches per ragged batch, decodes flipped
+    at ≤ 0.1% of positions, ``mispred_prob`` within 1e-4, every metric
+    moved only as far as its flips allow."""
+    from repro_torch.core import simulate_trace_legacy
+
+    cfg = TaoConfig()
+    trace = run_functional(get_benchmark("mcf"), 20000)
+    fs = extract_features(trace, cfg.features, with_labels=False)
+    gpu_model = init_tao(cfg, torch.Generator().manual_seed(0), device=dev)
+    cpu_model = init_tao(cfg, torch.Generator().manual_seed(0), device="cpu")
+    launches = FLASH_ATTENTION.launches
+    gpu = simulate_trace_legacy(gpu_model, trace, cfg, batch_size=64, features=fs, device=dev)
+    batches = -(-(len(trace) // cfg.window) // 64)
+    assert FLASH_ATTENTION.launches - launches == cfg.n_layers * batches
+    cpu = simulate_trace_legacy(cpu_model, trace, cfg, batch_size=64, features=fs, device="cpu")
+    n = cpu.num_instructions
+    assert gpu.num_instructions == n == (len(trace) // cfg.window) * cfg.window
+    flips = {
+        "fetch": int((gpu.fetch_lat != cpu.fetch_lat).sum()),
+        "exec": int((gpu.exec_lat != cpu.exec_lat).sum()),
+        "mispredict": int(((gpu.mispred_prob > 0.5) != (cpu.mispred_prob > 0.5)).sum()),
+        "l1d": int(((gpu.dlevel >= 2) != (cpu.dlevel >= 2)).sum()),
+    }
+    assert max(flips.values()) <= 1e-3 * n, flips
+    np.testing.assert_allclose(gpu.mispred_prob, cpu.mispred_prob, rtol=0, atol=1e-4)
+    assert abs(gpu.total_cycles - cpu.total_cycles) <= 256.0 * (flips["fetch"] + flips["exec"])
+    assert abs(gpu.branch_mpki - cpu.branch_mpki) <= 1000.0 * flips["mispredict"] / n + 1e-12
+    assert abs(gpu.l1d_mpki - cpu.l1d_mpki) <= 1000.0 * flips["l1d"] / n + 1e-12

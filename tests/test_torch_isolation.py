@@ -11,6 +11,7 @@ import ast
 import os
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -28,8 +29,20 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), bad)
+print(len(names), bad, sorted(names))
 """
+
+# modules the walk must reach: one per subpackage, the persistence slice's too
+_MUST_WALK = (
+    "repro_torch.ckpt.checkpoint",
+    "repro_torch.core.simulate",
+    "repro_torch.core.transfer",
+    "repro_torch.engine.runner",
+    "repro_torch.resilience.faults",
+    "repro_torch.resilience.manifest",
+    "repro_torch.store.content",
+    "repro_torch.store.store",
+)
 
 
 def _env():
@@ -45,7 +58,9 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
         env=_env(), timeout=300, check=True,
     ).stdout.split(maxsplit=1)
     assert int(out[0]) >= 20  # every subpackage was walked
-    assert out[1].strip() == "[]"
+    bad, walked = out[1].strip().split("] ", 1)
+    assert bad == "["
+    assert set(_MUST_WALK) <= set(ast.literal_eval(walked))
 
 
 @pytest.mark.parametrize(
@@ -80,6 +95,8 @@ def test_default_device_entry_points_raise_without_cuda():
         build_windows,
         extract_features,
         init_tao,
+        simulate_trace,
+        simulate_trace_legacy,
         train_tao_impl,
         transfer_finetune,
     )
@@ -108,9 +125,12 @@ def test_default_device_entry_points_raise_without_cuda():
         "simulate_trace_engine": lambda: simulate_trace_engine(cpu_model, trace, cfg),
         "train_tao_impl": lambda: train_tao_impl(cfg, windows, epochs=1),
         "transfer_finetune": lambda: transfer_finetune(cfg, cpu_model.embed, cpu_model, windows),
+        "simulate_trace": lambda: simulate_trace(cpu_model, trace, cfg),
+        "simulate_trace_legacy": lambda: simulate_trace_legacy(cpu_model, trace, cfg),
     }
     for name, call in calls.items():
-        with pytest.raises(RuntimeError, match="device='cpu'"):
+        with pytest.raises(RuntimeError, match="device='cpu'"), warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)  # simulate_trace's own
             call()
     # asked for explicitly, the CPU runs
     r = simulate_trace_engine(cpu_model, trace, cfg, device="cpu")
