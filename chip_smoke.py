@@ -68,15 +68,22 @@ and ``nvcc``.  Phases, one JSON line each:
            int8 on the CPU);
   train    the port's training path at the default TaoConfig width: the
            detailed simulator on lee and mcf (30,000 instructions each,
-           UARCH_A), alignment, labelled features, windows; train_tao_impl
-           for 2 epochs at batch 16 on the card, then transfer_finetune
-           (frozen embeddings) for 1 epoch on dee under UARCH_B, with the
-           launch counts read around both (2 attention forward and 2
-           backward launches a step, no other kernel), the step's host and
-           device ms, idle share and windows/s from a profile that must
-           show only the port's attention kernels, the losses (finite,
-           falling), the embeddings bitwise unchanged by the fine-tune,
-           and the first 3 steps on the card against the CPU's;
+           UARCH_A), alignment, labelled features, windows; the train
+           step of each recipe captured ahead of any data
+           (warmup_train_step: one CUDA graph, its capture seconds,
+           retained bytes and kernel nodes, B4 and its backward among
+           them); train_tao_impl for 2 epochs at batch 16 on the card,
+           then transfer_finetune (frozen embeddings) for 1 epoch on dee
+           under UARCH_B, each batch one replay, with the launch counts
+           read around both (2 attention forward and 2 backward launches
+           a step, from the counters and from the graphs' nodes times
+           their replays, no other kernel, no capture); the graphed run
+           against the entry's eager step in turns (host ms per step,
+           windows/s; losses, parameters and AdamW state bitwise), device
+           ms and idle share of each from profiles that must show only
+           the port's attention kernels; the losses (finite, falling),
+           the embeddings bitwise unchanged by the fine-tune, and the
+           first 3 steps on the card against the CPU's;
   persist  crash-resumable training and the legacy simulate loop: the
            train phase's windows and the three 150k traces' FeatureSets put
            into an ArtifactStore and read back bitwise (put / get ms and
@@ -92,6 +99,21 @@ and ``nvcc``.  Phases, one JSON line each:
            the three traces (2 attention launches per ragged batch) held
            to the engine's fused route by the flip check, legacy MIPS
            beside the engine's and the engine's speedup;
+  joint    the paper's workflow (§4.3): Mahalanobis pair selection over 8
+           sampled designs on a 3,000-instruction trace; joint training of
+           the embedding on the train phase's traces under UARCH_A and
+           UARCH_B with each of the four methods (tao, tao_no_adapt,
+           granite, gradnorm), 3 epochs at batch 16 and lr 1e-3, each
+           method's step captured once and replayed (4 attention forward
+           and 4 backward launches a step, counters and nodes × replays),
+           losses finite and falling under tao, adapt unchanged without
+           adaptation, GradNorm's weights summing to 2; the graphed joint
+           step against its eager step in turns (bitwise; host and device
+           ms per step, idle share); the first 3 steps of each method on
+           the card against the CPU's; transfer_finetune of the jointly
+           trained embedding (frozen, bitwise unchanged) with A's heads as
+           donor onto dee under UARCH_C; 3 eager SimNet steps on the card
+           against the CPU (no hand kernel launched);
   mamba2   the port's Mamba-2 serving path at the full width of
            mamba2-1.3b (48 layers, bfloat16, random weights from a CUDA
            generator, seed 0): prefill of 4 prompts x 2048 tokens, then 32
@@ -213,6 +235,18 @@ ds = WindowDataset(inputs=tree["inputs"], labels=tree["labels"])
 train_tao_impl(TaoConfig(), ds, epochs=int(epochs), batch_size=int(batch), lr=float(lr), seed=0,
                store=store, resume_key=resume_key, device="cuda")
 """
+# the joint cell: Algorithm 1 and its baselines on the train cell's traces
+# under UARCH_A and UARCH_B, at lr 1e-3 (Session.train_joint's default);
+# the pair selection over 8 sampled designs on one short trace, as the
+# reference's examples/train_tao_e2e.py does; a short SimNet run
+JOINT_EPOCHS, JOINT_LR, JOINT_PROFILE_STEPS = 3, 1e-3, 10
+JOINT_DESIGNS, JOINT_DESIGN_SEED = 8, 42
+JOINT_SELECT_TRACE, JOINT_SELECT_INSTRUCTIONS = "lee", 3_000
+SIMNET_STEPS = 3
+# the card's first joint steps against the CPU's: the tolerance the CPU
+# tests hold three joint steps of the port to the reference's with
+# (losses relative, GradNorm's weights absolute)
+JOINT_CPU_RTOL = 1e-5
 # the card's first steps against the same steps on the CPU: the forward
 # differs in the last bits (cuBLAS vs CPU BLAS order, 3xTF32 attention), so
 # the losses agree within 1e-4 relative; Adam moves each parameter by at
@@ -1623,24 +1657,34 @@ def slice_int8(failures, traces, arrays, model, engine, extract, batches, lee_ba
 
 
 @functools.lru_cache(maxsize=None)
-def labelled_windows(names, uarch, cfg):
-    """The training data path: the detailed simulator's records for each
-    trace on ``uarch``, aligned to the functional trace (§4.1), features
-    with labels, windows (dedup per trace), concatenated.  Kept for the
-    process: the ``persist`` phase trains on the ``train`` phase's windows."""
-    from repro_torch.core import build_adjusted_trace, build_windows, concat_datasets
-    from repro_torch.core import extract_features, verify_alignment
+def adjusted_trace(name, uarch, n=TRAIN_INSTRUCTIONS):
+    """The detailed simulator's records for ``name`` on ``uarch``, aligned to
+    the functional trace (§4.1), and whether the alignment checks hold.
+    Kept for the process: later phases reuse the labels."""
+    from repro_torch.core import build_adjusted_trace, verify_alignment
     from repro_torch.uarch import get_benchmark, run_detailed, run_functional
+
+    prog = get_benchmark(name)
+    ft = run_functional(prog, n)
+    det, _ = run_detailed(prog, ft, uarch)
+    al = build_adjusted_trace(det)
+    check = verify_alignment(al, ft)
+    return al.adjusted, check["stream_match"] and check["cycles_match"]
+
+
+@functools.lru_cache(maxsize=None)
+def labelled_windows(names, uarch, cfg):
+    """The training data path: each trace's adjusted records on ``uarch``,
+    features with labels, windows (dedup per trace), concatenated.  Kept
+    for the process: the ``persist`` and ``joint`` phases train on the
+    ``train`` phase's windows."""
+    from repro_torch.core import build_windows, concat_datasets, extract_features
 
     parts, aligned_ok = [], True
     for name in names:
-        prog = get_benchmark(name)
-        ft = run_functional(prog, TRAIN_INSTRUCTIONS)
-        det, _ = run_detailed(prog, ft, uarch)
-        al = build_adjusted_trace(det)
-        check = verify_alignment(al, ft)
-        aligned_ok &= check["stream_match"] and check["cycles_match"]
-        parts.append(build_windows(extract_features(al.adjusted, cfg.features), cfg.window))
+        adj, ok = adjusted_trace(name, uarch)
+        aligned_ok &= ok
+        parts.append(build_windows(extract_features(adj, cfg.features), cfg.window))
     return concat_datasets(parts), aligned_ok
 
 
@@ -1649,24 +1693,129 @@ def params_diff(a, b) -> float:
     return max(float((sa[k].cpu() - sb[k].cpu()).abs().max()) for k in sa)
 
 
-def phase_train(failures, results, traces):
-    """The port's training path at the default TaoConfig width: labelled
-    windows from the detailed simulator, train_tao_impl for TRAIN_EPOCHS at
-    batch 16 on the card, then Tao's transfer (frozen embeddings) to
-    UARCH_B on another trace; the attention kernels' launches per step, the
-    step's host and device time, idle share and windows/s; the first steps
-    on the card against the same steps on the CPU."""
+def state_bitwise(a, b) -> bool:
+    """Two trees of tensors (modules by state dict, AdamW states, dicts,
+    lists) equal in structure, dtype, shape and every bit."""
     import torch
 
-    from repro_torch.core import TaoConfig, multi_metric_loss, tao_forward, train_tao_impl
-    from repro_torch.core import transfer_finetune
-    from repro_torch.core.model import init_tao
-    from repro_torch.core.transfer import _make_step, to_device, trainable_params
-    from repro_torch.kernels.attention.kernel import BWD_KERNEL_NAMES
-    from repro_torch.train import AdamWConfig, adamw_init, adamw_update
-    from repro_torch.uarch import UARCH_A, UARCH_B
+    if isinstance(a, torch.nn.Module):
+        a, b = a.state_dict(), b.state_dict()
+    if isinstance(a, tuple) and hasattr(a, "_asdict"):
+        a, b = a._asdict(), b._asdict()
+    if isinstance(a, dict):
+        return isinstance(b, dict) and list(a) == list(b) and all(state_bitwise(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(state_bitwise(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
 
+
+def graph_nodes(entry) -> dict:
+    """Each captured geometry of a train-step entry: its kernel nodes, the
+    attention forward and backward nodes among them, and its replays."""
+    from repro_torch.engine.aot import graph_kernel_names
+
+    out = []
+    for g in entry.aot.values():
+        names = graph_kernel_names(g.graph)
+        out.append({"kernel_nodes": len(names),
+                    "attention_nodes": sum("attention_kernel" in k for k in names),
+                    "bwd_delta_nodes": sum("bwd_delta" in k for k in names),
+                    "bwd_dkdv_dq_nodes": sum("bwd_dkdv_dq" in k for k in names),
+                    "launches_per_replay": {k.symbol: n for k, n in g.launches.items()},
+                    "replays": g.replays, "bytes": g.bytes_estimate})
+    return out
+
+
+def train_run(cfg, ds, graphed: bool, epochs: int, freeze: bool = False, init=None, seed: int = 0):
+    """One run of a train recipe on the card, driven as ``train_tao_impl``
+    drives it (``core/transfer.py``'s ``_run_epochs``): on the recipe's
+    CUDA graph, or on the same entry's eager step.  Returns the losses,
+    steps, host seconds, and the model and AdamW state after the run."""
+    import torch
+
+    from repro_torch.core.transfer import _EagerRun, _GraphRun, _make_step, _new_state, _run_epochs
+    from repro_torch.train import AdamWConfig
+
+    model, opt = _new_state(cfg, init, freeze, seed, torch.device("cuda"))
+    entry = _make_step(cfg, AdamWConfig(lr=TRAIN_LR), "headonly" if freeze else "all")
+    run = (_GraphRun if graphed else _EagerRun)(entry, model, opt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, _, steps = _run_epochs(run, ds, epochs, TRAIN_BATCH, seed=seed)
+    model, opt = run.state()
+    torch.cuda.synchronize()
+    return {"losses": losses, "steps": steps, "seconds": time.perf_counter() - t0, "model": model,
+            "opt": opt}
+
+
+def replay_split(graph, batches, state=None) -> dict:
+    """Where a graphed step's host time goes, per step on the host clock
+    (no synchronisation between the parts): the batch arrays copied into
+    the static inputs (from pageable NumPy: each copy waits for the work
+    queued before it), the replay's launch, the outputs cloned off the
+    graph, and with ``state`` (a ``(params, carry)`` pair) the per-call
+    copies of the state in and back (the joint step's)."""
+    import torch
+
+    from repro_torch.engine.aot import _copy_tree_, tree_map
+
+    parts = ("load", "inputs", "replay", "outputs", "store") if state else ("inputs", "replay", "outputs")
+    split = dict.fromkeys(parts, 0.0)
+    for b in batches:
+        t = [time.perf_counter()]
+        if state:
+            graph.load(*state)
+            t.append(time.perf_counter())
+        _copy_tree_(graph.batch, tree_map(torch.as_tensor, b))
+        t.append(time.perf_counter())
+        graph.graph.replay()
+        t.append(time.perf_counter())
+        tree_map(torch.clone, graph.per)
+        t.append(time.perf_counter())
+        if state:
+            graph.store(*state)
+            t.append(time.perf_counter())
+        for k, a, z in zip(parts, t, t[1:]):
+            split[k] += (z - a) * 1e3 / len(batches)
+    torch.cuda.synchronize()
+    return split
+
+
+def step_profile(run, batches, track=()) -> dict:
+    """Device ms per step, idle share and the tracked kernels' ms over
+    ``len(batches)`` steps of a run (one ``_GraphRun`` / ``_EagerRun``)."""
+    def steps():
+        for b in batches:
+            loss = run.step(b)
+        loss.item()
+
+    steps()
+    prof = profile_breakdown(steps, track=track)
+    prof["ms_per_step_device"] = prof["device_busy_s"] * 1e3 / len(batches)
+    return prof
+
+
+def phase_train(failures, results, traces):
+    """The port's training path at the default TaoConfig width: labelled
+    windows from the detailed simulator; the train step captured ahead of
+    any data (warmup_train_step: one CUDA graph per recipe and geometry,
+    its capture seconds, bytes and kernel nodes); train_tao_impl for
+    TRAIN_EPOCHS at batch 16 on the card, then Tao's transfer (frozen
+    embeddings) to UARCH_B on another trace, both replaying their graphs;
+    the attention kernels' launches per step from the counters and from
+    the graphs' nodes times their replays; the graphed run against the
+    entry's eager step in turns (host and device ms per step, idle share,
+    windows/s; losses, parameters and AdamW state bitwise); the first
+    steps on the card against the same steps on the CPU."""
     import numpy as np
+    import torch
+
+    from repro_torch.core import TaoConfig, train_tao_impl, transfer_finetune, warmup_train_step
+    from repro_torch.core.model import init_tao
+    from repro_torch.core.transfer import _EagerRun, _GraphRun, _make_step, _new_state
+    from repro_torch.kernels.attention.kernel import BWD_KERNEL_NAMES
+    from repro_torch.train import AdamWConfig, cache_stats
+    from repro_torch.uarch import UARCH_A, UARCH_B
 
     cfg = TaoConfig()
     t0 = time.perf_counter()
@@ -1680,10 +1829,25 @@ def phase_train(failures, results, traces):
     if not (aligned_ok and small_ok):
         failures.append("train: the adjusted trace does not align with the functional trace")
 
-    # warm-up: cuBLAS handles, allocator pools, the kernels' first launches
-    train_tao_impl(cfg, ds.subsample(2 * TRAIN_BATCH), epochs=1, batch_size=TRAIN_BATCH,
-                   lr=TRAIN_LR, device="cuda")
-    torch.cuda.synchronize()
+    # ---- the captures, ahead of any data: one graph per recipe
+    captures = {}
+    for name, freeze in (("all", False), ("headonly", True)):
+        t0 = time.perf_counter()
+        entry = warmup_train_step(cfg, batch_size=TRAIN_BATCH, lr=TRAIN_LR, freeze_embed=freeze)
+        torch.cuda.synchronize()
+        captures[name] = {"seconds": time.perf_counter() - t0, "compiles": entry.compiles,
+                          "est_bytes": entry.est_bytes, "graphs": graph_nodes(entry)}
+    stats0 = cache_stats()
+    emit({"phase": "train", "check": "capture", "captures": captures, "cache_stats": stats0})
+    cap_ok = all(c["compiles"] == 1 and c["graphs"][0]["attention_nodes"] == cfg.n_layers
+                 and c["graphs"][0]["bwd_dkdv_dq_nodes"] == cfg.n_layers
+                 and c["graphs"][0]["bwd_delta_nodes"] == cfg.n_layers for c in captures.values())
+    if not cap_ok:
+        failures.append(f"train: captures {captures}")
+
+    # ---- the main path: train_tao_impl and the transfer, on their graphs
+    entries = {n: _make_step(cfg, AdamWConfig(lr=TRAIN_LR), n) for n in captures}
+    replays0 = {n: sum(g.replays for g in e.aot.values()) for n, e in entries.items()}
     zero_counts()
     res = train_tao_impl(cfg, ds, epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH, lr=TRAIN_LR,
                          seed=0, device="cuda")
@@ -1692,71 +1856,79 @@ def phase_train(failures, results, traces):
     torch.cuda.synchronize()
     launches = read_counts()
     steps = res.steps + ft.steps
+    replays = {n: sum(g.replays for g in e.aot.values()) - replays0[n] for n, e in entries.items()}
+    by_nodes = {k: sum(replays[n] * captures[n]["graphs"][0][f"{k}_nodes"] for n in replays)
+                for k in ("attention", "bwd_dkdv_dq")}
     expected = {k: 0 for k in launches} | {"flash_attention": cfg.n_layers * steps,
                                            "flash_attention_bwd": cfg.n_layers * steps}
-    if launches != expected:
-        failures.append(f"train: launches {launches}, expected {expected}")
+    new_captures = cache_stats()["compiles"] - stats0["compiles"]
+    if (launches != expected or replays != {"all": res.steps, "headonly": ft.steps} or new_captures
+            or by_nodes != {"attention": expected["flash_attention"],
+                            "bwd_dkdv_dq": expected["flash_attention_bwd"]}):
+        failures.append(f"train: launches {launches}, expected {expected}; replays {replays}; "
+                        f"from nodes {by_nodes}; captures during the run {new_captures}")
     results["flash_attention_bwd"]["launches"] = launches["flash_attention_bwd"]
     finite = all(math.isfinite(x) for x in res.losses + ft.losses)
     falls = len(res.losses) == TRAIN_EPOCHS and res.losses[1] < res.losses[0]
-    frozen = all(torch.equal(a, b) for a, b in zip(ft.params.embed.state_dict().values(),
-                                                 res.params.embed.state_dict().values()))
+    frozen = state_bitwise(ft.params.embed, res.params.embed)
     moved = params_diff(ft.params.pred, res.params.pred) > 0
     if not (finite and falls and frozen and moved):
         failures.append(f"train: losses {res.losses} / {ft.losses} (finite {finite}, falling "
                         f"{falls}), embed unchanged by the fine-tune {frozen}, pred moved {moved}")
 
-    # the step's device time and idle share: one profiled epoch of 10
-    # steps (model and optimizer made before the window)
-    model = init_tao(cfg, torch.Generator().manual_seed(0), device="cuda")
-    step = _make_step(cfg, AdamWConfig(lr=TRAIN_LR), "all")
-    opt = adamw_init(trainable_params(model, "all"))
+    # ---- graphed against the entry's eager step, in turns: the same
+    # recipe from the same seed, each run on its own model
+    turns = {}
+    for i, graphed in enumerate((True, False, False, True)):
+        turns[f"{i}_{'graphed' if graphed else 'eager'}"] = train_run(cfg, ds, graphed, TRAIN_EPOCHS)
+    ref = turns["1_eager"]
+    held = {k: {"losses": t["losses"] == ref["losses"], "params": state_bitwise(t["model"], ref["model"]),
+                "adamw": state_bitwise(t["opt"], ref["opt"])} for k, t in turns.items()}
+    held_ok = all(all(v.values()) for v in held.values()) and ref["losses"] == res.losses
+    if not held_ok:
+        failures.append(f"train: the graphed run differs from the eager step: {held}")
+    # device time and idle share: 10 steps on each, their profiles
+    track = ("attention_kernel", *BWD_KERNEL_NAMES, "fmha", "flash_fwd", "flash_bwd",
+             "efficient_attention")
     batches = list(ds.batches(TRAIN_BATCH, rng=np.random.default_rng(0)))[:10]
-
-    def ten_steps():
-        nonlocal opt
-        for b in batches:
-            opt, loss = step(model, opt, to_device(b, torch.device("cuda")))
-        loss.item()
-
-    ten_steps()
-    prof = profile_breakdown(ten_steps, track=("attention_kernel", *BWD_KERNEL_NAMES, "fmha",
-                                               "flash_fwd", "flash_bwd", "efficient_attention"))
-    names = set(prof["tracked_ms"])
+    profs = {}
+    for name, run_cls in (("graphed", _GraphRun), ("eager", _EagerRun)):
+        model, opt = _new_state(cfg, None, False, 0, torch.device("cuda"))
+        profs[name] = step_profile(run_cls(entries["all"], model, opt), batches, track)
     ours = {"attention_kernel", *BWD_KERNEL_NAMES}
-    library = [n for n in names if not any(n.startswith(o) for o in ours)]
-    if library or not all(any(n.startswith(o) for n in names) for o in ours):
-        failures.append(f"train: step profile attention kernels {sorted(names)}")
-    # where the host's time goes: each part of the step on the host clock,
-    # no synchronisation between them (the device idles most of the step),
-    # and the kernels one step enqueues
-    split = dict.fromkeys(("copy", "forward_loss", "backward", "adamw"), 0.0)
-    params = trainable_params(model, "all")
-    opt_cfg = AdamWConfig(lr=TRAIN_LR)
-    for b in batches:
-        t0 = time.perf_counter()
-        tb = to_device(b, torch.device("cuda"))
-        t1 = time.perf_counter()
-        loss, _ = multi_metric_loss(tao_forward(model, tb, cfg), tb["labels"])
-        t2 = time.perf_counter()
-        grads = torch.autograd.grad(loss, list(params.values()))
-        t3 = time.perf_counter()
-        opt = adamw_update(params, dict(zip(params, grads)), opt, opt_cfg)[1]
-        t4 = time.perf_counter()
-        for k, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-            split[k] += dt * 1e3 / len(batches)
-    torch.cuda.synchronize()
-    per_step = kernels_enqueued(lambda: step(model, opt, to_device(batches[0], torch.device("cuda"))))
-    host_ms = res.seconds / res.steps * 1e3
+    for name, prof in profs.items():
+        names = set(prof["tracked_ms"])
+        if [n for n in names if not any(n.startswith(o) for o in ours)] or not all(
+                any(n.startswith(o) for n in names) for o in ours):
+            failures.append(f"train: {name} step profile attention kernels {sorted(names)}")
+    model, opt = _new_state(cfg, None, False, 0, torch.device("cuda"))
+    eager_run = _EagerRun(entries["all"], model, opt)
+    kernels_eager = kernels_enqueued(lambda: eager_run.step(batches[0]))
+    graph = next(iter(entries["all"].aot.values()))
+    graph.load(model, opt)
+    split = replay_split(graph, batches)
+
+    def timing(t):
+        return {"ms_per_step_host": t["seconds"] / t["steps"] * 1e3,
+                "windows_per_s": t["steps"] * TRAIN_BATCH / t["seconds"]}
+
     emit({"phase": "train", "check": "train", "epochs": TRAIN_EPOCHS, "batch": TRAIN_BATCH,
           "lr": TRAIN_LR, "steps": res.steps, "losses": res.losses, "seconds": res.seconds,
-          "ms_per_step_host": host_ms, "ms_per_step_device": prof["device_busy_s"] * 1e3 / 10,
-          "idle_share_profiled": prof["idle_share"], "windows_per_s": res.steps * TRAIN_BATCH / res.seconds,
+          "ms_per_step_host": res.seconds / res.steps * 1e3,
+          "windows_per_s": res.steps * TRAIN_BATCH / res.seconds,
           "flash_attention_per_step": launches["flash_attention"] / steps,
           "flash_attention_bwd_per_step": launches["flash_attention_bwd"] / steps,
-          "host_ms_per_step_split": split, "kernels_per_step": per_step,
-          "launches": launches, "attention_kernels_ms": prof["tracked_ms"],
-          "top_device_ms": prof["top_device_ms"], "ok": finite and falls})
+          "launches": launches, "replays": replays, "launches_from_graph_nodes": by_nodes,
+          "ok": finite and falls})
+    emit({"phase": "train", "check": "graph_vs_eager", "turns": list(turns), "held": held,
+          "timing": {k: timing(t) for k, t in turns.items()},
+          "ms_per_step_device": {k: p["ms_per_step_device"] for k, p in profs.items()},
+          "idle_share_profiled": {k: p["idle_share"] for k, p in profs.items()},
+          "kernels_per_step": {"graphed": captures["all"]["graphs"][0]["kernel_nodes"],
+                               "eager": kernels_eager},
+          "graphed_host_ms_per_step_split": split,
+          "attention_kernels_ms": {k: p["tracked_ms"] for k, p in profs.items()},
+          "top_device_ms": {k: p["top_device_ms"] for k, p in profs.items()}, "ok": held_ok})
     emit({"phase": "train", "check": "transfer", "epochs": TRANSFER_EPOCHS, "steps": ft.steps,
           "losses": ft.losses, "seconds": ft.seconds, "embed_bitwise_unchanged": frozen,
           "pred_max_change": params_diff(ft.params.pred, res.params.pred)})
@@ -1984,6 +2156,307 @@ def phase_persist(failures, results, traces):
           "ok": all(v["ok"] for v in lines.values())})
 
 
+def joint_loop(cfg, ds_a, ds_b, method: str, graphed: bool = True, device: str = "cuda",
+               epochs: int = JOINT_EPOCHS, max_steps=None, init=None):
+    """Joint training of A and B as ``Session.train_joint`` runs it (one
+    NumPy generator shuffles A's batches, then B's; the first step's
+    losses become GradNorm's initial losses): through ``make_joint_step``
+    (on the card its graph), or through the entry's eager step.  Returns
+    the per-step losses and GradNorm weights, epoch mean losses, steps,
+    host seconds, and the parameters, AdamW state and weights after the
+    run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import init_multiarch, make_joint_step
+    from repro_torch.core.transfer import to_device
+    from repro_torch.train import AdamWConfig, adamw_init
+
+    dev = torch.device(device)
+    params = init_multiarch(cfg, torch.Generator().manual_seed(0), device=dev)
+    if init is not None:
+        params.load_state_dict(init)
+    opt = adamw_init(dict(params.named_parameters()))
+    w = torch.ones(2, device=dev)
+    step = make_joint_step(cfg, AdamWConfig(lr=JOINT_LR), method)
+    if not graphed:
+        def step(p, o, gw, il, ba, bb, _fn=step.entry.fn):  # noqa: F811
+            carry, m = _fn(p, {"opt": o, "w": gw}, {"initial": il, "a": to_device(ba, dev),
+                                                    "b": to_device(bb, dev)})
+            return carry["opt"], carry["w"], m
+    rng = np.random.default_rng(0)
+    initial, metrics, ws, steps = None, [], [], 0
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        for ba, bb in zip(ds_a.batches(TRAIN_BATCH, rng=rng), ds_b.batches(TRAIN_BATCH, rng=rng)):
+            opt, w, m = step(params, opt, w, initial if initial is not None else torch.ones(2, device=dev),
+                             ba, bb)
+            metrics.append(torch.stack([m["loss_a"], m["loss_b"]]))
+            ws.append(w.clone())
+            if initial is None:
+                initial = metrics[0].clone()
+            steps += 1
+            if steps == max_steps:
+                break
+        if steps == max_steps:
+            break
+    losses = torch.stack(metrics).cpu().numpy()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    per_epoch = steps // epochs if max_steps is None else steps
+    return {"losses": losses, "w": torch.stack(ws).cpu().numpy(), "steps": steps, "seconds": seconds,
+            "epoch_losses": [float(losses[i:i + per_epoch].mean()) for i in range(0, steps, per_epoch)],
+            "params": params, "opt": opt, "gradnorm_w": w}
+
+
+def phase_joint(failures, results, traces):
+    """The paper's workflow at the default TaoConfig width, as the
+    reference's ``examples/train_tao_e2e.py`` runs it: Mahalanobis pair
+    selection over sampled designs; joint training of the µarch-agnostic
+    embedding on lee + mcf under UARCH_A and UARCH_B (the ``train`` phase's
+    traces), with all four methods, each step one replay of its graph (4
+    attention forward and 4 backward launches a step); the graphed joint
+    step against its eager step in turns; the card's first steps against
+    the CPU's; transfer of the jointly trained embedding, frozen, with A's
+    heads as donor, onto dee under UARCH_C; and a short SimNet run on the
+    card against the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (METHODS, SimNetConfig, TaoConfig, init_simnet, make_joint_step,
+                                  make_simnet_step, measure_design_metrics, select_pair_euclidean,
+                                  select_pair_mahalanobis, select_random, simnet_features,
+                                  simnet_windows, transfer_finetune)
+    from repro_torch.engine.aot import tree_map
+    from repro_torch.train import AdamWConfig, adamw_init
+    from repro_torch.uarch import UARCH_A, UARCH_B, UARCH_C, sample_design_space
+
+    cfg = TaoConfig()
+    # ---- selection over sampled designs on one short trace
+    t0 = time.perf_counter()
+    designs = sample_design_space(JOINT_DESIGNS, seed=JOINT_DESIGN_SEED)
+    metrics = measure_design_metrics(designs, [JOINT_SELECT_TRACE], instructions=JOINT_SELECT_INSTRUCTIONS)
+    pair = select_pair_mahalanobis(metrics)
+    emit({"phase": "joint", "check": "selection", "designs": len(designs), "trace": JOINT_SELECT_TRACE,
+          "instructions": JOINT_SELECT_INSTRUCTIONS, "seconds": time.perf_counter() - t0,
+          "mahalanobis_pair": pair, "euclidean_pair": select_pair_euclidean(metrics),
+          "random": [int(i) for i in select_random(len(designs), 2, seed=0)],
+          "pair_names": [designs[i].name for i in pair], "metrics_finite": bool(np.isfinite(metrics).all())})
+    if not (np.isfinite(metrics).all() and pair[0] < pair[1]):
+        failures.append(f"joint: selection metrics {metrics.tolist()}, pair {pair}")
+
+    t0 = time.perf_counter()
+    ds_a, ok_a = labelled_windows(TRAIN_TRACES, UARCH_A, cfg)
+    ds_b, ok_b = labelled_windows(TRAIN_TRACES, UARCH_B, cfg)
+    ds_c, ok_c = labelled_windows((TRANSFER_TRACE,), UARCH_C, cfg)
+    emit({"phase": "joint", "check": "data", "windows": [len(ds_a), len(ds_b)], "transfer_windows": len(ds_c),
+          "seconds": time.perf_counter() - t0, "aligned": ok_a and ok_b and ok_c})
+    if not (ok_a and ok_b and ok_c):
+        failures.append("joint: the adjusted trace does not align with the functional trace")
+
+    # ---- one capture per method, ahead of the counted runs
+    like = tree_map(torch.as_tensor, next(ds_a.batches(TRAIN_BATCH)))
+    captures = {}
+    for method in METHODS:
+        step = make_joint_step(cfg, AdamWConfig(lr=JOINT_LR), method)
+        params = init_multiarch_like(cfg)
+        t0 = time.perf_counter()
+        step.entry.graph(params, {"opt": adamw_init(dict(params.named_parameters())),
+                                  "w": torch.ones(2, device="cuda")},
+                         {"initial": torch.ones(2), "a": like, "b": like})
+        torch.cuda.synchronize()
+        captures[method] = {"seconds": time.perf_counter() - t0, "compiles": step.entry.compiles,
+                            "est_bytes": step.entry.est_bytes, "graphs": graph_nodes(step.entry)}
+        del params
+    emit({"phase": "joint", "check": "capture", "captures": captures})
+    if not all(c["compiles"] == 1 and c["graphs"][0]["attention_nodes"] == 2 * cfg.n_layers
+               and c["graphs"][0]["bwd_dkdv_dq_nodes"] == 2 * cfg.n_layers for c in captures.values()):
+        failures.append(f"joint: captures {captures}")
+
+    # ---- the main path: all four methods on their graphs
+    entries = {m: make_joint_step(cfg, AdamWConfig(lr=JOINT_LR), m).entry for m in METHODS}
+    replays0 = {m: sum(g.replays for g in e.aot.values()) for m, e in entries.items()}
+    zero_counts()
+    runs = {m: joint_loop(cfg, ds_a, ds_b, m) for m in METHODS}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    steps = sum(r["steps"] for r in runs.values())
+    replays = {m: sum(g.replays for g in e.aot.values()) - replays0[m] for m, e in entries.items()}
+    expected = {k: 0 for k in launches} | {"flash_attention": 2 * cfg.n_layers * steps,
+                                           "flash_attention_bwd": 2 * cfg.n_layers * steps}
+    by_nodes = {k: sum(replays[m] * captures[m]["graphs"][0][f"{k}_nodes"] for m in METHODS)
+                for k in ("attention", "bwd_dkdv_dq")}
+    counts_ok = (launches == expected and replays == {m: r["steps"] for m, r in runs.items()}
+                 and by_nodes == {"attention": expected["flash_attention"],
+                                  "bwd_dkdv_dq": expected["flash_attention_bwd"]}
+                 and all(e.compiles == 1 for e in entries.values()))
+    init = init_multiarch_like(cfg).state_dict()
+    checks = {}
+    for m, r in runs.items():
+        adapt_same = all(torch.equal(r["params"].state_dict()[k], init[k]) for k in init if ".adapt." in k)
+        checks[m] = {"finite": bool(np.isfinite(r["losses"]).all()),
+                     "falling": r["epoch_losses"][-1] < r["epoch_losses"][0],
+                     "adapt_unchanged": adapt_same,
+                     "gradnorm_w_sum": float(r["w"].sum(axis=1).max()) if m == "gradnorm" else None}
+    joint_ok = (counts_ok and all(c["finite"] for c in checks.values()) and checks["tao"]["falling"]
+                and not checks["tao"]["adapt_unchanged"]
+                and all(checks[m]["adapt_unchanged"] for m in METHODS if m != "tao")
+                and np.allclose(runs["gradnorm"]["w"].sum(axis=1), 2.0, rtol=1e-6, atol=0))
+    emit({"phase": "joint", "check": "train", "epochs": JOINT_EPOCHS, "batch": TRAIN_BATCH, "lr": JOINT_LR,
+          "steps": {m: r["steps"] for m, r in runs.items()}, "launches": launches, "expected": expected,
+          "replays": replays, "launches_from_graph_nodes": by_nodes,
+          "flash_attention_per_step": launches["flash_attention"] / steps,
+          "flash_attention_bwd_per_step": launches["flash_attention_bwd"] / steps,
+          "epoch_losses": {m: r["epoch_losses"] for m, r in runs.items()},
+          "gradnorm_w_last": runs["gradnorm"]["w"][-1].tolist(),
+          "ms_per_step_host": {m: r["seconds"] / r["steps"] * 1e3 for m, r in runs.items()},
+          "checks": checks, "ok": joint_ok})
+    if not joint_ok:
+        failures.append(f"joint: launches {launches} (expected {expected}), replays {replays}, "
+                        f"from nodes {by_nodes}, checks {checks}")
+
+    # ---- graphed against the eager step, in turns, under "tao"
+    turns = {f"{i}_{'graphed' if g else 'eager'}": joint_loop(cfg, ds_a, ds_b, "tao", graphed=g)
+             for i, g in enumerate((True, False, False, True))}
+    ref = turns["1_eager"]
+    held = {k: {"losses": bool(np.array_equal(t["losses"], ref["losses"])),
+                "params": state_bitwise(t["params"], ref["params"]),
+                "adamw": state_bitwise(t["opt"], ref["opt"])} for k, t in turns.items()}
+    held_ok = all(all(v.values()) for v in held.values()) and np.array_equal(runs["tao"]["losses"], ref["losses"])
+    gn_eager = joint_loop(cfg, ds_a, ds_b, "gradnorm", graphed=False, epochs=1)
+    gn_graph = joint_loop(cfg, ds_a, ds_b, "gradnorm", epochs=1)
+    gn_held = (np.array_equal(gn_eager["w"], gn_graph["w"])
+               and np.array_equal(gn_eager["losses"], gn_graph["losses"])
+               and state_bitwise(gn_eager["params"], gn_graph["params"]))
+    profs = {name: joint_step_profile(cfg, ds_a, ds_b, graphed)
+             for name, graphed in (("graphed", True), ("eager", False))}
+    params = init_multiarch_like(cfg)
+    state = (params, {"opt": adamw_init(dict(params.named_parameters())), "w": torch.ones(2, device="cuda")})
+    rng = np.random.default_rng(0)
+    inputs = [{"initial": torch.ones(2), "a": ba, "b": bb} for ba, bb in
+              zip(ds_a.batches(TRAIN_BATCH, rng=rng), ds_b.batches(TRAIN_BATCH, rng=rng))]
+    split = replay_split(next(iter(entries["tao"].aot.values())), inputs[:JOINT_PROFILE_STEPS], state)
+    emit({"phase": "joint", "check": "graph_vs_eager", "method": "tao", "turns": list(turns), "held": held,
+          "gradnorm_one_epoch_bitwise": gn_held,
+          "ms_per_step_host": {k: t["seconds"] / t["steps"] * 1e3 for k, t in turns.items()},
+          "windows_per_s": {k: 2 * t["steps"] * TRAIN_BATCH / t["seconds"] for k, t in turns.items()},
+          "ms_per_step_device": {k: p["ms_per_step_device"] for k, p in profs.items()},
+          "idle_share_profiled": {k: p["idle_share"] for k, p in profs.items()},
+          "kernels_per_step": {"graphed": captures["tao"]["graphs"][0]["kernel_nodes"]},
+          "graphed_host_ms_per_step_split": split,
+          "top_device_ms": {k: p["top_device_ms"] for k, p in profs.items()}, "ok": held_ok and gn_held})
+    if not (held_ok and gn_held):
+        failures.append(f"joint: the graphed joint step differs from the eager one: {held}, "
+                        f"gradnorm {gn_held}")
+
+    # ---- the card's first steps against the CPU's, every method
+    init_cpu = {k: v.cpu() for k, v in init.items()}
+    vs_cpu = {}
+    for m in METHODS:
+        t0 = time.perf_counter()
+        c = joint_loop(cfg, ds_a, ds_b, m, device="cpu", max_steps=TRAIN_CHECK_STEPS, init=init_cpu)
+        cpu_s = time.perf_counter() - t0
+        g = joint_loop(cfg, ds_a, ds_b, m, max_steps=TRAIN_CHECK_STEPS, init=init)
+        vs_cpu[m] = {"loss_max_rel": float(np.abs(g["losses"] / c["losses"] - 1).max()),
+                     "gradnorm_w_max_abs": float(np.abs(g["w"] - c["w"]).max()), "cpu_seconds": cpu_s}
+    vs_ok = all(v["loss_max_rel"] <= JOINT_CPU_RTOL and v["gradnorm_w_max_abs"] <= JOINT_CPU_RTOL
+                for v in vs_cpu.values())
+    emit({"phase": "joint", "check": "gpu_vs_cpu", "steps": TRAIN_CHECK_STEPS, "limit": JOINT_CPU_RTOL,
+          "per_method": vs_cpu, "ok": vs_ok})
+    if not vs_ok:
+        failures.append(f"joint: the card's first joint steps differ from the CPU's: {vs_cpu}")
+
+    # ---- transfer of the jointly trained embedding onto UARCH_C
+    joint = runs["tao"]["params"]
+    embed0 = {k: v.clone() for k, v in joint.embed.state_dict().items()}
+    ft = transfer_finetune(cfg, joint.embed, joint.A.state_dict(), ds_c, epochs=TRANSFER_EPOCHS,
+                           batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=0, device="cuda")
+    frozen = all(torch.equal(v, embed0[k]) for k, v in ft.params.embed.state_dict().items())
+    ft_ok = frozen and all(math.isfinite(x) for x in ft.losses)
+    emit({"phase": "joint", "check": "transfer", "uarch": UARCH_C.name, "trace": TRANSFER_TRACE,
+          "steps": ft.steps, "losses": ft.losses, "seconds": ft.seconds, "embed_bitwise_unchanged": frozen,
+          "ok": ft_ok})
+    if not ft_ok:
+        failures.append(f"joint: transfer losses {ft.losses}, embed unchanged {frozen}")
+
+    # ---- SimNet: a few eager steps on the card against the CPU
+    scfg = SimNetConfig()
+    adj, _ = adjusted_trace(TRAIN_TRACES[0], UARCH_A)
+    wins = simnet_windows(simnet_features(adj), scfg.window)
+    batches = [{k: v[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH] for k, v in wins.items()}
+               for i in range(SIMNET_STEPS)]
+    sim = {}
+    zero_counts()
+    for device in ("cpu", "cuda"):
+        model = init_simnet(scfg, torch.Generator().manual_seed(0), device=device)
+        opt = adamw_init(dict(model.named_parameters()))
+        step = make_simnet_step(scfg, AdamWConfig(lr=TRAIN_LR))
+        losses = []
+        t0 = time.perf_counter()
+        for b in batches:
+            opt, loss = step(model, opt, b)
+            losses.append(loss)
+        losses = [x.item() for x in losses]
+        sim[device] = {"losses": losses, "ms_per_step_host": (time.perf_counter() - t0) * 1e3 / len(batches)}
+    sim_launches = read_counts()
+    rel = max(abs(a / b - 1) for a, b in zip(sim["cuda"]["losses"], sim["cpu"]["losses"]))
+    sim_ok = (all(math.isfinite(x) for x in sim["cuda"]["losses"]) and rel <= TRAIN_LOSS_RTOL
+              and not any(sim_launches.values()))
+    emit({"phase": "joint", "check": "simnet", "windows": len(wins["x"]), "steps": SIMNET_STEPS, **sim,
+          "loss_max_rel": rel, "loss_rtol": TRAIN_LOSS_RTOL, "launches": sim_launches, "ok": sim_ok})
+    if not sim_ok:
+        failures.append(f"joint: SimNet on the card {sim}, rel {rel}, launches {sim_launches}")
+
+
+def joint_step_profile(cfg, ds_a, ds_b, graphed: bool) -> dict:
+    """Device time and idle share of JOINT_PROFILE_STEPS joint steps under
+    "tao" (graphed, or the entry's eager step), from a profile of the steps
+    alone (parameters and batches made before it)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_joint_step
+    from repro_torch.core.transfer import to_device
+    from repro_torch.train import AdamWConfig, adamw_init
+
+    dev = torch.device("cuda")
+    params = init_multiarch_like(cfg)
+    carry = {"opt": adamw_init(dict(params.named_parameters())), "w": torch.ones(2, device=dev)}
+    step = make_joint_step(cfg, AdamWConfig(lr=JOINT_LR), "tao")
+    rng = np.random.default_rng(0)
+    pairs = list(zip(ds_a.batches(TRAIN_BATCH, rng=rng), ds_b.batches(TRAIN_BATCH, rng=rng)))
+    pairs = pairs[:JOINT_PROFILE_STEPS]
+    ones = torch.ones(2, device=dev)
+
+    def steps():
+        for ba, bb in pairs:
+            if graphed:
+                _, _, m = step(params, carry["opt"], carry["w"], ones, ba, bb)
+            else:
+                new, m = step.entry.fn(params, carry, {"initial": ones, "a": to_device(ba, dev),
+                                                       "b": to_device(bb, dev)})
+                carry.update(new)
+        m["loss_a"].item()
+
+    steps()
+    prof = profile_breakdown(steps)
+    prof["ms_per_step_device"] = prof["device_busy_s"] * 1e3 / len(pairs)
+    return prof
+
+
+def init_multiarch_like(cfg):
+    """The joint parameters every run of the phase starts from (seed 0),
+    on the card."""
+    import torch
+
+    from repro_torch.core import init_multiarch
+
+    return init_multiarch(cfg, torch.Generator().manual_seed(0), device="cuda")
+
+
 def rel_diff(a, b) -> float:
     """max |a - b| relative to max |b|."""
     return float((a.float() - b.float()).abs().max() / b.float().abs().max())
@@ -2120,7 +2593,8 @@ def main() -> int:
     emit({"phase": "capture", "traces": list(SLICE_BENCHMARKS),
           "instructions_each": SLICE_INSTRUCTIONS, "seconds": time.perf_counter() - t0})
     failures, results = [], {}
-    for phase in (phase_build, phase_kernels, phase_slice, phase_train, phase_persist, phase_mamba2):
+    for phase in (phase_build, phase_kernels, phase_slice, phase_train, phase_persist, phase_joint,
+                  phase_mamba2):
         phase(failures, results, traces)
         if failures:
             break

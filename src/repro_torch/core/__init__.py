@@ -1,9 +1,12 @@
-"""Feature specification, windowing, alignment, the Tao model, its int8
-W8A8 twin, its training with crash-resume, and the legacy simulate loop
-(PyTorch port of ``repro.core``)."""
+"""Feature specification, windowing (materialized and streaming),
+alignment, the Tao model, its int8 W8A8 twin, its training with
+crash-resume, joint multi-µarch training (Algorithm 1), µarch-pair
+selection, the SimNet baseline and the legacy simulate loop (PyTorch port
+of ``repro.core``)."""
 from .align import AlignedTrace, build_adjusted_trace, verify_alignment
 from .dataset import (
     INPUT_KEYS,
+    StreamingWindowDataset,
     WindowDataset,
     build_windows,
     concat_datasets,
@@ -44,7 +47,23 @@ from .quant import (
     quantize_tao_params,
     tao_forward_int8,
 )
-from .transfer import TrainResult, train_tao_impl, transfer_finetune
+from .multiarch import METHODS, MultiArch, eval_loss, init_multiarch, make_joint_step
+from .selection import (
+    mahalanobis_matrix,
+    measure_design_metrics,
+    select_pair_euclidean,
+    select_pair_mahalanobis,
+    select_random,
+)
+from .simnet import (
+    SimNetConfig,
+    init_simnet,
+    make_simnet_step,
+    simnet_features,
+    simnet_forward,
+    simnet_windows,
+)
+from .transfer import TrainData, TrainResult, train_tao_impl, transfer_finetune, warmup_train_step
 
 # .simulate imports engine.runner, and engine.runner imports this package
 # (core.dataset / core.features / core.model) — so the simulate symbols are
@@ -70,16 +89,21 @@ __all__ = [
     "AlignedTrace",
     "INPUT_KEYS",
     "LOSS_WEIGHTS",
+    "METHODS",
     "NUM_OPCODES",
     "QUANT_VERSION",
     "FeatureConfig",
     "FeatureSet",
+    "MultiArch",
     "QDense",
     "QEmbed",
     "QuantTao",
+    "SimNetConfig",
     "SimulationResult",
+    "StreamingWindowDataset",
     "Tao",
     "TaoConfig",
+    "TrainData",
     "TrainResult",
     "WindowDataset",
     "apply_adapt",
@@ -89,19 +113,32 @@ __all__ = [
     "build_windows",
     "bucketize_latency",
     "concat_datasets",
+    "eval_loss",
     "expected_latency",
     "extract_features",
     "extract_features_reference",
+    "init_multiarch",
+    "init_simnet",
     "init_tao",
     "int8_matmul",
     "iter_window_digests",
+    "mahalanobis_matrix",
+    "make_joint_step",
+    "make_simnet_step",
+    "measure_design_metrics",
     "multi_metric_loss",
     "num_windows",
     "phase_curves",
     "qdense",
     "qembed",
     "quantize_tao_params",
+    "select_pair_euclidean",
+    "select_pair_mahalanobis",
+    "select_random",
     "signed_log",
+    "simnet_features",
+    "simnet_forward",
+    "simnet_windows",
     "simulate_trace",
     "simulate_trace_legacy",
     "stream_batches",
@@ -110,5 +147,6 @@ __all__ = [
     "train_tao_impl",
     "transfer_finetune",
     "verify_alignment",
+    "warmup_train_step",
     "window_view",
 ]

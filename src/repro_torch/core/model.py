@@ -90,9 +90,16 @@ LOSS_WEIGHTS = {
 }
 
 
+# LAT_EDGES on each device, made once: a copy from the host inside the
+# train step would stall it, and a CUDA graph cannot capture one
+_LAT_EDGES_ON: Dict[torch.device, torch.Tensor] = {}
+
+
 def bucketize_latency(x: torch.Tensor) -> torch.Tensor:
     """Map latency cycles -> bucket index."""
-    edges = torch.as_tensor(LAT_EDGES, device=x.device)
+    edges = _LAT_EDGES_ON.get(x.device)
+    if edges is None:
+        edges = _LAT_EDGES_ON[x.device] = torch.as_tensor(LAT_EDGES, device=x.device)
     return torch.clamp(
         torch.searchsorted(edges, x, right=True) - 1, 0, NUM_LAT_BUCKETS - 1
     )
@@ -157,18 +164,24 @@ class TaoPred(nn.Module):
         self.register_buffer("lat_reps", torch.from_numpy(LAT_REPS.copy()), persistent=False)
 
 
+def adapt_layer(cfg: TaoConfig, g: torch.Generator) -> nn.Linear:
+    """The per-µarch adaptation layer, near identity: it starts as a
+    gentle projection."""
+    d = cfg.d_model
+    layer = skip_init(nn.Linear, d, d)
+    with torch.no_grad():
+        layer.weight.copy_(torch.eye(d) + 0.01 * torch.randn(d, d, generator=g))
+        layer.bias.zero_()
+    return layer
+
+
 class Tao(nn.Module):
     """The Tao parameters: ``embed`` / ``adapt`` / ``pred`` groups."""
 
     def __init__(self, cfg: TaoConfig, g: torch.Generator):
         super().__init__()
-        d = cfg.d_model
         self.embed = TaoEmbed(cfg, g)
-        # near-identity adaptation: starts as a gentle projection
-        self.adapt = skip_init(nn.Linear, d, d)
-        with torch.no_grad():
-            self.adapt.weight.copy_(torch.eye(d) + 0.01 * torch.randn(d, d, generator=g))
-            self.adapt.bias.zero_()
+        self.adapt = adapt_layer(cfg, g)
         self.pred = TaoPred(cfg, g)
 
 

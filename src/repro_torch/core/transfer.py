@@ -9,14 +9,22 @@ Counterpart of ``repro/core/transfer.py``.  Three regimes (paper Table 5):
                            FROZEN, adaptation + prediction layers fine-tuned
                            on a small dataset
 
-The step is eager: forward, ``multi_metric_loss``, ``backward`` through
-autograd (on the card the attention's gradient is the hand-written B4
-backward, ``kernels/attention/ops.FlashAttentionFn``), then the
-hand-written ``train.optim.adamw_update``.  Batches are drawn on the host
-from a NumPy generator seeded as the reference's, so both sides see the
-same windows in the same order; each step's loss stays a device scalar
-until the epoch ends, when the host sums them in step order as Python
-floats, as the reference does.
+The step is forward, ``multi_metric_loss``, the gradients through autograd
+(on the card the attention's gradient is the hand-written B4 backward,
+``kernels/attention/ops.FlashAttentionFn``), then the hand-written
+``train.optim.adamw_update``.  It is cached process-wide as the
+reference's is (``train.trainer.cached_train_step``, keyed on the config,
+the optimizer config and the trainable set).  On the CPU the entry runs
+the step eagerly; on the card ``train_tao_impl`` replays the entry's CUDA
+graph of the batch geometry, captured at the first run of a geometry or
+ahead of any data by ``warmup_train_step``: the run's parameters and
+AdamW state are copied into the graph's static buffers once, each batch's
+arrays into its static inputs, and the state is copied back before each
+``eval_fn``, before each checkpoint and at the end.  Batches are drawn on
+the host from a NumPy generator seeded as the reference's, so both sides
+see the same windows in the same order; each step's loss stays a device
+scalar until the epoch ends, when the host sums them in step order as
+Python floats, as the reference does.
 """
 from __future__ import annotations
 
@@ -29,12 +37,18 @@ import torch
 
 from .. import resolve_device
 from ..train.optim import AdamWConfig, AdamWState, adamw_init, adamw_update
-from .dataset import INPUT_KEYS, WindowDataset
+from ..engine.aot import tree_map
+from ..train.trainer import CachedTrainStep, cached_train_step
+from ..uarch.isa import NUM_REGS
+from .dataset import INPUT_KEYS, StreamingWindowDataset, WindowDataset
 from .model import Tao, TaoConfig, TaoEmbed, init_tao, multi_metric_loss, tao_forward
 
-__all__ = ["TrainResult", "train_tao_impl", "transfer_finetune"]
+__all__ = ["TrainData", "TrainResult", "train_tao_impl", "transfer_finetune", "warmup_train_step"]
 
 Params = Union[Tao, Mapping[str, torch.Tensor]]
+# both dataset flavors draw bit-identical batch streams for the same rng;
+# everything below is agnostic to which one it is handed
+TrainData = Union[WindowDataset, StreamingWindowDataset]
 # the parameter groups the "headonly" step trains; "embed" stays frozen
 HEAD_GROUPS = ("adapt", "pred")
 
@@ -65,33 +79,133 @@ def trainable_params(model: Tao, trainable: str) -> Dict[str, torch.Tensor]:
             if trainable == "all" or k.split(".")[0] in HEAD_GROUPS}
 
 
-def _make_step(cfg: TaoConfig, opt_cfg: AdamWConfig, trainable: str):
-    """The train step of ``trainable`` ("all" or "headonly": freeze the
-    shared embeddings).  ``step(model, opt, batch) -> (opt, loss)`` updates
-    the model's trainable parameters in place (under "headonly" the
-    caller has the embeddings not require grad, so autograd computes
-    nothing for them)."""
+# tao: step-builder[train-step]
+def _make_step(cfg: TaoConfig, opt_cfg: AdamWConfig, trainable: str) -> CachedTrainStep:
+    """The cached train step of ``trainable`` ("all" or "headonly": freeze
+    the shared embeddings).  Its eager step ``step(model, opt, batch) ->
+    (opt, loss)`` updates the model's trainable parameters in place (under
+    "headonly" the caller has the embeddings not require grad, so autograd
+    computes nothing for them); calling the entry runs it on the CPU and
+    replays its graph on the card (``train.trainer``)."""
 
-    def step(model: Tao, opt: AdamWState, batch: Dict) -> Tuple[AdamWState, torch.Tensor]:
-        params = trainable_params(model, trainable)
-        preds = tao_forward(model, batch, cfg)
-        loss, _ = multi_metric_loss(preds, batch["labels"])
-        grads = torch.autograd.grad(loss, list(params.values()))
-        _, opt, _ = adamw_update(params, dict(zip(params, grads)), opt, opt_cfg)
-        return opt, loss.detach()
+    def build(entry):
+        def step(model: Tao, opt: AdamWState, batch: Dict) -> Tuple[AdamWState, torch.Tensor]:
+            params = trainable_params(model, trainable)
+            preds = tao_forward(model, batch, cfg)
+            loss, _ = multi_metric_loss(preds, batch["labels"])
+            grads = torch.autograd.grad(loss, list(params.values()))
+            _, opt, _ = adamw_update(params, dict(zip(params, grads)), opt, opt_cfg)
+            return opt, loss.detach()
 
-    return step
+        return step
+
+    return cached_train_step(  # tao: step-key[train-step]
+        ("tao", cfg, opt_cfg, trainable), build
+    )
+
+
+def batch_like(cfg: TaoConfig, batch_size: int, window: int) -> Dict:
+    """``meta`` tensors of the shapes and dtypes every training batch of
+    this geometry has: ``INPUT_KEYS`` plus the labels of
+    ``features._labels``."""
+
+    def t(*shape, dtype=torch.float32):
+        return torch.empty((batch_size, window, *shape), dtype=dtype, device="meta")
+
+    f = cfg.features
+    labels = {k: t() for k in ("fetch_lat", "exec_lat", "mispred", "icache_miss", "tlb_miss",
+                                "is_branch", "is_mem")}
+    labels["dlevel"] = t(dtype=torch.int32)
+    return {"opcode": t(dtype=torch.int32), "regbits": t(NUM_REGS), "flags": t(f.flags_dim),
+            "brhist": t(f.n_queue), "memdist": t(f.n_mem), "labels": labels}
+
+
+def warmup_train_step(
+    cfg: TaoConfig,
+    *,
+    batch_size: int = 16,
+    lr: float = 3e-4,
+    freeze_embed: bool = False,
+    window: Optional[int] = None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> CachedTrainStep:
+    """Capture the cached train step of a training recipe ahead of any
+    data, so its first batch replays a ready graph: the parameters and
+    optimizer state of the recipe's shapes come from ``init_tao`` on
+    ``device`` (default ``cuda``; their values are never used, a run copies
+    its own in), the batch is ``meta`` tensors of the geometry
+    (``window`` defaults to ``cfg.window``: pass the effective window of
+    traces shorter than it).  Sets the entry's ``aot`` and ``est_bytes``.
+    On the CPU the entry is built and nothing is captured.  Idempotent per
+    (recipe, geometry); raises if the capture fails."""
+    dev = resolve_device(device)
+    trainable = "headonly" if freeze_embed else "all"
+    entry = _make_step(cfg, AdamWConfig(lr=lr), trainable)
+    if dev.type == "cuda":
+        model, opt = _new_state(cfg, None, freeze_embed, 0, dev)
+        entry.graph(model, opt, batch_like(cfg, batch_size, window or cfg.window))
+    return entry
+
+
+def _new_state(cfg: TaoConfig, init_params: Optional[Params], freeze_embed: bool, seed: int,
+               dev: torch.device) -> Tuple[Tao, AdamWState]:
+    """A run's model (from ``init_params``, else ``init_tao`` seeded by
+    ``seed``) and its zero AdamW state over the trainable parameters."""
+    model = init_tao(cfg, torch.Generator().manual_seed(seed), device=dev)
+    if init_params is not None:
+        model.load_state_dict(_state_dict(init_params))
+    # frozen embeddings get no gradient and no optimizer state
+    model.embed.requires_grad_(not freeze_embed)
+    trainable = "headonly" if freeze_embed else "all"
+    return model, adamw_init(trainable_params(model, trainable))
+
+
+class _EagerRun:
+    """Drives the entry's eager step over one run's state (the CPU's path,
+    and the card's eager reference): ``step`` per batch, ``state`` the
+    run's model and optimizer state as they stand."""
+
+    def __init__(self, entry: CachedTrainStep, model: Tao, opt: AdamWState):
+        self.entry, self.model, self.opt = entry, model, opt
+        self.device = next(model.parameters()).device
+
+    def step(self, batch: Dict) -> torch.Tensor:
+        self.entry.note(batch, self.device)
+        self.opt, loss = self.entry.fn(self.model, self.opt, to_device(batch, self.device))
+        return loss
+
+    def state(self) -> Tuple[Tao, AdamWState]:
+        return self.model, self.opt
+
+
+class _GraphRun:
+    """Drives the entry's graph of the run's geometry, captured at the
+    first batch unless ``warmup_train_step`` did it: the run's state copied
+    in once, each batch's arrays into the static inputs, and each step's
+    loss copied out on the device (the next replay overwrites it)."""
+
+    def __init__(self, entry: CachedTrainStep, model: Tao, opt: AdamWState):
+        self.entry, self.model, self.opt, self.graph = entry, model, opt, None
+
+    def step(self, batch: Dict) -> torch.Tensor:
+        batch = tree_map(torch.as_tensor, batch)  # host tensors over the arrays
+        if self.graph is None:
+            self.graph = self.entry.graph(self.model, self.opt, batch)
+            self.graph.load(self.model, self.opt)
+        return self.graph.replay(batch).clone()
+
+    def state(self) -> Tuple[Tao, AdamWState]:
+        if self.graph is not None:
+            self.graph.store(self.model, self.opt)
+        return self.model, self.opt
 
 
 # tao: hot
 def _run_epochs(
-    model: Tao,
-    step: Callable,
-    dataset: WindowDataset,
+    run,
+    dataset: TrainData,
     epochs: int,
     batch_size: int,
-    opt: AdamWState,
-    device: torch.device,
     eval_fn: Optional[Callable] = None,
     seed: int = 0,
     target_loss: Optional[float] = None,
@@ -113,9 +227,8 @@ def _run_epochs(
     for ep in range(start_epoch, epochs):
         ep_losses: List[torch.Tensor] = []
         for batch in dataset.batches(batch_size, rng=rng):
-            opt, loss = step(model, opt, to_device(batch, device))
             # a device scalar: reading it here would wait for the step
-            ep_losses.append(loss)
+            ep_losses.append(run.step(batch))
             steps += 1
         # one read per epoch, summed on the host in step order
         ep_loss = 0.0
@@ -124,11 +237,11 @@ def _run_epochs(
         ep_loss /= max(len(ep_losses), 1)
         losses.append(ep_loss)
         if eval_fn is not None:
-            evals.append(float(eval_fn(model)))  # tao: noqa[TAO002] one eval read per epoch, as the reference's
+            evals.append(float(eval_fn(run.state()[0])))  # tao: noqa[TAO002] one eval read per epoch, as the reference's
         if checkpoint_cb is not None:
             # rng state captured AFTER this epoch's batches were drawn —
             # exactly what the next epoch of a resumed run must start from
-            checkpoint_cb(ep, model, opt, losses, evals, steps, rng.bit_generator.state)
+            checkpoint_cb(ep, *run.state(), losses, evals, steps, rng.bit_generator.state)
         if target_loss is not None and ep_loss <= target_loss:
             break
     return losses, evals, steps
@@ -164,7 +277,7 @@ def _load_state(model: Tao, opt: AdamWState, params: Mapping, opt_tree: Mapping)
 
 def train_tao_impl(
     cfg: TaoConfig,
-    dataset: WindowDataset,
+    dataset: TrainData,
     *,
     epochs: int = 10,
     batch_size: int = 16,
@@ -186,12 +299,15 @@ def train_tao_impl(
     direct fine-tune   -> init_params=donor, freeze_embed=False
     shared + fine-tune -> init_params=donor with the shared embed, freeze_embed=True
 
+    ``dataset`` is a ``WindowDataset`` or a ``StreamingWindowDataset``;
+    both give bit-identical runs for the same seed and keep-set.
     ``init_params`` is a ``Tao`` module or its state dict, copied into a
     new module (the caller's is left alone); when None the params come from
     ``init_tao`` with a ``torch.Generator`` seeded by ``seed``.  ``seed``
     also seeds the NumPy generator that shuffles the batches, as in the
     reference.  Stops early once an epoch's mean loss is at or below
-    ``target_loss``.
+    ``target_loss``.  On the card every batch replays the recipe's CUDA
+    graph (module note); the run is bitwise the eager step's.
 
     With ``store`` (an ``ArtifactStore``) and ``resume_key`` (the run's
     recipe identity), every ``manifest_every``-th epoch and the last one
@@ -206,15 +322,9 @@ def train_tao_impl(
     if manifest_every < 1:
         raise ValueError(f"manifest_every must be >= 1, got {manifest_every}")
     dev = resolve_device(device)
-    model = init_tao(cfg, torch.Generator().manual_seed(seed), device=dev)
-    if init_params is not None:
-        model.load_state_dict(_state_dict(init_params))
+    model, opt = _new_state(cfg, init_params, freeze_embed, seed, dev)
     trainable = "headonly" if freeze_embed else "all"
-    # frozen embeddings get no gradient and no optimizer state
-    model.embed.requires_grad_(not freeze_embed)
-    opt_cfg = AdamWConfig(lr=lr)
-    step = _make_step(cfg, opt_cfg, trainable)
-    opt = adamw_init(trainable_params(model, trainable), opt_cfg.m_dtype)
+    entry = _make_step(cfg, AdamWConfig(lr=lr), trainable)
 
     start_epoch, rng_state, steps0 = 0, None, 0
     losses0: List[float] = []
@@ -240,11 +350,13 @@ def train_tao_impl(
                                 _host_tree(o._asdict()), ls, ev, st, rs)
 
     t0 = time.perf_counter()
+    run = (_GraphRun if dev.type == "cuda" else _EagerRun)(entry, model, opt)
     losses, evals, steps = _run_epochs(
-        model, step, dataset, epochs, batch_size, opt, dev, eval_fn, seed, target_loss,
+        run, dataset, epochs, batch_size, eval_fn, seed, target_loss,
         start_epoch=start_epoch, rng_state=rng_state, losses=losses0, evals=evals0,
         steps=steps0, checkpoint_cb=checkpoint_cb,
     )
+    model, _ = run.state()
     return TrainResult(params=model, losses=losses, eval_losses=evals,
                        seconds=time.perf_counter() - t0, steps=steps)
 
@@ -253,7 +365,7 @@ def transfer_finetune(
     cfg: TaoConfig,
     shared_embed: Union[TaoEmbed, Mapping[str, torch.Tensor]],
     donor_arch_params: Params,
-    small_dataset: WindowDataset,
+    small_dataset: TrainData,
     **kw,
 ) -> TrainResult:
     """Tao's fast path: the shared embeddings (a ``TaoEmbed`` or its state

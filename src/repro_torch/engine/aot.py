@@ -22,11 +22,16 @@ of the parameter module of the entry's shape (a ``Tao``, or under int8 a
 engines copy theirs in with one ``torch._foreach_copy_`` of every
 parameter and buffer per simulate, so engines of one shape share the
 entry), the carry, which every replay updates in place, and the step's
-eight batch inputs.  A hand-written kernel's launch during a capture is
-recorded, not run: ``CudaKernel.captured`` counts it, and each replay adds
-the graph's launches of each kernel to that kernel's ``launches``.  The
-persistent-compilation-cache functions of the reference module have no
-counterpart: a graph does not outlive its process.
+eight batch inputs.  The train steps (``train/trainer.py``) are captured
+the same way with ``train=True``: in grad mode, the module copy keeping
+each parameter's ``requires_grad``, the carry the optimizer state, which
+the step updates in place (the parameters too), and ``store`` copies the
+static state back to the caller's.  A hand-written kernel's launch during
+a capture is recorded, not run: ``CudaKernel.captured`` counts it, and
+each replay adds the graph's launches of each kernel to that kernel's
+``launches``.  The persistent-compilation-cache functions of the
+reference module have no counterpart: a graph does not outlive its
+process.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ __all__ = [
     "capture_bytes_estimate",
     "graph_kernel_names",
     "static_like",
+    "tree_map",
 ]
 
 # eager runs of the step on the static inputs before the capture: each
@@ -69,12 +75,45 @@ def _leaves(tree: Any) -> List[torch.Tensor]:
     return [tree]
 
 
-def _copy_tree_(dst: Any, src: Any) -> None:
+def tree_map(fn: Callable, tree: Any) -> Any:
+    """``fn`` of every leaf of a tree of dicts, lists, tuples and
+    NamedTuples, in the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _pairs(dst: Any, src: Any):
+    """(dst leaf, src leaf) of two trees of ``dst``'s structure."""
     if isinstance(dst, dict):
-        for k, v in dst.items():
-            _copy_tree_(v, src[k])
-    elif dst is not src:
-        dst.copy_(src)
+        return [p for k, v in dst.items() for p in _pairs(v, src[k])]
+    if isinstance(dst, (list, tuple)):
+        return [p for d, s in zip(dst, src) for p in _pairs(d, s)]
+    return [(dst, src)]
+
+
+def _copy_tree_(dst: Any, src: Any) -> None:
+    """Copy ``src``'s leaves (tensors, or NumPy arrays) into ``dst``'s: the
+    copies within a device as one ``torch._foreach_copy_`` per dtype pair
+    (a few launches for an optimizer state's hundreds of tensors), a copy
+    from another device on its own."""
+    groups: Dict[tuple, tuple] = {}
+    for d, s in _pairs(dst, src):
+        if d is s:
+            continue
+        s = torch.as_tensor(s)
+        if s.device == d.device:
+            ds, ss = groups.setdefault((d.dtype, s.dtype), ([], []))
+            ds.append(d)
+            ss.append(s)
+        else:
+            d.copy_(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
 
 
 def static_like(tree: Any, device: Optional[torch.device] = None) -> Any:
@@ -82,9 +121,8 @@ def static_like(tree: Any, device: Optional[torch.device] = None) -> Any:
     each leaf's own): the buffers a graph reads its inputs from.  ``meta``
     leaves declare a shape without data, as the reference's
     ``ShapeDtypeStruct``s do."""
-    if isinstance(tree, dict):
-        return {k: static_like(v, device) for k, v in tree.items()}
-    return torch.zeros(tree.shape, dtype=tree.dtype, device=device or tree.device)
+    return tree_map(
+        lambda t: torch.zeros(t.shape, dtype=t.dtype, device=device or t.device), tree)
 
 
 def capture_bytes_estimate(static: Any, pool_bytes: int) -> int:
@@ -112,29 +150,37 @@ def graph_kernel_names(graph: torch.cuda.CUDAGraph) -> List[str]:
 class CapturedStep:
     """One step captured as a CUDA graph, with the static buffers it reads.
 
-    ``fn(params, carry, batch) -> (new_carry, per)`` is the engine's eager
-    step.  The capture runs it ``WARMUP_RUNS`` times on a side stream on
-    zero inputs, then once under capture, where it also writes the new
-    carry into the static carry (``copy_``); the graph's outputs ``per``
-    (the per-instruction arrays under ``collect``) are overwritten by the
-    next replay.  Any error of the capture raises: nothing falls back to
-    the eager step.  One simulate at a time may use an instance.
+    ``fn(params, carry, batch) -> (new_carry, per)`` is the eager step:
+    the engine's, or with ``train=True`` a train step, whose carry is the
+    optimizer state and which updates the parameters in place.  The
+    capture runs it ``WARMUP_RUNS`` times on a side stream on zero inputs,
+    then once under capture, where it also writes the new carry into the
+    static carry (``copy_``); the graph's outputs ``per`` (the engine's
+    per-instruction arrays under ``collect``, a train step's loss) are
+    overwritten by the next replay.  The warm-up runs update the static
+    state too, so a caller's state is copied in (``load``) after the
+    capture, never before.  Any error of the capture raises: nothing falls
+    back to the eager step.  One run at a time may use an instance.
     """
 
-    def __init__(self, fn: Callable, params: nn.Module, carry: Dict, batch: Dict):
+    def __init__(self, fn: Callable, params: nn.Module, carry: Any, batch: Any,
+                 train: bool = False):
         """``params``: the module ``fn`` reads (its parameters and buffers
-        are copied); ``carry``: a trace's initial carry; ``batch``: one
-        batch's tensors (``meta`` ones will do); their shapes and dtypes
-        are captured."""
+        are copied; with ``train`` each keeps its ``requires_grad``, which
+        says what the step differentiates); ``carry``: the initial carry (a
+        tree of tensors); ``batch``: one batch's tensors (``meta`` ones
+        will do); their shapes and dtypes are captured."""
         with torch.inference_mode(False):  # plain tensors, updated in place
-            self.params = copy.deepcopy(params).requires_grad_(False)
+            self.params = copy.deepcopy(params)
+            if not train:
+                self.params.requires_grad_(False)
         self._param_list = [*self.params.parameters(), *self.params.buffers()]
-        with torch.inference_mode():
+        with torch.inference_mode(not train), torch.set_grad_enabled(train):
             self._capture(fn, carry, batch)
 
     def _capture(self, fn: Callable, carry: Dict, batch: Dict) -> None:
         dev = self._param_list[0].device
-        self.carry = static_like(carry)
+        self.carry = static_like(carry, dev)
         self.batch = static_like(batch, dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -167,16 +213,25 @@ class CapturedStep:
             torch.cuda.memory_reserved(dev) - reserved,
         )
 
-    def load(self, params: nn.Module, carry: Dict) -> None:
-        """Copy an engine's weights and a trace's initial carry in."""
+    @torch.no_grad()
+    def load(self, params: nn.Module, carry: Any) -> None:
+        """Copy an engine's weights and a trace's initial carry in (a
+        trainer's parameters and optimizer state)."""
         torch._foreach_copy_(self._param_list, [*params.parameters(), *params.buffers()])
         _copy_tree_(self.carry, carry)
 
-    def replay(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Copy one batch into the static inputs and run the graph; returns
-        the static per-instruction outputs (valid until the next replay)."""
-        for k, dst in self.batch.items():
-            dst.copy_(batch[k])
+    @torch.no_grad()
+    def store(self, params: nn.Module, carry: Any) -> None:
+        """Copy the static parameters and carry back into a trainer's
+        module and state tree (of ``carry``'s structure), in place."""
+        torch._foreach_copy_([*params.parameters(), *params.buffers()], self._param_list)
+        _copy_tree_(carry, self.carry)
+
+    def replay(self, batch: Any) -> Any:
+        """Copy one batch (a tree of tensors or NumPy arrays) into the
+        static inputs and run the graph; returns the static outputs (valid
+        until the next replay)."""
+        _copy_tree_(self.batch, batch)
         self.graph.replay()
         self.replays += 1
         for k, n in self.launches.items():

@@ -51,6 +51,17 @@ of ``train_tao_impl`` launch 2 forward and 2 backward attention kernels a
 step and track the CPU's (losses 1e-4 relative, parameters 2 lr a step);
 the fine-tune leaves ``embed`` bitwise unchanged.
 
+The train steps' CUDA graphs (``train/trainer.py``, one per recipe and
+batch geometry): ``train_tao_impl`` on the graph is bitwise the entry's
+eager step — losses, parameters, AdamW state, and what ``eval_fn`` and
+the manifests read between epochs — for "all" and "headonly"; runs of
+other weights through one entry leak nothing into each other;
+``warmup_train_step`` captures ahead of time and the run after it
+captures nothing; a graph holds ``n_layers`` attention forward and
+backward nodes (2 ``n_layers`` for the joint step); the joint step of
+each method is bitwise its eager step, and launches each attention
+kernel 2 ``n_layers`` times a step.
+
 Persistence: a training run resumed from its first epoch's manifest is
 bitwise the uninterrupted run on the card (losses, steps, parameters,
 optimizer state) and launches the attention kernels only for the epochs
@@ -80,7 +91,7 @@ from repro_torch.core.quant import dense_shapes, qdense_device_vs_cpu, quantize_
 from repro_torch.engine import EngineConfig, MetricSpec, StreamingEngine, cache_stats  # noqa: E402
 from repro_torch.engine.aot import graph_kernel_names  # noqa: E402
 from repro_torch.core import build_adjusted_trace, build_windows, multi_metric_loss  # noqa: E402
-from repro_torch.core import tao_forward, train_tao_impl, transfer_finetune  # noqa: E402
+from repro_torch.core import tao_forward, train_tao_impl, transfer_finetune, warmup_train_step  # noqa: E402
 from repro_torch.core.transfer import to_device  # noqa: E402
 from repro_torch.kernels.attention.kernel import (  # noqa: E402
     BWD_KERNEL_NAMES,
@@ -916,6 +927,9 @@ def test_train_on_card_launches_the_kernels_and_tracks_cpu(dev):
     init = init_tao(cfg, torch.Generator().manual_seed(1), device="cpu").state_dict()
     kw = dict(epochs=3, batch_size=16, lr=3e-4, init_params=init, seed=1)
     cpu = train_tao_impl(cfg, ds, device="cpu", **kw)
+    # the recipe's graph captured first: its capture's eager warm-up
+    # steps launch the kernels too, outside the run counted here
+    warmup_train_step(cfg, batch_size=16, lr=3e-4, device=dev)
     counts = (FLASH_ATTENTION.launches, FLASH_ATTENTION_BWD.launches)
     gpu = train_tao_impl(cfg, ds, device=dev, **kw)
     assert gpu.steps == 3
@@ -1037,3 +1051,174 @@ def test_simulate_trace_legacy_on_card_matches_cpu(dev):
     assert abs(gpu.total_cycles - cpu.total_cycles) <= 256.0 * (flips["fetch"] + flips["exec"])
     assert abs(gpu.branch_mpki - cpu.branch_mpki) <= 1000.0 * flips["mispredict"] / n + 1e-12
     assert abs(gpu.l1d_mpki - cpu.l1d_mpki) <= 1000.0 * flips["l1d"] / n + 1e-12
+
+
+# ---------------------------------------------------------------------------
+# the train steps' CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def drive(cfg, ds, graphed, epochs=2, freeze=False, init=None, seed=0, lr=3e-4, eval_fn=None):
+    """A run driven as ``train_tao_impl`` drives it, on the recipe's graph
+    or on the entry's eager step: (losses, evals, model, AdamW state)."""
+    from repro_torch.core.transfer import _EagerRun, _GraphRun, _make_step, _new_state, _run_epochs
+    from repro_torch.train import AdamWConfig
+
+    model, opt = _new_state(cfg, init, freeze, seed, torch.device("cuda"))
+    entry = _make_step(cfg, AdamWConfig(lr=lr), "headonly" if freeze else "all")
+    run = (_GraphRun if graphed else _EagerRun)(entry, model, opt)
+    losses, evals, _ = _run_epochs(run, ds, epochs, 16, eval_fn=eval_fn, seed=seed)
+    model, opt = run.state()
+    return losses, evals, model, opt
+
+
+def assert_state_equal(a, b):
+    for (k, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+        assert torch.equal(x, y), k
+
+
+def assert_adamw_equal(a, b):
+    assert torch.equal(a.step, b.step)
+    for group in ("mu", "nu"):
+        ga, gb = getattr(a, group), getattr(b, group)
+        assert list(ga) == list(gb)
+        for k in ga:
+            assert torch.equal(ga[k], gb[k]), (group, k)
+
+
+@pytest.mark.parametrize("freeze", [False, True], ids=["all", "headonly"])
+def test_graphed_train_equals_eager_step(dev, freeze):
+    """Losses, parameters, AdamW state and each epoch's eval (read from
+    the state stored back between epochs) bitwise the eager step's; the
+    public entry point's run is the graphed one."""
+    from repro_torch.core.transfer import _make_step
+    from repro_torch.train import AdamWConfig
+
+    cfg = TaoConfig()
+    ds = labelled_batch(cfg, 48, seed=4)
+    assert len(ds) // 16 >= 2  # steps an epoch
+    init = init_tao(cfg, torch.Generator().manual_seed(4), device="cpu").state_dict()
+
+    def eval_fn(model):
+        return float(sum(p.detach().double().sum() for p in model.parameters()))
+
+    g_losses, g_evals, g_model, g_opt = drive(cfg, ds, True, freeze=freeze, init=init, eval_fn=eval_fn)
+    e_losses, e_evals, e_model, e_opt = drive(cfg, ds, False, freeze=freeze, init=init, eval_fn=eval_fn)
+    assert g_losses == e_losses and g_evals == e_evals and len(g_evals) == 2
+    assert_state_equal(g_model, e_model)
+    assert_adamw_equal(g_opt, e_opt)
+    assert int(g_opt.step) == 2 * (len(ds) // 16)
+    res = train_tao_impl(cfg, ds, epochs=2, batch_size=16, lr=3e-4, init_params=init, seed=0,
+                         freeze_embed=freeze, eval_fn=eval_fn, device=dev)
+    assert res.losses == e_losses and res.eval_losses == e_evals
+    assert_state_equal(res.params, e_model)
+    entry = _make_step(cfg, AdamWConfig(lr=3e-4), "headonly" if freeze else "all")
+    # one graph of this geometry on the card (a CPU run of the recipe, in
+    # this process, counts its own geometry in ``compiles``)
+    assert entry.aot is not None and len(entry.aot) == 1
+    if freeze:
+        for k, v in res.params.embed.state_dict().items():
+            assert torch.equal(v, init[f"embed.{k}"].to(dev)), k
+
+
+def test_runs_through_one_entry_leak_nothing(dev):
+    """Runs of other weights through one captured entry, in turns: each is
+    bitwise its own eager run, and the first run repeated is bitwise the
+    first."""
+    cfg = TaoConfig()
+    ds = labelled_batch(cfg, 32, seed=5)
+    inits = [init_tao(cfg, torch.Generator().manual_seed(s), device="cpu").state_dict() for s in (5, 6)]
+    runs = [drive(cfg, ds, True, init=inits[i]) for i in (0, 1, 0)]
+    assert runs[0][0] == runs[2][0] and runs[0][0] != runs[1][0]
+    assert_state_equal(runs[0][2], runs[2][2])
+    assert_adamw_equal(runs[0][3], runs[2][3])
+    eager = drive(cfg, ds, False, init=inits[1])
+    assert runs[1][0] == eager[0]
+    assert_state_equal(runs[1][2], eager[2])
+
+
+def test_warmup_train_step_then_train_captures_nothing(dev):
+    from repro_torch.engine.aot import graph_kernel_names
+    from repro_torch.train import cache_stats
+
+    cfg = TaoConfig()
+    lr = 4.4e-4  # a recipe of its own
+    entry = warmup_train_step(cfg, batch_size=16, lr=lr, device=dev)
+    assert entry.aot is not None and entry.compiles == 1 and entry.est_bytes > 0
+    assert warmup_train_step(cfg, batch_size=16, lr=lr, device=dev) is entry and entry.compiles == 1
+    (graph,) = entry.aot.values()
+    names = graph_kernel_names(graph.graph)
+    assert sum("attention_kernel" in k for k in names) == cfg.n_layers
+    assert sum("bwd_dkdv_dq" in k for k in names) == cfg.n_layers
+    assert graph.launches == {FLASH_ATTENTION: cfg.n_layers, FLASH_ATTENTION_BWD: cfg.n_layers}
+    stats = cache_stats()
+    assert stats["aot_compiled"] >= 1 and stats["retained_bytes_est"] >= entry.est_bytes
+    counts = (FLASH_ATTENTION.launches, FLASH_ATTENTION_BWD.launches)
+    res = train_tao_impl(cfg, labelled_batch(cfg, 32, seed=6), epochs=2, batch_size=16, lr=lr, device=dev)
+    assert entry.compiles == 1 and cache_stats()["compiles"] == stats["compiles"]
+    assert graph.replays == res.steps == 4
+    assert (FLASH_ATTENTION.launches - counts[0], FLASH_ATTENTION_BWD.launches - counts[1]) == (
+        cfg.n_layers * 4, cfg.n_layers * 4)
+    # a window shorter than the config's is another geometry: one more capture
+    warmup_train_step(cfg, batch_size=16, lr=lr, window=65, device=dev)
+    assert entry.compiles == 2 and len(entry.aot) == 2
+
+
+def joint_pairs(cfg, n):
+    from repro_torch.uarch import UARCH_B
+
+    out = []
+    for ua in (UARCH_A, UARCH_B):
+        prog = get_benchmark("lee")
+        det = run_detailed(prog, run_functional(prog, 12000), ua)[0]
+        ds = build_windows(extract_features(build_adjusted_trace(det).adjusted, cfg.features), cfg.window)
+        out.append(list(ds.batches(16, rng=np.random.default_rng(0)))[:n])
+    return list(zip(*out))
+
+
+@pytest.mark.parametrize("method", ["tao", "tao_no_adapt", "granite", "gradnorm"])
+def test_graphed_joint_step_equals_eager(dev, method):
+    """Three joint steps through ``make_joint_step`` (the graph) and
+    through the entry's eager step, from equal parameters: losses, the
+    global norm, parameters, AdamW state and GradNorm's weights bitwise;
+    2 ``n_layers`` attention forward and backward launches a step."""
+    from repro_torch.core import init_multiarch, make_joint_step
+    from repro_torch.core.transfer import to_device
+    from repro_torch.engine.aot import graph_kernel_names
+    from repro_torch.train import AdamWConfig, adamw_init
+
+    cfg = TaoConfig()
+    pairs = joint_pairs(cfg, 3)
+    assert len(pairs) == 3
+    step = make_joint_step(cfg, AdamWConfig(lr=1e-3), method)
+    out = {}
+    for graphed in (True, False):
+        params = init_multiarch(cfg, torch.Generator().manual_seed(0), device=dev)
+        opt, w = adamw_init(dict(params.named_parameters())), torch.ones(2, device=dev)
+        initial, metrics = torch.ones(2, device=dev), []
+        for i, (ba, bb) in enumerate(pairs):
+            if graphed:
+                if i == 1:  # captured at the first step: count from the second
+                    counts = (FLASH_ATTENTION.launches, FLASH_ATTENTION_BWD.launches)
+                opt, w, m = step(params, opt, w, initial, ba, bb)
+            else:
+                carry, m = step.entry.fn(params, {"opt": opt, "w": w},
+                                         {"initial": initial, "a": to_device(ba, dev), "b": to_device(bb, dev)})
+                opt, w = carry["opt"], carry["w"]
+            metrics.append(torch.stack([m["loss_a"], m["loss_b"], m["gnorm"]]).cpu())
+            if i == 0:
+                initial = metrics[0][:2].to(dev)
+        if graphed:
+            launches = (FLASH_ATTENTION.launches - counts[0], FLASH_ATTENTION_BWD.launches - counts[1])
+        out[graphed] = (torch.stack(metrics), params, opt, w.clone())
+    (gm, gp, go, gw), (em, ep, eo, ew) = out[True], out[False]
+    assert torch.equal(gm, em) and torch.equal(gw, ew)
+    assert_state_equal(gp, ep)
+    assert_adamw_equal(go, eo)
+    assert launches == (2 * cfg.n_layers * 2, 2 * cfg.n_layers * 2)
+    (graph,) = step.entry.aot.values()
+    names = graph_kernel_names(graph.graph)
+    assert sum("attention_kernel" in k for k in names) == 2 * cfg.n_layers
+    assert sum("bwd_dkdv_dq" in k for k in names) == 2 * cfg.n_layers
+    if method == "gradnorm":
+        assert not torch.equal(gw, torch.ones(2, device=dev)) and abs(float(gw.sum()) - 2.0) <= 1e-6

@@ -32,9 +32,13 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "rep
 print(len(names), bad, sorted(names))
 """
 
-# modules the walk must reach: one per subpackage, the persistence slice's too
+# modules the walk must reach: one per subpackage, the persistence and
+# joint-training slices' too
 _MUST_WALK = (
     "repro_torch.ckpt.checkpoint",
+    "repro_torch.core.multiarch",
+    "repro_torch.core.selection",
+    "repro_torch.core.simnet",
     "repro_torch.core.simulate",
     "repro_torch.core.transfer",
     "repro_torch.engine.runner",
@@ -42,6 +46,7 @@ _MUST_WALK = (
     "repro_torch.resilience.manifest",
     "repro_torch.store.content",
     "repro_torch.store.store",
+    "repro_torch.train.trainer",
 )
 
 
@@ -93,12 +98,16 @@ def test_default_device_entry_points_raise_without_cuda():
         FeatureConfig,
         TaoConfig,
         build_windows,
+        SimNetConfig,
         extract_features,
+        init_multiarch,
+        init_simnet,
         init_tao,
         simulate_trace,
         simulate_trace_legacy,
         train_tao_impl,
         transfer_finetune,
+        warmup_train_step,
     )
     from repro_torch.engine import StreamingEngine, simulate_trace_engine
     from repro_torch.kernels.features.ops import (
@@ -125,6 +134,9 @@ def test_default_device_entry_points_raise_without_cuda():
         "simulate_trace_engine": lambda: simulate_trace_engine(cpu_model, trace, cfg),
         "train_tao_impl": lambda: train_tao_impl(cfg, windows, epochs=1),
         "transfer_finetune": lambda: transfer_finetune(cfg, cpu_model.embed, cpu_model, windows),
+        "warmup_train_step": lambda: warmup_train_step(cfg),
+        "init_multiarch": lambda: init_multiarch(cfg),
+        "init_simnet": lambda: init_simnet(SimNetConfig()),
         "simulate_trace": lambda: simulate_trace(cpu_model, trace, cfg),
         "simulate_trace_legacy": lambda: simulate_trace_legacy(cpu_model, trace, cfg),
     }

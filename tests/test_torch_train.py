@@ -45,6 +45,7 @@ from repro.core.transfer import train_tao_impl as ref_train  # noqa: E402
 from repro.core.transfer import transfer_finetune as ref_transfer  # noqa: E402
 from repro.nn.core import softmax_cross_entropy as ref_ce  # noqa: E402
 from repro.train import optim as ref_optim  # noqa: E402
+from repro.train import trainer as ref_trainer  # noqa: E402
 from repro.uarch import UARCH_A, get_benchmark, run_detailed, run_functional  # noqa: E402
 
 from repro_torch.convert import params_from_jax, params_to_jax  # noqa: E402
@@ -54,6 +55,7 @@ from repro_torch.core import transfer as port_transfer  # noqa: E402
 from repro_torch.core.features import FeatureConfig, extract_features  # noqa: E402
 from repro_torch.nn.core import softmax_cross_entropy  # noqa: E402
 from repro_torch.train import optim as port_optim  # noqa: E402
+from repro_torch.train import trainer as port_trainer  # noqa: E402
 
 CPU = torch.device("cpu")
 SMALL = dict(window=17, d_model=32, n_heads=2, n_layers=1, d_ff=64, d_cat=16, features=(64, 4, 8))
@@ -418,3 +420,71 @@ def test_params_to_jax_round_trip_is_bitwise(name):
     for k, v in model.state_dict().items():
         assert torch.equal(sd[k], v), k
     assert dataclasses.is_dataclass(port_cfg)
+
+
+# ---------------------------------------------------------------------------
+# the train-step cache
+# ---------------------------------------------------------------------------
+
+
+def test_train_cache_stats_has_the_reference_keys():
+    from repro.train.trainer import cache_stats as ref_cache_stats
+
+    from repro_torch.train import cache_stats
+
+    assert set(cache_stats()) == set(ref_cache_stats())
+    assert port_trainer._TRAIN_CACHE_WARN == ref_trainer._TRAIN_CACHE_WARN == 16
+
+
+def test_one_recipe_misses_once_then_hits_and_compiles_once_per_geometry():
+    """Two runs of one recipe share one entry: one miss, then hits; the
+    entry meets each (batch, window) geometry once, across epochs and runs,
+    whether the dataset is materialized or streaming."""
+    _, port_cfg, ds, _, b = setup("small")
+    sub = as_port(ds.subsample(3 * b, seed=1))
+    kw = dict(epochs=2, batch_size=b, lr=7.5e-4, seed=0, device="cpu")  # a recipe of its own
+    stats0, c0 = port_trainer.cache_stats(), port_trainer.train_step_compiles()
+    port_transfer.train_tao_impl(port_cfg, sub, **kw)
+    stats1 = port_trainer.cache_stats()
+    assert (stats1["misses"] - stats0["misses"], stats1["entries"] - stats0["entries"]) == (1, 1)
+    assert port_trainer.train_step_compiles() - c0 == 1
+    port_transfer.train_tao_impl(port_cfg, sub, **kw)
+    stats2 = port_trainer.cache_stats()
+    assert stats2["misses"] == stats1["misses"] and stats2["hits"] > stats1["hits"]
+    assert port_trainer.train_step_compiles() - c0 == 1
+    # the streaming dataset of the same windows: the same geometry, no new one
+    fs = port_dataset.StreamingWindowDataset(
+        extract_features(adjusted("lee", CONFIGS["small"][1]), port_cfg.features), port_cfg.window)
+    port_transfer.train_tao_impl(port_cfg, fs.subsample(3 * b, seed=1), **kw)
+    assert port_trainer.train_step_compiles() - c0 == 1
+    # another batch size is another geometry: exactly one more
+    port_transfer.train_tao_impl(port_cfg, sub, **{**kw, "batch_size": b - 1})
+    assert port_trainer.train_step_compiles() - c0 == 2
+    entry = port_transfer._make_step(port_cfg, port_optim.AdamWConfig(lr=7.5e-4), "all")
+    assert entry.compiles == 2 and entry.aot is None and entry.est_bytes is None
+
+
+def test_warmup_train_step_on_cpu_builds_the_entry_and_captures_nothing():
+    _, port_cfg, _, _, _ = setup("small")
+    before = port_trainer.cache_stats()
+    entry = port_transfer.warmup_train_step(port_cfg, batch_size=4, lr=6.5e-4, freeze_embed=True,
+                                            device="cpu")
+    assert isinstance(entry, port_trainer.CachedTrainStep)
+    assert entry is port_transfer._make_step(port_cfg, port_optim.AdamWConfig(lr=6.5e-4), "headonly")
+    assert entry.aot is None and entry.compiles == 0 and entry.est_bytes is None
+    after = port_trainer.cache_stats()
+    assert after["aot_compiled"] == before["aot_compiled"]
+    assert after["compiles"] == before["compiles"]
+    like = port_transfer.batch_like(port_cfg, 4, port_cfg.window)
+    assert like["opcode"].device.type == "meta" and like["labels"]["dlevel"].dtype == torch.int32
+
+
+def test_clear_returns_the_count_and_the_warning_fires_at_sixteen():
+    _, port_cfg, _, _, _ = setup("small")
+    port_trainer.clear_train_step_cache()
+    assert port_trainer.cache_stats()["entries"] == 0
+    with pytest.warns(RuntimeWarning, match="16 train-step configurations"):
+        for i in range(port_trainer._TRAIN_CACHE_WARN):
+            port_transfer._make_step(port_cfg, port_optim.AdamWConfig(lr=1e-4 * (i + 1)), "all")
+    assert port_trainer.clear_train_step_cache() == 16
+    assert port_trainer.clear_train_step_cache() == 0
