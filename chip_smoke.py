@@ -66,6 +66,20 @@ and ``nvcc``.  Phases, one JSON line each:
            ms) and int8 on the GPU against int8 on the CPU on one trace,
            beside a control that must fail (float32 on the GPU against
            int8 on the CPU);
+  sweep    the sweep scheduler (engine.TraceSweeper) at the default
+           TaoConfig width: 4 models (seeds 0-3) x the three 150k traces at
+           batch 64, 12 jobs, on the fused, staged and host routes; every
+           job bitwise its standalone simulate (a loop of simulates, one
+           engine per model, timed as the baseline); captures (1 cold, 0
+           warm); the kernels' launches by the counters and, for
+           attention, by the graph's nodes times its replays (19 fused and
+           38 attention launches a job on the fused route, 1 B2 and 1 B3 a
+           job on the staged one, no feature kernel on the host route);
+           the host route's extractions (3, then 3 from a warm store);
+           crash-resume (a fault at scheduler.consume after 5 jobs, then a
+           resume skipping 5, bitwise); sweep MIPS against the loop's and
+           the queue's occupancy; the host route's prefetch on one trace
+           (inline, off, threaded in turns; bitwise);
   train    the port's training path at the default TaoConfig width: the
            detailed simulator on lee and mcf (30,000 instructions each,
            UARCH_A), alignment, labelled features, windows; the train
@@ -81,7 +95,13 @@ and ``nvcc``.  Phases, one JSON line each:
            against the entry's eager step in turns (host ms per step,
            windows/s; losses, parameters and AdamW state bitwise), device
            ms and idle share of each from profiles that must show only
-           the port's attention kernels; the losses (finite, falling),
+           the port's attention kernels; the graphed run with prefetch
+           (prefetch_to_device: each batch packed into pinned memory and
+           copied without blocking, a batch ahead), without, and with it
+           on a producer thread, in turns (host ms per step, windows/s;
+           device ms, idle share and the copies' device ms of one epoch
+           with and without; bitwise);
+           the losses (finite, falling),
            the embeddings bitwise unchanged by the fine-tune, and the
            first 3 steps on the card against the CPU's;
   persist  crash-resumable training and the legacy simulate loop: the
@@ -133,6 +153,7 @@ Imports nothing of JAX or of the reference package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -254,6 +275,13 @@ JOINT_CPU_RTOL = 1e-5
 # the two, so a parameter may differ by up to 2 lr a step
 TRAIN_CHECK_STEPS = 3
 TRAIN_LOSS_RTOL = 1e-4
+# the sweep phase: its models' seeds, its metrics (no cpi_phase: its float32
+# per-chunk sums go through atomics whose order changes from run to run, so
+# a job would not be bitwise its standalone simulate), the jobs a killed
+# sweep finishes before its fault
+SWEEP_SEEDS = (0, 1, 2, 3)
+SWEEP_METRICS = ("cpi", "branch_mpki", "l1d_mpki", "l1d_phase", "dlevel_hist")
+SWEEP_KILL_AFTER = 5
 
 # GPU vs CPU engine on one trace.  Features are bitwise equal on both; the
 # model's float32 logits differ in the last bits (cuBLAS vs CPU BLAS
@@ -1656,6 +1684,188 @@ def slice_int8(failures, traces, arrays, model, engine, extract, batches, lee_ba
           "cpu_precision": "int8", **control, "fails_as_it_must": not control["ok"]})
 
 
+def sweep_standalone(cfg, ecfg, jobs, route):
+    """The sweep's baseline: a loop of standalone simulates, one engine per
+    model, each job's features made for it alone (the staged route's
+    device arrays, the host route's NumPy extraction).  Returns the
+    results by job key and the loop's host seconds."""
+    import torch
+
+    from repro_torch.core.features import extract_features
+    from repro_torch.engine import StreamingEngine
+    from repro_torch.kernels.features.ops import device_feature_arrays, trace_columns
+
+    engines, out = {}, {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in jobs:
+        engine = engines.get(id(j.params))
+        if engine is None:
+            engine = engines[id(j.params)] = StreamingEngine(j.params, cfg, ecfg, device="cuda")
+        feats = None
+        if route == "staged":
+            feats = device_feature_arrays(trace_columns(j.trace, cfg.features), cfg.features, device="cuda")
+        elif route == "host":
+            feats = extract_features(j.trace, cfg.features, with_labels=False)
+        out[j.key] = engine.simulate(j.trace, features=feats)
+    return out, time.perf_counter() - t0
+
+
+def sweep_report_line(rep) -> dict:
+    return {"seconds": rep.seconds, "mips": rep.mips, "traces_per_s": rep.traces_per_s,
+            "num_compiles": rep.num_compiles, "queue_occupancy_mean": rep.queue_occupancy_mean,
+            "queue_occupancy_max": rep.queue_occupancy_max, "queue_depth": rep.queue_depth,
+            "prepared_async": rep.prepared_async, "features_extracted": rep.features_extracted,
+            "features_from_store": rep.features_from_store, "jobs_skipped": rep.jobs_skipped}
+
+
+def phase_sweep(failures, results, traces):
+    """The sweep scheduler at the default TaoConfig width: 4 models x the
+    three 150k traces on each route (module note)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.features import extract_features
+    from repro_torch.core.model import TaoConfig, init_tao
+    from repro_torch.engine import EngineConfig, StreamingEngine, SweepJob, TraceSweeper
+    from repro_torch.engine.aot import WARMUP_RUNS, graph_kernel_names
+    from repro_torch.resilience.faults import FaultPlan, FaultSpec, inject
+    from repro_torch.store import ArtifactStore
+
+    cfg = TaoConfig()
+    # a metric set of its own: a step geometry no earlier phase captured
+    ecfg = EngineConfig(metrics=SWEEP_METRICS)
+    models = {s: init_tao(cfg, torch.Generator().manual_seed(s), device="cuda") for s in SWEEP_SEEDS}
+    jobs = [SweepJob(f"m{s}/{b}", models[s], t) for s in SWEEP_SEEDS for b, t in traces.items()]
+    per_job = {b: -(-(len(t) // cfg.window) // ecfg.batch_size) for b, t in traces.items()}
+    batches = sum(per_job[j.key.split("/")[1]] for j in jobs)
+    none = {k: 0 for k in launch_counters()}
+
+    def sweep(route, store=None):
+        zero_counts()
+        rep = TraceSweeper(cfg, ecfg, route=route, store=store).run(jobs)
+        return rep, read_counts()
+
+    def bitwise(rep, alone):
+        return all(same_metrics(rep.results[k], r) for k, r in alone.items())
+
+    # ---- fused: from a cold step cache for this geometry, then warm
+    cold, cold_launches = sweep("fused")
+    entry = StreamingEngine(models[0], cfg, ecfg, device="cuda").step_entry_for(SLICE_INSTRUCTIONS)
+    replays = {"cold": entry.aot.replays}
+    warm, warm_launches = sweep("fused")
+    replays["warm"] = entry.aot.replays - replays["cold"]
+    attn_nodes = sum("attention_kernel" in k for k in graph_kernel_names(entry.aot.graph))
+    alone, alone_s = sweep_standalone(cfg, ecfg, jobs, "fused")
+    n = cold.num_instructions
+    fused_expected = none | {"fused_features": batches, "flash_attention": cfg.n_layers * batches}
+    # a cold sweep's capture runs the step eagerly WARMUP_RUNS times first
+    cold_expected = fused_expected | {"flash_attention": cfg.n_layers * (
+        batches + WARMUP_RUNS * cold.num_compiles)}
+    from_nodes = {k: attn_nodes * r for k, r in replays.items()}
+    held = {"cold": bitwise(cold, alone), "warm": bitwise(warm, alone)}
+    ok = (cold.num_compiles <= 1 and warm.num_compiles == 0 and cold_launches == cold_expected
+          and warm_launches == fused_expected and attn_nodes == cfg.n_layers
+          and set(from_nodes.values()) == {cfg.n_layers * batches} and all(held.values()))
+    emit({"phase": "sweep", "route": "fused", "jobs": len(jobs), "models": len(models),
+          "traces": list(traces), "batch": ecfg.batch_size, "batches": batches,
+          "per_job": {"fused_features": batches / len(jobs),
+                      "flash_attention": cfg.n_layers * batches / len(jobs)},
+          "cold": sweep_report_line(cold), "warm": sweep_report_line(warm),
+          "standalone": {"seconds": alone_s, "mips": n / 1e6 / alone_s},
+          "warm_speedup_vs_standalone": alone_s / warm.seconds,
+          "launches": {"cold": cold_launches, "warm": warm_launches},
+          "attention_nodes_per_graph": attn_nodes, "replays": replays,
+          "attention_from_graph_nodes": from_nodes, "bitwise_vs_standalone": held, "ok": ok})
+    if not ok:
+        failures.append(f"sweep: fused route: captures {cold.num_compiles} / {warm.num_compiles}, "
+                        f"launches {cold_launches} / {warm_launches} (expected {cold_expected} / "
+                        f"{fused_expected}), "
+                        f"attention from nodes {from_nodes}, bitwise {held}")
+
+    # ---- staged: each job's trace extracted on the device by B2 and B3
+    staged, st_launches = sweep("staged")
+    alone_st, alone_st_s = sweep_standalone(cfg, ecfg, jobs, "staged")
+    st_expected = none | {"branch_history": len(jobs), "memdist_delta": len(jobs),
+                          "flash_attention": cfg.n_layers * batches}
+    held = bitwise(staged, alone_st)
+    ok = staged.num_compiles == 0 and st_launches == st_expected and held
+    emit({"phase": "sweep", "route": "staged", "jobs": len(jobs), "sweep": sweep_report_line(staged),
+          "standalone": {"seconds": alone_st_s, "mips": n / 1e6 / alone_st_s},
+          "speedup_vs_standalone": alone_st_s / staged.seconds, "launches": st_launches,
+          "bitwise_vs_standalone": held, "ok": ok})
+    if not ok:
+        failures.append(f"sweep: staged route: captures {staged.num_compiles}, launches {st_launches} "
+                        f"(expected {st_expected}), bitwise {held}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as root:
+        store = ArtifactStore(root)
+        # ---- host: one NumPy extraction per distinct trace, shared by the
+        # models, then a second sweep over the warm store
+        host, h_launches = sweep("host", store)
+        host2, h2_launches = sweep("host", store)
+        alone_h, alone_h_s = sweep_standalone(cfg, ecfg, jobs, "host")
+        h_expected = none | {"flash_attention": cfg.n_layers * batches}
+        held = {"cold_store": bitwise(host, alone_h), "warm_store": bitwise(host2, alone_h)}
+        ok = ((host.features_extracted, host.features_from_store) == (len(traces), 0)
+              and (host2.features_extracted, host2.features_from_store) == (0, len(traces))
+              and host.num_compiles == host2.num_compiles == 0
+              and h_launches == h2_launches == h_expected and all(held.values()))
+        emit({"phase": "sweep", "route": "host", "jobs": len(jobs), "sweep": sweep_report_line(host),
+              "warm_store": sweep_report_line(host2),
+              "standalone": {"seconds": alone_h_s, "mips": n / 1e6 / alone_h_s,
+                             "extractions": len(jobs)},
+              "speedup_vs_standalone": alone_h_s / host.seconds, "launches": h_launches,
+              "bitwise_vs_standalone": held, "ok": ok})
+        if not ok:
+            failures.append(f"sweep: host route: extracted {host.features_extracted} / "
+                            f"{host2.features_extracted}, from the store {host.features_from_store} / "
+                            f"{host2.features_from_store}, launches {h_launches} / {h2_launches}, "
+                            f"bitwise {held}")
+
+        # ---- the host route's prefetch on one trace, in turns: inline (the
+        # engine's), off, and on the producer thread the engine does not take
+        fs = extract_features(traces["lee"], cfg.features, with_labels=False)
+        engines = {on: StreamingEngine(models[0], cfg, dataclasses.replace(ecfg, prefetch=on), device="cuda")
+                   for on in (True, False)}
+        hp = {}
+        for i, mode in enumerate(("on", "off", "threaded", "threaded", "off", "on")):
+            with prefetch_threaded() if mode == "threaded" else contextlib.nullcontext():
+                hp[f"{i}_{mode}"] = engines[mode != "off"].simulate(traces["lee"], features=fs)
+        held = {k: same_metrics(r, hp["1_off"]) for k, r in hp.items()}
+        emit({"phase": "sweep", "check": "host_route_prefetch", "trace": "lee", "turns": list(hp),
+              "ms_per_trace": {k: r.seconds * 1e3 for k, r in hp.items()},
+              "mips": {k: r.mips for k, r in hp.items()}, "held": held, "ok": all(held.values())})
+        if not all(held.values()):
+            failures.append(f"sweep: the host route with prefetch differs from without: {held}")
+
+        # ---- crash-resume: a fault at the consume of job 6, then a resume
+        plan = FaultPlan(FaultSpec("scheduler.consume", after=SWEEP_KILL_AFTER, times=1,
+                                   exc="RuntimeError"))
+        killed = ""
+        try:
+            with inject(plan):
+                TraceSweeper(cfg, ecfg, store=store).run(jobs, resume_key="chip-sweep")
+        except RuntimeError as e:
+            killed = str(e)
+        zero_counts()
+        resumed = TraceSweeper(cfg, ecfg, store=store).run(jobs, resume_key="chip-sweep")
+        r_launches = read_counts()
+        r_batches = sum(per_job[j.key.split("/")[1]] for j in jobs[SWEEP_KILL_AFTER:])
+        r_expected = none | {"fused_features": r_batches, "flash_attention": cfg.n_layers * r_batches}
+        held = bitwise(resumed, alone)
+        ok = ("injected fault" in killed and resumed.jobs_skipped == SWEEP_KILL_AFTER
+              and resumed.num_traces == len(jobs) and resumed.num_instructions == n
+              and r_launches == r_expected and held)
+        emit({"phase": "sweep", "check": "resume", "killed": killed, "kill_after": SWEEP_KILL_AFTER,
+              "resumed": sweep_report_line(resumed), "launches": r_launches,
+              "bitwise_vs_uninterrupted": held, "ok": ok})
+        if not ok:
+            failures.append(f"sweep: resume: killed {killed!r}, skipped {resumed.jobs_skipped}, "
+                            f"launches {r_launches} (expected {r_expected}), bitwise {held}")
+
+
 @functools.lru_cache(maxsize=None)
 def adjusted_trace(name, uarch, n=TRAIN_INSTRUCTIONS):
     """The detailed simulator's records for ``name`` on ``uarch``, aligned to
@@ -1726,22 +1936,44 @@ def graph_nodes(entry) -> dict:
     return out
 
 
-def train_run(cfg, ds, graphed: bool, epochs: int, freeze: bool = False, init=None, seed: int = 0):
+@contextlib.contextmanager
+def prefetch_threaded():
+    """The engine's host route and the trainer prefetch inline; within this
+    block their ``prefetch_to_device`` runs its producer thread instead
+    (what the threaded turns measure)."""
+    from repro_torch.engine import runner
+
+    inline = runner.prefetch_to_device
+    runner.prefetch_to_device = lambda *a, threaded=None, **k: inline(*a, threaded=True, **k)
+    try:
+        yield
+    finally:
+        runner.prefetch_to_device = inline
+
+
+def train_run(cfg, ds, graphed: bool, epochs: int, freeze: bool = False, init=None, seed: int = 0,
+              prefetch: bool = False, threaded: bool = False):
     """One run of a train recipe on the card, driven as ``train_tao_impl``
     drives it (``core/transfer.py``'s ``_run_epochs``): on the recipe's
-    CUDA graph, or on the same entry's eager step.  Returns the losses,
-    steps, host seconds, and the model and AdamW state after the run."""
+    CUDA graph, or on the same entry's eager step; with ``prefetch``
+    (graphed only) each epoch's batches through ``prefetch_to_device``,
+    with ``threaded`` on its producer thread.  Returns the losses, steps,
+    host seconds, and the model and AdamW state after the run."""
     import torch
 
-    from repro_torch.core.transfer import _EagerRun, _GraphRun, _make_step, _new_state, _run_epochs
+    from repro_torch.core.transfer import _EagerRun, _GraphRun, _make_step, _new_state, _run_epochs, batch_like
     from repro_torch.train import AdamWConfig
 
     model, opt = _new_state(cfg, init, freeze, seed, torch.device("cuda"))
     entry = _make_step(cfg, AdamWConfig(lr=TRAIN_LR), "headonly" if freeze else "all")
-    run = (_GraphRun if graphed else _EagerRun)(entry, model, opt)
+    if prefetch:
+        run = _GraphRun(entry, model, opt, like=batch_like(cfg, TRAIN_BATCH, ds.window))
+    else:
+        run = (_GraphRun if graphed else _EagerRun)(entry, model, opt)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    losses, _, steps = _run_epochs(run, ds, epochs, TRAIN_BATCH, seed=seed)
+    with prefetch_threaded() if threaded else contextlib.nullcontext():
+        losses, _, steps = _run_epochs(run, ds, epochs, TRAIN_BATCH, seed=seed, prefetch=prefetch)
     model, opt = run.state()
     torch.cuda.synchronize()
     return {"losses": losses, "steps": steps, "seconds": time.perf_counter() - t0, "model": model,
@@ -1779,6 +2011,25 @@ def replay_split(graph, batches, state=None) -> dict:
             split[k] += (z - a) * 1e3 / len(batches)
     torch.cuda.synchronize()
     return split
+
+
+def prefetch_profile(entry, cfg, ds, prefetch: bool) -> dict:
+    """Device ms per step, idle share and the copies' device ms per step
+    over one epoch of the graphed train step driven by ``_run_epochs``,
+    with or without prefetch (an unprofiled epoch first)."""
+    import torch
+
+    from repro_torch.core.transfer import _GraphRun, _new_state, _run_epochs, batch_like
+
+    model, opt = _new_state(cfg, None, False, 0, torch.device("cuda"))
+    run = _GraphRun(entry, model, opt, like=batch_like(cfg, TRAIN_BATCH, ds.window))
+    _run_epochs(run, ds, 1, TRAIN_BATCH, prefetch=prefetch)
+    prof = profile_breakdown(lambda: _run_epochs(run, ds, 1, TRAIN_BATCH, prefetch=prefetch),
+                             track=("Memcpy",))
+    steps = len(ds) // TRAIN_BATCH
+    prof["ms_per_step_device"] = prof["device_busy_s"] * 1e3 / steps
+    prof["memcpy_ms_per_step"] = {k: ms / steps for k, ms in prof.pop("tracked_ms").items()}
+    return prof
 
 
 def step_profile(run, batches, track=()) -> dict:
@@ -1929,6 +2180,31 @@ def phase_train(failures, results, traces):
           "graphed_host_ms_per_step_split": split,
           "attention_kernels_ms": {k: p["tracked_ms"] for k, p in profs.items()},
           "top_device_ms": {k: p["top_device_ms"] for k, p in profs.items()}, "ok": held_ok})
+
+    # ---- the graphed run with prefetch (inline, as train_tao_impl runs it)
+    # and without, in turns, and with the producer thread the trainer does
+    # not take: the same recipe from the same seed, each run on its own model
+    # a first run grows the pinned-memory pool the copies stage through
+    first = train_run(cfg, ds, True, TRAIN_EPOCHS, prefetch=True)
+    pf = {}
+    for i, mode in enumerate(("on", "off", "threaded", "threaded", "off", "on")):
+        pf[f"{i}_{mode}"] = train_run(cfg, ds, True, TRAIN_EPOCHS, prefetch=mode != "off",
+                                      threaded=mode == "threaded")
+    pf_ref = pf["1_off"]
+    pf_held = {k: {"losses": t["losses"] == pf_ref["losses"],
+                   "params": state_bitwise(t["model"], pf_ref["model"]),
+                   "adamw": state_bitwise(t["opt"], pf_ref["opt"])} for k, t in pf.items()}
+    pf_ok = (all(all(v.values()) for v in pf_held.values()) and pf_ref["losses"] == ref["losses"]
+             and first["losses"] == ref["losses"])
+    if not pf_ok:
+        failures.append(f"train: the run with prefetch differs from the run without: {pf_held}")
+    pf_prof = {name: prefetch_profile(entries["all"], cfg, ds, on) for name, on in (("on", True), ("off", False))}
+    emit({"phase": "train", "check": "prefetch", "turns": list(pf), "held": pf_held,
+          "first_run": timing(first), "timing": {k: timing(t) for k, t in pf.items()},
+          "ms_per_step_device": {k: p["ms_per_step_device"] for k, p in pf_prof.items()},
+          "idle_share_profiled": {k: p["idle_share"] for k, p in pf_prof.items()},
+          "memcpy_ms_per_step": {k: p["memcpy_ms_per_step"] for k, p in pf_prof.items()},
+          "top_device_ms": {k: p["top_device_ms"] for k, p in pf_prof.items()}, "ok": pf_ok})
     emit({"phase": "train", "check": "transfer", "epochs": TRANSFER_EPOCHS, "steps": ft.steps,
           "losses": ft.losses, "seconds": ft.seconds, "embed_bitwise_unchanged": frozen,
           "pred_max_change": params_diff(ft.params.pred, res.params.pred)})
@@ -2593,8 +2869,8 @@ def main() -> int:
     emit({"phase": "capture", "traces": list(SLICE_BENCHMARKS),
           "instructions_each": SLICE_INSTRUCTIONS, "seconds": time.perf_counter() - t0})
     failures, results = [], {}
-    for phase in (phase_build, phase_kernels, phase_slice, phase_train, phase_persist, phase_joint,
-                  phase_mamba2):
+    for phase in (phase_build, phase_kernels, phase_slice, phase_sweep, phase_train, phase_persist,
+                  phase_joint, phase_mamba2):
         phase(failures, results, traces)
         if failures:
             break

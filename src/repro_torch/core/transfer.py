@@ -25,6 +25,20 @@ the host from a NumPy generator seeded as the reference's, so both sides
 see the same windows in the same order; each step's loss stays a device
 scalar until the epoch ends, when the host sums them in step order as
 Python floats, as the reference does.
+
+With ``prefetch`` (the default, as in the reference) each epoch's batches
+go through ``engine.runner.prefetch_to_device``, one batch ahead: on the
+card each is packed into pinned memory and copied to the device without
+blocking, so the replay's input copies run on the device and the host no
+longer waits for the previous step inside pageable copies.  The
+reference's producer thread measured slower here (chip_smoke.py, phase
+train), so the batches are drawn inline.  The graph of the run's geometry
+is captured before the first batch is drawn, so a producer thread, where
+one runs, never meets a capture (which forbids CUDA calls on every
+thread).  The losses, parameters and AdamW state are bitwise those of a
+run without it.  ``plan`` (an ``engine.ExecutionPlan``; on the port only
+the single-device plan) keys the step cache as the reference's does; None
+and the single plan are one key.
 """
 from __future__ import annotations
 
@@ -38,7 +52,8 @@ import torch
 from .. import resolve_device
 from ..train.optim import AdamWConfig, AdamWState, adamw_init, adamw_update
 from ..engine.aot import tree_map
-from ..train.trainer import CachedTrainStep, cached_train_step
+from ..engine.plan import ExecutionPlan
+from ..train.trainer import CachedTrainStep, cached_train_step, geometry
 from ..uarch.isa import NUM_REGS
 from .dataset import INPUT_KEYS, StreamingWindowDataset, WindowDataset
 from .model import Tao, TaoConfig, TaoEmbed, init_tao, multi_metric_loss, tao_forward
@@ -63,10 +78,11 @@ class TrainResult:
 
 
 def to_device(batch: Dict, device: torch.device) -> Dict:
-    """A NumPy batch of ``WindowDataset.batches`` as tensors on ``device``."""
-    out = {k: torch.from_numpy(batch[k]).to(device) for k in INPUT_KEYS}
+    """A batch of ``WindowDataset.batches`` (NumPy arrays, or tensors from
+    ``prefetch_to_device``) as tensors on ``device``."""
+    out = {k: torch.as_tensor(batch[k]).to(device) for k in INPUT_KEYS}
     if "labels" in batch:
-        out["labels"] = {k: torch.from_numpy(v).to(device) for k, v in batch["labels"].items()}
+        out["labels"] = {k: torch.as_tensor(v).to(device) for k, v in batch["labels"].items()}
     return out
 
 
@@ -80,13 +96,17 @@ def trainable_params(model: Tao, trainable: str) -> Dict[str, torch.Tensor]:
 
 
 # tao: step-builder[train-step]
-def _make_step(cfg: TaoConfig, opt_cfg: AdamWConfig, trainable: str) -> CachedTrainStep:
+def _make_step(cfg: TaoConfig, opt_cfg: AdamWConfig, trainable: str,
+               plan: Optional[ExecutionPlan] = None) -> CachedTrainStep:
     """The cached train step of ``trainable`` ("all" or "headonly": freeze
     the shared embeddings).  Its eager step ``step(model, opt, batch) ->
     (opt, loss)`` updates the model's trainable parameters in place (under
     "headonly" the caller has the embeddings not require grad, so autograd
     computes nothing for them); calling the entry runs it on the CPU and
-    replays its graph on the card (``train.trainer``)."""
+    replays its graph on the card (``train.trainer``).  ``plan`` only keys
+    the cache, as in the reference."""
+    # the single-device plan keys as None: both spellings share one entry
+    plan = None if plan is None or not plan.sharded else plan
 
     def build(entry):
         def step(model: Tao, opt: AdamWState, batch: Dict) -> Tuple[AdamWState, torch.Tensor]:
@@ -100,7 +120,7 @@ def _make_step(cfg: TaoConfig, opt_cfg: AdamWConfig, trainable: str) -> CachedTr
         return step
 
     return cached_train_step(  # tao: step-key[train-step]
-        ("tao", cfg, opt_cfg, trainable), build
+        ("tao", cfg, opt_cfg, trainable, plan), build
     )
 
 
@@ -126,6 +146,7 @@ def warmup_train_step(
     batch_size: int = 16,
     lr: float = 3e-4,
     freeze_embed: bool = False,
+    plan: Optional[ExecutionPlan] = None,
     window: Optional[int] = None,
     device: Optional[Union[str, torch.device]] = None,
 ) -> CachedTrainStep:
@@ -136,11 +157,13 @@ def warmup_train_step(
     its own in), the batch is ``meta`` tensors of the geometry
     (``window`` defaults to ``cfg.window``: pass the effective window of
     traces shorter than it).  Sets the entry's ``aot`` and ``est_bytes``.
-    On the CPU the entry is built and nothing is captured.  Idempotent per
-    (recipe, geometry); raises if the capture fails."""
+    On the CPU the entry is built and nothing is captured.  ``plan`` keys
+    the entry as ``train_tao_impl``'s does.  Idempotent per (recipe,
+    geometry); raises if the capture fails."""
     dev = resolve_device(device)
+    plan = ExecutionPlan.resolve(batch_size=batch_size, plan=plan)
     trainable = "headonly" if freeze_embed else "all"
-    entry = _make_step(cfg, AdamWConfig(lr=lr), trainable)
+    entry = _make_step(cfg, AdamWConfig(lr=lr), trainable, plan)
     if dev.type == "cuda":
         model, opt = _new_state(cfg, None, freeze_embed, 0, dev)
         entry.graph(model, opt, batch_like(cfg, batch_size, window or cfg.window))
@@ -179,19 +202,37 @@ class _EagerRun:
 
 
 class _GraphRun:
-    """Drives the entry's graph of the run's geometry, captured at the
-    first batch unless ``warmup_train_step`` did it: the run's state copied
-    in once, each batch's arrays into the static inputs, and each step's
-    loss copied out on the device (the next replay overwrites it)."""
+    """Drives the entry's graph of the run's geometry: the run's state
+    copied in once, each batch (NumPy arrays, or device tensors from
+    ``prefetch_to_device``) into the static inputs, and each step's loss
+    copied out on the device (the next replay overwrites it).  With
+    ``like`` (a batch of the geometry; ``meta`` tensors will do) the graph
+    is taken, or captured, here; else at the first batch."""
 
-    def __init__(self, entry: CachedTrainStep, model: Tao, opt: AdamWState):
+    def __init__(self, entry: CachedTrainStep, model: Tao, opt: AdamWState,
+                 like: Optional[Dict] = None):
         self.entry, self.model, self.opt, self.graph = entry, model, opt, None
+        self.device = next(model.parameters()).device
+        self._unchecked = like is not None  # the first batch's geometry
+        if like is not None:
+            self._load(like)
+
+    def _load(self, batch: Dict) -> None:
+        self._geometry = geometry(batch, self.device)
+        self.graph = self.entry.graph(self.model, self.opt, batch)
+        self.graph.load(self.model, self.opt)
 
     def step(self, batch: Dict) -> torch.Tensor:
         batch = tree_map(torch.as_tensor, batch)  # host tensors over the arrays
         if self.graph is None:
-            self.graph = self.entry.graph(self.model, self.opt, batch)
-            self.graph.load(self.model, self.opt)
+            self._load(batch)
+        elif self._unchecked:
+            # a graph taken from ``like``: the data must have its geometry
+            # (a copy into the static inputs would cast another dtype)
+            if geometry(batch, self.device) != self._geometry:
+                raise ValueError(f"batch geometry {geometry(batch, self.device)} is not the "
+                                 f"graph's {self._geometry}")
+            self._unchecked = False
         return self.graph.replay(batch).clone()
 
     def state(self) -> Tuple[Tao, AdamWState]:
@@ -215,7 +256,12 @@ def _run_epochs(
     evals: Optional[List[float]] = None,
     steps: int = 0,
     checkpoint_cb: Optional[Callable] = None,
+    prefetch: bool = False,
 ) -> Tuple[List[float], List[float], int]:
+    # lazy: engine.runner imports core.dataset, whose package imports this
+    # module
+    from ..engine.runner import prefetch_to_device
+
     rng = np.random.default_rng(seed)
     if rng_state is not None:
         # crash-resume: fast-forward the shuffle stream to where the
@@ -226,7 +272,14 @@ def _run_epochs(
     evals = list(evals) if evals else []
     for ep in range(start_epoch, epochs):
         ep_losses: List[torch.Tensor] = []
-        for batch in dataset.batches(batch_size, rng=rng):
+        batches = dataset.batches(batch_size, rng=rng)
+        if prefetch:
+            # the same arrays, drawn and placed a batch ahead of the step
+            # (inline: see the module note); the epoch's generator runs to
+            # its end before the epoch closes, so the rng state a checkpoint
+            # reads is the same as without
+            batches = prefetch_to_device(batches, device=run.device, threaded=False)
+        for batch in batches:
             # a device scalar: reading it here would wait for the step
             ep_losses.append(run.step(batch))
             steps += 1
@@ -290,6 +343,8 @@ def train_tao_impl(
     store=None,
     resume_key: Optional[str] = None,
     manifest_every: int = 1,
+    prefetch: bool = True,
+    plan: Optional[ExecutionPlan] = None,
     device: Optional[Union[str, torch.device]] = None,
 ) -> TrainResult:
     """Train (or fine-tune) a single-µarch Tao model on ``device``
@@ -318,13 +373,18 @@ def train_tao_impl(
     the next epoch: its losses, step count, parameters and optimizer state
     are bitwise those of an uninterrupted run on the same device.  A
     recipe that has finished replays its last manifest and runs no step.
+
+    ``prefetch`` sends each epoch's batches through
+    ``prefetch_to_device`` (module note); ``plan`` keys the step cache
+    (module note; validated against ``batch_size``).
     """
     if manifest_every < 1:
         raise ValueError(f"manifest_every must be >= 1, got {manifest_every}")
     dev = resolve_device(device)
+    plan = ExecutionPlan.resolve(batch_size=batch_size, plan=plan)
     model, opt = _new_state(cfg, init_params, freeze_embed, seed, dev)
     trainable = "headonly" if freeze_embed else "all"
-    entry = _make_step(cfg, AdamWConfig(lr=lr), trainable)
+    entry = _make_step(cfg, AdamWConfig(lr=lr), trainable, plan)
 
     start_epoch, rng_state, steps0 = 0, None, 0
     losses0: List[float] = []
@@ -350,11 +410,15 @@ def train_tao_impl(
                                 _host_tree(o._asdict()), ls, ev, st, rs)
 
     t0 = time.perf_counter()
-    run = (_GraphRun if dev.type == "cuda" else _EagerRun)(entry, model, opt)
+    if dev.type == "cuda":
+        # the run's graph taken (or captured) before any batch is drawn
+        run = _GraphRun(entry, model, opt, like=batch_like(cfg, batch_size, dataset.window))
+    else:
+        run = _EagerRun(entry, model, opt)
     losses, evals, steps = _run_epochs(
         run, dataset, epochs, batch_size, eval_fn, seed, target_loss,
         start_epoch=start_epoch, rng_state=rng_state, losses=losses0, evals=evals0,
-        steps=steps0, checkpoint_cb=checkpoint_cb,
+        steps=steps0, checkpoint_cb=checkpoint_cb, prefetch=prefetch,
     )
     model, _ = run.state()
     return TrainResult(params=model, losses=losses, eval_losses=evals,
@@ -366,13 +430,18 @@ def transfer_finetune(
     shared_embed: Union[TaoEmbed, Mapping[str, torch.Tensor]],
     donor_arch_params: Params,
     small_dataset: TrainData,
+    *,
+    prefetch: bool = True,
+    plan: Optional[ExecutionPlan] = None,
     **kw,
 ) -> TrainResult:
     """Tao's fast path: the shared embeddings (a ``TaoEmbed`` or its state
     dict) frozen, the adapt and pred groups initialized from the donor (a
     ``Tao`` or its state dict) and fine-tuned on a reduced dataset.
-    Keyword arguments go to ``train_tao_impl``."""
+    ``prefetch``, ``plan`` and the other keyword arguments go to
+    ``train_tao_impl``."""
     init = {f"embed.{k}": v for k, v in _state_dict(shared_embed).items()}
     init.update({k: v for k, v in _state_dict(donor_arch_params).items()
                  if k.split(".")[0] in HEAD_GROUPS})
-    return train_tao_impl(cfg, small_dataset, init_params=init, freeze_embed=True, **kw)
+    return train_tao_impl(cfg, small_dataset, init_params=init, freeze_embed=True,
+                          prefetch=prefetch, plan=plan, **kw)

@@ -29,30 +29,47 @@ the step updates in place (the parameters too), and ``store`` copies the
 static state back to the caller's.  A hand-written kernel's launch during
 a capture is recorded, not run: ``CudaKernel.captured`` counts it, and
 each replay adds the graph's launches of each kernel to that kernel's
-``launches``.  The persistent-compilation-cache functions of the
-reference module have no counterpart: a graph does not outlive its
-process.
+``launches``.
+
+The reference's persistent compilation cache keeps XLA executables on
+disk across processes.  A CUDA graph does not outlive its process, so the
+port's counterpart is the directory of ``nvcc``-built kernel libraries
+(``kernels/_cuda.py``), which every process of a checkout already
+shares: ``enable_persistent_cache`` points it at a directory,
+``build_cache_counters`` (the reference's ``xla_cache_counters``) counts
+this process's lookups in it, and ``persistent_cache_status`` reports it
+in the reference's keys.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
 import ctypes
+import os
+from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch import nn
 
+from ..kernels import _cuda
 from ..kernels._cuda import KERNELS, CudaKernel
 
 __all__ = [
     "WARMUP_RUNS",
     "CapturedStep",
+    "build_cache_counters",
     "capture_bytes_estimate",
+    "enable_persistent_cache",
     "graph_kernel_names",
+    "persistent_cache_status",
     "static_like",
     "tree_map",
 ]
+
+# enable_persistent_cache() honours this variable when no directory is
+# passed, as the reference's does
+_ENV_DIR = "REPRO_COMPILE_CACHE"
 
 # eager runs of the step on the static inputs before the capture: each
 # kernel's first-use build and attribute setup, and cuBLAS's handles and
@@ -65,6 +82,46 @@ _GRAPH_NODES = CudaKernel(
     [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)],
 )
 _NAMES_BYTES = 1 << 20
+
+
+def enable_persistent_cache(directory: Optional[str] = None) -> str:
+    """Point the kernel build cache at ``directory`` (default:
+    ``$REPRO_COMPILE_CACHE``, else ``build/`` at the checkout root) and
+    return its absolute path.  Idempotent; a later call repoints it.
+    Kernels already loaded keep their libraries; every later ``build``
+    looks there, and builds into it what it does not find."""
+    if directory is None:
+        directory = os.environ.get(_ENV_DIR) or str(_cuda.DEFAULT_BUILD_DIR)
+    path = Path(directory).expanduser().resolve()
+    path.mkdir(parents=True, exist_ok=True)
+    _cuda.BUILD_DIR = path
+    return str(path)
+
+
+def build_cache_counters() -> Dict[str, int]:
+    """This process's kernel-library lookups: ``requests``, ``hits``
+    (a library found in the cache directory, no ``nvcc``) and ``misses``
+    (an ``nvcc`` run).  A warm process shows ``misses == 0``."""
+    return dict(_cuda.BUILD_COUNTERS)
+
+
+def persistent_cache_status() -> Dict[str, Any]:
+    """JSON-friendly snapshot in the reference's keys: whether the cache
+    is on (always: built libraries persist in the directory), where, how
+    many libraries it holds and their bytes, and this process's lookups."""
+    d = _cuda.BUILD_DIR
+    libs = [p for p in d.glob("*.so") if ".tmp." not in p.name] if d.is_dir() else []
+    nbytes = 0
+    for p in libs:
+        with contextlib.suppress(OSError):
+            nbytes += p.stat().st_size
+    return {
+        "enabled": True,
+        "dir": str(d),
+        "entries": len(libs),
+        "bytes": nbytes,
+        **build_cache_counters(),
+    }
 
 
 def _leaves(tree: Any) -> List[torch.Tensor]:

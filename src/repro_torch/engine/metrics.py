@@ -4,7 +4,8 @@ Counterpart of ``repro/engine/metrics.py`` on one device: a ``MetricSpec``
 declares an accumulator — an ``init`` tree of device tensors, an
 ``update`` that folds one batch into it on the device, and a host-side
 ``finalize`` that runs after the engine's single end-of-trace sync.  The
-reference's cross-shard reducers ``psum`` / ``pmax`` are the identity here.
+reference's cross-shard reducers ``psum`` / ``pmax`` come from the plan's
+``AxisContext`` (``engine/plan.py``): the identity on one device.
 
 The built-in specs follow the reference's semantics: CPI by retire clock
 (the fetch-latency sum plus the exec latency of the trace's last valid
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..uarch.isa import DLEVEL_L2, NUM_DLEVELS
+from .plan import AxisContext
 
 __all__ = [
     "StepContext",
@@ -41,8 +43,8 @@ __all__ = [
 ]
 
 
-def _identity(x):
-    return x
+# the reducers of a context built without a plan's: the single plan's
+_SINGLE_AXES = AxisContext()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,9 +76,9 @@ class StepContext:
                                 # on padding rows)
     num_windows: Optional[torch.Tensor] = None  # int32 device scalar: real
                                 # windows in the whole trace
-    # the reference's cross-shard reducers: the identity on one device
-    psum: Callable[[Any], Any] = _identity
-    pmax: Callable[[Any], Any] = _identity
+    # the reference's cross-shard reducers, from the plan's AxisContext
+    psum: Callable[[Any], Any] = _SINGLE_AXES.psum
+    pmax: Callable[[Any], Any] = _SINGLE_AXES.pmax
 
     def at_last(self, x: torch.Tensor) -> torch.Tensor:
         """Value of ``x`` at the last valid position of the batch

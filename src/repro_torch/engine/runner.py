@@ -23,7 +23,9 @@ there is no ``feature_backend`` setting:
     extraction serves any number of models.  A tensor on another device
     raises; nothing is copied silently.
   * ``features=`` a ``FeatureSet`` — batches are cut on the host and copied
-    to the device one at a time.
+    to the device one at a time; under ``EngineConfig.prefetch`` (the
+    default) through ``prefetch_to_device``, which on the card copies each
+    one pinned and without blocking, a batch ahead of the step.
 
 Every route's features are bitwise the NumPy specification's for any
 address (the deltas are taken in int64).  Carries stay on the device; the
@@ -36,11 +38,14 @@ code do not depend on the trace's length.
 The step is built once per geometry and kept in a process-wide cache
 (``_STEP_CACHE``; ``cache_stats`` / ``clear_step_cache``), keyed on what it
 depends on — the config, batch size, ``collect``, precision, metric specs,
-effective window and device — and not on the weights, so engines of one
-shape share an entry.  On a CUDA device the entry holds the step captured
-as one CUDA graph (``engine/aot.py``): ``warmup(n)`` captures ahead of
-time, a first ``simulate`` of a geometry captures lazily, and every batch
-of every route is copied into the graph's static inputs and replayed.  On
+effective window, device and ``ExecutionPlan`` (``engine/plan.py``,
+resolved once per engine: on the port always the single-device plan,
+whose reducers the step's ``StepContext`` takes) — and not on the
+weights, so engines of one shape share an entry.  On a CUDA device the
+entry holds the step captured as one CUDA graph (``engine/aot.py``):
+``warmup(n)`` captures ahead of time, a first ``simulate`` of a geometry
+captures lazily (before its first batch is drawn), and every batch of
+every route is copied into the graph's static inputs and replayed.  On
 the CPU the entry runs the eager step.  A capture or replay that fails on
 CUDA raises; nothing falls back to the eager step.
 
@@ -59,8 +64,11 @@ at the top of ``simulate``.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import queue
+import threading
 import time
-from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -76,6 +84,7 @@ from ..resilience.faults import fault_point
 from ..uarch.isa import NUM_REGS
 from .aot import CapturedStep
 from .metrics import DEFAULT_METRICS, MetricSpec, StepContext, resolve_metrics
+from .plan import ExecutionPlan
 
 __all__ = [
     "EngineConfig",
@@ -88,8 +97,124 @@ __all__ = [
     "cache_stats",
     "clear_step_cache",
     "device_get",
+    "prefetch_to_device",
     "simulate_trace_engine",
 ]
+
+
+# ---------------------------------------------------------------------------
+# Host->device prefetch, shared by the engine's host route and the trainer
+# (core/transfer.py).
+# ---------------------------------------------------------------------------
+
+_PREFETCH_STOP = object()
+
+
+def _threaded_prefetch(host_batches: Iterable, put: Callable, depth: int) -> Iterator:
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    error: list = []
+
+    def produce():
+        try:
+            for b in host_batches:
+                dev = put(b)
+                while not stop.is_set():
+                    try:
+                        q.put(dev, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+                if stop.is_set():
+                    return
+        except BaseException as e:  # raised again in the consumer
+            error.append(e)
+        finally:
+            while not stop.is_set():
+                try:
+                    q.put(_PREFETCH_STOP, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+
+    producer = threading.Thread(target=produce, name="batch-prefetch", daemon=True)
+    producer.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _PREFETCH_STOP:
+                break
+            yield item
+    finally:
+        # exhaustion, a consumer error or an abandoned generator: unpark
+        # the producer and drop the batches it made that nobody took
+        stop.set()
+        while True:
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
+        producer.join()
+        if error:
+            raise error[0]
+
+
+def prefetch_to_device(
+    host_batches: Iterable,
+    device_put: Optional[Callable] = None,
+    *,
+    device: Union[str, torch.device],
+    threaded: Optional[bool] = None,
+    depth: int = 2,
+) -> Iterator:
+    """Host->device prefetch over an iterator of host batches (trees of
+    NumPy arrays), yielding each batch on ``device`` in order.
+
+    ``device_put(batch)`` places one batch (default: the single plan's
+    ``ExecutionPlan.device_put`` onto ``device``: on the card pinned and
+    copied without blocking).  Two modes:
+
+    * **inline** (the CPU's default): batch i+1 is placed before batch i
+      is yielded, on the consumer's thread — one ahead, no thread.
+    * **threaded** (the default on a CUDA device, as in the reference): a
+      daemon producer thread cuts and places batches into a queue
+      ``depth`` deep, so the host work of batch i+1 overlaps the
+      consumer's work on batch i where that work releases the interpreter
+      lock.  The engine's host route and the trainer pass
+      ``threaded=False``: on the card their producer's work and the
+      consumer's replay loop are both short Python-level calls that take
+      turns at the lock, and the thread measured slower than inline
+      (chip_smoke.py, phases sweep and train).
+
+    Nothing runs until the first batch is asked for: a caller that
+    captures a CUDA graph does so before that, while no producer makes
+    CUDA calls (a capture forbids them on every thread).  A producer
+    error is raised again in the consumer; ``close()`` or an early
+    ``break`` stops the producer.  ``depth < 1`` raises.
+    """
+    if depth < 1:
+        raise ValueError(f"prefetch depth must be >= 1, got {depth}")
+    device = torch.device(device)
+    put = device_put if device_put is not None else functools.partial(
+        ExecutionPlan.single().device_put, device=device)
+    if threaded is None:
+        threaded = device.type == "cuda"
+    if threaded:
+        return _threaded_prefetch(host_batches, put, depth)
+
+    def inline():
+        it = iter(host_batches)
+        try:
+            cur = put(next(it))
+        except StopIteration:
+            return
+        for nxt in it:
+            nxt_dev = put(nxt)
+            yield cur
+            cur = nxt_dev
+        yield cur
+
+    return inline()
 
 PRECISIONS = ("fp32", "int8")
 
@@ -114,6 +239,10 @@ _GRID_KEY = "__grid__"
 class EngineConfig:
     batch_size: int = 64
     collect: bool = False        # also return per-instruction predictions
+    # host route: cut and copy batches ahead of the step (prefetch_to_device)
+    prefetch: bool = True
+    # partitioning: None resolves to the single-device plan (the only one)
+    plan: Optional[ExecutionPlan] = None
     precision: str = "fp32"
     # device-side accumulators: registry names or MetricSpec instances
     metrics: Tuple[Union[str, MetricSpec], ...] = DEFAULT_METRICS
@@ -336,7 +465,8 @@ class StreamingEngine:
     ``QuantTao`` of ``params`` that ``precision="int8"`` then uses in place
     of quantizing them itself.  ``num_compiles`` counts the captures of the
     steps this engine used (shared with engines of the same shape: at most
-    one per effective window either way; 0 on the CPU).
+    one per effective window either way; 0 on the CPU).  ``plan`` is the
+    ``ExecutionPlan`` resolved once from ``ecfg.plan``.
     """
 
     def __init__(
@@ -354,6 +484,7 @@ class StreamingEngine:
             raise ValueError(
                 f"precision must be one of {PRECISIONS}, got {ecfg.precision!r}"
             )
+        self.plan = ExecutionPlan.resolve(batch_size=ecfg.batch_size, plan=ecfg.plan)
         self._specs: Tuple[MetricSpec, ...] = resolve_metrics(ecfg.metrics)
         for s in self._specs:
             if s.name == _GRID_KEY:
@@ -385,6 +516,7 @@ class StreamingEngine:
         specs = self._specs
         collect = self.ecfg.collect
         bsz = self.ecfg.batch_size
+        actx = self.plan.axis_context()
 
         @torch.inference_mode()
         def step(params: Union[Tao, QuantTao], carry: Dict, batch: Dict[str, torch.Tensor]):
@@ -415,6 +547,8 @@ class StreamingEngine:
                 window=w_eff,
                 win_index=grid["seen"] + torch.arange(b_local, dtype=torch.int32, device=dev),
                 num_windows=grid["total"],
+                psum=actx.psum,
+                pmax=actx.pmax,
             )
             new_carry = {s.name: s.update(carry[s.name], ctx) for s in specs}
             new_carry[_GRID_KEY] = {"seen": grid["seen"] + bsz, "total": grid["total"]}
@@ -428,15 +562,15 @@ class StreamingEngine:
     def _get_step(self, w_eff: int) -> _CachedStep:
         entry = self._steps.get(w_eff)
         if entry is None:
-            # keyed on exactly what the step depends on; the device stands
-            # where the reference's plan does, and the weights are not in
-            # the key (they are an argument, copied in per simulate)
+            # keyed on exactly what the step depends on; the weights are
+            # not in the key (they are an argument, copied in per simulate)
             key = (
                 self.cfg,
                 self.ecfg.batch_size,
                 self.ecfg.collect,
                 self.ecfg.precision,
                 self.device,
+                self.plan,
                 self._specs,
                 w_eff,
             )
@@ -541,15 +675,25 @@ class StreamingEngine:
         return entry
 
     def _host_batches(self, fs: FeatureSet, func_trace: np.ndarray) -> Iterator[Dict]:
-        """Precomputed features: host batches copied to the device."""
-        for b in stream_batches(
+        """Precomputed features: host batches copied to the device, through
+        ``prefetch_to_device`` under ``ecfg.prefetch`` (inline, placed by the
+        plan: pinned and copied without blocking, one batch ahead), else one
+        synchronous copy at a time."""
+        host = stream_batches(
             fs,
             self.cfg.window,
             self.ecfg.batch_size,
             stride=self.cfg.window,
             extra={"is_branch": func_trace["is_branch"], "is_mem": func_trace["is_mem"]},
-        ):
-            yield {k: torch.from_numpy(v).to(self.device) for k, v in b.items()}
+        )
+        if self.ecfg.prefetch:
+            # one batch ahead on this thread: a producer thread measured
+            # slower on the card (it and the replay loop take turns at the
+            # interpreter lock; chip_smoke.py, phase sweep)
+            return prefetch_to_device(
+                host, functools.partial(self.plan.device_put, device=self.device), device=self.device,
+                threaded=False)
+        return ({k: torch.from_numpy(v).to(self.device) for k, v in b.items()} for b in host)
 
     def _fused_batches(self, cols: Dict, w_eff: int, count: int) -> Iterator[Dict]:
         """A raw trace: columns on the device once, then one fused kernel
@@ -739,6 +883,7 @@ def simulate_trace_engine(
     precision: str = "fp32",
     metrics: Tuple[Union[str, MetricSpec], ...] = DEFAULT_METRICS,
     *,
+    plan: Optional[ExecutionPlan] = None,
     device: Optional[Union[str, torch.device]] = None,
 ) -> SimulationResult:
     """One-shot convenience wrapper: build an engine, stream one trace
@@ -749,6 +894,7 @@ def simulate_trace_engine(
         EngineConfig(
             batch_size=batch_size,
             collect=collect,
+            plan=plan,
             precision=precision,
             metrics=metrics,
         ),

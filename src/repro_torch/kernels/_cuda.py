@@ -2,10 +2,14 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes``; nothing includes
-PyTorch's headers, so a build takes seconds.  Libraries go to ``build/``
-at the checkout root, named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused.  ``build()`` starts
-one ``nvcc`` per source, all together.
+PyTorch's headers, so a build takes seconds.  Libraries go to
+``BUILD_DIR`` (``build/`` at the checkout root unless
+``engine.aot.enable_persistent_cache`` points it elsewhere), named by a
+hash of the source and the flags, so an edited source rebuilds and an
+unchanged one is reused, by this process and by every later one.
+``build()`` starts one ``nvcc`` per source, all together, and counts its
+lookups in ``BUILD_COUNTERS``: a hit is a library found in the directory,
+a miss an ``nvcc`` run.
 
 A ``CudaKernel`` is one C entry point.  Every entry point takes the CUDA
 stream as its last argument, launches on it without synchronising, and
@@ -30,12 +34,16 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import torch
 
 __all__ = [
-    "CSRC", "BUILD_DIR", "KERNELS", "NVCC_FLAGS", "CudaKernel", "build", "check_cuda_tensor",
-    "library_path",
+    "CSRC", "BUILD_COUNTERS", "BUILD_DIR", "DEFAULT_BUILD_DIR", "KERNELS", "NVCC_FLAGS", "CudaKernel",
+    "build", "check_cuda_tensor", "library_path",
 ]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+BUILD_DIR = DEFAULT_BUILD_DIR
+
+# library lookups of build() in this process: requests = hits + misses
+BUILD_COUNTERS: Dict[str, int] = {"requests": 0, "hits": 0, "misses": 0}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -75,9 +83,12 @@ def build(sources: Optional[Iterable[Path]] = None) -> Dict[Path, Path]:
     pending: List[tuple] = []
     try:
         for src, lib in libs.items():
+            BUILD_COUNTERS["requests"] += 1
             if lib.exists():
+                BUILD_COUNTERS["hits"] += 1
                 continue
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            BUILD_COUNTERS["misses"] += 1
+            lib.parent.mkdir(parents=True, exist_ok=True)
             tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
             log = lib.with_suffix(".log")
             with open(log, "w") as logf:

@@ -71,6 +71,19 @@ template; the legacy simulate loop on the card launches attention
 ``n_layers`` times per ragged batch and is held to the same loop on the
 CPU by the engine's flip contract.
 
+The sweep scheduler (``engine/scheduler.py``) on the card: every job of a
+4-model sweep on each route is bitwise its standalone simulate (metrics
+without ``cpi_phase``, whose float atomics vary run to run), captures at
+most once cold and never warm, and launches B1 once per batch on the
+fused route, B2 and B3 once per job on the staged one, and no feature
+kernel on the host route.  ``prefetch_to_device`` across a first capture,
+inline (as the engine and the trainer take it) and on its producer
+thread: the engine's host route and the train step each capture cleanly
+(no batch is drawn before the graph exists) and are bitwise the same run
+without prefetch, after ``warmup`` / ``warmup_train_step`` too.  A process started after the kernels were
+built finds every library in the build cache (``build_cache_counters``:
+no miss).
+
 The int8 W8A8 path (``core/quant.py``): quantization on the card is bitwise
 the CPU's; ``qdense``'s codes, int32 accumulations (cuBLASLt IMMA through
 ``torch._int_mm``, zero-padded to its multiples of 8 and past 16 rows) and
@@ -1222,3 +1235,142 @@ def test_graphed_joint_step_equals_eager(dev, method):
     assert sum("bwd_dkdv_dq" in k for k in names) == 2 * cfg.n_layers
     if method == "gradnorm":
         assert not torch.equal(gw, torch.ones(2, device=dev)) and abs(float(gw.sum()) - 2.0) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the sweep scheduler, prefetch across a first capture, the build cache
+# ---------------------------------------------------------------------------
+
+# deterministic on the card: cpi_phase's float atomics are left out
+SWEEP_METRICS = ("cpi", "branch_mpki", "l1d_mpki", "dlevel_hist", "l1d_phase")
+
+
+@pytest.mark.parametrize("route", ["fused", "staged", "host"])
+def test_sweep_on_each_route_is_bitwise_each_standalone_simulate(dev, route):
+    from repro_torch.engine import SweepJob, TraceSweeper
+    from repro_torch.engine.aot import WARMUP_RUNS
+    from repro_torch.kernels.features.kernel import BRANCH_HISTORY, MEMDIST_DELTA
+
+    cfg = TaoConfig()
+    ecfg = EngineConfig(batch_size=40, metrics=SWEEP_METRICS)  # a geometry of its own
+    traces = {b: run_functional(get_benchmark(b), 20000) for b in ("mcf", "lee")}
+    models = [init_tao(cfg, torch.Generator().manual_seed(s), device=dev) for s in range(4)]
+    jobs = [SweepJob(f"m{i}/{b}", m, t) for i, m in enumerate(models) for b, t in traces.items()]
+    batches = sum(-(-(len(j.trace) // cfg.window) // 40) for j in jobs)
+    counters = (FUSED_FEATURES, BRANCH_HISTORY, MEMDIST_DELTA, FLASH_ATTENTION)
+    before = [k.launches for k in counters]
+    rep = TraceSweeper(cfg, ecfg, route=route).run(jobs)
+    got = tuple(k.launches - b for k, b in zip(counters, before))
+    assert rep.prepared_async is True and rep.num_compiles <= 1
+    expected = {"fused": (batches, 0, 0), "staged": (0, len(jobs), len(jobs)), "host": (0, 0, 0)}[route]
+    # a capture first runs the step eagerly WARMUP_RUNS times
+    assert got == expected + (cfg.n_layers * (batches + WARMUP_RUNS * rep.num_compiles),)
+    assert rep.features_extracted == (len(traces) if route == "host" else 0)
+    for j in jobs:
+        engine = StreamingEngine(j.params, cfg, ecfg, device=dev)
+        alone = engine.simulate(j.trace, features=route_features(route, j.trace, cfg.features, dev))
+        assert rep.results[j.key].metrics.keys() == alone.metrics.keys()
+        for k, v in alone.metrics.items():
+            np.testing.assert_array_equal(rep.results[j.key].metrics[k], v, err_msg=f"{j.key} {k}")
+    assert TraceSweeper(cfg, ecfg, route=route).run(jobs).num_compiles == 0
+
+
+def force_prefetch(monkeypatch, threaded):
+    """The engine's host route and the trainer prefetch inline; ``threaded``
+    runs their ``prefetch_to_device`` on its producer thread instead."""
+    from repro_torch.engine import prefetch_to_device, runner
+
+    def forced(*args, **kw):
+        kw.pop("threaded", None)
+        return prefetch_to_device(*args, threaded=threaded, **kw)
+
+    monkeypatch.setattr(runner, "prefetch_to_device", forced)
+
+
+@pytest.mark.parametrize("threaded", [False, True], ids=["inline", "threaded"])
+@pytest.mark.parametrize("warm", [False, True], ids=["first_capture", "after_warmup"])
+def test_prefetch_across_the_engines_first_capture(dev, warm, threaded, monkeypatch):
+    """The host route under prefetch, inline and on the producer thread,
+    captures its step at the first simulate (or replays warmup's) before
+    any batch is drawn, and is bitwise the same route without prefetch and
+    the eager step."""
+    from repro_torch.engine import clear_step_cache
+
+    force_prefetch(monkeypatch, threaded)
+    clear_step_cache()
+    bsz = (44 if warm else 36) + threaded  # geometries of their own
+    trace = run_functional(get_benchmark("dee"), 30000)
+    fs = extract_features(trace, TaoConfig().features, with_labels=False)
+    on = graph_engine(dev, batch_size=bsz, collect=True)
+    if warm:
+        on.warmup(len(trace))
+    got = on.simulate(trace, features=fs)
+    assert on.ecfg.prefetch and on.num_compiles == 1
+    off = graph_engine(dev, batch_size=bsz, collect=True, prefetch=False)
+    ref = off.simulate(trace, features=fs)
+    assert off.num_compiles == 1  # the same entry: no second capture
+    assert_graph_equals_eager(got, ref, bsz)
+    assert_graph_equals_eager(got, eager_entry_loop(on, trace, fs), bsz)
+
+
+@pytest.mark.parametrize("threaded", [False, True], ids=["inline", "threaded"])
+@pytest.mark.parametrize("warm", [False, True], ids=["first_capture", "after_warmup"])
+def test_train_step_bitwise_with_prefetch_on_and_off(dev, warm, threaded, monkeypatch):
+    """train_tao_impl with prefetch, inline (its own) and on the producer
+    thread: the recipe's graph is captured before the first batch is drawn
+    (or taken from warmup_train_step), once; losses, evals and parameters
+    bitwise the run without prefetch and the entry's eager step."""
+    from repro_torch.core.transfer import _make_step
+    from repro_torch.train import AdamWConfig
+
+    force_prefetch(monkeypatch, threaded)
+    cfg = TaoConfig()
+    lr = (5.3e-4 if warm else 5.1e-4) + threaded * 1e-5  # recipes of their own: a cold cache
+    ds = labelled_batch(cfg, 48, seed=7)
+    init = init_tao(cfg, torch.Generator().manual_seed(7), device="cpu").state_dict()
+    if warm:
+        warmup_train_step(cfg, batch_size=16, lr=lr, device=dev)
+    entry = _make_step(cfg, AdamWConfig(lr=lr), "all")
+    evals = {}
+
+    def eval_fn(tag):
+        def read(model):
+            evals.setdefault(tag, []).append(float(sum(p.detach().double().sum() for p in model.parameters())))
+            return 0.0
+
+        return read
+
+    runs = {pf: train_tao_impl(cfg, ds, epochs=2, batch_size=16, lr=lr, init_params=init, seed=2,
+                               prefetch=pf, eval_fn=eval_fn(pf), device=dev) for pf in (True, False)}
+    assert entry.compiles == 1 and len(entry.aot) == 1
+    assert runs[True].losses == runs[False].losses and evals[True] == evals[False]
+    assert_state_equal(runs[True].params, runs[False].params)
+    e_losses, _, e_model, _ = drive(cfg, ds, False, init=init, seed=2, lr=lr)
+    assert runs[True].losses == e_losses
+    assert_state_equal(runs[True].params, e_model)
+
+
+def test_a_warm_process_builds_nothing(dev):
+    """After every kernel is built, a new process finds each library in the
+    build cache: no nvcc run, one hit per source."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.engine import build_cache_counters, persistent_cache_status
+    from repro_torch.kernels import _cuda
+
+    _cuda.build()
+    assert persistent_cache_status()["entries"] >= len(list(_cuda.CSRC.glob("*.cu")))
+    code = ("import json; from repro_torch.kernels._cuda import build; "
+            "from repro_torch.engine import build_cache_counters; build(); "
+            "print(json.dumps(build_cache_counters()))")
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True,
+                         timeout=300, env={**os.environ, "PYTHONPATH": src})
+    counts = json.loads(out.stdout.strip().splitlines()[-1])
+    n = len(list(_cuda.CSRC.glob("*.cu")))
+    assert counts == {"requests": n, "hits": n, "misses": 0}
+    assert set(build_cache_counters()) == set(counts)

@@ -20,6 +20,15 @@ held within 0.01.  int8 is never held to
 the int8-vs-fp32 band, which the reference's own test does not meet on
 random weights.
 
+Host->device prefetch (``prefetch_to_device``) keeps the order of its
+batches inline and threaded, raises a producer's error in the consumer,
+stops its producer when the consumer closes it and refuses a depth below
+1, as the reference's does; the host route is bitwise the same with
+``EngineConfig.prefetch`` on and off.  The kernel build cache: a library
+found at ``library_path`` under an ``enable_persistent_cache`` directory
+is a hit, with no ``nvcc``; ``persistent_cache_status`` has the
+reference's keys.
+
 The step cache, the window-grid carry and AOT warmup are held to the
 reference's: ``cache_stats()``'s keys, hit and miss counts, the reserved
 ``"__grid__"`` slot, and the cached entry driven directly.  On the CPU no
@@ -62,6 +71,10 @@ from repro_torch.core.quant import quantize_tao_params  # noqa: E402
 from repro_torch.engine import (  # noqa: E402
     METRIC_REGISTRY,
     EngineConfig,
+    build_cache_counters,
+    enable_persistent_cache,
+    persistent_cache_status,
+    prefetch_to_device,
     MetricNotCollectedError,
     MetricNotComputedError,
     MetricSpec,
@@ -157,11 +170,12 @@ def port_simulate(engine, trace, backend):
     return engine.simulate(trace, features=extract_features(trace, PORT_CFG.features, with_labels=False))
 
 
-def assert_explained_by_flips(got, ref, code_flip_atol=None):
+def assert_explained_by_flips(got, ref, code_flip_atol=None, window=PORT_CFG.window):
     """``code_flip_atol``: int8 runs, where a position whose activation
     rounded to the neighbouring int8 code may differ in ``mispred_prob`` by
     more than PROB_ATOL; such positions count as flips too, and are held
-    within this looser bound."""
+    within this looser bound.  ``window``: the config's window (a phase
+    holds at least one)."""
     n = ref.num_instructions
     assert got.num_instructions == n
     prob_diff = np.abs(got.mispred_prob - ref.mispred_prob)
@@ -185,7 +199,7 @@ def assert_explained_by_flips(got, ref, code_flip_atol=None):
     hist = sum(abs(got.metrics[k] - ref.metrics[k]) for k in ref.metrics if k.startswith("dlevel_"))
     assert hist <= 2 * flips["dlevel"]
     # a phase holds at least one window (or is empty on both sides)
-    assert np.abs(got.cpi_phase - ref.cpi_phase).max() <= 256.0 * flips["fetch"] / PORT_CFG.window
+    assert np.abs(got.cpi_phase - ref.cpi_phase).max() <= 256.0 * flips["fetch"] / window
     assert np.abs(got.l1d_phase - ref.l1d_phase).max() <= flips["l1d"]
     for k in ("cpi_phase", "l1d_phase"):
         assert getattr(got, k).dtype == np.float32 and getattr(got, k).shape == (32,)
@@ -593,3 +607,90 @@ def test_warmup_on_cpu_captures_nothing(weights, traces):
     s = cache_stats()
     assert (s["entries"], s["compiles"], s["aot_compiled"], s["retained_bytes_est"],
             s["entries_unmeasured"]) == (1, 0, 0, 0, 1)
+
+
+def test_prefetch_helper_inline_and_threaded():
+    """Order kept in both modes, producer errors raised in the consumer,
+    an abandoned consumer stops the producer, depth below 1 refused."""
+    import threading
+
+    items = [{"i": np.full((3,), i)} for i in range(25)]
+    for threaded in (False, True):
+        out = list(prefetch_to_device(iter(items), device="cpu", threaded=threaded))
+        assert [int(o["i"][0]) for o in out] == list(range(25)), threaded
+        assert all(isinstance(o["i"], torch.Tensor) for o in out)
+        ident = list(prefetch_to_device(iter(items), lambda b: b, device="cpu", threaded=threaded))
+        assert all(a is b for a, b in zip(ident, items))
+    assert list(prefetch_to_device(iter(()), device="cpu", threaded=True)) == []
+
+    def bad():
+        yield {"i": np.zeros(1)}
+        raise RuntimeError("producer boom")
+
+    for threaded in (False, True):
+        with pytest.raises(RuntimeError, match="producer boom"):
+            list(prefetch_to_device(bad(), device="cpu", threaded=threaded))
+
+    gen = prefetch_to_device(iter(items), device="cpu", threaded=True)
+    assert int(next(gen)["i"][0]) == 0
+    gen.close()  # abandoning the consumer stops the producer thread
+    assert not [t for t in threading.enumerate() if t.name == "batch-prefetch" and t.is_alive()]
+    with pytest.raises(ValueError, match="depth"):
+        next(prefetch_to_device(iter(items), device="cpu", depth=0, threaded=True))
+
+
+@pytest.mark.parametrize("mode", [False, True], ids=["inline", "threaded"])
+def test_host_route_is_bitwise_with_prefetch_on_and_off(weights, traces, mode, monkeypatch):
+    """The host route through ``prefetch_to_device`` (inline, as the engine
+    takes it, and forced onto a producer thread) against synchronous
+    copies: every metric and array bitwise."""
+    from repro_torch.engine import runner
+
+    fs = extract_features(traces["lee"], PORT_CFG.features, with_labels=False)
+    off = port_engine(weights, collect=True, prefetch=False).simulate(traces["lee"], features=fs)
+    monkeypatch.setattr(runner, "prefetch_to_device",
+                        lambda *a, threaded=None, **k: prefetch_to_device(*a, threaded=mode, **k))
+    on = port_engine(weights, collect=True).simulate(traces["lee"], features=fs)
+    assert on.metrics.keys() == off.metrics.keys()
+    for k, v in off.metrics.items():
+        np.testing.assert_array_equal(on.metrics[k], v, err_msg=k)
+    for k in ("fetch_lat", "exec_lat", "mispred_prob", "dlevel"):
+        np.testing.assert_array_equal(getattr(on, k), getattr(off, k), err_msg=k)
+
+
+def test_build_cache_hit_needs_no_nvcc_and_status_has_the_reference_keys(tmp_path, monkeypatch):
+    from repro.engine import persistent_cache_status as ref_status
+    from repro_torch.kernels import _cuda
+
+    before = _cuda.BUILD_DIR
+    monkeypatch.delenv("REPRO_COMPILE_CACHE", raising=False)
+    try:
+        d = enable_persistent_cache(str(tmp_path / "cache"))
+        assert d == str((tmp_path / "cache").resolve()) and enable_persistent_cache(d) == d
+        src = _cuda.CSRC / "graph_nodes.cu"
+        lib = _cuda.library_path(src)
+        assert lib.parent == tmp_path / "cache"
+        lib.write_bytes(b"\0" * 100)  # a library of this source and these flags
+        (tmp_path / "cache" / "other.7.tmp.so").write_bytes(b"\0" * 7)  # a build in flight
+
+        def no_nvcc():
+            raise AssertionError("a hit must not run nvcc")
+
+        monkeypatch.setattr(_cuda, "_nvcc", no_nvcc)
+        c0 = build_cache_counters()
+        assert _cuda.build([src]) == {src: lib}
+        c1 = build_cache_counters()
+        assert {k: c1[k] - c0[k] for k in c1} == {"requests": 1, "hits": 1, "misses": 0}
+        status = persistent_cache_status()
+        assert set(status) == set(ref_status())
+        assert (status["enabled"], status["dir"], status["entries"], status["bytes"]) == (True, d, 1, 100)
+        assert {k: status[k] for k in c1} == c1
+        # the environment variable names the default directory
+        monkeypatch.setenv("REPRO_COMPILE_CACHE", str(tmp_path / "env"))
+        assert enable_persistent_cache() == str((tmp_path / "env").resolve())
+        assert persistent_cache_status()["entries"] == 0
+    finally:
+        _cuda.BUILD_DIR = before
+    monkeypatch.delenv("REPRO_COMPILE_CACHE")
+    assert enable_persistent_cache() == str(_cuda.DEFAULT_BUILD_DIR.resolve())
+    assert _cuda.BUILD_DIR == before

@@ -41,7 +41,9 @@ _MUST_WALK = (
     "repro_torch.core.simnet",
     "repro_torch.core.simulate",
     "repro_torch.core.transfer",
+    "repro_torch.engine.plan",
     "repro_torch.engine.runner",
+    "repro_torch.engine.scheduler",
     "repro_torch.resilience.faults",
     "repro_torch.resilience.manifest",
     "repro_torch.store.content",
@@ -109,7 +111,7 @@ def test_default_device_entry_points_raise_without_cuda():
         transfer_finetune,
         warmup_train_step,
     )
-    from repro_torch.engine import StreamingEngine, simulate_trace_engine
+    from repro_torch.engine import StreamingEngine, TraceSweeper, simulate_trace_engine, sweep_traces
     from repro_torch.kernels.features.ops import (
         device_feature_arrays,
         extract_features_device,
@@ -132,6 +134,8 @@ def test_default_device_entry_points_raise_without_cuda():
         "extract_features_device": lambda: extract_features_device(trace, fcfg),
         "StreamingEngine": lambda: StreamingEngine(cpu_model, cfg),
         "simulate_trace_engine": lambda: simulate_trace_engine(cpu_model, trace, cfg),
+        "TraceSweeper": lambda: TraceSweeper(cfg),
+        "sweep_traces": lambda: sweep_traces(cfg, [("k", cpu_model, trace)]),
         "train_tao_impl": lambda: train_tao_impl(cfg, windows, epochs=1),
         "transfer_finetune": lambda: transfer_finetune(cfg, cpu_model.embed, cpu_model, windows),
         "warmup_train_step": lambda: warmup_train_step(cfg),

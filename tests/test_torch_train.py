@@ -25,7 +25,11 @@ over with ``params_from_jax``.  What each comparison holds, and why:
     whole step of ~lr, can differ between the two sides from ulp-level
     differences; everywhere else the two stay within float32 noise;
   * the fine-tune: ``embed`` bitwise unchanged, adapt / pred as the
-    trajectory.
+    trajectory;
+  * ``prefetch`` (batches through ``prefetch_to_device``, inline or on a
+    producer thread): losses and parameters bitwise the run without it,
+    and the losses within 1e-6 relative of the reference's; the single
+    plan and ``plan=None`` share one recipe entry.
 """
 import dataclasses
 
@@ -488,3 +492,36 @@ def test_clear_returns_the_count_and_the_warning_fires_at_sixteen():
             port_transfer._make_step(port_cfg, port_optim.AdamWConfig(lr=1e-4 * (i + 1)), "all")
     assert port_trainer.clear_train_step_cache() == 16
     assert port_trainer.clear_train_step_cache() == 0
+
+
+@pytest.mark.parametrize("mode", [False, True], ids=["inline", "threaded"])
+def test_train_tao_impl_is_bitwise_with_prefetch_on_and_off(mode, monkeypatch):
+    from repro_torch.engine import ExecutionPlan, prefetch_to_device
+    from repro_torch.engine import runner
+
+    ref_cfg, port_cfg, ds, params, b = setup("small")
+    sub = ds.subsample(3 * b, seed=1)
+    ref = ref_train(ref_cfg, sub, epochs=EPOCHS, batch_size=b, lr=LR, init_params=params, seed=3)
+    kw = dict(epochs=EPOCHS, batch_size=b, lr=LR, seed=3, device="cpu",
+              init_params=params_from_jax(jax.tree.map(np.asarray, params)))
+    evals = {}
+
+    def eval_fn(tag):
+        def read(model):  # what an eval sees of the state between epochs
+            evals.setdefault(tag, []).append(float(next(model.parameters()).detach().sum()))
+            return 0.0
+
+        return read
+
+    off = port_transfer.train_tao_impl(port_cfg, as_port(sub), prefetch=False, eval_fn=eval_fn("off"), **kw)
+    monkeypatch.setattr(runner, "prefetch_to_device",
+                        lambda *a, threaded=None, **k: prefetch_to_device(*a, threaded=mode, **k))
+    hits = port_trainer.cache_stats()["hits"]
+    on = port_transfer.train_tao_impl(port_cfg, as_port(sub), prefetch=True, plan=ExecutionPlan.single(),
+                                      eval_fn=eval_fn("on"), **kw)
+    assert port_trainer.cache_stats()["hits"] == hits + 1  # the same recipe entry
+    assert on.losses == off.losses and on.steps == off.steps == 3 * EPOCHS
+    assert evals["on"] == evals["off"] and len(evals["on"]) == EPOCHS
+    for k, v in off.params.state_dict().items():
+        assert torch.equal(on.params.state_dict()[k], v), k
+    np.testing.assert_allclose(on.losses, ref.losses, rtol=1e-6)
