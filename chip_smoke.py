@@ -134,6 +134,21 @@ and ``nvcc``.  Phases, one JSON line each:
            trained embedding (frozen, bitwise unchanged) with A's heads as
            donor onto dee under UARCH_C; 3 eager SimNet steps on the card
            against the CPU (no hand kernel launched);
+  session  the facade (repro_torch.api) at the default TaoConfig width, as
+           a user drives it, over an ArtifactStore in a temporary
+           directory: Session.capture and train (UARCH_A, the train
+           phase's traces and recipe); TrainedModel.simulate of the three
+           150k traces on the fused route, cold then warm, each bitwise a
+           direct StreamingEngine of the same weights, with B1 and B4
+           launches (57 and 114 warm) and MIPS; int8 simulate, its
+           quantized tree put in the store and found there by a second
+           model of the same weights (bitwise); Session.sweep of 2 models x
+           the 3 traces from a cleared step cache (1 capture) and warm (0),
+           bitwise the single simulates; train_joint on UARCH_A and UARCH_B
+           (1 epoch) and the simulate of A's head; a second Session on the
+           store that captures, trains and detail-simulates nothing and
+           returns the same weights; warmup at a batch size of its own,
+           after which the first simulate captures nothing;
   mamba2   the port's Mamba-2 serving path at the full width of
            mamba2-1.3b (48 layers, bfloat16, random weights from a CUDA
            generator, seed 0): prefill of 4 prompts x 2048 tokens, then 32
@@ -264,6 +279,8 @@ JOINT_EPOCHS, JOINT_LR, JOINT_PROFILE_STEPS = 3, 1e-3, 10
 JOINT_DESIGNS, JOINT_DESIGN_SEED = 8, 42
 JOINT_SELECT_TRACE, JOINT_SELECT_INSTRUCTIONS = "lee", 3_000
 SIMNET_STEPS = 3
+# the session phase's warmup check: a batch size no earlier phase captured
+SESSION_WARMUP_BATCH = 32
 # the card's first joint steps against the CPU's: the tolerance the CPU
 # tests hold three joint steps of the port to the reference's with
 # (losses relative, GradNorm's weights absolute)
@@ -2738,6 +2755,247 @@ def rel_diff(a, b) -> float:
     return float((a.float() - b.float()).abs().max() / b.float().abs().max())
 
 
+class _Calls:
+    """Counts the calls of functions the facade imports, by name, while
+    they run as they would (``with _Calls(module, names) as calls``)."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+        self.counts = {n: 0 for n in names}
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for n, fn in self.saved.items():
+            def counting(*a, _n=n, _fn=fn, **kw):
+                self.counts[_n] += 1
+                return _fn(*a, **kw)
+            setattr(self.module, n, counting)
+        return self.counts
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+
+def phase_session(failures, results, traces):
+    """The facade (``repro_torch.api``) at the default TaoConfig width, as
+    a user drives it (module note)."""
+    import numpy as np
+    import torch
+
+    import repro_torch.api.session as api_session
+    from repro_torch.api import Session, Trace, TrainedModel
+    from repro_torch.core import TaoConfig, init_tao, make_joint_step
+    from repro_torch.engine import EngineConfig, StreamingEngine, cache_stats, clear_step_cache
+    from repro_torch.engine.aot import WARMUP_RUNS
+    from repro_torch.train import AdamWConfig, train_step_compiles
+    from repro_torch.uarch import UARCH_A, UARCH_B, get_benchmark
+
+    cfg = TaoConfig()
+    card = card_line()
+    none = {k: 0 for k in launch_counters()}
+    slices = {b: Trace(name=b, functional=t, program=get_benchmark(b), benchmark=b)
+              for b, t in traces.items()}
+    n_total = sum(len(t) for t in traces.values())
+
+    def batches_of(bs):
+        return sum(-(-(len(t) // cfg.window) // bs) for t in traces.values())
+
+    def fused_counts(batches, captures):
+        # a capture first runs the step eagerly WARMUP_RUNS times
+        return none | {"fused_features": batches,
+                       "flash_attention": cfg.n_layers * (batches + WARMUP_RUNS * captures)}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def simulate_all(model, **kw):
+        return {b: model.simulate(t, **kw) for b, t in slices.items()}
+
+    def finite(res):
+        return all(np.isfinite([r.cpi, r.branch_mpki, r.l1d_mpki]).all() and r.cpi > 0
+                   for r in res.values())
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-session-")
+    try:
+        sess = Session(cfg, store=root)
+        # ---- capture and train, from the store-less start
+        trs, capture_s = timed(lambda: [sess.capture(b, TRAIN_INSTRUCTIONS) for b in TRAIN_TRACES])
+        zero_counts()
+        model, train_s = timed(lambda: sess.train(UARCH_A, trs, epochs=TRAIN_EPOCHS))
+        train_launches = read_counts()
+        windows = len(sess.dataset(UARCH_A, trs))
+        ok = (model.device.type == "cuda" and model.steps == TRAIN_EPOCHS * (windows // TRAIN_BATCH)
+              and len(model.losses) == TRAIN_EPOCHS and bool(np.isfinite(model.losses).all())
+              and train_launches["flash_attention_bwd"] >= cfg.n_layers * model.steps)
+        emit({"phase": "session", "check": "train", "traces": list(TRAIN_TRACES),
+              "instructions_each": TRAIN_INSTRUCTIONS, "uarch": UARCH_A.name, "windows": windows,
+              "capture_seconds": capture_s, "seconds": train_s, "train_loop_seconds": model.seconds,
+              "steps": model.steps, "losses": model.losses, "launches": train_launches,
+              "card": card, "ok": ok})
+        if not ok:
+            failures.append(f"session: train {model.steps} steps, losses {model.losses}, "
+                            f"launches {train_launches}")
+
+        # ---- simulate on the fused route: cold (the geometry's capture),
+        # then warm; against a direct engine over the same weights
+        zero_counts()
+        captures0 = cache_stats()["compiles"]
+        cold, cold_s = timed(lambda: simulate_all(model))
+        cold_launches, cold_captures = read_counts(), cache_stats()["compiles"] - captures0
+        zero_counts()
+        warm, warm_s = timed(lambda: simulate_all(model))
+        warm_launches = read_counts()
+        engine = StreamingEngine(model.params, cfg, EngineConfig(), device="cuda")
+        direct = {b: engine.simulate(t) for b, t in traces.items()}
+        batches = batches_of(64)
+        bitwise = {b: same_metrics(cold[b], direct[b]) and same_metrics(warm[b], direct[b])
+                   for b in traces}
+        ok = (all(bitwise.values()) and warm_launches == fused_counts(batches, 0)
+              and cold_launches == fused_counts(batches, cold_captures) and cold_captures <= 1
+              and finite(warm))
+        emit({"phase": "session", "check": "simulate", "route": "fused", "traces": list(traces),
+              "instructions": n_total, "batches": batches, "captures_cold": cold_captures,
+              "launches_cold": cold_launches, "launches_warm": warm_launches,
+              "fused_features_launches": warm_launches["fused_features"],
+              "flash_attention_launches": warm_launches["flash_attention"],
+              "seconds_cold": cold_s, "seconds_warm": warm_s, "mips_cold": n_total / 1e6 / cold_s,
+              "mips_warm": n_total / 1e6 / warm_s, "bitwise_vs_direct_engine": bitwise,
+              "cpi": {b: r.cpi for b, r in warm.items()}, "card": card, "ok": ok})
+        if not ok:
+            failures.append(f"session: simulate bitwise {bitwise}, launches cold {cold_launches} "
+                            f"({cold_captures} captures) warm {warm_launches}, expected {batches} batches")
+
+        # ---- int8: the quantized tree put in the store by the model, found
+        # there by a second model of the same weights
+        puts0 = sess.store.counters["puts"]
+        q8, q8_s = timed(lambda: simulate_all(model, precision="int8"))
+        stored = sess.store.counters["puts"] - puts0
+        twin_params = init_tao(cfg, device="cuda")
+        twin_params.load_state_dict(model.params.state_dict())
+        twin = TrainedModel(params=twin_params, cfg=cfg, name="twin", store=sess.store, device="cuda")
+        hits0 = sess.store.counters["hits"]
+        q_twin = twin.quantized_params()
+        found = sess.store.counters["hits"] - hits0
+        q_own = model.quantized_params().state_dict()
+        tree_bitwise = all(torch.equal(v, q_own[k]) for k, v in q_twin.state_dict().items())
+        zero_counts()
+        q8b, q8b_s = timed(lambda: simulate_all(twin, precision="int8"))
+        q8b_launches = read_counts()
+        int8_bitwise = {b: same_metrics(q8[b], q8b[b]) for b in traces}
+        ok = (stored == 1 and found == 1 and tree_bitwise and all(int8_bitwise.values())
+              and q8b_launches == fused_counts(batches, 0) and finite(q8b))
+        emit({"phase": "session", "check": "int8", "traces": list(traces), "tree_put": stored,
+              "tree_found_by_second_model": found, "tree_bitwise": tree_bitwise,
+              "second_model_bitwise": int8_bitwise, "launches_second_model": q8b_launches,
+              "seconds_first": q8_s, "seconds_second": q8b_s, "mips_second": n_total / 1e6 / q8b_s,
+              "cpi": {b: r.cpi for b, r in q8b.items()}, "card": card, "ok": ok})
+        if not ok:
+            failures.append(f"session: int8 put {stored} found {found} tree {tree_bitwise} "
+                            f"bitwise {int8_bitwise} launches {q8b_launches}")
+
+        # ---- sweep: 2 models x the 3 traces, from a cold step cache, then warm
+        other = sess.init_model(seed=1, name="init1")
+        models = {"trained": model, "init1": other}
+        clear_step_cache()
+        zero_counts()
+        rep, sweep_s = timed(lambda: sess.sweep(models, list(slices.values())))
+        sweep_launches = read_counts()
+        zero_counts()
+        rep2, sweep2_s = timed(lambda: sess.sweep(models, list(slices.values())))
+        sweep2_launches = read_counts()
+        alone = {f"{mn}/{b}": (warm[b] if mn == "trained" else m.simulate(slices[b]))
+                 for mn, m in models.items() for b in traces}
+        bitwise = {k: same_metrics(rep.results[k], r) and same_metrics(rep2.results[k], r)
+                   for k, r in alone.items()}
+        jobs_batches = len(models) * batches
+        ok = (rep.num_compiles == 1 and rep2.num_compiles == 0 and all(bitwise.values())
+              and sweep_launches == fused_counts(jobs_batches, 1)
+              and sweep2_launches == fused_counts(jobs_batches, 0))
+        emit({"phase": "session", "check": "sweep", "jobs": len(rep.results), "models": len(models),
+              "cold": sweep_report_line(rep), "warm": sweep_report_line(rep2),
+              "launches_cold": sweep_launches, "launches_warm": sweep2_launches,
+              "host_seconds_cold": sweep_s, "host_seconds_warm": sweep2_s,
+              "bitwise_vs_single_simulates": all(bitwise.values()), "card": card, "ok": ok})
+        if not ok:
+            failures.append(f"session: sweep compiles {rep.num_compiles}/{rep2.num_compiles}, "
+                            f"launches {sweep_launches} / {sweep2_launches}, bitwise {bitwise}")
+
+        # ---- joint training (Algorithm 1), then A's head simulated
+        entry = make_joint_step(cfg, AdamWConfig(lr=1e-3), "tao").entry
+        joint_captures0 = entry.compiles
+        zero_counts()
+        joint, joint_s = timed(lambda: sess.train_joint(UARCH_A, UARCH_B, trs, epochs=1))
+        joint_launches = read_counts()
+        joint_captures = entry.compiles - joint_captures0
+        head = joint.head("A")
+        hres, head_s = timed(lambda: simulate_all(head))
+        per_step = 2 * cfg.n_layers
+        ok = (joint.steps > 0 and len(joint.losses) == 1 and bool(np.isfinite(joint.losses).all())
+              and joint_launches["flash_attention_bwd"] >= per_step * joint.steps
+              and joint_launches["flash_attention"] >= per_step * joint.steps and finite(hres))
+        emit({"phase": "session", "check": "train_joint", "method": joint.method,
+              "uarchs": [UARCH_A.name, UARCH_B.name], "steps": joint.steps, "losses": joint.losses,
+              "captures": joint_captures, "launches": joint_launches, "seconds": joint_s,
+              "train_loop_seconds": joint.seconds, "head_simulate_seconds": head_s,
+              "head_cpi": {b: r.cpi for b, r in hres.items()}, "card": card, "ok": ok})
+        if not ok:
+            failures.append(f"session: train_joint steps {joint.steps}, losses {joint.losses}, "
+                            f"launches {joint_launches}")
+
+        # ---- a second Session on the same store: trains and detail-
+        # simulates nothing
+        sess2 = Session(cfg, store=root)
+        zero_counts()
+        with _Calls(api_session, ("run_detailed", "run_functional", "train_tao_impl")) as calls:
+            (again, ds_b), again_s = timed(lambda: (
+                sess2.train(UARCH_A, [sess2.capture(b, TRAIN_INSTRUCTIONS) for b in TRAIN_TRACES],
+                            epochs=TRAIN_EPOCHS),
+                sess2.dataset(UARCH_B, [sess2.capture(b, TRAIN_INSTRUCTIONS) for b in TRAIN_TRACES])))
+        again_launches = read_counts()
+        sa, sb = again.params.state_dict(), model.params.state_dict()
+        params_bitwise = all(torch.equal(sa[k], sb[k]) for k in sb)
+        ok = (all(c == 0 for c in calls.values()) and again_launches == none and params_bitwise
+              and again.losses == model.losses and again.steps == model.steps
+              and len(ds_b) == len(sess.dataset(UARCH_B, trs)))
+        emit({"phase": "session", "check": "second_session", "calls": calls,
+              "launches": again_launches, "params_bitwise": params_bitwise,
+              "losses_equal": again.losses == model.losses, "seconds": again_s,
+              "store": sess2.store.counters, "card": card, "ok": ok})
+        if not ok:
+            failures.append(f"session: a second session on the store made calls {calls}, "
+                            f"launches {again_launches}, params bitwise {params_bitwise}")
+
+        # ---- warmup ahead of any model: a batch size no earlier run
+        # captured, so the first simulate after it captures nothing more
+        sess3 = Session(cfg, batch_size=SESSION_WARMUP_BATCH, store=root)
+        train0 = train_step_compiles()  # the default recipe: captured by train above
+        out, warm_up_s = timed(lambda: sess3.warmup([SLICE_INSTRUCTIONS], train=True))
+        captures0 = cache_stats()["compiles"]
+        fresh = sess3.init_model(seed=2, name="init2")
+        zero_counts()
+        after, after_s = timed(lambda: simulate_all(fresh))
+        after_launches = read_counts()
+        after_captures = cache_stats()["compiles"] - captures0
+        b32 = batches_of(SESSION_WARMUP_BATCH)
+        ok = (out["sim_geometries"] == 1 and out["sim_aot"] == 1 and out["train_steps"] == 1
+              and after_captures == 0 and train_step_compiles() == train0
+              and after_launches == fused_counts(b32, 0) and finite(after))
+        emit({"phase": "session", "check": "warmup", "batch_size": SESSION_WARMUP_BATCH,
+              "warmup": out, "seconds": warm_up_s, "captures_after": after_captures,
+              "launches_first_simulate": after_launches, "first_simulate_seconds": after_s,
+              "first_simulate_mips": n_total / 1e6 / after_s, "card": card, "ok": ok})
+        if not ok:
+            failures.append(f"session: warmup {out}, then {after_captures} captures, "
+                            f"launches {after_launches}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_mamba2(failures, results, traces):
     import torch
 
@@ -2870,7 +3128,7 @@ def main() -> int:
           "instructions_each": SLICE_INSTRUCTIONS, "seconds": time.perf_counter() - t0})
     failures, results = [], {}
     for phase in (phase_build, phase_kernels, phase_slice, phase_sweep, phase_train, phase_persist,
-                  phase_joint, phase_mamba2):
+                  phase_joint, phase_session, phase_mamba2):
         phase(failures, results, traces)
         if failures:
             break

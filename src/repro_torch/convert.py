@@ -28,6 +28,8 @@ the tests can compare params trained on both sides.
 ``core.quant.QuantTao``: int8 leaves (``w_q``, ``table_q``) stay int8 and
 untransposed, a quantized layer's ``scale`` keeps its name, ``b`` becomes
 ``bias``, and the layernorms map as in ``params_from_jax``.
+``qparams_to_jax`` is its inverse, bitwise both ways: the layout in which
+the artifact store holds a quantized tree that either package reads.
 """
 from __future__ import annotations
 
@@ -36,7 +38,8 @@ from typing import Dict, Mapping, Union
 import numpy as np
 import torch
 
-__all__ = ["lm_params_from_jax", "params_from_jax", "params_to_jax", "qparams_from_jax"]
+__all__ = ["lm_params_from_jax", "params_from_jax", "params_to_jax", "qparams_from_jax",
+           "qparams_to_jax"]
 
 # reference leaf name -> the port's, and the leaves stored (in, out) that
 # become nn.Linear weights, transposed
@@ -96,7 +99,8 @@ def params_from_jax(np_tree: Mapping) -> Dict[str, torch.Tensor]:
 def params_to_jax(params: Union[torch.nn.Module, Mapping[str, torch.Tensor]]) -> Dict:
     """``Tao`` module or state dict -> the reference's param tree of NumPy
     float32 arrays (``blocks`` a list); ``params_from_jax`` of it gives the
-    state dict back bitwise."""
+    state dict back bitwise.  A quantized layer (one of ``_QUANT_MARKS``
+    among its leaves) keeps its leaf names but ``bias`` -> ``b``."""
     sd = params.state_dict() if isinstance(params, torch.nn.Module) else params
     layers: Dict[tuple, Dict[str, np.ndarray]] = {}
     for name, t in sd.items():
@@ -105,7 +109,9 @@ def params_to_jax(params: Union[torch.nn.Module, Mapping[str, torch.Tensor]]) ->
     tree: Dict = {}
     for path, leaves in layers.items():
         w = leaves.get("weight")
-        if w is None:
+        if _QUANT_MARKS & set(leaves):
+            node = {("b" if k == "bias" else k): v for k, v in leaves.items()}
+        elif w is None:
             node = dict(leaves)  # bare parameters (``pos``) keep their names
         elif w.ndim == 1:
             node = {"scale": w, "bias": leaves["bias"]}
@@ -141,3 +147,11 @@ def qparams_from_jax(np_tree: Mapping) -> Dict[str, torch.Tensor]:
     dict (CPU tensors: int8 codes, float32 scales, biases, norms and
     ``pos``); load it with ``qparams.load_state_dict``."""
     return _state_dict(np_tree, _TAO_LEAVES, _TAO_TRANSPOSED)
+
+
+def qparams_to_jax(qparams: Union[torch.nn.Module, Mapping[str, torch.Tensor]]) -> Dict:
+    """``QuantTao`` module or state dict -> the reference's quantized tree
+    of NumPy arrays (int8 codes, float32 scales, biases, norms and
+    ``pos``); ``qparams_from_jax`` of it gives the state dict back
+    bitwise."""
+    return params_to_jax(qparams)

@@ -63,7 +63,14 @@ from .simnet import (
     simnet_forward,
     simnet_windows,
 )
-from .transfer import TrainData, TrainResult, train_tao_impl, transfer_finetune, warmup_train_step
+from .transfer import (
+    TrainData,
+    TrainResult,
+    train_tao,
+    train_tao_impl,
+    transfer_finetune,
+    warmup_train_step,
+)
 
 # .simulate imports engine.runner, and engine.runner imports this package
 # (core.dataset / core.features / core.model) — so the simulate symbols are
@@ -144,6 +151,7 @@ __all__ = [
     "stream_batches",
     "tao_forward",
     "tao_forward_int8",
+    "train_tao",
     "train_tao_impl",
     "transfer_finetune",
     "verify_alignment",

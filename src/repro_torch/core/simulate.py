@@ -54,14 +54,14 @@ def simulate_trace(
     *,
     device: Device = None,
 ) -> SimulationResult:
-    """Deprecated engine-backed simulation — use the engine
-    (``StreamingEngine.simulate``; same results).  ``collect=False`` keeps
-    all metrics on the device (per-instruction arrays are then not
-    collected).  ``features`` picks the engine's route, as in
-    ``StreamingEngine.simulate``."""
+    """Deprecated engine-backed simulation — use
+    ``repro_torch.api.TrainedModel.simulate`` (same engine, same results).
+    ``collect=False`` keeps all metrics on the device (per-instruction
+    arrays are then not collected).  ``features`` picks the engine's
+    route, as in ``StreamingEngine.simulate``."""
     warnings.warn(
-        "repro_torch.core.simulate_trace is deprecated; use "
-        "repro_torch.engine: StreamingEngine(params, cfg).simulate(trace)",
+        "repro_torch.core.simulate_trace is deprecated; use repro_torch.api: "
+        "TrainedModel(params, cfg).simulate(trace) or Session.sweep(...)",
         DeprecationWarning,
         stacklevel=2,
     )

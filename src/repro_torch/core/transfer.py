@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -58,7 +59,8 @@ from ..uarch.isa import NUM_REGS
 from .dataset import INPUT_KEYS, StreamingWindowDataset, WindowDataset
 from .model import Tao, TaoConfig, TaoEmbed, init_tao, multi_metric_loss, tao_forward
 
-__all__ = ["TrainData", "TrainResult", "train_tao_impl", "transfer_finetune", "warmup_train_step"]
+__all__ = ["TrainData", "TrainResult", "train_tao", "train_tao_impl", "transfer_finetune",
+           "warmup_train_step"]
 
 Params = Union[Tao, Mapping[str, torch.Tensor]]
 # both dataset flavors draw bit-identical batch streams for the same rng;
@@ -423,6 +425,20 @@ def train_tao_impl(
     model, _ = run.state()
     return TrainResult(params=model, losses=losses, eval_losses=evals,
                        seconds=time.perf_counter() - t0, steps=steps)
+
+
+def train_tao(cfg: TaoConfig, dataset: TrainData, **kw) -> TrainResult:
+    """Deprecated alias for :func:`train_tao_impl` — use the
+    ``repro_torch.api`` facade instead (``Session.train`` /
+    ``TrainedModel.transfer``)."""
+    warnings.warn(
+        "repro_torch.core.train_tao is deprecated; use "
+        "repro_torch.api.Session.train(...) (or TrainedModel.transfer for "
+        "fine-tuning)",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    return train_tao_impl(cfg, dataset, **kw)
 
 
 def transfer_finetune(

@@ -84,6 +84,13 @@ without prefetch, after ``warmup`` / ``warmup_train_step`` too.  A process start
 built finds every library in the build cache (``build_cache_counters``:
 no miss).
 
+The Session facade (``repro_torch.api``): ``Session.train`` on the card
+tracks the same call on the CPU as ``train_tao_impl`` does, and its
+model's ``simulate`` (one B1 launch a batch) is held to the same weights
+on the CPU by the legacy loop's flip contract; ``Session.warmup`` captures
+a geometry and a train recipe ahead of any model, after which the first
+``simulate`` and ``train`` capture nothing.
+
 The int8 W8A8 path (``core/quant.py``): quantization on the card is bitwise
 the CPU's; ``qdense``'s codes, int32 accumulations (cuBLASLt IMMA through
 ``torch._int_mm``, zero-padded to its multiples of 8 and past 16 rows) and
@@ -1374,3 +1381,69 @@ def test_a_warm_process_builds_nothing(dev):
     n = len(list(_cuda.CSRC.glob("*.cu")))
     assert counts == {"requests": n, "hits": n, "misses": 0}
     assert set(build_cache_counters()) == set(counts)
+
+
+# ---------------------------------------------------------------------------
+# the Session facade
+# ---------------------------------------------------------------------------
+
+
+def test_session_train_then_simulate_on_card_tracks_cpu(dev):
+    """``Session.train`` at the default width on the card and on the CPU
+    (losses within 1e-4 relative, parameters within 2 lr a step, as
+    ``train_tao_impl`` is held), then the card model's ``simulate`` on the
+    fused route (one B1 launch a batch) against the same weights simulated
+    on the CPU: decodes flipped at ≤ 0.1% of positions, ``mispred_prob``
+    within 1e-4, every metric moved only as far as its flips allow."""
+    from repro_torch.api import Session, TrainedModel
+
+    cfg = TaoConfig()
+    kw = dict(epochs=2, batch_size=16, lr=3e-4)
+    sessions = {"gpu": Session(cfg), "cpu": Session(cfg, device="cpu")}
+    models = {k: s.train(UARCH_A, [s.capture("lee", 6000)], **kw) for k, s in sessions.items()}
+    gpu, cpu = models["gpu"], models["cpu"]
+    assert gpu.device == dev and gpu.steps == cpu.steps > 0
+    np.testing.assert_allclose(gpu.losses, cpu.losses, rtol=1e-4)
+    sg, sc = gpu.params.state_dict(), cpu.params.state_dict()
+    assert max(float((sg[k].cpu() - sc[k]).abs().max()) for k in sc) <= 2 * 3e-4 * gpu.steps
+    trace = run_functional(get_benchmark("mcf"), 20000)
+    launches = FUSED_FEATURES.launches
+    g = gpu.simulate(trace, collect=True)
+    assert FUSED_FEATURES.launches - launches == -(-(len(trace) // cfg.window) // 64)
+    same = TrainedModel(params=init_tao(cfg, device="cpu"), cfg=cfg, device="cpu")
+    same.params.load_state_dict({k: v.cpu() for k, v in sg.items()})
+    c = same.simulate(trace, collect=True)
+    n = c.num_instructions
+    assert g.num_instructions == n
+    flips = {
+        "fetch": int((g.fetch_lat != c.fetch_lat).sum()),
+        "exec": int((g.exec_lat != c.exec_lat).sum()),
+        "mispredict": int(((g.mispred_prob > 0.5) != (c.mispred_prob > 0.5)).sum()),
+        "l1d": int(((g.dlevel >= 2) != (c.dlevel >= 2)).sum()),
+    }
+    assert max(flips.values()) <= 1e-3 * n, flips
+    np.testing.assert_allclose(g.mispred_prob, c.mispred_prob, rtol=0, atol=1e-4)
+    assert abs(g.total_cycles - c.total_cycles) <= 256.0 * (flips["fetch"] + flips["exec"])
+    assert abs(g.branch_mpki - c.branch_mpki) <= 1000.0 * flips["mispredict"] / n + 1e-12
+    assert abs(g.l1d_mpki - c.l1d_mpki) <= 1000.0 * flips["l1d"] / n + 1e-12
+
+
+def test_session_warmup_then_simulate_and_train_capture_nothing(dev):
+    """``Session.warmup`` at a geometry and a train recipe of their own:
+    one capture each ahead of any model, after which the first
+    ``simulate`` and the first ``train`` capture nothing more."""
+    from repro_torch.api import Session
+    from repro_torch.train import train_step_compiles
+
+    cfg = TaoConfig()
+    sess = Session(cfg, batch_size=20)
+    trace = run_functional(get_benchmark("dee"), 8000)
+    out = sess.warmup([len(trace)], train=[{"batch_size": 8, "lr": 1e-4}])
+    assert (out["sim_geometries"], out["sim_aot"], out["train_steps"]) == (1, 1, 1)
+    captures, train_captures = cache_stats()["compiles"], train_step_compiles()
+    model = sess.init_model(seed=3)
+    res = model.simulate(trace)
+    assert cache_stats()["compiles"] == captures and model.num_compiles == 1
+    assert np.isfinite(res.cpi)
+    trained = sess.train(dataset=labelled_batch(cfg, 16, seed=3), epochs=1, batch_size=8, lr=1e-4)
+    assert trained.steps == 2 and train_step_compiles() == train_captures

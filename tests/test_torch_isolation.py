@@ -85,6 +85,16 @@ def test_no_source_imports_jax_or_reference(path):
     assert not roots & {"jax", "jaxlib", "repro"}, roots
 
 
+def test_api_imports_alone_without_jax_or_reference():
+    """The facade (``repro_torch.api`` and its ``session`` module) imported
+    first in a fresh interpreter brings in neither JAX nor the reference."""
+    code = ("import sys, repro_torch.api, repro_torch.api.session; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=_env(),
+                         timeout=300, check=True).stdout
+    assert out.strip() == "[]"
+
+
 def test_tf32_is_off():
     import repro_torch  # noqa: F401
 
