@@ -149,6 +149,29 @@ and ``nvcc``.  Phases, one JSON line each:
            store that captures, trains and detail-simulates nothing and
            returns the same weights; warmup at a batch size of its own,
            after which the first simulate captures nothing;
+  serve    the trace server (repro_torch.serve) at the default TaoConfig
+           width, batch 64, with two models (torch.Generator seeds 0 and
+           1), the three 150k traces and a 100-instruction one (w100b64):
+           a model published to a store and resolved bitwise, its int8
+           tree under quantized_params_key; warmup, then 4 closed-loop
+           tenants x 2 rounds of every (model, trace) pair on the fused
+           route (0 captures, 19 / 38 B1 / B4 launches a 150k request and
+           1 / 2 a short one, by the counters and by graph nodes x
+           replays, every result bitwise a direct simulate; traces/s,
+           served MIPS beside a loop of direct simulates, latency and
+           queue p50 / p99, batch_fill_ratio); the same load on the host
+           route (one extraction per distinct trace, the rest coalesced,
+           the extraction seconds saved); one request per trace on the
+           staged route (1 B2 + 1 B3 each) and under int8, bitwise; faults
+           on the card: a transient dispatch fault retried, a dispatch
+           delayed past its request's deadline (the cohabitant and the
+           next requests bitwise, the abandoned thread replays nothing,
+           nothing logged), a poison trace in a group of 4 quarantined, a
+           store resolve and int8 requests admitted while the dispatch
+           thread is held inside a capture; the JSON-lines TCP front end
+           (a 150k trace in one ~5 MB line, stats, models; the same line
+           refused at the default 1 MiB); python -m
+           repro_torch.launch.serve --demo as a child process;
   mamba2   the port's Mamba-2 serving path at the full width of
            mamba2-1.3b (48 layers, bfloat16, random weights from a CUDA
            generator, seed 0): prefill of 4 prompts x 2048 tokens, then 32
@@ -171,7 +194,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import io
 import json
+import logging
 import math
 import os
 import re
@@ -281,6 +306,22 @@ JOINT_SELECT_TRACE, JOINT_SELECT_INSTRUCTIONS = "lee", 3_000
 SIMNET_STEPS = 3
 # the session phase's warmup check: a batch size no earlier phase captured
 SESSION_WARMUP_BATCH = 32
+# the serve phase: two models (torch.Generator seeds), the slice traces and
+# a 100-instruction one (a second geometry, w100b64), 4 closed-loop tenants
+# x 2 rounds; a dispatch delayed past a request's deadline; a capture held
+# open while the event loop admits; a trace length no other phase captures
+# (w77b64); a line limit that takes a 150k trace (~5 MB as JSON); the
+# launcher's demo child
+SERVE_SEEDS = (0, 1)
+SERVE_SHORT = 100
+SERVE_BATCH = 64
+SERVE_TENANTS, SERVE_ROUNDS = 4, 2
+SERVE_DELAY_S, SERVE_DEADLINE_S = 1.0, 0.3
+SERVE_HOLD_S = 0.5
+SERVE_ODD = 77
+SERVE_MAX_LINE_BYTES = 8 << 20
+SERVE_DEMO_TIMEOUT_S = 300
+SERVE_TCP_TIMEOUT_S = 60
 # the card's first joint steps against the CPU's: the tolerance the CPU
 # tests hold three joint steps of the port to the reference's with
 # (losses relative, GradNorm's weights absolute)
@@ -2996,6 +3037,453 @@ def phase_session(failures, results, traces):
         shutil.rmtree(root, ignore_errors=True)
 
 
+@contextlib.contextmanager
+def hold_capture(seconds: float):
+    """While inside, the next CUDA graph capture of a step sets the yielded
+    event and then sleeps ``seconds`` between the capture's begin and end,
+    so a CUDA call another thread makes in that window would break it."""
+    import threading
+
+    import torch
+
+    from repro_torch.engine import aot
+
+    started = threading.Event()
+    saved = aot.CapturedStep._capture
+
+    def capture(inner, fn, carry, batch):
+        def held(*a):
+            if torch.cuda.is_current_stream_capturing() and not started.is_set():
+                started.set()
+                time.sleep(seconds)
+            return fn(*a)
+
+        return saved(inner, held, carry, batch)
+
+    aot.CapturedStep._capture = capture
+    try:
+        yield started
+    finally:
+        aot.CapturedStep._capture = saved
+
+
+class _LogCount(logging.Handler):
+    """Counts the WARNING-or-worse records logged while attached (asyncio's
+    unretrieved-exception reports, a dispatch thread's errors)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(f"{record.name}: {record.getMessage()[:200]}")
+
+
+def phase_serve(failures, results, traces):
+    """The trace server (``repro_torch.serve``) at the default TaoConfig
+    width, two models, the slice traces and a short one (module note)."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Trace, TrainedModel
+    from repro_torch.core import TaoConfig, extract_features, init_tao
+    from repro_torch.engine import EngineConfig, StreamingEngine
+    from repro_torch.engine.aot import graph_kernel_names
+    from repro_torch.launch.serve import serve_forever
+    from repro_torch.resilience import FaultPlan, FaultSpec, RetryPolicy, inject
+    from repro_torch.serve import ModelRegistry, ServeError, ServeRequest, TraceServer, encode_trace
+    from repro_torch.store import ArtifactStore
+    from repro_torch.uarch import get_benchmark
+
+    cfg = TaoConfig()
+    card = card_line()
+    none = {k: 0 for k in launch_counters()}
+    models = {f"m{s}": TrainedModel(params=init_tao(cfg, torch.Generator().manual_seed(s), device="cuda"),
+                                    cfg=cfg, name=f"m{s}") for s in SERVE_SEEDS}
+    lee = get_benchmark("lee")
+    work = {b: Trace(name=b, functional=t, program=get_benchmark(b), benchmark=b)
+            for b, t in traces.items()}
+    work["short"] = Trace(name="short", functional=traces["lee"][:SERVE_SHORT], program=lee,
+                          benchmark="lee")
+    batches = {k: -(-(len(t) // cfg.window) // SERVE_BATCH) if len(t) >= cfg.window else 1
+               for k, t in work.items()}
+    pairs = [(m, k) for m in models for k in work]
+    log = _LogCount()
+    logging.getLogger().addHandler(log)
+    root = tempfile.mkdtemp(prefix="chip-smoke-serve-")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def expected(reqs, staged=False):
+        """The launches of ``reqs`` (keys of ``work``) on the fused or the
+        staged route."""
+        b = sum(batches[k] for k in reqs)
+        if staged:
+            return none | {"branch_history": len(reqs), "memdist_delta": len(reqs),
+                           "flash_attention": cfg.n_layers * b}
+        return none | {"fused_features": b, "flash_attention": cfg.n_layers * b}
+
+    def bitwise(got, want):
+        return got.num_instructions == want.num_instructions and got.metrics == want.metrics
+
+    def registry(store=None, names=None):
+        reg = ModelRegistry(store)
+        for n in names or models:
+            reg.register(n, models[n])
+        return reg
+
+    def stats_line(st):
+        d = st.to_dict()
+        return {k: d[k] for k in ("admitted", "completed", "failed", "rejected", "num_compiles",
+                                  "features_extracted", "features_from_store", "features_coalesced",
+                                  "traces_per_s", "latency_p50_s", "latency_p99_s", "queue_p50_s",
+                                  "queue_p99_s", "batch_fill_ratio", "retries", "deadline_exceeded",
+                                  "quarantined", "bisections", "breaker_sheds")}
+
+    async def closed_loop(server, tenants, rounds, keys):
+        """``tenants`` clients, each with one request in flight: every
+        (model, trace) pair of ``keys``, ``rounds`` times."""
+        async def tenant(i):
+            out = []
+            for _ in range(rounds):
+                for m in models:
+                    for k in keys:
+                        out.append(((m, k), await server.submit(
+                            ServeRequest(model=m, trace=work[k], tenant=f"t{i}"))))
+            return out
+
+        return [r for res in await asyncio.gather(*(tenant(i) for i in range(tenants))) for r in res]
+
+    try:
+        # ---- direct simulates of every pair first (no server runs beside
+        # them), as the bitwise reference and the loop baseline
+        direct, _ = timed(lambda: {p: models[p[0]].simulate(work[p[1]]) for p in pairs})
+        direct, loop_s = timed(lambda: {p: models[p[0]].simulate(work[p[1]]) for p in pairs})
+        loop_n = sum(r.num_instructions for r in direct.values())
+        long_pairs = [p for p in pairs if p[1] != "short"]
+        _, loop_long_s = timed(lambda: [models[m].simulate(work[k]) for m, k in long_pairs])
+        loop_long_n = sum(direct[p].num_instructions for p in long_pairs)
+
+        # ---- the registry: publish to a store, resolve in a fresh registry
+        store = ArtifactStore(root)
+        ModelRegistry(store).publish("pub", models["m1"])
+        got = ModelRegistry(store).resolve("pub")
+        sa, sb = got.params.state_dict(), models["m1"].params.state_dict()
+        from repro_torch.api.session import quantized_params_key
+
+        qkey = quantized_params_key(models["m1"].params)
+        ok = (all(torch.equal(sa[k], sb[k]) for k in sb) and got.device.type == "cuda"
+              and store.has("params_int8", qkey) and got.cfg == cfg)
+        emit({"phase": "serve", "check": "registry", "params_bitwise": all(torch.equal(sa[k], sb[k])
+                                                                          for k in sb),
+              "int8_tree_under_quantized_params_key": store.has("params_int8", qkey),
+              "store": store.counters, "card": card, "ok": ok})
+        if not ok:
+            failures.append("serve: registry publish / resolve")
+
+        # ---- warm load: warmup, then 4 closed-loop tenants on the fused route
+        entries = {k: StreamingEngine(models["m0"].params, cfg, EngineConfig(), device="cuda")
+                   .step_entry_for(len(t)) for k, t in (("long", work["dee"]), ("short", work["short"]))}
+
+        async def warm_load():
+            server = TraceServer(registry(), batch_size=SERVE_BATCH)
+            async with server:
+                info = server.warmup(sorted({len(t) for t in work.values()}))
+                replays0 = {k: e.aot.replays for k, e in entries.items()}
+                zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = await closed_loop(server, SERVE_TENANTS, SERVE_ROUNDS, list(work))
+                wall = time.perf_counter() - t0
+                launches = read_counts()
+                replays = {k: e.aot.replays - replays0[k] for k, e in entries.items()}
+            return info, out, wall, launches, replays, server.stats()
+
+        info, out, wall, launches, replays, st = asyncio.run(warm_load())
+        reqs = [k for (_, k), _ in out]
+        held = all(bitwise(r, direct[p]) for p, r in out)
+        nodes = {k: sum("attention_kernel" in n for n in graph_kernel_names(e.aot.graph))
+                 for k, e in entries.items()}
+        from_nodes = sum(nodes[k] * replays[k] for k in nodes)
+        served_n = sum(r.num_instructions for _, r in out)
+        long_n = sum(r.num_instructions for (_, k), r in out if k != "short")
+        per_req = {k: {"fused_features": batches[k], "flash_attention": cfg.n_layers * batches[k]}
+                   for k in ("dee", "short")}
+        ok = (st.num_compiles == 0 and launches == expected(reqs) and from_nodes == launches["flash_attention"]
+              and held and st.completed == len(out) and st.failed == 0)
+        emit({"phase": "serve", "check": "warm_load", "route": "fused", "tenants": SERVE_TENANTS,
+              "rounds": SERVE_ROUNDS, "requests": len(out), "batch": SERVE_BATCH, "warmup": info,
+              "num_compiles": st.num_compiles, "launches": launches, "per_request": per_req,
+              "attention_nodes_per_graph": nodes, "replays": replays,
+              "attention_from_graph_nodes": from_nodes, "bitwise_vs_direct": held,
+              "wall_s": wall, "traces_per_s": len(out) / wall, "served_mips": served_n / 1e6 / wall,
+              "loop_mips": loop_n / 1e6 / loop_s, "served_vs_loop": (served_n / wall) / (loop_n / loop_s),
+              "long_request_ms_loop": loop_long_s / len(long_pairs) * 1e3,
+              "loop_long_mips": loop_long_n / 1e6 / loop_long_s,
+              "served_long_share_of_instructions": long_n / served_n,
+              "stats": stats_line(st), "card": card, "ok": ok})
+        if not ok:
+            failures.append(f"serve: warm load: compiles {st.num_compiles}, launches {launches} "
+                            f"(expected {expected(reqs)}), from nodes {from_nodes}, bitwise {held}")
+
+        # ---- the host route: one extraction per distinct trace, shared by
+        # every request of it; bitwise simulate(route="host").  With the
+        # extraction started at admission (the card's default), every
+        # request awaits the shared entry at dispatch, its owner's too, and
+        # counts as coalesced, as in the reference
+        direct_h = {p: models[p[0]].simulate(work[p[1]], route="host") for p in pairs}
+        ext_s = {}
+        for k, t in work.items():
+            _, ext_s[k] = timed(lambda t=t: extract_features(t.functional, cfg.features, with_labels=False))
+
+        async def host_load():
+            server = TraceServer(registry(), batch_size=SERVE_BATCH, route="host")
+            async with server:
+                zero_counts()
+                t0 = time.perf_counter()
+                out = await closed_loop(server, SERVE_TENANTS, SERVE_ROUNDS, list(work))
+                wall = time.perf_counter() - t0
+                launches = read_counts()
+            return out, wall, launches, server.stats(), server.extract_async
+
+        out, wall, launches, st, at_admission = asyncio.run(host_load())
+        held = all(bitwise(r, direct_h[p]) for p, r in out)
+        h_expected = none | {"flash_attention": cfg.n_layers * sum(batches[k] for (_, k), _ in out)}
+        saved = sum(ext_s[k] for (_, k), r in out if r.coalesced)
+        coalesced = len(out) if at_admission else len(out) - len(work)
+        ok = (st.features_extracted == len(work) and st.features_coalesced == coalesced
+              and held and launches == h_expected and st.failed == 0)
+        emit({"phase": "serve", "check": "host_route", "requests": len(out),
+              "distinct_traces": len(work), "extraction_at_admission": at_admission,
+              "features_extracted": st.features_extracted,
+              "features_coalesced": st.features_coalesced, "extraction_s_per_trace": ext_s,
+              "extraction_s_saved": saved, "launches": launches, "bitwise_vs_direct_host": held,
+              "wall_s": wall, "served_mips": sum(r.num_instructions for _, r in out) / 1e6 / wall,
+              "stats": stats_line(st), "card": card, "ok": ok})
+        if not ok:
+            failures.append(f"serve: host route: extracted {st.features_extracted}, coalesced "
+                            f"{st.features_coalesced}, launches {launches}, bitwise {held}")
+
+        # ---- the staged route and int8: one request per trace each
+        def one_each(**kw):
+            async def run():
+                server = TraceServer(registry(), batch_size=SERVE_BATCH, **kw)
+                async with server:
+                    zero_counts()
+                    out = [await server.submit(ServeRequest(model="m0", trace=t)) for t in work.values()]
+                    return out, read_counts(), server.stats()
+            return asyncio.run(run())
+
+        direct_st = {k: models["m0"].simulate(t, route="staged") for k, t in work.items()}
+        out, launches, st = one_each(route="staged")
+        held = all(bitwise(r, direct_st[k]) for r, k in zip(out, work))
+        ok = held and launches == expected(list(work), staged=True) and st.failed == 0
+        emit({"phase": "serve", "check": "staged_route", "requests": len(out), "launches": launches,
+              "bitwise_vs_direct_staged": held, "stats": stats_line(st), "card": card, "ok": ok})
+        if not ok:
+            failures.append(f"serve: staged route: launches {launches}, bitwise {held}")
+
+        direct_8 = {k: models["m0"].simulate(t, precision="int8") for k, t in work.items()}
+        out, launches, st = one_each(precision="int8")
+        held = all(bitwise(r, direct_8[k]) for r, k in zip(out, work))
+        ok = held and launches == expected(list(work)) and st.failed == 0
+        emit({"phase": "serve", "check": "int8", "requests": len(out), "launches": launches,
+              "num_compiles": st.num_compiles, "bitwise_vs_direct_int8": held,
+              "stats": stats_line(st), "card": card, "ok": ok})
+        if not ok:
+            failures.append(f"serve: int8: launches {launches}, bitwise {held}")
+
+        # ---- faults on the card
+        async def transient():
+            plan = FaultPlan(FaultSpec("serve.dispatch", times=1))
+            server = TraceServer(registry(), batch_size=SERVE_BATCH,
+                                 retry=RetryPolicy(max_attempts=3, base_delay_s=0.005))
+            async with server:
+                with inject(plan):
+                    r = await server.submit(ServeRequest(model="m0", trace=work["mcf"]))
+            return r, server.stats()
+
+        r, st = asyncio.run(transient())
+        ok = bitwise(r, direct[("m0", "mcf")]) and st.retries == 1 and st.failed == 0
+        emit({"phase": "serve", "check": "fault_transient", "retries": st.retries,
+              "bitwise_vs_direct": bitwise(r, direct[("m0", "mcf")]), "card": card, "ok": ok})
+        if not ok:
+            failures.append(f"serve: transient fault: retries {st.retries}, result {r.metrics}")
+
+        async def hung():
+            plan = FaultPlan(FaultSpec("serve.dispatch", kind="delay", delay_s=SERVE_DELAY_S, times=1))
+            server = TraceServer(registry(), batch_size=SERVE_BATCH, group_size=2)
+            async with server:
+                with inject(plan):
+                    zero_counts()
+                    futs = [server.submit(ServeRequest(model="m0", trace=work["mcf"],
+                                                       deadline_s=SERVE_DEADLINE_S)),
+                            server.submit(ServeRequest(model="m1", trace=work["dee"]))]
+                    out = await asyncio.gather(*futs, return_exceptions=True)
+                    nxt = [await server.submit(ServeRequest(model=m, trace=work[k]))
+                           for m, k in (("m1", "mcf"), ("m0", "lee"))]
+                    # past the delay: the abandoned thread has woken by now
+                    await asyncio.sleep(SERVE_DELAY_S + 0.5)
+                    launches = read_counts()
+            return out, nxt, launches, plan.hits.get("engine.simulate", 0), server.stats()
+
+        (h, coh), nxt, launches, sims, st = asyncio.run(hung())
+        held = {"cohabitant": bitwise(coh, direct[("m1", "dee")]),
+                "next": [bitwise(r, direct[p]) for r, p in zip(nxt, (("m1", "mcf"), ("m0", "lee")))]}
+        ok = (isinstance(h, ServeError) and h.code == "DEADLINE_EXCEEDED" and held["cohabitant"]
+              and all(held["next"]) and sims == 3 and launches == expected(["dee", "mcf", "lee"])
+              and st.deadline_exceeded == 1 and not log.records)
+        emit({"phase": "serve", "check": "fault_deadline", "delay_s": SERVE_DELAY_S,
+              "deadline_s": SERVE_DEADLINE_S, "hung": getattr(h, "code", repr(h)),
+              "bitwise": held, "engine_simulate_calls": sims, "launches": launches,
+              "logged": log.records, "stats": stats_line(st), "card": card, "ok": ok})
+        if not ok:
+            failures.append(f"serve: deadline fault: {getattr(h, 'code', h)}, bitwise {held}, "
+                            f"simulates {sims}, launches {launches}, logged {log.records}")
+
+        async def poison():
+            bad = work["dee"]
+            plan = FaultPlan(FaultSpec("serve.dispatch", match=bad.digest, times=None, transient=False,
+                                       exc="ValueError"))
+            server = TraceServer(registry(), batch_size=SERVE_BATCH, group_size=4)
+            async with server:
+                with inject(plan):
+                    keys = [("m0", "mcf"), ("m0", "dee"), ("m0", "lee"), ("m1", "mcf")]
+                    futs = [server.submit(ServeRequest(model=m, trace=work[k])) for m, k in keys]
+                    out = await asyncio.gather(*futs, return_exceptions=True)
+            return keys, out, server.stats()
+
+        keys, out, st = asyncio.run(poison())
+        held = [bitwise(r, direct[p]) for p, r in zip(keys, out) if p[1] != "dee"]
+        rejected = out[1]
+        ok = (isinstance(rejected, ServeError) and rejected.code == "TRACE_REJECTED" and all(held)
+              and st.quarantined == 1 and st.bisections >= 1)
+        emit({"phase": "serve", "check": "fault_poison", "group_size": 4,
+              "poisoned": getattr(rejected, "code", repr(rejected)), "cohabitants_bitwise": held,
+              "stats": stats_line(st), "card": card, "ok": ok})
+        if not ok:
+            failures.append(f"serve: poison: {rejected!r}, cohabitants {held}")
+
+        # a store-resolved model and int8 requests admitted while the
+        # dispatch thread captures a geometry no run has (held inside the
+        # capture)
+        odd = Trace(name="odd", functional=traces["mcf"][:SERVE_ODD], program=get_benchmark("mcf"),
+                    benchmark="mcf")
+
+        async def beside_capture():
+            server = TraceServer(ModelRegistry(store), batch_size=SERVE_BATCH, precision="int8")
+            server.registry.register("m0", models["m0"])
+            async with server:
+                with hold_capture(SERVE_HOLD_S) as started:
+                    first = server.submit(ServeRequest(model="m0", trace=odd))
+                    loop = asyncio.get_running_loop()
+                    in_capture = await loop.run_in_executor(None, started.wait, 120)
+                    t0 = time.perf_counter()
+                    later = [server.submit(ServeRequest(model="pub", trace=t)) for t in (odd, work["mcf"])]
+                    admit_s = time.perf_counter() - t0
+                    out = await asyncio.gather(first, *later, return_exceptions=True)
+            return in_capture, admit_s, out, server.stats()
+
+        in_capture, admit_s, out, st = asyncio.run(beside_capture())
+        want = [models["m0"].simulate(odd, precision="int8"), models["m1"].simulate(odd, precision="int8"),
+                models["m1"].simulate(work["mcf"], precision="int8")]
+        held = [not isinstance(r, BaseException) and bitwise(r, w) for r, w in zip(out, want)]
+        ok = in_capture and all(held) and st.failed == 0 and not log.records
+        emit({"phase": "serve", "check": "fault_beside_capture", "hold_s": SERVE_HOLD_S,
+              "capture_started": in_capture, "admission_s": admit_s, "bitwise_vs_direct_int8": held,
+              "num_compiles": st.num_compiles, "errors": [repr(r) for r in out if isinstance(r, BaseException)],
+              "logged": log.records, "card": card, "ok": ok})
+        if not ok:
+            failures.append(f"serve: beside a capture: started {in_capture}, bitwise {held}, "
+                            f"out {[repr(r)[:200] for r in out]}, logged {log.records}")
+
+        # ---- the TCP front end: one simulate of a 150k trace, stats and
+        # models, then the same line past the default line limit: the
+        # server replies BAD_REQUEST and closes, with the rest of the line
+        # unread (so the close may reach the client as a reset)
+        line = (json.dumps({"op": "simulate", "model": "m0", "request_id": "tcp0",
+                             "trace": encode_trace(work["mcf"].functional)}) + "\n").encode()
+
+        async def tcp(max_line_bytes):
+            server = TraceServer(registry(), batch_size=SERVE_BATCH)
+            async with server:
+                ready = asyncio.get_running_loop().create_future()
+                kw = {} if max_line_bytes is None else {"max_line_bytes": max_line_bytes}
+                task = asyncio.get_running_loop().create_task(
+                    serve_forever(server, "127.0.0.1", 0, ready, **kw))
+                _, port = await ready
+                reader, writer = await asyncio.open_connection("127.0.0.1", port)
+                t0 = time.perf_counter()
+                writer.write(line)   # read the reply while the line is still going out
+                resps = [json.loads(await asyncio.wait_for(reader.readline(), SERVE_TCP_TIMEOUT_S))]
+                rtt = time.perf_counter() - t0
+                if max_line_bytes is None:
+                    try:
+                        more = await asyncio.wait_for(reader.readline(), SERVE_TCP_TIMEOUT_S)
+                        eof = "eof" if more == b"" else "data"
+                    except ConnectionError:
+                        eof = "reset"
+                    except TimeoutError:
+                        eof = "still open"
+                else:
+                    for op in ("stats", "models"):
+                        writer.write(json.dumps({"op": op}).encode() + b"\n")
+                        await writer.drain()
+                        resps.append(json.loads(await asyncio.wait_for(reader.readline(),
+                                                                        SERVE_TCP_TIMEOUT_S)))
+                    eof = None
+                writer.close()
+                with contextlib.suppress(ConnectionError):
+                    await writer.wait_closed()
+                task.cancel()
+            return resps, rtt, eof
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            (res, stats, names), rtt, _ = asyncio.run(tcp(SERVE_MAX_LINE_BYTES))
+            (refused,), _, eof = asyncio.run(tcp(None))
+        want = direct[("m0", "mcf")]
+        over_tcp = res.get("ok") and res["result"]["metrics"] == want.metrics
+        ok = (over_tcp and res["result"]["request_id"] == "tcp0" and stats.get("ok")
+              and stats["stats"]["completed"] == 1 and names.get("models") == sorted(models)
+              and refused.get("error") == "BAD_REQUEST" and eof in ("eof", "reset"))
+        emit({"phase": "serve", "check": "tcp", "line_bytes": len(line),
+              "max_line_bytes": SERVE_MAX_LINE_BYTES, "round_trip_ms": rtt * 1e3,
+              "bitwise_vs_in_process": bool(over_tcp), "models": names.get("models"),
+              "default_limit_reply": refused, "closed_after": eof, "card": card, "ok": bool(ok)})
+        if not ok:
+            failures.append(f"serve: tcp: result {str(res)[:300]}, refused {refused}, eof {eof!r}")
+
+        # ---- the launcher's demo, as a child process on the card
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--demo"], cwd=ROOT,
+                               env=env, capture_output=True, text=True, timeout=SERVE_DEMO_TIMEOUT_S)
+        demo_s = time.perf_counter() - t0
+        try:
+            demo = json.loads(child.stdout[child.stdout.index("\n{") + 1:])
+        except ValueError:
+            demo = {}
+        ok = (child.returncode == 0 and demo.get("completed") == 20 and demo.get("failed") == 0
+              and demo.get("num_compiles") == 0)
+        emit({"phase": "serve", "check": "launcher_demo", "returncode": child.returncode,
+              "seconds": demo_s, "stats": {k: demo.get(k) for k in ("completed", "failed", "num_compiles",
+                                                                    "traces_per_s", "latency_p50_s")},
+              "card": card, "ok": ok})
+        if not ok:
+            failures.append(f"serve: launcher --demo: rc {child.returncode}, "
+                            f"stdout {child.stdout[-500:]!r}, stderr {child.stderr[-1500:]!r}")
+    finally:
+        logging.getLogger().removeHandler(log)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_mamba2(failures, results, traces):
     import torch
 
@@ -3128,7 +3616,7 @@ def main() -> int:
           "instructions_each": SLICE_INSTRUCTIONS, "seconds": time.perf_counter() - t0})
     failures, results = [], {}
     for phase in (phase_build, phase_kernels, phase_slice, phase_sweep, phase_train, phase_persist,
-                  phase_joint, phase_session, phase_mamba2):
+                  phase_joint, phase_session, phase_serve, phase_mamba2):
         phase(failures, results, traces)
         if failures:
             break

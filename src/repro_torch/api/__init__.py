@@ -20,10 +20,10 @@ reference package where their keys use no ``TaoConfig``);
 kernel build cache (``enable_persistent_cache``) keeps built kernels on
 disk.
 
-Serving (the reference's ``TraceServer`` / ``ModelRegistry`` and its wire
-types ``ServeRequest``, ``ServeResult``, ``ServerStats``, ``ServeError``)
-is not ported yet: those six names join ``__all__`` with the port of
-``serve/``.
+Serving: ``TraceServer``/``ModelRegistry`` (from ``repro_torch.serve``)
+expose registered models to concurrent tenants with continuous batching
+into the captured steps; the typed wire surface — ``ServeRequest``,
+``ServeResult``, ``ServerStats``, ``ServeError`` — is re-exported here.
 """
 from ..core.dataset import StreamingWindowDataset, WindowDataset
 from ..engine.aot import enable_persistent_cache, persistent_cache_status
@@ -43,6 +43,14 @@ from ..engine.runner import (
     SimulationResult,
 )
 from ..engine.scheduler import SweepJob, SweepReport
+from ..serve import (
+    ModelRegistry,
+    ServeError,
+    ServeRequest,
+    ServeResult,
+    ServerStats,
+    TraceServer,
+)
 from ..store import ArtifactStore
 from .session import DesignSpace, JointModel, Session, Trace, TrainedModel
 
@@ -70,4 +78,10 @@ __all__ = [
     "MetricNotComputedError",
     "SweepJob",
     "SweepReport",
+    "TraceServer",
+    "ModelRegistry",
+    "ServeRequest",
+    "ServeResult",
+    "ServerStats",
+    "ServeError",
 ]

@@ -3,7 +3,7 @@
 The port's own copy of ``repro/resilience/faults.py`` (standard library
 only), kept verbatim so that one seeded plan fires at the same calls in
 both packages.  ``SITES`` lists the reference's sites; the port threads
-``store.load``, ``engine.compile`` and ``engine.simulate`` so far.
+every one of them.
 
 The harness is two tiny pieces:
 

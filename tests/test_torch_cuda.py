@@ -91,6 +91,18 @@ on the CPU by the legacy loop's flip contract; ``Session.warmup`` captures
 a geometry and a train recipe ahead of any model, after which the first
 ``simulate`` and ``train`` capture nothing.
 
+The trace server (``repro_torch.serve``) on the card: a warm server's
+results under four tenants are bitwise the same models' direct
+``simulate`` (default metrics), with no capture a request caused and one
+B1 launch a batch; a dispatch hung past its deadline is abandoned, its
+cohabitant and the next request come out bitwise on the fresh thread, and
+the woken thread replays nothing (one ``engine.simulate`` and the
+attention launches of two runs in all); and while the dispatch thread
+captures a new geometry (held inside the capture), the event loop
+resolves a model from the store and admits int8 requests — the placement
+waits for the device lock, the engines are built on the dispatch thread
+after the capture, and every result is bitwise its direct run.
+
 The int8 W8A8 path (``core/quant.py``): quantization on the card is bitwise
 the CPU's; ``qdense``'s codes, int32 accumulations (cuBLASLt IMMA through
 ``torch._int_mm``, zero-padded to its multiples of 8 and past 16 rows) and
@@ -100,6 +112,8 @@ the CPU's is.  The int8 step has its own graph, with ``n_layers``
 attention nodes, and is held to the eager int8 step as the float32 one
 is.
 """
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -1447,3 +1461,173 @@ def test_session_warmup_then_simulate_and_train_capture_nothing(dev):
     assert np.isfinite(res.cpi)
     trained = sess.train(dataset=labelled_batch(cfg, 16, seed=3), epochs=1, batch_size=8, lr=1e-4)
     assert trained.steps == 2 and train_step_compiles() == train_captures
+
+
+# ---------------------------------------------------------------------------
+# the trace server
+# ---------------------------------------------------------------------------
+
+
+def serve_models(cfg, seeds=(0, 1)):
+    from repro_torch.api import TrainedModel
+
+    return {f"m{s}": TrainedModel(params=init_tao(cfg, torch.Generator().manual_seed(s), device="cuda"),
+                                  cfg=cfg, name=f"m{s}") for s in seeds}
+
+
+def serve_registry(models, store=None):
+    from repro_torch.serve import ModelRegistry
+
+    reg = ModelRegistry(store)
+    for name, m in models.items():
+        reg.register(name, m)
+    return reg
+
+
+def run_server(coro):
+    import asyncio
+
+    return asyncio.run(coro)
+
+
+def test_warm_server_on_card_is_bitwise_direct_with_no_capture(dev):
+    import asyncio
+
+    from repro_torch.serve import ServeRequest, TraceServer
+
+    cfg = TaoConfig()
+    models = serve_models(cfg)
+    traces = {"mcf": run_functional(get_benchmark("mcf"), 20000),
+              "short": run_functional(get_benchmark("lee"), 100)}
+    direct = {(m, t): models[m].simulate(tr) for m in models for t, tr in traces.items()}
+    batches = {"mcf": -(-(20000 // cfg.window) // 64), "short": 1}
+
+    async def run():
+        server = TraceServer(serve_registry(models), batch_size=64)
+        async with server:
+            server.warmup([len(t) for t in traces.values()])
+            captures = cache_stats()["compiles"]
+            b1, b4 = FUSED_FEATURES.launches, FLASH_ATTENTION.launches
+
+            async def tenant(i):
+                out = {}
+                for m in models:
+                    for t, tr in traces.items():
+                        out[(m, t)] = await server.submit(ServeRequest(model=m, trace=tr, tenant=f"t{i}"))
+                return out
+
+            out = await asyncio.gather(*(tenant(i) for i in range(4)))
+            return (out, server.num_compiles, cache_stats()["compiles"] - captures,
+                    FUSED_FEATURES.launches - b1, FLASH_ATTENTION.launches - b4)
+
+    out, compiles, captures, b1, b4 = run_server(run())
+    assert compiles == 0 and captures == 0
+    per_tenant = len(models) * sum(batches.values())
+    assert b1 == 4 * per_tenant and b4 == cfg.n_layers * 4 * per_tenant
+    for res in out:
+        for k, r in res.items():
+            assert r.metrics == direct[k].metrics, k
+
+
+def test_hung_dispatch_on_card_leaves_later_results_bitwise(dev):
+    import asyncio
+
+    from repro_torch.resilience import FaultPlan, FaultSpec, inject
+    from repro_torch.serve import ServeError, ServeRequest, TraceServer
+
+    cfg = TaoConfig()
+    models = serve_models(cfg)
+    traces = {b: run_functional(get_benchmark(b), 20000) for b in ("mcf", "dee")}
+    direct = {(m, t): models[m].simulate(tr) for m in models for t, tr in traces.items()}
+    batches = -(-(20000 // cfg.window) // 64)
+    plan = FaultPlan(FaultSpec("serve.dispatch", kind="delay", delay_s=1.0, times=1))
+
+    async def run():
+        server = TraceServer(serve_registry(models), batch_size=64, group_size=2)
+        async with server:
+            b4 = FLASH_ATTENTION.launches
+            with inject(plan):
+                futs = [server.submit(ServeRequest(model="m0", trace=traces["mcf"], deadline_s=0.3)),
+                        server.submit(ServeRequest(model="m1", trace=traces["dee"]))]
+                out = await asyncio.gather(*futs, return_exceptions=True)
+                nxt = await server.submit(ServeRequest(model="m1", trace=traces["mcf"]))
+                await asyncio.sleep(1.2)   # the abandoned thread wakes, and drops its group
+            return out, nxt, plan.hits.get("engine.simulate", 0), FLASH_ATTENTION.launches - b4
+
+    (hung, cohabitant), nxt, sims, b4 = run_server(run())
+    assert isinstance(hung, ServeError) and hung.code == "DEADLINE_EXCEEDED"
+    assert cohabitant.metrics == direct[("m1", "dee")].metrics
+    assert nxt.metrics == direct[("m1", "mcf")].metrics
+    assert sims == 2 and b4 == cfg.n_layers * 2 * batches
+
+
+@contextlib.contextmanager
+def hold_capture(seconds):
+    """While inside, the next CUDA graph capture of a step sets the yielded
+    event and then sleeps ``seconds`` between the capture's begin and end,
+    so a CUDA call another thread makes in that window would break it (as
+    ``chip_smoke.py``'s)."""
+    import threading
+    import time
+
+    from repro_torch.engine import aot
+
+    started = threading.Event()
+    saved = aot.CapturedStep._capture
+
+    def capture(inner, fn, carry, batch):
+        def held(*a):
+            if torch.cuda.is_current_stream_capturing() and not started.is_set():
+                started.set()
+                time.sleep(seconds)
+            return fn(*a)
+
+        return saved(inner, held, carry, batch)
+
+    aot.CapturedStep._capture = capture
+    try:
+        yield started
+    finally:
+        aot.CapturedStep._capture = saved
+
+
+def test_resolution_and_int8_beside_a_capture_on_card(dev, tmp_path):
+    """An int8 server's first request captures a geometry no run has
+    (held inside the capture); meanwhile the event loop resolves a model
+    from the store (its placement waits for the device lock) and admits
+    int8 requests for it, whose engine (the stored quantized tree) is built
+    on the dispatch thread after the capture.  Nothing breaks the capture,
+    and every result is bitwise the direct int8 run."""
+    import asyncio
+
+    from repro_torch.engine import clear_step_cache
+    from repro_torch.serve import ModelRegistry, ServeRequest, TraceServer
+    from repro_torch.store import ArtifactStore
+
+    cfg = TaoConfig()
+    models = serve_models(cfg)
+    store = ArtifactStore(str(tmp_path / "s"))
+    ModelRegistry(store).publish("pub", models["m1"])
+    reg = ModelRegistry(store)
+    reg.register("m0", models["m0"])
+    trace = run_functional(get_benchmark("mcf"), 20000)
+    odd = trace[:77]                      # a geometry of its own: w77b64
+    clear_step_cache()
+
+    async def run():
+        server = TraceServer(reg, batch_size=64, precision="int8")
+        async with server:
+            with hold_capture(0.5) as started:
+                first = server.submit(ServeRequest(model="m0", trace=odd))
+                loop = asyncio.get_running_loop()
+                assert await loop.run_in_executor(None, started.wait, 60)
+                later = [server.submit(ServeRequest(model="pub", trace=t)) for t in (odd, trace)]
+                out = await asyncio.gather(first, *later)
+            return out, server.num_compiles
+
+    out, compiles = run_server(run())
+    assert compiles == 2   # the int8 step at w77 and at w129
+    want = [models["m0"].simulate(odd, precision="int8"), models["m1"].simulate(odd, precision="int8"),
+            models["m1"].simulate(trace, precision="int8")]
+    for r, w in zip(out, want):
+        assert r.metrics == w.metrics

@@ -32,8 +32,8 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "rep
 print(len(names), bad, sorted(names))
 """
 
-# modules the walk must reach: one per subpackage, the persistence and
-# joint-training slices' too
+# modules the walk must reach: one per subpackage, the persistence,
+# joint-training and serving slices' too
 _MUST_WALK = (
     "repro_torch.ckpt.checkpoint",
     "repro_torch.core.multiarch",
@@ -44,8 +44,11 @@ _MUST_WALK = (
     "repro_torch.engine.plan",
     "repro_torch.engine.runner",
     "repro_torch.engine.scheduler",
+    "repro_torch.launch.serve",
+    "repro_torch.resilience.breaker",
     "repro_torch.resilience.faults",
     "repro_torch.resilience.manifest",
+    "repro_torch.serve.server",
     "repro_torch.store.content",
     "repro_torch.store.store",
     "repro_torch.train.trainer",
