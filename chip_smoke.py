@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase
+    python3 chip_smoke.py paper        # build, then the named phases only
 
 Run from the root of a checkout on a machine with an NVIDIA H100 (sm_90a)
 and ``nvcc``.  Phases, one JSON line each:
@@ -172,6 +173,28 @@ and ``nvcc``.  Phases, one JSON line each:
            (a 150k trace in one ~5 MB line, stats, models; the same line
            refused at the default 1 MiB); python -m
            repro_torch.launch.serve --demo as a child process;
+  paper    the paper's model (get_arch("tao"): 6 layers, width 512, 8
+           heads of 64, d_ff 2048, d_cat 128; random weights, seed 0):
+           B4 at 64 windows and its backward at 16, causal, on the packed
+           views, against their plain versions, timed beside SDPA's
+           forward and backward and their bounds, with registers, spills
+           and shared memory; the engine on the slice traces (the
+           capture's seconds and bytes, the fused route with B1 and B4
+           launches by the counters and by the graph's nodes x replays,
+           MIPS, host and device ms per batch, idle share and the device
+           time split into fp32 GEMMs, B4, B1 and the rest; the staged
+           route; the fused route under int8 after qdense at every layer
+           shape, int8 beside fp32 in turns; the fused route against the
+           CPU on a 20,000-instruction prefix of dee; the graphed simulate
+           against the eager step in turns); the train recipe at batch 16
+           for 2 epochs on the train phase's windows (6 + 6 attention
+           launches a step, graphed against eager in turns, bitwise; host
+           and device ms a step, idle share, windows/s); the reference's
+           examples/train_tao_e2e.py through Session (pair selection over
+           8 designs, joint training, transfer to UARCH_C, scratch
+           training, two unseen traces against their ground truth) at
+           20,000 instructions and 6 epochs (cut from 40,000 and 12),
+           each phase's seconds;
   mamba2   the port's Mamba-2 serving path at the full width of
            mamba2-1.3b (48 layers, bfloat16, random weights from a CUDA
            generator, seed 0): prefill of 4 prompts x 2048 tokens, then 32
@@ -183,8 +206,11 @@ and ``nvcc``.  Phases, one JSON line each:
            the CPU (the plain versions) at 4 layers.
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
-main path, error, times and bound; the card's name and power limit as
-``nvidia-smi`` prints them; and, last, the device line.  Any failed check
+main path, error, times and bound (B4's and its backward's entries also
+hold their readings at the paper's width); the card's name and power limit
+as ``nvidia-smi`` prints them; and, last, the device line.  With phase
+names as arguments, the build and those phases run, and the last line is
+the device line with the phases' names; no kernels line.  Any failed check
 exits nonzero before the device line.  Without a CUDA device, or outside a
 checkout (no ``src/repro_torch``), it exits nonzero and prints no result.
 Imports nothing of JAX or of the reference package.
@@ -340,6 +366,17 @@ TRAIN_LOSS_RTOL = 1e-4
 SWEEP_SEEDS = (0, 1, 2, 3)
 SWEEP_METRICS = ("cpi", "branch_mpki", "l1d_mpki", "l1d_phase", "dlevel_hist")
 SWEEP_KILL_AFTER = 5
+# the paper cell: get_arch("tao"), the reference's configs/tao.py (6 layers,
+# width 512, 8 heads of 64).  The engine's check against the CPU runs on a
+# prefix of one slice trace (the CPU's forward at that width does ~39
+# MFLOP an instruction).  The session runs the reference's
+# examples/train_tao_e2e.py under FULL=1 (its benchmarks, 40,000
+# instructions each, 12 epochs) with the instructions and epochs cut
+PAPER_CPU_INSTRUCTIONS = 20_000
+PAPER_E2E_BENCHES = ("dee", "rom", "nab", "lee")
+PAPER_E2E_UNSEEN = ("mcf", "cac")
+PAPER_E2E_INSTRUCTIONS = 20_000
+PAPER_E2E_EPOCHS = 6
 
 # GPU vs CPU engine on one trace.  Features are bitwise equal on both; the
 # model's float32 logits differ in the last bits (cuBLAS vs CPU BLAS
@@ -552,16 +589,18 @@ def read_counts() -> dict:
     return {name: c.launches for name, c in launch_counters().items()}
 
 
-def profile_breakdown(fn, track: tuple = ()) -> dict:
+def profile_breakdown(fn, track: tuple = (), groups: dict = None) -> dict:
     """Device time by kernel over one ``fn()``, from torch.profiler (CUPTI):
     busy = summed time of the device's kernel events (one stream: kernels
     do not overlap; the host ops that launched them are not counted again),
     idle share = 1 - busy / wall.  The profiler's own host overhead
     inflates the wall time here; the unprofiled runs report the real rates.
     ``track``: also the device ms of each kernel whose name holds one of
-    these pieces, by the name from there to its argument list.  Raises when
-    the profile
-    cannot be taken or shows no device time."""
+    these pieces, by the name from there to its argument list.
+    ``groups`` ({group: pieces}): also the device ms summed per group, a
+    kernel going to the first group one of whose pieces its name holds,
+    the rest to "other".  Raises when the profile cannot be taken or shows
+    no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -588,7 +627,17 @@ def profile_breakdown(fn, track: tuple = ()) -> dict:
         "copy_kernels": sum(e.count for e in events if "copy_kernel" in e.key),
         "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top],
         **({"tracked_ms": tracked} if track else {}),
+        **({"group_ms": group_ms(events, groups)} if groups else {}),
     }
+
+
+def group_ms(events, groups: dict) -> dict:
+    """Device ms of profiler events summed per group (see profile_breakdown)."""
+    split = dict.fromkeys([*groups, "other"], 0.0)
+    for e in events:
+        g = next((n for n, pieces in groups.items() if any(p in e.key for p in pieces)), "other")
+        split[g] += e.self_device_time_total / 1e3
+    return split
 
 
 def phase_build(failures, results, traces):
@@ -730,7 +779,7 @@ def check_attention_kernel(failures, results):
     bound and launch resources at the Tao shape."""
     import torch
 
-    from repro_torch.kernels.attention.kernel import flash_attention_cuda, launch_info
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda
     from repro_torch.kernels.attention.ref import attention_plain
 
     dev = torch.device("cuda")
@@ -775,6 +824,30 @@ def check_attention_kernel(failures, results):
     # times at the Tao shape on the operands the model gives it: the packed views
     q, k, v, *_ = cases["tao_packed_qkv"]
     qc, kc, vc, *_ = cases["tao_causal"]
+    t = attention_fwd_times(q, k, v, qc, kc, vc)
+    if t["spill_bytes_per_thread"]:
+        failures.append(f"flash_attention: {t['spill_bytes_per_thread']} spill bytes per thread")
+    results["flash_attention"] = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/attention.cu",
+        "replaces": "src/repro/kernels/attention/kernel.py:38",
+        "max_abs_err": attn_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    }
+    emit({"phase": "kernels", "kernel": "flash_attention", "shape": list(q.shape),
+          "operands": "packed_qkv_views", **t})
+
+
+def attention_fwd_times(q, k, v, qc, kc, vc) -> dict:
+    """B4's times, causal, on the packed views ``q, k, v`` the model hands
+    over (graph replay: device time; and its eager call), on contiguous
+    copies ``qc, kc, vc``, the plain version's, SDPA's on both, its bound,
+    and what a launch gets (registers, spills, shared memory, blocks)."""
+    import torch
+
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda, launch_info
+    from repro_torch.kernels.attention.ref import attention_plain
+
     B, H, S, D = q.shape
     ms = graph_ms(lambda: flash_attention_cuda(q, k, v, causal=True))
     contiguous_ms = graph_ms(lambda: flash_attention_cuda(qc, kc, vc, causal=True))
@@ -788,22 +861,10 @@ def check_attention_kernel(failures, results):
         q, k, v, is_causal=True))
     visible = B * H * S * (S + 1) // 2  # causal (query, key) pairs
     b_ms, b_by = bound(4 * B * H * S * D * 4, visible * (2 * D + 2 * D))
-    info = launch_info(S, D, D)
-    if info["spill_bytes_per_thread"]:
-        failures.append(f"flash_attention: {info['spill_bytes_per_thread']} spill bytes per thread")
-    results["flash_attention"] = {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/attention.cu",
-        "replaces": "src/repro/kernels/attention/kernel.py:38",
-        "max_abs_err": attn_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-    }
-    emit({"phase": "kernels", "kernel": "flash_attention", "shape": [B, H, S, D],
-          "operands": "packed_qkv_views", "ms": ms, "contiguous_ms": contiguous_ms,
-          "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-          "library_packed_ms": lib_packed_ms, "bound_ms": b_ms, "bound_by": b_by,
-          "x_bound": ms / b_ms, "x_library": ms / lib_ms,
-          **info})
+    return {"ms": ms, "contiguous_ms": contiguous_ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_packed_ms": lib_packed_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "x_bound": ms / b_ms, "x_library": ms / lib_ms,
+            **launch_info(S, D, D)}
 
 
 def attention_bwd_bound(B, H, S, D, causal):
@@ -814,6 +875,77 @@ def attention_bwd_bound(B, H, S, D, causal):
     choice, not the function's work."""
     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
     return bound(7 * B * H * S * D * 4, pairs * 10 * D)
+
+
+def attention_bwd_held(q, k, v, do, causal):
+    """B4's backward against its plain version on one input: gradients
+    within tolerance, two calls bitwise, the forward's output bitwise with
+    and without its lse, the lse held to the plain one; and the forward's
+    (out, lse)."""
+    import torch
+
+    from repro_torch.kernels.attention.kernel import flash_attention_bwd_cuda, flash_attention_cuda
+    from repro_torch.kernels.attention.ref import attention_bwd_plain, attention_lse_plain
+
+    out_only = flash_attention_cuda(q, k, v, causal=causal)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+    again = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+    ref = attention_bwd_plain(q, k, v, out, lse, do, causal)
+    lse_ref = attention_lse_plain(q, k, causal=causal)
+    torch.cuda.synchronize()
+    within = all(bool(torch.all((a - b).abs() <= ATTN_BWD_ATOL + ATTN_BWD_RTOL * b.abs()))
+                 for a, b in zip(got, ref))
+    lse_ok = bool(torch.all((lse - lse_ref).abs() <= LSE_ATOL + LSE_RTOL * lse_ref.abs()))
+    r = {"max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
+         "atol": ATTN_BWD_ATOL, "rtol": ATTN_BWD_RTOL,
+         "lse_max_abs_err": float((lse - lse_ref).abs().max()), "lse_atol": LSE_ATOL,
+         "two_calls_bitwise": all(torch.equal(a, b) for a, b in zip(got, again)),
+         "forward_out_bitwise_with_and_without_lse": torch.equal(out, out_only)}
+    r["ok"] = (within and lse_ok and r["two_calls_bitwise"]
+               and r["forward_out_bitwise_with_and_without_lse"])
+    return r, out, lse
+
+
+def attention_bwd_times(q, k, v, out, lse, do):
+    """The backward's times, causal, at one shape: the kernel (graph replay:
+    device time), its eager call, the plain version, SDPA's backward (its
+    kernels' device time from the profiler, over 20 calls of
+    autograd.grad) and the bound; beside them the device ms of each of its
+    kernels (profiler, 20 calls) and one (batch, head) alone (what a single
+    block chain takes)."""
+    import torch
+
+    from repro_torch.kernels.attention.kernel import BWD_KERNEL_NAMES, flash_attention_bwd_cuda
+    from repro_torch.kernels.attention.ref import attention_bwd_plain
+
+    B, H, S, D = q.shape
+    ms = graph_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=True))
+    call_ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=True), 100)
+    kprof = profile_breakdown(
+        lambda: [flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=True) for _ in range(20)],
+        track=BWD_KERNEL_NAMES)
+    kernel_ms = {n: t / 20 for n, t in kprof["tracked_ms"].items()}
+    one = tuple(x[:1, :1] for x in (q, k, v, out, lse, do))
+    one_bh_ms = graph_ms(lambda: flash_attention_bwd_cuda(*one, causal=True))
+    plain_ms = cuda_ms(lambda: attention_bwd_plain(q, k, v, out, lse, do, True), 20)
+    qs, ks, vs = (x.detach().contiguous().requires_grad_() for x in (q, k, v))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    dc = do.contiguous()
+
+    def sdpa_bwd():
+        for _ in range(20):
+            torch.autograd.grad(lib_out, (qs, ks, vs), dc, retain_graph=True)
+
+    sdpa_bwd()
+    prof = profile_breakdown(sdpa_bwd)
+    lib_ms = prof["device_busy_s"] * 1e3 / 20
+    b_ms, b_by = attention_bwd_bound(B, H, S, D, True)
+    line = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+    return line, {"x_bound": ms / b_ms, "x_library": ms / lib_ms, "kernel_ms": kernel_ms,
+                  "one_batch_head_ms": one_bh_ms, "library": "scaled_dot_product_attention backward",
+                  "library_kernels": [t[0] for t in prof["top_device_ms"][:4]]}
 
 
 def check_attention_bwd_kernel(failures, results):
@@ -827,45 +959,18 @@ def check_attention_bwd_kernel(failures, results):
     bound, the plain version's and SDPA's backward at the training shape."""
     import torch
 
-    from repro_torch.kernels.attention.kernel import (
-        BWD_KERNEL_NAMES,
-        bwd_launch_info,
-        flash_attention_bwd_cuda,
-        flash_attention_cuda,
-    )
-    from repro_torch.kernels.attention.ref import attention_bwd_plain, attention_lse_plain
+    from repro_torch.kernels.attention.kernel import bwd_launch_info, flash_attention_cuda
+    from repro_torch.kernels.attention.ref import attention_lse_plain
 
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(1)
     worst, all_ok, timed = 0.0, True, {}
 
-    def held(q, k, v, do, causal):
-        """The kernel against the plain version on one input: the line's
-        checks, and the forward's (out, lse)."""
-        out_only = flash_attention_cuda(q, k, v, causal=causal)
-        out, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
-        got = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
-        again = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
-        ref = attention_bwd_plain(q, k, v, out, lse, do, causal)
-        lse_ref = attention_lse_plain(q, k, causal=causal)
-        torch.cuda.synchronize()
-        within = all(bool(torch.all((a - b).abs() <= ATTN_BWD_ATOL + ATTN_BWD_RTOL * b.abs()))
-                     for a, b in zip(got, ref))
-        lse_ok = bool(torch.all((lse - lse_ref).abs() <= LSE_ATOL + LSE_RTOL * lse_ref.abs()))
-        r = {"max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
-             "atol": ATTN_BWD_ATOL, "rtol": ATTN_BWD_RTOL,
-             "lse_max_abs_err": float((lse - lse_ref).abs().max()), "lse_atol": LSE_ATOL,
-             "two_calls_bitwise": all(torch.equal(a, b) for a, b in zip(got, again)),
-             "forward_out_bitwise_with_and_without_lse": torch.equal(out, out_only)}
-        r["ok"] = (within and lse_ok and r["two_calls_bitwise"]
-                   and r["forward_out_bitwise_with_and_without_lse"])
-        return r, out, lse
-
     for name, (B, H, S, D, causal) in ATTN_BWD_CASES.items():
         # q, k, v as the Tao block hands them over: views of one packed projection
         q, k, v = packed_qkv(B, S, H, D, lambda *shape: torch.randn(*shape, generator=g).to(dev))
         do = torch.randn(B, S, H, D, generator=g).to(dev).transpose(1, 2)
-        r, out, lse = held(q, k, v, do, causal)
+        r, out, lse = attention_bwd_held(q, k, v, do, causal)
         worst, all_ok = max(worst, r["max_abs_err"]), all_ok and r["ok"]
         emit({"phase": "kernels", "kernel": "flash_attention_bwd", "case": name,
               "shape": [B, H, S, D], "causal": causal, **r})
@@ -877,7 +982,7 @@ def check_attention_bwd_kernel(failures, results):
     base = torch.randn(B, H, S, 2 * D + 1, generator=g).to(dev)
     q, k, v = base[..., :D], base[..., D:2 * D], base[..., 1:D + 1]
     do = torch.randn(B, H, S, 2 * D + 1, generator=g).to(dev)[..., 2:D + 2]
-    r, _, _ = held(q, k, v, do, True)
+    r, _, _ = attention_bwd_held(q, k, v, do, True)
     worst, all_ok = max(worst, r["max_abs_err"]), all_ok and r["ok"]
     emit({"phase": "kernels", "kernel": "flash_attention_bwd", "case": "unaligned_strides",
           "shape": [B, H, S, D], "causal": True, "q_strides": list(q.stride()),
@@ -912,35 +1017,9 @@ def check_attention_bwd_kernel(failures, results):
     # profiler, over 20 calls of autograd.grad)
     lines = {}
     for B, (q, k, v, out, lse, do) in sorted(timed.items()):
-        _, H, S, D = q.shape
-        ms = graph_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=True))
-        call_ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=True), 100)
-        kprof = profile_breakdown(
-            lambda: [flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=True) for _ in range(20)],
-            track=BWD_KERNEL_NAMES)
-        kernel_ms = {n: t / 20 for n, t in kprof["tracked_ms"].items()}
-        one = tuple(x[:1, :1] for x in (q, k, v, out, lse, do))
-        one_bh_ms = graph_ms(lambda: flash_attention_bwd_cuda(*one, causal=True))
-        plain_ms = cuda_ms(lambda: attention_bwd_plain(q, k, v, out, lse, do, True), 20)
-        qs, ks, vs = (x.detach().contiguous().requires_grad_() for x in (q, k, v))
-        lib_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-        dc = do.contiguous()
-
-        def sdpa_bwd():
-            for _ in range(20):
-                torch.autograd.grad(lib_out, (qs, ks, vs), dc, retain_graph=True)
-
-        sdpa_bwd()
-        prof = profile_breakdown(sdpa_bwd)
-        lib_ms = prof["device_busy_s"] * 1e3 / 20
-        b_ms, b_by = attention_bwd_bound(B, H, S, D, True)
-        lines[B] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "bound_ms": b_ms, "bound_by": b_by}
-        emit({"phase": "kernels", "kernel": "flash_attention_bwd", "shape": [B, H, S, D],
-              "causal": True, "operands": "packed_qkv_views", **lines[B], "x_bound": ms / b_ms,
-              "x_library": ms / lib_ms, "kernel_ms": kernel_ms, "one_batch_head_ms": one_bh_ms,
-              "library": "scaled_dot_product_attention backward",
-              "library_kernels": [t[0] for t in prof["top_device_ms"][:4]]})
+        lines[B], extra = attention_bwd_times(q, k, v, out, lse, do)
+        emit({"phase": "kernels", "kernel": "flash_attention_bwd", "shape": list(q.shape),
+              "causal": True, "operands": "packed_qkv_views", **lines[B], **extra})
     at = lines[TRAIN_BATCH]
     results["flash_attention_bwd"] = {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -1528,7 +1607,7 @@ def graphed_vs_eager_diffs(graphed, eager, eager2) -> dict:
             "cpi_phase_rel_graphed_vs_eager": rel(graphed.metrics["cpi_phase"], eager.metrics["cpi_phase"])}
 
 
-def graph_vs_eager(failures, engine, traces, arrays, total_n, batches, lee_batches):
+def graph_vs_eager(failures, engine, traces, arrays, total_n, batches, lee_batches, phase="slice"):
     """The graphed simulate against the eager entry loop, in turns (graphed,
     eager, eager, graphed) per trace, on both routes (the staged one
     reusing one extraction per trace): medians per trace, MIPS, host ms per
@@ -1556,14 +1635,14 @@ def graph_vs_eager(failures, engine, traces, arrays, total_n, batches, lee_batch
                 ok = all(v for k, v in held[b]["bitwise"].items() if k != "cpi_phase") and \
                     held[b]["cpi_phase_rel_graphed_vs_eager"] <= GRAPH_PHASE_RTOL
                 if not ok:
-                    failures.append(f"slice: graphed {route} simulate differs from the eager step "
+                    failures.append(f"{phase}: graphed {route} simulate differs from the eager step "
                                     f"on {b}: {held[b]}")
         med = {b: {k: float(np.median(v)) for k, v in d.items()} for b, d in secs.items()}
         feats = None if route == "fused" else arrays["lee"]
         prof = {mode: profile_breakdown(fn) for mode, fn in (
             ("graphed", lambda: engine.simulate(traces["lee"], features=feats)),
             ("eager", lambda: eager_entry_loop(engine, traces["lee"], feats)))}
-        out = {"phase": "slice", "check": "graph_vs_eager", "route": route, "rounds": ROUTE_ROUNDS,
+        out = {"phase": phase, "check": "graph_vs_eager", "route": route, "rounds": ROUTE_ROUNDS,
                "instructions": total_n, "batches": batches, "per_trace_median_s": med, "held": held}
         for mode in ("graphed", "eager"):
             s = sum(m[mode] for m in med.values())
@@ -1580,9 +1659,9 @@ def int8_gemm_ms(prof_tracked: dict) -> float:
     return sum(ms for k, ms in prof_tracked.items() if k.startswith(INT8_GEMM_PIECES))
 
 
-def check_qdense_on_card(failures, qshapes):
-    """``qdense`` on the card against the CPU at every dense layer shape of
-    the default TaoConfig, at the step's 8,256 rows and at 16 (IMMA's row
+def check_qdense_on_card(failures, qshapes, phase="slice"):
+    """``qdense`` on the card against the CPU at every dense layer shape
+    ``qshapes`` of a TaoConfig, at the step's 8,256 rows and at 16 (IMMA's row
     padding): quantized buffers, codes, int32 sums (cuBLASLt IMMA) and
     float output bitwise (``core.quant.qdense_device_vs_cpu``, as the cuda
     tests run it)."""
@@ -1592,8 +1671,8 @@ def check_qdense_on_card(failures, qshapes):
              for k, n in qshapes for rows in (8256, 16)}
     bad = {c: same for c, same in cases.items() if not all(same.values())}
     if bad:
-        failures.append(f"slice int8: qdense on the card differs from the CPU: {bad}")
-    emit({"phase": "slice", "check": "int8_qdense_gpu_vs_cpu",
+        failures.append(f"{phase} int8: qdense on the card differs from the CPU: {bad}")
+    emit({"phase": phase, "check": "int8_qdense_gpu_vs_cpu",
           "bitwise": {c: all(same.values()) for c, same in cases.items()}, "ok": not bad})
 
 
@@ -2791,6 +2870,18 @@ def init_multiarch_like(cfg):
     return init_multiarch(cfg, torch.Generator().manual_seed(0), device="cuda")
 
 
+def timed(fn):
+    """``fn()`` and its seconds on the host clock, the card synchronised
+    before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def rel_diff(a, b) -> float:
     """max |a - b| relative to max |b|."""
     return float((a.float() - b.float()).abs().max() / b.float().abs().max())
@@ -2846,13 +2937,6 @@ def phase_session(failures, results, traces):
         # a capture first runs the step eagerly WARMUP_RUNS times
         return none | {"fused_features": batches,
                        "flash_attention": cfg.n_layers * (batches + WARMUP_RUNS * captures)}
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
 
     def simulate_all(model, **kw):
         return {b: model.simulate(t, **kw) for b, t in slices.items()}
@@ -3113,13 +3197,6 @@ def phase_serve(failures, results, traces):
     log = _LogCount()
     logging.getLogger().addHandler(log)
     root = tempfile.mkdtemp(prefix="chip-smoke-serve-")
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
 
     def expected(reqs, staged=False):
         """The launches of ``reqs`` (keys of ``work``) on the fused or the
@@ -3484,6 +3561,412 @@ def phase_serve(failures, results, traces):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def phase_paper(failures, results, traces):
+    """The paper's model (``repro_torch.configs.get_arch("tao")``, random
+    weights from seed 0) through the kernels, the engine, the trainer and
+    the facade (module note)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("tao")
+    emit({"phase": "paper", "check": "config", "config": dataclasses.asdict(cfg),
+          "head_dim": cfg.head_dim, "card": card_line()})
+    paper_kernels(failures, results, cfg)
+    paper_engine(failures, results, traces, cfg)
+    paper_train(failures, results, cfg)
+    paper_session(failures, cfg)
+
+
+def paper_kernels(failures, results, cfg):
+    """B4 at the engine's batch of 64 windows and its backward at the train
+    batch of 16, causal, on the packed q/k/v views of the paper's width (8
+    heads of 64): each held to its plain version, timed beside SDPA's
+    forward / backward and its bound, with its launch resources."""
+    import torch
+
+    from repro_torch.engine import EngineConfig
+    from repro_torch.kernels.attention.kernel import bwd_launch_info, flash_attention_cuda
+    from repro_torch.kernels.attention.ref import attention_plain
+
+    g = torch.Generator(device="cpu").manual_seed(2)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).to("cuda")
+
+    H, S, D = cfg.n_heads, cfg.window, cfg.head_dim
+    q, k, v = packed_qkv(EngineConfig().batch_size, S, H, D, rand)
+    a = flash_attention_cuda(q, k, v, causal=True)
+    b = attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = float((a - b).abs().max())
+    ok = bool(torch.all((a - b).abs() <= ATTN_ATOL + ATTN_RTOL * b.abs()))
+    t = attention_fwd_times(q, k, v, *(x.contiguous() for x in (q, k, v)))
+    fwd = {"shape": list(q.shape), "max_abs_err": err, "atol": ATTN_ATOL, "rtol": ATTN_RTOL,
+           "ok": ok, **t, "launches_per_batch": cfg.n_layers}
+    emit({"phase": "paper", "kernel": "flash_attention", "operands": "packed_qkv_views", **fwd})
+    if not ok or t["spill_bytes_per_thread"]:
+        failures.append(f"paper: B4 at {list(q.shape)}: error {err}, spills "
+                        f"{t['spill_bytes_per_thread']}")
+
+    q, k, v = packed_qkv(TRAIN_BATCH, S, H, D, rand)
+    do = rand(TRAIN_BATCH, S, H, D).transpose(1, 2)
+    r, out, lse = attention_bwd_held(q, k, v, do, True)
+    line, extra = attention_bwd_times(q, k, v, out, lse, do)
+    info = bwd_launch_info(TRAIN_BATCH, H, S, D)
+    bwd = {"shape": list(q.shape), **r, **line, "launches_per_step": cfg.n_layers}
+    emit({"phase": "paper", "kernel": "flash_attention_bwd", "causal": True,
+          "operands": "packed_qkv_views", **bwd, **extra, "launch_info": info})
+    # a spill is reported, not failed: the width-64 template sits at the
+    # edge of the register file
+    if not r["ok"]:
+        failures.append(f"paper: B4's backward at {list(q.shape)} outside tolerance: {r}")
+    keep = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    # beside the kernels line's entries (their slice / train cell readings)
+    results.setdefault("flash_attention", {})["paper_width"] = {k: fwd[k] for k in keep}
+    results.setdefault("flash_attention_bwd", {})["paper_width"] = {k: bwd[k] for k in keep}
+
+
+def paper_engine(failures, results, traces, cfg):
+    """StreamingEngine at the paper's width on the slice cell's three 150k
+    traces: the capture, the fused route (B1 and B4 launches by the
+    counters and by the graph's nodes x replays), the staged route, the
+    fused route under int8 (qdense on the card against the CPU at every
+    layer shape first), int8 beside fp32 in turns, a profile split of the
+    device time, the fused route against the CPU on a prefix of one trace,
+    and the graphed simulate against the eager step in turns."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.model import init_tao
+    from repro_torch.core.quant import dense_layers, dense_shapes
+    from repro_torch.engine import EngineConfig, StreamingEngine, cache_stats
+    from repro_torch.engine.aot import graph_kernel_names
+    from repro_torch.kernels.attention.kernel import FLASH_ATTENTION
+    from repro_torch.kernels.features.ops import device_feature_arrays, trace_columns
+
+    fcfg = cfg.features
+    metrics = ("cpi", "branch_mpki", "l1d_mpki", "cpi_phase", "l1d_phase")
+    ecfg = EngineConfig(metrics=metrics)
+    none = {k: 0 for k in launch_counters()}
+
+    def extract(trace):
+        arrays = device_feature_arrays(trace_columns(trace, fcfg), fcfg, device="cuda")
+        torch.cuda.synchronize()
+        return arrays
+
+    def b4_counts(entry, launches, replays):
+        nodes = sum("attention_kernel" in k for k in graph_kernel_names(entry.aot.graph))
+        return nodes, {"counter": launches["flash_attention"], "graph_nodes_x_replays": nodes * replays,
+                       "captured_x_replays": entry.aot.launches.get(FLASH_ATTENTION, 0) * replays}
+
+    def capture(engine):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        entry = engine.warmup(SLICE_INSTRUCTIONS)
+        torch.cuda.synchronize()
+        return entry, time.perf_counter() - t0
+
+    model = init_tao(cfg, torch.Generator().manual_seed(0), device="cuda")
+    engine = StreamingEngine(model, cfg, ecfg, device="cuda")
+    entry, capture_s = capture(engine)
+    emit({"phase": "paper", "check": "capture", "seconds": capture_s, "compiles": entry.compiles,
+          "retained_bytes_est": entry.est_bytes,
+          "launches_per_replay": {k.symbol: n for k, n in entry.aot.launches.items()},
+          "kernel_nodes": len(graph_kernel_names(entry.aot.graph)), "cache_stats": cache_stats()})
+    engine.simulate(traces["lee"])  # warm-up: allocator pools, the column copies
+    engine.simulate(traces["lee"], features=extract(traces["lee"]))
+    batches = sum(-(-(len(t) // cfg.window) // ecfg.batch_size) for t in traces.values())
+    lee_batches = -(-(len(traces["lee"]) // cfg.window) // ecfg.batch_size)
+
+    # ---- the fused route
+    zero_counts()
+    replays = entry.aot.replays
+    res = {b: engine.simulate(t) for b, t in traces.items()}
+    launches = read_counts()
+    replays = entry.aot.replays - replays
+    nodes, b4 = b4_counts(entry, launches, replays)
+    expected = none | {"fused_features": batches, "flash_attention": cfg.n_layers * batches}
+    if not (launches == expected and nodes == cfg.n_layers and replays == batches
+            and set(b4.values()) == {cfg.n_layers * batches} and engine.num_compiles == 1):
+        failures.append(f"paper: fused launches {launches}, expected {expected}; attention nodes "
+                        f"{nodes}, replays {replays} for {batches} batches, counts {b4}, captures "
+                        f"{engine.num_compiles}")
+    finite = all(np.isfinite([r.cpi, r.total_cycles, r.branch_mpki, r.l1d_mpki]).all()
+                 and all(np.isfinite(c).all() and c.shape == (32,) for c in (r.cpi_phase, r.l1d_phase))
+                 for r in res.values())
+    if not finite:
+        failures.append("paper: non-finite or misshapen metrics on the fused route")
+    total_n = sum(r.num_instructions for r in res.values())
+    total_s = sum(r.seconds for r in res.values())
+    prof = profile_breakdown(lambda: engine.simulate(traces["lee"]),
+                             groups={"fp32_gemm": ("gemm", "gemv"), "b4": ("attention_kernel",),
+                                     "b1": ("fx_",)})
+    fused = {"mips": total_n / 1e6 / total_s, "host_ms_per_batch": total_s * 1e3 / batches,
+             "device_ms_per_batch": prof["device_busy_s"] * 1e3 / lee_batches,
+             "idle_share": prof["idle_share"],
+             "device_ms_per_batch_split": {k: ms / lee_batches for k, ms in prof["group_ms"].items()}}
+    emit({"phase": "paper", "route": "fused", "traces": list(SLICE_BENCHMARKS), "instructions": total_n,
+          "simulate_seconds": total_s, "batches": batches, "launches": launches, "replays": replays,
+          "attention_nodes_per_graph": nodes, "flash_attention_counts": b4, **fused,
+          "per_trace": {b: {"mips": r.mips, "seconds": r.seconds, "cpi": r.cpi} for b, r in res.items()},
+          "top_device_ms": prof["top_device_ms"], "ok": finite})
+    results["flash_attention"]["paper_width"]["launches"] = launches["flash_attention"]
+
+    # ---- the staged route: one whole-trace extraction per trace
+    zero_counts()
+    staged = {}
+    for b, t in traces.items():
+        t0 = time.perf_counter()
+        arrays = extract(t)
+        ext_s = time.perf_counter() - t0
+        staged[b] = (ext_s, engine.simulate(t, features=arrays))
+        del arrays
+    s_launches = read_counts()
+    expected = none | {"flash_attention": cfg.n_layers * batches, "branch_history": len(traces),
+                       "memdist_delta": len(traces)}
+    if s_launches != expected:
+        failures.append(f"paper: staged launches {s_launches}, expected {expected}")
+    vs_fused = {}
+    for b, (_, r) in staged.items():
+        vs_fused[b] = "exact" if same_metrics(r, res[b]) else None
+        if vs_fused[b] is None:
+            ecfg_c = dataclasses.replace(ecfg, collect=True)
+            eng_c = StreamingEngine(model, cfg, ecfg_c, device="cuda")
+            check = flip_check(eng_c.simulate(traces[b], features=extract(traces[b])),
+                               eng_c.simulate(traces[b]), traces[b], cfg)
+            vs_fused[b] = "flip_explained" if check["ok"] else "neither"
+    if "neither" in vs_fused.values():
+        failures.append(f"paper: staged and fused routes disagree beyond the flips: {vs_fused}")
+    ext_total = sum(e for e, _ in staged.values())
+    sim_total = sum(r.seconds for _, r in staged.values())
+    emit({"phase": "paper", "route": "staged", "instructions": total_n, "launches": s_launches,
+          "extraction_seconds": ext_total, "simulate_seconds": sim_total,
+          "mips": total_n / 1e6 / (ext_total + sim_total), "simulate_only_mips": total_n / 1e6 / sim_total,
+          "host_ms_per_batch": sim_total * 1e3 / batches, "vs_fused": vs_fused})
+
+    # ---- int8: qdense at every layer shape, the int8 step's capture, the
+    # fused route, then int8 beside fp32 in turns (fp32, int8, int8, fp32)
+    engine8 = StreamingEngine(model, cfg, dataclasses.replace(ecfg, precision="int8"), device="cuda")
+    qshapes = dense_shapes(engine8._run_params())
+    check_qdense_on_card(failures, qshapes, phase="paper")
+    qdense_calls = len(dense_layers(engine8._run_params()))
+    entry8, capture8_s = capture(engine8)
+    names8 = graph_kernel_names(entry8.aot.graph)
+    gemm8 = [k for k in names8 if any(p in k for p in INT8_GEMM_PIECES)]
+    float_gemm8 = [k for k in names8 if any(p in k for p in FLOAT_GEMM_PIECES)]
+    engine8.simulate(traces["lee"])  # warm-up
+    zero_counts()
+    replays = entry8.aot.replays
+    res8 = {b: engine8.simulate(t) for b, t in traces.items()}
+    launches8 = read_counts()
+    replays = entry8.aot.replays - replays
+    nodes8, b4_8 = b4_counts(entry8, launches8, replays)
+    expected = none | {"fused_features": batches, "flash_attention": cfg.n_layers * batches}
+    ok8 = (launches8 == expected and nodes8 == cfg.n_layers
+           and set(b4_8.values()) == {cfg.n_layers * batches} and len(gemm8) == qdense_calls
+           and not float_gemm8 and all(np.isfinite([r.cpi, r.branch_mpki, r.l1d_mpki]).all()
+                                      for r in res8.values()))
+    if not ok8:
+        failures.append(f"paper int8: launches {launches8}, expected {expected}; attention nodes "
+                        f"{nodes8}, counts {b4_8}; {len(gemm8)} IMMA nodes for {qdense_calls} "
+                        f"projections, float GEMMs {float_gemm8[:3]}")
+    secs = {p: {b: [] for b in traces} for p in ("fp32", "int8")}
+    for b, t in traces.items():
+        for prec in ("fp32", "int8", "int8", "fp32"):
+            secs[prec][b].append((engine if prec == "fp32" else engine8).simulate(t).seconds)
+    side = {}
+    for prec, eng in (("fp32", engine), ("int8", engine8)):
+        p8 = profile_breakdown(lambda eng=eng: eng.simulate(traces["lee"]), track=INT8_GEMM_PIECES)
+        s = sum(float(np.median(v)) for v in secs[prec].values())
+        side[prec] = {"mips": total_n / 1e6 / s, "host_ms_per_batch": s * 1e3 / batches,
+                      "device_ms_per_batch": p8["device_busy_s"] * 1e3 / lee_batches,
+                      "idle_share": p8["idle_share"],
+                      "int8_gemm_ms_per_batch": int8_gemm_ms(p8["tracked_ms"]) / lee_batches}
+    emit({"phase": "paper", "route": "fused", "precision": "int8", "capture_seconds": capture8_s,
+          "retained_bytes_est": entry8.est_bytes, "fp32_retained_bytes_est": entry.est_bytes,
+          "kernels_per_replay": {"int8": len(names8), "fp32": len(graph_kernel_names(entry.aot.graph))},
+          "int8_gemm_nodes": len(gemm8), "qdense_calls": qdense_calls, "launches": launches8,
+          "flash_attention_counts": b4_8, "int8_vs_fp32_in_turns": side,
+          "metric_diffs": {b: {"cpi_rel": (r.cpi - res[b].cpi) / res[b].cpi,
+                               "branch_mpki_abs": r.branch_mpki - res[b].branch_mpki,
+                               "l1d_mpki_abs": r.l1d_mpki - res[b].l1d_mpki} for b, r in res8.items()},
+          "ok": ok8})
+
+    # ---- the same engine on the CPU (plain versions) on a prefix of one
+    # trace, same weights: the slice phase's flip contract
+    name = SLICE_BENCHMARKS[0]
+    short = traces[name][:PAPER_CPU_INSTRUCTIONS]
+    ecfg_c = dataclasses.replace(ecfg, collect=True)
+    gpu = StreamingEngine(model, cfg, ecfg_c, device="cuda").simulate(short)
+    cpu_model = init_tao(cfg, torch.Generator().manual_seed(0), device="cpu")
+    t0 = time.perf_counter()
+    cpu = StreamingEngine(cpu_model, cfg, ecfg_c, device="cpu").simulate(short)
+    cpu_s = time.perf_counter() - t0
+    check = flip_check(gpu, cpu, short, cfg)
+    if not check["ok"]:
+        failures.append(f"paper: GPU and CPU engines disagree beyond tolerance on {name}")
+    emit({"phase": "paper", "check": "gpu_vs_cpu", "trace": name, "positions": gpu.num_instructions,
+          **check, "cpu_seconds": cpu_s})
+
+    arrays = {b: extract(t) for b, t in traces.items()}
+    graph_vs_eager(failures, engine, traces, arrays, total_n, batches, lee_batches, phase="paper")
+
+
+def paper_train(failures, results, cfg):
+    """The train cell's recipe at the paper's width: the train phase's
+    traces and labels, windowed for the paper's config, the recipe's graph captured ahead of data, train_tao_impl for TRAIN_EPOCHS
+    at batch 16 (n_layers attention and backward launches a step, by the
+    counters and by the graph's nodes x replays), then the graphed run
+    against the eager step in turns (bitwise; host ms a step, windows/s)
+    and each one's device ms a step and idle share from a profile."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import train_tao_impl, warmup_train_step
+    from repro_torch.core.transfer import _EagerRun, _GraphRun, _make_step, _new_state
+    from repro_torch.train import AdamWConfig
+    from repro_torch.uarch import UARCH_A
+
+    ds, _ = labelled_windows(TRAIN_TRACES, UARCH_A, cfg)
+    t0 = time.perf_counter()
+    entry = warmup_train_step(cfg, batch_size=TRAIN_BATCH, lr=TRAIN_LR)
+    torch.cuda.synchronize()
+    capture = {"seconds": time.perf_counter() - t0, "compiles": entry.compiles,
+               "est_bytes": entry.est_bytes, "graphs": graph_nodes(entry)}
+    g0 = capture["graphs"][0]
+    cap_ok = (entry.compiles == 1 and g0["attention_nodes"] == cfg.n_layers
+              and g0["bwd_dkdv_dq_nodes"] == cfg.n_layers and g0["bwd_delta_nodes"] == cfg.n_layers)
+    emit({"phase": "paper", "check": "train_capture", **capture, "ok": cap_ok})
+    if not cap_ok:
+        failures.append(f"paper: train capture {capture}")
+
+    entry = _make_step(cfg, AdamWConfig(lr=TRAIN_LR), "all")
+    replays0 = sum(g.replays for g in entry.aot.values())
+    zero_counts()
+    res = train_tao_impl(cfg, ds, epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=0,
+                         device="cuda")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    replays = sum(g.replays for g in entry.aot.values()) - replays0
+    expected = {k: 0 for k in launches} | {"flash_attention": cfg.n_layers * res.steps,
+                                           "flash_attention_bwd": cfg.n_layers * res.steps}
+    by_nodes = {"flash_attention": g0["attention_nodes"] * replays,
+                "flash_attention_bwd": g0["bwd_dkdv_dq_nodes"] * replays}
+    finite = all(math.isfinite(x) for x in res.losses) and len(res.losses) == TRAIN_EPOCHS
+    if launches != expected or replays != res.steps or any(by_nodes[k] != expected[k] for k in by_nodes) \
+            or not finite:
+        failures.append(f"paper: train launches {launches}, expected {expected}; replays {replays}; "
+                        f"from nodes {by_nodes}; losses {res.losses}")
+    results["flash_attention_bwd"]["paper_width"]["launches"] = launches["flash_attention_bwd"]
+
+    turns = {}
+    for i, graphed in enumerate((True, False, False, True)):
+        turns[f"{i}_{'graphed' if graphed else 'eager'}"] = train_run(cfg, ds, graphed, TRAIN_EPOCHS)
+    ref = turns["1_eager"]
+    held = {k: {"losses": t["losses"] == ref["losses"], "params": state_bitwise(t["model"], ref["model"]),
+                "adamw": state_bitwise(t["opt"], ref["opt"])} for k, t in turns.items()}
+    held_ok = all(all(v.values()) for v in held.values()) and ref["losses"] == res.losses
+    if not held_ok:
+        failures.append(f"paper: the graphed train run differs from the eager step: {held}")
+    batches = list(ds.batches(TRAIN_BATCH, rng=np.random.default_rng(0)))[:10]
+    profs = {}
+    for name, run_cls in (("graphed", _GraphRun), ("eager", _EagerRun)):
+        model, opt = _new_state(cfg, None, False, 0, torch.device("cuda"))
+        profs[name] = step_profile(run_cls(entry, model, opt), batches)
+    emit({"phase": "paper", "check": "train", "epochs": TRAIN_EPOCHS, "batch": TRAIN_BATCH,
+          "windows": len(ds), "steps": res.steps, "losses": res.losses, "seconds": res.seconds,
+          "ms_per_step_host": res.seconds / res.steps * 1e3,
+          "windows_per_s": res.steps * TRAIN_BATCH / res.seconds, "launches": launches,
+          "launches_from_graph_nodes": by_nodes, "turns": list(turns), "held": held,
+          "turn_ms_per_step_host": {k: t["seconds"] / t["steps"] * 1e3 for k, t in turns.items()},
+          "turn_windows_per_s": {k: t["steps"] * TRAIN_BATCH / t["seconds"] for k, t in turns.items()},
+          "ms_per_step_device": {k: p["ms_per_step_device"] for k, p in profs.items()},
+          "idle_share_profiled": {k: p["idle_share"] for k, p in profs.items()},
+          "top_device_ms": {k: p["top_device_ms"] for k, p in profs.items()},
+          "ok": held_ok and finite})
+
+
+def paper_session(failures, cfg):
+    """The reference's examples/train_tao_e2e.py under FULL=1 through
+    ``Session(cfg)`` with the cuts of PAPER_E2E_*: pair selection over 8
+    sampled designs, Algorithm 1 joint training (method "tao", the
+    state dict checkpointed each epoch), the transfer to UARCH_C (embedding frozen),
+    scratch training on UARCH_C, and the simulate of two unseen traces
+    beside their ground truth; each phase's seconds, launches and the
+    transfer-vs-scratch ratio.  No accuracy claim: the epochs are cut."""
+    import numpy as np
+
+    from repro_torch.api import DesignSpace, Session
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.uarch import UARCH_C
+
+    n, epochs = PAPER_E2E_INSTRUCTIONS, PAPER_E2E_EPOCHS
+    secs, launches = {}, {}
+    root = tempfile.mkdtemp(prefix="chip-smoke-paper-")
+    try:
+        s = Session(cfg)
+        trs, secs["capture"] = timed(lambda: [s.capture(b, n) for b in PAPER_E2E_BENCHES])
+        space = DesignSpace.sample(JOINT_DESIGNS, seed=JOINT_DESIGN_SEED)
+        (i, j), secs["select_pair"] = timed(
+            lambda: space.select_pair(list(PAPER_E2E_BENCHES[:1]), instructions=JOINT_SELECT_INSTRUCTIONS))
+        ua, ub = space[i], space[j]
+        mgr = CheckpointManager(os.path.join(root, "ckpt"), keep=2)
+        zero_counts()
+        joint, secs["train_joint"] = timed(lambda: s.train_joint(
+            ua, ub, trs, method="tao", epochs=epochs, batch_size=TRAIN_BATCH, lr=JOINT_LR,
+            on_epoch=lambda ep, params, steps: mgr.save(params.state_dict(), steps)))
+        mgr.close()
+        launches["train_joint"] = read_counts()
+        small_c, secs["transfer_data"] = timed(
+            lambda: s.dataset(UARCH_C, [s.capture(PAPER_E2E_BENCHES[0], n // 3)]))
+        zero_counts()
+        transfer, secs["transfer"] = timed(lambda: joint.transfer(
+            small_c, epochs=max(2, epochs // 2), batch_size=TRAIN_BATCH, lr=JOINT_LR, uarch=UARCH_C))
+        launches["transfer"] = read_counts()
+        zero_counts()
+        scratch, secs["scratch"] = timed(lambda: s.train(
+            UARCH_C, trs, epochs=epochs, batch_size=TRAIN_BATCH, lr=JOINT_LR))
+        launches["scratch"] = read_counts()
+        zero_counts()
+        unseen = {}
+        t0 = time.perf_counter()
+        for bench in PAPER_E2E_UNSEEN:
+            tr = s.capture(bench, n // 2)
+            truth = s.ground_truth(UARCH_C, tr)
+            sim_t, sim_s = transfer.simulate(tr), scratch.simulate(tr)
+            unseen[bench] = {"truth_cpi": truth["cpi"], "transfer_cpi": sim_t.cpi,
+                             "transfer_err_pct": sim_t.error_vs(truth["cpi"]), "scratch_cpi": sim_s.cpi,
+                             "scratch_err_pct": sim_s.error_vs(truth["cpi"]),
+                             "finite": bool(np.isfinite([sim_t.cpi, sim_t.branch_mpki, sim_s.cpi,
+                                                         sim_s.branch_mpki]).all())}
+        secs["simulate"] = time.perf_counter() - t0
+        launches["simulate"] = read_counts()
+        saved = sorted(os.listdir(os.path.join(root, "ckpt")))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    frozen = state_bitwise(transfer.params.embed, joint.embedding)
+    losses = [x for pair in joint.losses for x in pair] + transfer.losses + scratch.losses
+    per_step = {"train_joint": launches["train_joint"]["flash_attention_bwd"] / joint.steps,
+                "transfer": launches["transfer"]["flash_attention_bwd"] / transfer.steps,
+                "scratch": launches["scratch"]["flash_attention_bwd"] / scratch.steps}
+    ok = (frozen and all(math.isfinite(x) for x in losses) and all(u["finite"] for u in unseen.values())
+          and per_step["train_joint"] >= 2 * cfg.n_layers and per_step["transfer"] >= cfg.n_layers
+          and per_step["scratch"] >= cfg.n_layers and launches["simulate"]["fused_features"] > 0
+          and len(saved) > 0)
+    emit({"phase": "paper", "check": "session", "benchmarks": list(PAPER_E2E_BENCHES),
+          "instructions_each": n, "epochs": epochs, "selected": [int(i), int(j)],
+          "selected_designs": [ua.name, ub.name], "seconds": secs,
+          "phases_seconds": sum(secs.values()),
+          "steps": {"train_joint": joint.steps, "transfer": transfer.steps, "scratch": scratch.steps},
+          "joint_losses": joint.losses, "transfer_losses": transfer.losses,
+          "scratch_losses": scratch.losses, "launches": launches, "bwd_launches_per_step": per_step,
+          "transfer_vs_scratch_seconds": secs["transfer"] / secs["scratch"],
+          "checkpoints_kept": saved, "embed_bitwise_unchanged_by_transfer": frozen,
+          "unseen": unseen, "ok": ok})
+    if not ok:
+        failures.append(f"paper: the session workflow: embed frozen {frozen}, losses {losses}, "
+                        f"unseen {unseen}, bwd launches per step {per_step}, checkpoints {saved}")
+
+
 def phase_mamba2(failures, results, traces):
     import torch
 
@@ -3599,8 +4082,19 @@ def phase_mamba2(failures, results, traces):
           "gpu_ssd_launches": g_launches, "cpu_seconds": cpu_s, "ok": ok})
 
 
-def main() -> int:
+PHASES = {"build": phase_build, "kernels": phase_kernels, "slice": phase_slice,
+          "sweep": phase_sweep, "train": phase_train, "persist": phase_persist,
+          "joint": phase_joint, "session": phase_session, "serve": phase_serve,
+          "paper": phase_paper, "mamba2": phase_mamba2}
+
+
+def main(argv) -> int:
     import torch
+
+    unknown = [a for a in argv if a not in PHASES]
+    if unknown:
+        print(f"chip_smoke: unknown phases {unknown}; have {list(PHASES)}", file=sys.stderr)
+        return 2
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3615,23 +4109,28 @@ def main() -> int:
     emit({"phase": "capture", "traces": list(SLICE_BENCHMARKS),
           "instructions_each": SLICE_INSTRUCTIONS, "seconds": time.perf_counter() - t0})
     failures, results = [], {}
-    for phase in (phase_build, phase_kernels, phase_slice, phase_sweep, phase_train, phase_persist,
-                  phase_joint, phase_session, phase_serve, phase_mamba2):
-        phase(failures, results, traces)
+    names = ["build", *(a for a in argv if a != "build")] if argv else list(PHASES)
+    for name in names:
+        PHASES[name](failures, results, traces)
         if failures:
             break
     if failures:
         for f in failures:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)
         return 1
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    if argv:
+        print(card_line(), flush=True)
+        emit({"ok": True, "phases": names, "device": device})
+        return 0
     emit({"kernels": [results[k] for k in
                       ("fused_features", "branch_history", "memdist_delta", "flash_attention",
                        "flash_attention_bwd", "ssd")]})
     print(card_line(), flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    emit({"ok": True, "device": device})
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

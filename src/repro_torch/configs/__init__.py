@@ -2,8 +2,10 @@
 
 Counterpart of ``repro/configs/__init__.py``.  ``get_arch("mamba2-1.3b")``
 -> ArchConfig; ``get_arch(..., reduced=True)`` -> the CPU test variant.
-Only ported architectures are known; the rest of the reference's zoo is
-ROADMAP item A10.
+``get_arch("tao")`` -> the paper's ``TaoConfig`` (not an ``ArchConfig``, so
+not in ``ARCH_IDS``; it has no reduced variant, and ``reduced=True``
+raises ``AttributeError`` as the reference's does).  The rest of the
+reference's LLM zoo is not ported yet (ROADMAP item A10).
 """
 from __future__ import annotations
 
@@ -16,16 +18,17 @@ __all__ = ["ARCH_IDS", "get_arch"]
 
 _MODULES = {
     "mamba2-1.3b": "mamba2_1_3b",
+    "tao": "tao",
 }
 
-ARCH_IDS: List[str] = list(_MODULES)
+ARCH_IDS: List[str] = [k for k in _MODULES if k != "tao"]
 
 
 def get_arch(name: str, reduced: bool = False) -> ArchConfig:
     if name not in _MODULES:
         raise KeyError(
-            f"architecture {name!r} is not ported (have {ARCH_IDS}); the rest "
-            "of the reference's zoo is ROADMAP item A10"
+            f"architecture {name!r} is not ported (have {sorted(_MODULES)}); the "
+            "rest of the reference's LLM zoo is ROADMAP item A10"
         )
     mod = importlib.import_module(f".{_MODULES[name]}", __package__)
     cfg: ArchConfig = mod.CONFIG

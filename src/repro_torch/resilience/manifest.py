@@ -12,7 +12,7 @@ last completed epoch (or sweep job):
     included) is bit-identical to an uninterrupted run.
   * ``publish_sweep_result`` / ``load_sweep_result`` persist one
     ``SimulationResult``'s metrics per completed sweep job (the sweep
-    scheduler that publishes them is ROADMAP A.8.2).
+    scheduler, ``engine/scheduler.py``, publishes them).
 
 Keys compose the caller's ``resume_key`` (the recipe identity) with the
 per-unit identity, through the same ``store.content`` scheme as every

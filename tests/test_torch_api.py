@@ -601,10 +601,9 @@ def test_compile_cache_option(monkeypatch, tmp_path):
     assert seen == [(), (str(tmp_path / "kernels"),)]
 
 
-def test_api_surface_is_the_reference_less_serve():
-    """Since the trace server's port nothing is left out: the facade's
-    surface is the reference's whole, the six serve names included (the
-    name is kept from when they were missing)."""
+def test_api_surface_is_the_reference_whole():
+    """Nothing is left out: the facade's surface is the reference's whole,
+    the six serve names included."""
     assert api.__all__ == ref_api.__all__
     assert SERVE_NAMES <= set(api.__all__)
     assert all(hasattr(api, n) for n in api.__all__)

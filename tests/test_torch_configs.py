@@ -1,0 +1,59 @@
+"""The port's architecture registry against the reference's.
+
+``get_arch("tao")`` is the paper's model (``repro/configs/tao.py``): a
+``TaoConfig``, not an ``ArchConfig``, so it is outside ``ARCH_IDS`` and has
+no reduced variant.  The port's config equals the reference's field by
+field, all but the reference's ``use_pallas`` switch (the port always runs
+its hand-written attention kernel on the card).  ``ARCH_IDS`` is the
+reference's less the LLM zoo not ported yet (ROADMAP A10).
+"""
+import dataclasses
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro.configs import ARCH_IDS as REF_ARCH_IDS  # noqa: E402
+from repro.configs import get_arch as ref_get_arch  # noqa: E402
+from repro.configs import tao as ref_tao  # noqa: E402
+
+from repro_torch.configs import ARCH_IDS, get_arch  # noqa: E402
+from repro_torch.configs import tao as port_tao  # noqa: E402
+from repro_torch.core.model import TaoConfig  # noqa: E402
+
+# the reference's architectures the port runs
+PORTED = ("mamba2-1.3b",)
+
+
+def as_fields(cfg):
+    d = dataclasses.asdict(cfg)
+    d.pop("use_pallas", None)
+    return d
+
+
+def test_tao_config_equals_the_reference_field_by_field():
+    ref, port = ref_get_arch("tao"), get_arch("tao")
+    assert port is port_tao.CONFIG and ref is ref_tao.CONFIG
+    assert isinstance(port, TaoConfig)
+    assert ref.use_pallas is False
+    assert [f.name for f in dataclasses.fields(port)] == [
+        f.name for f in dataclasses.fields(ref) if f.name != "use_pallas"]
+    assert as_fields(port) == as_fields(ref)
+    assert (port.window, port.d_model, port.n_heads, port.n_layers, port.d_ff, port.d_cat) == (
+        129, 512, 8, 6, 2048, 128)
+    assert port.head_dim == ref.head_dim == 64
+    assert dataclasses.astuple(port.features) == dataclasses.astuple(ref.features) == (1024, 32, 64)
+
+
+def test_arch_ids_are_the_reference_less_the_zoo_not_ported():
+    assert "tao" not in ARCH_IDS and "tao" not in REF_ARCH_IDS
+    assert ARCH_IDS == [a for a in REF_ARCH_IDS if a in PORTED]
+    for name in ARCH_IDS:  # the fields are held in tests/test_torch_mamba2.py
+        assert get_arch(name).name == ref_get_arch(name).name == name
+
+
+@pytest.mark.parametrize("package", ["reference", "port"])
+def test_tao_has_no_reduced_variant(package):
+    arch = ref_get_arch if package == "reference" else get_arch
+    with pytest.raises(AttributeError, match="reduced"):
+        arch("tao", reduced=True)

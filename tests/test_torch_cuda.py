@@ -111,6 +111,13 @@ at 16 rows or fewer: the card's ``addcmul`` is one fused multiply-add, as
 the CPU's is.  The int8 step has its own graph, with ``n_layers``
 attention nodes, and is held to the eager int8 step as the float32 one
 is.
+
+The paper's model (``configs/tao.py``: 6 layers, width 512, 8 heads of 64)
+runs through the same paths: B4 and its backward at (·, 8, 129, 64) on the
+packed views; its graphed fused simulate bitwise the eager step and held
+to the CPU by the flip contract; its gradients on the card against the
+CPU's and its graphed train step bitwise the eager one; ``qdense`` at
+every one of its dense layer shapes.
 """
 import contextlib
 
@@ -123,7 +130,7 @@ from repro_torch.core.features import FeatureConfig, extract_features, signed_lo
 from repro_torch.core.model import TaoConfig, init_tao  # noqa: E402
 from repro_torch.core.quant import dense_shapes, qdense_device_vs_cpu, quantize_tao_params  # noqa: E402
 from repro_torch.engine import EngineConfig, MetricSpec, StreamingEngine, cache_stats  # noqa: E402
-from repro_torch.engine.aot import graph_kernel_names  # noqa: E402
+from repro_torch.engine.aot import WARMUP_RUNS, graph_kernel_names  # noqa: E402
 from repro_torch.core import build_adjusted_trace, build_windows, multi_metric_loss  # noqa: E402
 from repro_torch.core import tao_forward, train_tao_impl, transfer_finetune, warmup_train_step  # noqa: E402
 from repro_torch.core.transfer import to_device  # noqa: E402
@@ -157,6 +164,10 @@ from repro_torch.kernels.ssd.kernel import SSD_SCAN, ssd_scan_cuda  # noqa: E402
 from repro_torch.kernels.ssd.kernel import launch_info as ssd_launch_info  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_sequential_ref  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
+
+PAPER = get_arch("tao")  # the paper's TaoConfig
+# the Tao configs the model-level tests run at: the default width, the paper's
+TAO_CONFIGS = {"default": TaoConfig(), "paper": PAPER}
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.uarch import UARCH_A, get_benchmark, run_detailed, run_functional  # noqa: E402
 from repro_torch.uarch.isa import FUNC_TRACE_DTYPE, Op  # noqa: E402
@@ -300,6 +311,8 @@ ATTN_CASES = {
     "sk200_segments": (2, 2, 200, 200, 32, 32, True, 0, True, 7),
     # one query row decoding at the last position
     "sq1_decode": (3, 2, 1, 140, 32, 32, True, 139, False, 8),
+    # the paper's model (configs/tao.py): 8 heads of 64, a batch of 64 windows
+    "paper": (64, 8, 129, 129, 64, 64, True, 0, False, 9),
 }
 
 
@@ -576,8 +589,8 @@ GRAPH_METRICS = ("cpi", "branch_mpki", "l1d_mpki", "dlevel_hist", "cpi_phase", "
 ATOMIC_FLOAT_METRICS = ("cpi_phase",)
 
 
-def graph_engine(dev, seed=0, **kw):
-    cfg = TaoConfig()
+def graph_engine(dev, seed=0, cfg=None, **kw):
+    cfg = cfg or TaoConfig()
     ecfg = EngineConfig(metrics=GRAPH_METRICS, **kw)
     return StreamingEngine(init_tao(cfg, torch.Generator().manual_seed(seed), device=dev), cfg, ecfg,
                            device=dev)
@@ -697,6 +710,29 @@ def test_replays_launch_attention_per_layer(dev):
         launches[0] + engine.cfg.n_layers * batches, launches[1] + batches)
 
 
+def test_paper_config_graphed_simulate_equals_eager_and_tracks_cpu(dev):
+    """The paper's model (configs/tao.py) on the fused route: one graph
+    holding 6 attention nodes, 6 launches a batch; the graphed simulate
+    bitwise the eager step (``cpi_phase`` as the module note says); and on
+    a short trace held to the same weights on the CPU by the flip
+    contract."""
+    engine = graph_engine(dev, cfg=PAPER, collect=True)
+    trace = run_functional(get_benchmark("mcf"), 20000)
+    launches = FLASH_ATTENTION.launches
+    got = engine.simulate(trace)
+    entry = engine.step_entry_for(len(trace))
+    batches = -(-(len(trace) // PAPER.window) // engine.ecfg.batch_size)
+    assert sum("attention_kernel" in k for k in graph_kernel_names(entry.aot.graph)) == PAPER.n_layers == 6
+    assert entry.aot.launches == {FLASH_ATTENTION: 6}
+    # a capture first runs the step eagerly WARMUP_RUNS times
+    assert FLASH_ATTENTION.launches - launches == 6 * (batches + WARMUP_RUNS * engine.num_compiles)
+    assert_graph_equals_eager(got, eager_entry_loop(engine, trace), engine.ecfg.batch_size)
+    short = trace[:6000]
+    cpu_model = init_tao(PAPER, torch.Generator().manual_seed(0), device="cpu")
+    cpu = StreamingEngine(cpu_model, PAPER, engine.ecfg, device="cpu").simulate(short)
+    assert_card_tracks_cpu(engine.simulate(short), cpu)
+
+
 def test_failed_capture_raises(dev):
     """A spec whose update reads the device cannot be captured: simulate
     raises, the entry keeps no graph and no capture is counted, and the
@@ -724,8 +760,9 @@ def test_failed_capture_raises(dev):
 # The int8 W8A8 path
 # ---------------------------------------------------------------------------
 
-# every dense layer shape (in, out) of the default TaoConfig
-INT8_LAYER_SHAPES = dense_shapes(quantize_tao_params(init_tao(TaoConfig(), device="cpu")))
+# every dense layer shape (in, out) of the default TaoConfig and of the paper's
+INT8_LAYER_SHAPES = sorted({shape for cfg in TAO_CONFIGS.values()
+                            for shape in dense_shapes(quantize_tao_params(init_tao(cfg, device="cpu")))})
 
 
 def test_quantize_tao_params_on_card_bitwise_cpu(dev):
@@ -801,6 +838,8 @@ ATTN_BWD_CASES = {
        for i, (S, D) in enumerate((S, D) for S in (1, 15, 16, 17, 144, 145) for D in (8, 20))},
     "tile_s145_d20_noncausal": (2, 3, 145, 20, False, 19),
     "long_s1000_d64": (1, 2, 1000, 64, True, 21),
+    # the paper's model at the train batch (configs/tao.py)
+    "paper_b16": (16, 8, 129, 64, True, 22),
 }
 
 
@@ -911,14 +950,15 @@ def labelled_batch(cfg, n, seed=0):
     return build_windows(fs, cfg.window).subsample(n, seed=seed)
 
 
-def test_tao_gradients_on_card_match_cpu(dev):
+@pytest.mark.parametrize("name", sorted(TAO_CONFIGS))
+def test_tao_gradients_on_card_match_cpu(dev, name):
     """``loss.backward()`` through ``tao_forward`` on the card at the
-    default width gives every parameter a gradient — the attention
+    default width and at the paper's gives every parameter a gradient — the attention
     projection ``qkv`` included, whose gradient comes back through the
     packed q/k/v views and the backward kernel — each within 1e-4 of its
     tensor's largest CPU gradient of the same model's CPU gradient (the
     forward differs in the last bits: cuBLAS and 3xTF32 attention)."""
-    cfg = TaoConfig()
+    cfg = TAO_CONFIGS[name]
     batch = next(labelled_batch(cfg, 4).batches(4))
     model_cpu = init_tao(cfg, torch.Generator().manual_seed(0), device="cpu")
     model_gpu = init_tao(cfg, torch.Generator().manual_seed(0), device=dev)
@@ -1055,6 +1095,26 @@ def test_store_and_checkpoints_round_trip_card_tensors(dev, tmp_path):
     assert all(torch.equal(on_cpu[k], host[k]) for k in host)
 
 
+def assert_card_tracks_cpu(gpu, cpu):
+    """Two collected runs of one trace and one set of weights, on the card
+    and on the CPU: decodes flipped at ≤ 0.1% of positions,
+    ``mispred_prob`` within 1e-4, every metric moved only as far as its
+    flips allow."""
+    n = cpu.num_instructions
+    assert gpu.num_instructions == n
+    flips = {
+        "fetch": int((gpu.fetch_lat != cpu.fetch_lat).sum()),
+        "exec": int((gpu.exec_lat != cpu.exec_lat).sum()),
+        "mispredict": int(((gpu.mispred_prob > 0.5) != (cpu.mispred_prob > 0.5)).sum()),
+        "l1d": int(((gpu.dlevel >= 2) != (cpu.dlevel >= 2)).sum()),
+    }
+    assert max(flips.values()) <= 1e-3 * n, flips
+    np.testing.assert_allclose(gpu.mispred_prob, cpu.mispred_prob, rtol=0, atol=1e-4)
+    assert abs(gpu.total_cycles - cpu.total_cycles) <= 256.0 * (flips["fetch"] + flips["exec"])
+    assert abs(gpu.branch_mpki - cpu.branch_mpki) <= 1000.0 * flips["mispredict"] / n + 1e-12
+    assert abs(gpu.l1d_mpki - cpu.l1d_mpki) <= 1000.0 * flips["l1d"] / n + 1e-12
+
+
 def test_simulate_trace_legacy_on_card_matches_cpu(dev):
     """The legacy loop on the card against the same loop on the CPU at the
     default width: 2 attention launches per ragged batch, decodes flipped
@@ -1072,19 +1132,8 @@ def test_simulate_trace_legacy_on_card_matches_cpu(dev):
     batches = -(-(len(trace) // cfg.window) // 64)
     assert FLASH_ATTENTION.launches - launches == cfg.n_layers * batches
     cpu = simulate_trace_legacy(cpu_model, trace, cfg, batch_size=64, features=fs, device="cpu")
-    n = cpu.num_instructions
-    assert gpu.num_instructions == n == (len(trace) // cfg.window) * cfg.window
-    flips = {
-        "fetch": int((gpu.fetch_lat != cpu.fetch_lat).sum()),
-        "exec": int((gpu.exec_lat != cpu.exec_lat).sum()),
-        "mispredict": int(((gpu.mispred_prob > 0.5) != (cpu.mispred_prob > 0.5)).sum()),
-        "l1d": int(((gpu.dlevel >= 2) != (cpu.dlevel >= 2)).sum()),
-    }
-    assert max(flips.values()) <= 1e-3 * n, flips
-    np.testing.assert_allclose(gpu.mispred_prob, cpu.mispred_prob, rtol=0, atol=1e-4)
-    assert abs(gpu.total_cycles - cpu.total_cycles) <= 256.0 * (flips["fetch"] + flips["exec"])
-    assert abs(gpu.branch_mpki - cpu.branch_mpki) <= 1000.0 * flips["mispredict"] / n + 1e-12
-    assert abs(gpu.l1d_mpki - cpu.l1d_mpki) <= 1000.0 * flips["l1d"] / n + 1e-12
+    assert gpu.num_instructions == cpu.num_instructions == (len(trace) // cfg.window) * cfg.window
+    assert_card_tracks_cpu(gpu, cpu)
 
 
 # ---------------------------------------------------------------------------
@@ -1120,15 +1169,16 @@ def assert_adamw_equal(a, b):
             assert torch.equal(ga[k], gb[k]), (group, k)
 
 
+@pytest.mark.parametrize("name", sorted(TAO_CONFIGS))
 @pytest.mark.parametrize("freeze", [False, True], ids=["all", "headonly"])
-def test_graphed_train_equals_eager_step(dev, freeze):
+def test_graphed_train_equals_eager_step(dev, freeze, name):
     """Losses, parameters, AdamW state and each epoch's eval (read from
     the state stored back between epochs) bitwise the eager step's; the
     public entry point's run is the graphed one."""
     from repro_torch.core.transfer import _make_step
     from repro_torch.train import AdamWConfig
 
-    cfg = TaoConfig()
+    cfg = TAO_CONFIGS[name]
     ds = labelled_batch(cfg, 48, seed=4)
     assert len(ds) // 16 >= 2  # steps an epoch
     init = init_tao(cfg, torch.Generator().manual_seed(4), device="cpu").state_dict()
@@ -1269,7 +1319,6 @@ SWEEP_METRICS = ("cpi", "branch_mpki", "l1d_mpki", "dlevel_hist", "l1d_phase")
 @pytest.mark.parametrize("route", ["fused", "staged", "host"])
 def test_sweep_on_each_route_is_bitwise_each_standalone_simulate(dev, route):
     from repro_torch.engine import SweepJob, TraceSweeper
-    from repro_torch.engine.aot import WARMUP_RUNS
     from repro_torch.kernels.features.kernel import BRANCH_HISTORY, MEMDIST_DELTA
 
     cfg = TaoConfig()
@@ -1427,19 +1476,7 @@ def test_session_train_then_simulate_on_card_tracks_cpu(dev):
     same = TrainedModel(params=init_tao(cfg, device="cpu"), cfg=cfg, device="cpu")
     same.params.load_state_dict({k: v.cpu() for k, v in sg.items()})
     c = same.simulate(trace, collect=True)
-    n = c.num_instructions
-    assert g.num_instructions == n
-    flips = {
-        "fetch": int((g.fetch_lat != c.fetch_lat).sum()),
-        "exec": int((g.exec_lat != c.exec_lat).sum()),
-        "mispredict": int(((g.mispred_prob > 0.5) != (c.mispred_prob > 0.5)).sum()),
-        "l1d": int(((g.dlevel >= 2) != (c.dlevel >= 2)).sum()),
-    }
-    assert max(flips.values()) <= 1e-3 * n, flips
-    np.testing.assert_allclose(g.mispred_prob, c.mispred_prob, rtol=0, atol=1e-4)
-    assert abs(g.total_cycles - c.total_cycles) <= 256.0 * (flips["fetch"] + flips["exec"])
-    assert abs(g.branch_mpki - c.branch_mpki) <= 1000.0 * flips["mispredict"] / n + 1e-12
-    assert abs(g.l1d_mpki - c.l1d_mpki) <= 1000.0 * flips["l1d"] / n + 1e-12
+    assert_card_tracks_cpu(g, c)
 
 
 def test_session_warmup_then_simulate_and_train_capture_nothing(dev):

@@ -33,9 +33,10 @@ print(len(names), bad, sorted(names))
 """
 
 # modules the walk must reach: one per subpackage, the persistence,
-# joint-training and serving slices' too
+# joint-training and serving slices' too, and the paper's config
 _MUST_WALK = (
     "repro_torch.ckpt.checkpoint",
+    "repro_torch.configs.tao",
     "repro_torch.core.multiarch",
     "repro_torch.core.selection",
     "repro_torch.core.simnet",
@@ -86,6 +87,18 @@ def test_no_source_imports_jax_or_reference(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             roots.add((node.module or "").split(".")[0])
     assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+def test_tao_config_imports_alone_without_jax_or_reference():
+    """The paper's config (``repro_torch.configs.tao``) imported first in a
+    fresh interpreter, and read through ``get_arch``, brings in neither JAX
+    nor the reference."""
+    code = ("import sys, repro_torch.configs.tao; from repro_torch.configs import get_arch; "
+            "assert get_arch('tao') is repro_torch.configs.tao.CONFIG; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=_env(),
+                         timeout=300, check=True).stdout
+    assert out.strip() == "[]"
 
 
 def test_api_imports_alone_without_jax_or_reference():

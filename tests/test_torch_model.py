@@ -6,7 +6,8 @@ the same NumPy-seeded batch goes through both forwards.
 
 Tolerance on logits: atol = rtol = 1e-4.  Both sides are float32 end to end
 (TF32 off); they differ in matmul/reduction order (XLA vs torch CPU BLAS),
-through layernorm, tanh-GELU and softmax, over up to two attention blocks.
+through layernorm, tanh-GELU and softmax, over up to two attention blocks
+of width 128 or, at the paper's config, six of width 512.
 The decoded latencies are compared exactly where the top two logits are
 apart by more than that band (a nearer tie may decode either way).
 """
@@ -20,9 +21,11 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import tao as ref_tao  # noqa: E402
 from repro.core import features as ref_features  # noqa: E402
 from repro.core import model as ref_model  # noqa: E402
 
+from repro_torch.configs import tao as port_tao  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import model as port_model  # noqa: E402
 from repro_torch.core.features import FeatureConfig  # noqa: E402
@@ -32,10 +35,13 @@ ATOL = RTOL = 1e-4
 SMALL = dict(window=17, d_model=32, n_heads=2, n_layers=1, d_ff=64, d_cat=16,
              features=(64, 4, 8))
 DEFAULT = dict(features=(1024, 32, 64))  # the default TaoConfig's widths
-CONFIGS = {"small": (SMALL, 4), "default_width": (DEFAULT, 2)}
+PAPER = "paper"  # the paper's model: each package's configs/tao.py
+CONFIGS = {"small": (SMALL, 4), "default_width": (DEFAULT, 2), "paper": (PAPER, 2)}
 
 
 def configs(spec):
+    if spec == PAPER:
+        return ref_tao.CONFIG, port_tao.CONFIG
     kw = dict(spec)
     nb, nq, nm = kw.pop("features")
     ref = ref_model.TaoConfig(features=ref_features.FeatureConfig(nb, nq, nm), **kw)

@@ -35,7 +35,9 @@ from repro_torch.convert import params_from_jax, qparams_from_jax  # noqa: E402
 from repro_torch.core import model as port_model  # noqa: E402
 from repro_torch.core import quant as port_quant  # noqa: E402
 
-from test_torch_model import DEFAULT, SMALL, configs, random_batch  # noqa: E402
+from repro_torch.configs import tao as port_tao  # noqa: E402
+
+from test_torch_model import CONFIGS, DEFAULT, SMALL, configs, random_batch  # noqa: E402
 
 LOGIT_KEYS = ("fetch_lat_logits", "exec_lat_logits", "mispred_logit", "dlevel_logits",
               "icache_logit", "tlb_logit")
@@ -44,9 +46,11 @@ MAX_REL = 0.05        # max |Δlogit| / max |logit| at default width
 P99_OF_QUANT = 0.5    # p99 |Δlogit| / the reference's p99 |int8 - fp32|
 FLIP_SHARE = 0.01     # decodes that may flip at default width
 
-# every dense layer shape (in, out) of the default TaoConfig
-LAYER_SHAPES = port_quant.dense_shapes(port_quant.quantize_tao_params(
-    port_model.init_tao(port_model.TaoConfig(), device="cpu")))
+# every dense layer shape (in, out) of the default TaoConfig and of the
+# paper's (configs/tao.py: K and N up to 2048, heads 1 and 4 wide)
+LAYER_SHAPES = sorted({shape for cfg in (port_model.TaoConfig(), port_tao.CONFIG)
+                       for shape in port_quant.dense_shapes(port_quant.quantize_tao_params(
+                           port_model.init_tao(cfg, device="cpu")))})
 
 
 def bits(a):
@@ -71,15 +75,14 @@ def reference_and_port(spec, seed=0, zero=False):
 
 
 @pytest.mark.parametrize("zero", [False, True])
-@pytest.mark.parametrize("name", ["small", "default_width"])
+@pytest.mark.parametrize("name", ["small", "default_width", "paper"])
 def test_quantize_tao_params_bitwise_reference(name, zero):
     """Every leaf of the port's quantized tree is the reference's eager
     ``quantize_tao_params`` bit for bit, all-zero channels and rows (unit
     scale, zero codes) included; ``qparams_from_jax`` of the reference's
     tree loads strictly into a ``QuantTao`` and gives the same state, the
     padded IMMA copies included."""
-    spec = SMALL if name == "small" else DEFAULT
-    ref_cfg, port_cfg, params, model = reference_and_port(spec, zero=zero)
+    ref_cfg, port_cfg, params, model = reference_and_port(CONFIGS[name][0], zero=zero)
     ref_tree = jax.tree.map(np.asarray, ref_quant.quantize_tao_params(params))
     q = port_quant.quantize_tao_params(model)
     got = q.state_dict()

@@ -41,6 +41,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import tao as ref_tao  # noqa: E402
 from repro.core import dataset as ref_dataset  # noqa: E402
 from repro.core import features as ref_features  # noqa: E402
 from repro.core import model as ref_model  # noqa: E402
@@ -52,6 +53,7 @@ from repro.train import optim as ref_optim  # noqa: E402
 from repro.train import trainer as ref_trainer  # noqa: E402
 from repro.uarch import UARCH_A, get_benchmark, run_detailed, run_functional  # noqa: E402
 
+from repro_torch.configs import tao as port_tao  # noqa: E402
 from repro_torch.convert import params_from_jax, params_to_jax  # noqa: E402
 from repro_torch.core import dataset as port_dataset  # noqa: E402
 from repro_torch.core import model as port_model  # noqa: E402
@@ -64,11 +66,14 @@ from repro_torch.train import trainer as port_trainer  # noqa: E402
 CPU = torch.device("cpu")
 SMALL = dict(window=17, d_model=32, n_heads=2, n_layers=1, d_ff=64, d_cat=16, features=(64, 4, 8))
 DEFAULT = dict(features=(1024, 32, 64))  # the default TaoConfig's widths
+PAPER = "paper"  # the paper's model: each package's configs/tao.py
 # name: (config, instructions of lee, batch)
-CONFIGS = {"small": (SMALL, 4000, 4), "default_width": (DEFAULT, 3000, 3)}
+CONFIGS = {"small": (SMALL, 4000, 4), "default_width": (DEFAULT, 3000, 3), "paper": (PAPER, 2000, 2)}
 
 
 def configs(spec):
+    if spec == PAPER:
+        return ref_tao.CONFIG, port_tao.CONFIG
     kw = dict(spec)
     nb, nq, nm = kw.pop("features")
     ref = ref_model.TaoConfig(features=ref_features.FeatureConfig(nb, nq, nm), **kw)
