@@ -26,7 +26,9 @@ and ``nvcc``.  Phases, one JSON line each:
            the NumPy specification, attention (B4: the Tao shape on the packed
            q/k/v views the model hands over and on contiguous operands, 1024
            causal keys, q_offset / segment / masked-row cases, with its
-           registers, shared memory and blocks per SM), its backward (the
+           registers, shared memory and blocks per SM; in bfloat16 at the
+           dense prefill shapes (4, 14, 2048, 64) and (4, 32, 2048, 128),
+           causal, timed beside SDPA in bfloat16), its backward (the
            port's own kernel: the Tao training shapes at batch 16 and 64,
            S 17 / 200, D 16 / 64 / 128, causal and not, the edges of its
            16-row and 64-row tiles, widths and strides that are not
@@ -203,11 +205,24 @@ and ``nvcc``.  Phases, one JSON line each:
            decode ms per step, peak device memory and a profile of one
            prefill; the prefill/decode handoff on a float32 copy of the
            same weights, and the card's path against the same model on
-           the CPU (the plain versions) at 4 layers.
+           the CPU (the plain versions) at 4 layers;
+  dense    the dense family's serving path (bfloat16, random weights from
+           a CUDA generator, seed 0): qwen2-0.5b and stablelm-1.6b at full
+           width and depth (24 layers each), glm4-9b and qwen1.5-32b at
+           full width cut to 2 layers; prefill of 4 prompts x 2048 tokens,
+           then 32 greedy decode steps into a cache grown by 32 positions,
+           with every kernel's launches read around each call (B4 once per
+           layer per prefill, by the counter and the profiler; nothing in a
+           decode step), prefill tokens/s, decode ms per step, weight and
+           peak bytes and the profiles of one prefill and one step; for the
+           two full-depth models the prefill/decode handoff on a float32
+           copy of the weights, and the card against the CPU at 2 layers
+           and 256 tokens.
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main path, error, times and bound (B4's and its backward's entries also
-hold their readings at the paper's width); the card's name and power limit
+hold their readings at the paper's width, B4's its bfloat16 readings and
+the dense cells' launches); the card's name and power limit
 as ``nvidia-smi`` prints them; and, last, the device line.  With phase
 names as arguments, the build and those phases run, and the last line is
 the device line with the phases' names; no kernels line.  Any failed check
@@ -418,6 +433,21 @@ MAMBA_BATCH, MAMBA_PROMPT, MAMBA_DECODE = 4, 2048, 32
 MAMBA_CPU_LAYERS, MAMBA_CPU_SEQ = 4, 512
 HANDOFF_REL = 2e-3         # prefill(p + t) vs prefill(p) + decode(t), float32
 GPU_CPU_REL = 1e-3         # kernel path on the card vs plain path on the CPU
+# B4 in bfloat16 against its plain version on the same bfloat16 inputs:
+# both compute in float32 and round the output once, so an element may
+# land one bfloat16 rounding (2^-8 relative, 2^-7 with the float32
+# sums' order) apart; the absolute term covers outputs near 0
+ATTN_BF16_RTOL = 2.0**-7
+ATTN_BF16_ATOL_OF_MAX_V = 1e-5
+# (B, H, S, D) of the dense serving cells' prefill: qwen2-0.5b (14 heads
+# of 64 after the GQA repeat) and glm4-9b / qwen1.5-32b's width (32 of 128)
+ATTN_BF16_SHAPES = ((4, 14, 2048, 64), (4, 32, 2048, 128))
+# the dense serving cells: prompts x tokens, greedy decode steps
+DENSE_FULL = ("qwen2-0.5b", "stablelm-1.6b")    # full width and depth
+DENSE_CUT = ("glm4-9b", "qwen1.5-32b")          # full width, DENSE_CUT_LAYERS
+DENSE_CUT_LAYERS = 2
+DENSE_BATCH, DENSE_PROMPT, DENSE_DECODE = 4, 2048, 32
+DENSE_CPU_LAYERS, DENSE_CPU_SEQ = 2, 256
 
 
 def emit(obj) -> None:
@@ -595,8 +625,9 @@ def profile_breakdown(fn, track: tuple = (), groups: dict = None) -> dict:
     do not overlap; the host ops that launched them are not counted again),
     idle share = 1 - busy / wall.  The profiler's own host overhead
     inflates the wall time here; the unprofiled runs report the real rates.
-    ``track``: also the device ms of each kernel whose name holds one of
-    these pieces, by the name from there to its argument list.
+    ``track``: also the device ms and the launch count of each kernel whose
+    name holds one of these pieces, by the name from there to its argument
+    list.
     ``groups`` ({group: pieces}): also the device ms summed per group, a
     kernel going to the first group one of whose pieces its name holds,
     the rest to "other".  Raises when the profile cannot be taken or shows
@@ -618,6 +649,8 @@ def profile_breakdown(fn, track: tuple = (), groups: dict = None) -> dict:
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
     tracked = {e.key[e.key.index(t):].split("(")[0]: e.self_device_time_total / 1e3
                for e in events for t in track if t in e.key}
+    tracked_count = {e.key[e.key.index(t):].split("(")[0]: e.count
+                     for e in events for t in track if t in e.key}
     return {
         "wall_s": wall,
         "device_busy_s": busy_us / 1e6,
@@ -626,7 +659,7 @@ def profile_breakdown(fn, track: tuple = (), groups: dict = None) -> dict:
         # .contiguous() or a layout-changing reshape launches
         "copy_kernels": sum(e.count for e in events if "copy_kernel" in e.key),
         "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top],
-        **({"tracked_ms": tracked} if track else {}),
+        **({"tracked_ms": tracked, "tracked_count": tracked_count} if track else {}),
         **({"group_ms": group_ms(events, groups)} if groups else {}),
     }
 
@@ -762,6 +795,7 @@ def phase_kernels(failures, results, traces):
     check_staged_kernels(failures, results, traces)
 
     check_attention_kernel(failures, results)
+    check_attention_bf16(failures, results)
     check_attention_bwd_kernel(failures, results)
     check_ssd_kernel(failures, results)
 
@@ -836,6 +870,53 @@ def check_attention_kernel(failures, results):
     }
     emit({"phase": "kernels", "kernel": "flash_attention", "shape": list(q.shape),
           "operands": "packed_qkv_views", **t})
+
+
+def check_attention_bf16(failures, results):
+    """B4 with bfloat16 I/O at the dense prefill shapes, causal, against its
+    plain version on the same bfloat16 inputs (every element within
+    ATTN_BF16_RTOL * |plain| + ATTN_BF16_ATOL_OF_MAX_V * max|v|, and the
+    share that is bitwise equal); its time beside the plain version's and
+    SDPA's on the same bfloat16 operands, its bound (FLOPs at the bf16
+    tensor rate, as for B5) and what a launch gets."""
+    import torch
+
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda, launch_info
+    from repro_torch.kernels.attention.ref import attention_plain
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    readings = {}
+    for B, H, S, D in ATTN_BF16_SHAPES:
+        q, k, v = (torch.randn(B, H, S, D, generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        a = flash_attention_cuda(q, k, v, causal=True)
+        b = attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        diff = (a.float() - b.float()).abs()
+        limit = ATTN_BF16_RTOL * b.float().abs() + ATTN_BF16_ATOL_OF_MAX_V * float(v.float().abs().max())
+        ok = bool(torch.all(diff <= limit)) and a.dtype == torch.bfloat16
+        ms = graph_ms(lambda: flash_attention_cuda(q, k, v, causal=True))
+        plain_ms = cuda_ms(lambda: attention_plain(q, k, v, causal=True), 5)
+        lib_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+        visible = B * H * S * (S + 1) // 2
+        b_ms, b_by = bound(4 * B * H * S * D * 2, visible * 4 * D, BF16_TENSOR_FLOPS_PER_S)
+        info = launch_info(S, D, D, dtype=torch.bfloat16)
+        r = {"shape": [B, H, S, D], "max_abs_err": float(diff.max()),
+             "bitwise_share": float((a == b).float().mean()), "ok": ok, "ms": ms,
+             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "x_bound": ms / b_ms, "x_library": ms / lib_ms, **info}
+        readings[f"d{D}"] = r
+        emit({"phase": "kernels", "kernel": "flash_attention", "dtype": "bfloat16", "causal": True,
+              "rtol": ATTN_BF16_RTOL, "atol_of_max_v": ATTN_BF16_ATOL_OF_MAX_V, **r})
+        if not ok or info["spill_bytes_per_thread"]:
+            failures.append(f"flash_attention bf16 at {[B, H, S, D]}: ok {ok}, error "
+                            f"{r['max_abs_err']}, spills {info['spill_bytes_per_thread']}")
+        del q, k, v, a, b, diff, limit
+    keep = ("shape", "max_abs_err", "bitwise_share", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
+    results.setdefault("flash_attention", {})["bf16"] = {
+        name: {k: r[k] for k in keep} for name, r in readings.items()}
 
 
 def attention_fwd_times(q, k, v, qc, kc, vc) -> dict:
@@ -4016,7 +4097,7 @@ def phase_mamba2(failures, results, traces):
         failures.append(f"mamba2: a decode step launched a kernel: {d_launches}")
     if not finite:
         failures.append("mamba2: non-finite logits")
-    results["ssd"]["launches"] = p_launches["ssd"]
+    results.setdefault("ssd", {})["launches"] = p_launches["ssd"]
     emit({"phase": "mamba2", "config": cfg.name, "dtype": cfg.compute_dtype,
           "params": n_params, "init_seconds": init_s, "batch": B, "prompt_tokens": S,
           "prefill_seconds": prefill_s, "prefill_tokens_per_s": B * S / prefill_s,
@@ -4082,10 +4163,182 @@ def phase_mamba2(failures, results, traces):
           "gpu_ssd_launches": g_launches, "cpu_seconds": cpu_s, "ok": ok})
 
 
+def dense_serve(failures, cfg, gen) -> dict:
+    """One dense model at ``cfg`` (bfloat16, random weights from ``gen``):
+    a warm-up prefill and step, then prefill of DENSE_BATCH x DENSE_PROMPT
+    tokens and DENSE_DECODE greedy steps into a cache grown by DENSE_DECODE
+    positions, with every kernel's launches read around each call (B4 once
+    per layer per prefill, nothing else, and no launch in a decode step),
+    tokens/s, ms per step, weight and peak bytes, and the profiles of one
+    prefill and one step (B4's device ms and launches from the profiler).
+    Returns the model, the prompts and the reading."""
+    import torch
+
+    from repro_torch.models import Model
+
+    B, S, steps = DENSE_BATCH, DENSE_PROMPT, DENSE_DECODE
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    logits, cache = model.prefill(prompts)  # warm-up: cuBLAS handles, allocator pools
+    model.decode_step(cache, logits.argmax(-1), S)
+    del logits, cache
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, pre = model.prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    p_launches = read_counts()
+    cache = model.init_cache(B, S + steps)
+    for k in cache:
+        cache[k][:, :, :S] = pre[k]
+    del pre
+    finite = bool(torch.isfinite(logits).all())
+    tok = logits.argmax(-1)
+    step_ms, d_launches = [], []
+    for i in range(steps):
+        zero_counts()
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(cache, tok, S + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        d_launches.append(read_counts())
+        finite &= bool(torch.isfinite(logits).all())
+        tok = logits.argmax(-1)
+    peak = torch.cuda.max_memory_allocated()
+    none = {k: 0 for k in p_launches}
+    expected_p = none | {"flash_attention": cfg.n_layers}
+    track = ("attention_kernel",)
+    groups = {"b4": track, "gemm": ("nvjet", "gemm", "gemv"), "copy": ("copy", "Copy")}
+    prof_p = profile_breakdown(lambda: model.prefill(prompts), track=track, groups=groups)
+    prof_d = profile_breakdown(lambda: model.decode_step(cache, tok, S + steps - 1), track=track,
+                               groups=groups)
+    prof_launches = [sum(p.get("tracked_count", {}).values()) for p in (prof_p, prof_d)]
+    if p_launches != expected_p or prof_launches != [cfg.n_layers, 0]:
+        failures.append(f"dense {cfg.name}: prefill launches {p_launches} (profiler "
+                        f"{prof_launches[0]}), expected {expected_p}")
+    if any(d != none for d in d_launches) or prof_launches[1]:
+        failures.append(f"dense {cfg.name}: a decode step launched a kernel: {d_launches}")
+    if not finite:
+        failures.append(f"dense {cfg.name}: non-finite logits")
+    reading = {"config": cfg.name, "dtype": cfg.compute_dtype, "layers": cfg.n_layers,
+               "params": n_params, "init_seconds": init_s, "batch": B, "prompt_tokens": S,
+               "prefill_seconds": prefill_s, "prefill_tokens_per_s": B * S / prefill_s,
+               "prefill_launches": p_launches, "prefill_b4_launches_profiler": prof_launches[0],
+               "decode_steps": steps,
+               "decode_ms_per_step_median": sorted(step_ms)[steps // 2],
+               "decode_ms_per_step_mean": sum(step_ms) / steps,
+               "decode_tokens_per_s": B * steps / (sum(step_ms) / 1e3),
+               "decode_b4_launches": [d["flash_attention"] for d in d_launches],
+               "decode_b4_launches_profiler": prof_launches[1],
+               "weights_bytes": base, "peak_bytes": peak, "finite_logits": finite}
+    emit({"phase": "dense", **reading})
+    for call, prof in (("prefill", prof_p), ("decode_step", prof_d)):
+        emit({"phase": "dense", "config": cfg.name, "check": "profile", "call": call, **prof})
+    reading["prefill_b4_device_ms"] = sum(prof_p["tracked_ms"].values())
+    del cache, logits
+    return model, prompts, reading
+
+
+def dense_handoff_and_cpu(failures, model, prompts):
+    """On a float32 copy of ``model``'s weights: the handoff (the last
+    logits of prefill(p + t) against prefill(p), then decode_step(t)) at
+    the full prompt, and the card's path against the same model on the CPU
+    (the plain versions) at DENSE_CPU_LAYERS layers and DENSE_CPU_SEQ
+    tokens: prefill logits, every cache leaf and one decode step."""
+    import torch
+
+    from repro_torch.models import Model
+
+    cfg = model.cfg
+    S = prompts.shape[1]
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    m32 = Model(cfg32, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+    m32.load_state_dict(model.state_dict())
+    tok = torch.randint(0, cfg.vocab, (prompts.shape[0],), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(2))
+    full, _ = m32.prefill(torch.cat([prompts, tok[:, None]], dim=1))
+    _, cache32 = m32.prefill(prompts)
+    dec, _ = m32.decode_step(cache32, tok, S)
+    torch.cuda.synchronize()
+    handoff = rel_diff(dec, full)
+    del cache32
+    ok = handoff <= HANDOFF_REL and bool(torch.isfinite(full).all())
+    if not ok:
+        failures.append(f"dense {cfg.name}: prefill/decode handoff {handoff} > {HANDOFF_REL}")
+    emit({"phase": "dense", "config": cfg.name, "check": "handoff_f32", "prompt_tokens": S,
+          "max_abs_diff_rel_to_max_logit": handoff, "limit": HANDOFF_REL, "ok": ok})
+
+    cfg_cut = dataclasses.replace(cfg32, n_layers=DENSE_CPU_LAYERS)
+    sd = {k: v for k, v in m32.state_dict().items()
+          if not k.startswith("layers.") or int(k.split(".")[1]) < DENSE_CPU_LAYERS}
+    del m32
+    gpu = Model(cfg_cut, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+    gpu.load_state_dict(sd)
+    cpu = Model(cfg_cut, device="cpu", generator=torch.Generator().manual_seed(1))
+    cpu.load_state_dict({k: v.cpu() for k, v in sd.items()})
+    toks = prompts[:2, :DENSE_CPU_SEQ]
+    zero_counts()
+    g_logits, g_cache = gpu.prefill(toks)
+    g_step, g_cache = gpu.decode_step(g_cache, toks[:, 0], DENSE_CPU_SEQ - 1)
+    torch.cuda.synchronize()
+    g_launches = read_counts()["flash_attention"]
+    t0 = time.perf_counter()
+    c_logits, c_cache = cpu.prefill(toks.cpu())
+    c_step, c_cache = cpu.decode_step(c_cache, toks[:, 0].cpu(), DENSE_CPU_SEQ - 1)
+    cpu_s = time.perf_counter() - t0
+    diffs = {"prefill_logits": rel_diff(g_logits.cpu(), c_logits),
+             "decode_logits": rel_diff(g_step.cpu(), c_step),
+             **{f"cache_{k}": rel_diff(g_cache[k].cpu(), c_cache[k]) for k in c_cache}}
+    ok = max(diffs.values()) <= GPU_CPU_REL and g_launches == DENSE_CPU_LAYERS
+    if not ok:
+        failures.append(f"dense {cfg.name}: GPU and CPU disagree beyond {GPU_CPU_REL}: {diffs}, "
+                        f"{g_launches} B4 launches")
+    emit({"phase": "dense", "config": cfg.name, "check": "gpu_vs_cpu", "layers": DENSE_CPU_LAYERS,
+          "tokens": list(toks.shape), "rel_diffs": diffs, "limit": GPU_CPU_REL,
+          "gpu_b4_launches": g_launches, "cpu_seconds": cpu_s, "ok": ok})
+
+
+def phase_dense(failures, results, traces):
+    """The dense family's serving path at full width (module note)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    t0 = time.perf_counter()
+    readings = {}
+    for name in DENSE_FULL + DENSE_CUT:
+        cfg = get_arch(name)
+        if name in DENSE_CUT:
+            cfg = dataclasses.replace(cfg, n_layers=DENSE_CUT_LAYERS)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model, prompts, reading = dense_serve(failures, cfg, gen)
+        if name in DENSE_FULL and not failures:
+            dense_handoff_and_cpu(failures, model, prompts)
+        keep = ("layers", "prefill_tokens_per_s", "decode_ms_per_step_median", "peak_bytes",
+                "prefill_b4_device_ms")
+        readings[name] = {"launches_per_prefill": reading["prefill_launches"]["flash_attention"],
+                          "launches_per_decode_step": max(reading["decode_b4_launches"]),
+                          **{k: reading[k] for k in keep}}
+        del model, prompts
+        torch.cuda.empty_cache()
+        if failures:
+            break
+    results.setdefault("flash_attention", {})["dense"] = readings
+    emit({"phase": "dense", "check": "seconds", "seconds": time.perf_counter() - t0})
+
+
 PHASES = {"build": phase_build, "kernels": phase_kernels, "slice": phase_slice,
           "sweep": phase_sweep, "train": phase_train, "persist": phase_persist,
           "joint": phase_joint, "session": phase_session, "serve": phase_serve,
-          "paper": phase_paper, "mamba2": phase_mamba2}
+          "paper": phase_paper, "mamba2": phase_mamba2, "dense": phase_dense}
 
 
 def main(argv) -> int:

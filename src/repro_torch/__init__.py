@@ -13,7 +13,9 @@ Device policy: entry points take ``device=`` and default to ``"cuda"``.
 Without CUDA they raise unless the caller asked for ``device="cpu"`` —
 there is no silent CPU fallback.  float32 matrix products run at full
 precision (TF32 off for matmuls and cuDNN), the precision the parity
-tests hold the port to.
+tests hold the port to, and bfloat16 matrix products accumulate in
+float32 throughout (cuBLAS's reduced-precision split-K reductions off), as
+XLA accumulates bfloat16 dots.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ __all__ = ["resolve_device"]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

@@ -1,11 +1,13 @@
 """Registry of the architectures the port runs: one module per id.
 
-Counterpart of ``repro/configs/__init__.py``.  ``get_arch("mamba2-1.3b")``
+Counterpart of ``repro/configs/__init__.py``.  ``get_arch("qwen2-0.5b")``
 -> ArchConfig; ``get_arch(..., reduced=True)`` -> the CPU test variant.
 ``get_arch("tao")`` -> the paper's ``TaoConfig`` (not an ``ArchConfig``, so
 not in ``ARCH_IDS``; it has no reduced variant, and ``reduced=True``
-raises ``AttributeError`` as the reference's does).  The rest of the
-reference's LLM zoo is not ported yet (ROADMAP item A10).
+raises ``AttributeError`` as the reference's does).  ``ARCH_IDS`` lists
+the ported ids in the reference's order: the ``dense`` family and
+``mamba2-1.3b``; the ``vlm`` / ``audio``, ``moe`` and ``hybrid`` families
+are ROADMAP items A10.3-A10.5.
 """
 from __future__ import annotations
 
@@ -17,6 +19,10 @@ from ..models.config import ArchConfig
 __all__ = ["ARCH_IDS", "get_arch"]
 
 _MODULES = {
+    "qwen1.5-32b": "qwen1_5_32b",
+    "qwen2-0.5b": "qwen2_0_5b",
+    "stablelm-1.6b": "stablelm_1_6b",
+    "glm4-9b": "glm4_9b",
     "mamba2-1.3b": "mamba2_1_3b",
     "tao": "tao",
 }
@@ -28,7 +34,7 @@ def get_arch(name: str, reduced: bool = False) -> ArchConfig:
     if name not in _MODULES:
         raise KeyError(
             f"architecture {name!r} is not ported (have {sorted(_MODULES)}); the "
-            "rest of the reference's LLM zoo is ROADMAP item A10"
+            "vlm / audio, moe and hybrid families are ROADMAP items A10.3-A10.5"
         )
     mod = importlib.import_module(f".{_MODULES[name]}", __package__)
     cfg: ArchConfig = mod.CONFIG

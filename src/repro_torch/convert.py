@@ -12,9 +12,17 @@ like ``nn.ModuleList``.
 
 ``lm_params_from_jax`` does the same for the reference's language-model
 tree (``repro/models/backbone.py::Model.init``), whose layer params are
-stacked on a leading axis: it unstacks them into ``layers.{i}``, maps
-``table`` / ``scale`` -> ``weight`` and the mixer's ``in_proj`` /
-``out_proj`` ``(in, out)`` arrays to ``nn.Linear`` weights, transposed.
+stacked on a leading axis: it unstacks them into ``layers.{i}`` and maps
+``table`` / ``scale`` -> ``weight`` (a layernorm's ``bias`` keeps its
+name).  The ``(in, out)`` arrays become ``nn.Linear`` weights,
+TRANSPOSED: the Mamba-2 mixer's ``in_proj`` / ``out_proj``, the MLP's
+``w_up`` / ``w_gate`` / ``w_down`` and an untied ``lm_head`` ``(d, V)``.
+The dense attention's projections are RESHAPED as well: ``wq`` / ``wk`` /
+``wv`` ``(d, H, hd)`` are flattened to ``(d, H·hd)``, transposed and
+CONCATENATED along the output axis into the port's packed ``qkv.weight``
+(q rows first, then k, then v), ``bq`` / ``bk`` / ``bv`` ``(H, hd)``
+flattened and concatenated into ``qkv.bias``, and ``wo`` ``(H, hd, d)``
+flattened to ``(H·hd, d)`` and transposed into ``wo.weight``.
 
 ``params_to_jax`` is the inverse of ``params_from_jax``: a ``Tao`` state
 dict back to the reference's nested tree of NumPy arrays, each layer
@@ -45,9 +53,9 @@ __all__ = ["lm_params_from_jax", "params_from_jax", "params_to_jax", "qparams_fr
 # become nn.Linear weights, transposed
 _TAO_LEAVES = {"table": "weight", "w": "weight", "b": "bias", "scale": "weight", "bias": "bias"}
 _TAO_TRANSPOSED = frozenset({"w"})
-_LM_LEAVES = {"table": "weight", "scale": "weight",
-              "in_proj": "in_proj.weight", "out_proj": "out_proj.weight"}
-_LM_TRANSPOSED = frozenset({"in_proj", "out_proj"})
+_LM_LINEAR = ("in_proj", "out_proj", "w_up", "w_gate", "w_down", "lm_head")
+_LM_LEAVES = {"table": "weight", "scale": "weight", **{k: f"{k}.weight" for k in _LM_LINEAR}}
+_LM_TRANSPOSED = frozenset(_LM_LINEAR)
 # the leaves that mark a quantized layer, whose leaves are renamed by
 # _QUANT_LEAVES alone (its ``scale`` is the quantization scale, not a
 # layernorm's)
@@ -139,7 +147,15 @@ def _lists(node):
 def lm_params_from_jax(np_tree: Mapping) -> Dict[str, torch.Tensor]:
     """Reference LM param tree of NumPy arrays (layer axis first under
     ``layers``) -> ``models.Model`` state dict (CPU float32 tensors)."""
-    return _state_dict(np_tree, _LM_LEAVES, _LM_TRANSPOSED)
+    sd = _state_dict(np_tree, _LM_LEAVES, _LM_TRANSPOSED)
+    for name in [n for n in sd if n.endswith(".attn.wq")]:
+        pre = name[: -len("wq")]
+        wq, wk, wv, wo = (sd.pop(pre + w) for w in ("wq", "wk", "wv", "wo"))
+        sd[pre + "qkv.weight"] = torch.cat([w.flatten(1).T for w in (wq, wk, wv)]).contiguous()
+        sd[pre + "wo.weight"] = wo.flatten(0, 1).T.contiguous()
+        if pre + "bq" in sd:
+            sd[pre + "qkv.bias"] = torch.cat([sd.pop(pre + b).flatten() for b in ("bq", "bk", "bv")])
+    return sd
 
 
 def qparams_from_jax(np_tree: Mapping) -> Dict[str, torch.Tensor]:

@@ -1,4 +1,5 @@
-// Online-softmax attention for Hopper (sm_90a) on the tensor cores, float32.
+// Online-softmax attention for Hopper (sm_90a) on the tensor cores, float32
+// or bfloat16 I/O, float32 arithmetic.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/attention/kernel.py
 // (flash_attention_kernel, line 38): out = softmax(q k^T / sqrt(D) + mask) v
@@ -34,9 +35,24 @@
 // plain version takes expf of the unfolded scores, which the tolerance
 // covers (a few ulp of |s| <= ~10).
 //
+// bfloat16 I/O (dtype 1; q, k and v all bfloat16) computes what the TPU
+// kernel computes for bfloat16 operands (kernel.py:81-82, 102, 113): the
+// inputs upcast to float32, both products accumulated in float32, P kept
+// in float32, the output rounded once to bfloat16 (to nearest even); lse
+// stays float32.  Every bfloat16 value is exact in TF32 (8 significant
+// bits of 11), so an operand read from memory has lo = 0 (as in ssd.cu):
+// S = Q K^T is one TF32 mma per step on the raw operands, scaled by
+// scale * log2(e) afterwards (Q * scale is not exact in TF32, so the
+// scale is not folded into Q here), and O += P V is two, P_hi V + P_lo V.
+// Tiles are staged in shared memory as bfloat16 (16-byte cp.async of 8
+// elements where widths, strides and addresses allow it, else one element
+// at a time by plain loads) and widened when the fragments are built, by
+// a 16-bit shift.
+//
 // Tiles: a warp owns 16 query rows; a block owns 16 * nwarps consecutive
 // rows of one (batch, head), nwarps <= 9 (<= 4 for Dv > 64), cut into
-// equal blocks, the heaviest causal block launched first.  A Tao window of
+// equal blocks, the heaviest causal block launched first.  (The counts
+// below are the float32 build's.)  A Tao window of
 // 129 rows is one block of 9 warps: the grid is 256 blocks of 288
 // threads, 57,600 bytes of shared memory each, 95 registers, no spills
 // (ptxas -v), two blocks per SM: one wave over the 132 SMs.  Row tiles are
@@ -46,8 +62,10 @@
 // cp.async (4-byte where strides or widths are not multiples of 4),
 // double-buffered so the next tile loads while this one computes; q, k
 // and v are read from device memory once per block.  Rows are zero-padded
-// (K to a multiple of 8 floats, V to the template's 32, 64 or 128) and
-// pitched at that + 4, so every fragment load of a warp hits 32 banks.
+// (K to a multiple of 8 elements, V to the template's 32, 64 or 128) and
+// pitched at that + 4 floats, or, in bfloat16, at that rounded up to 16
+// elements + 8: a pitch of 4 mod 8 words, so every fragment load of a
+// warp hits distinct banks (two lanes reading one word share it).
 // The score tile lives in registers in the mma C layout, where a query row
 // sits in one quad of lanes: the row max costs 2 __shfl_xor_sync per row
 // per key tile and the row sum stays lane-partial until the end.  The C
@@ -71,6 +89,7 @@
 // peak (wgmma is Hopper's full-rate path); at half of it the products
 // take 4.9 us, still well under the kernel's time.  PERF.md has the times.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -78,7 +97,8 @@ namespace {
 
 constexpr int kKeys = 64;       // keys per K/V tile
 constexpr int kRows = 16;       // query rows per warp (the mma's M)
-constexpr int kPad = 4;         // row pitch = width padded to 8, + 4 floats
+constexpr int kPad = 4;         // float32 row pitch = width padded to 8, + 4 floats
+constexpr int kPadBf16 = 8;     // bfloat16 row pitch = width padded to 16, + 8
 constexpr int kMaxSmem = 232448;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -90,21 +110,42 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int max_warps(int dv8) { return dv8 <= 8 ? 9 : 4; }
 
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
+  const void* q;        // float or __nv_bfloat16, as the kernel's T
+  const void* k;
+  const void* v;
   const int32_t* seg;
-  float* out;
+  void* out;            // T
   float* lse;           // (B, H, Sq) contiguous, or null
   long long sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos;
   int H, Sq, Sk, D, Dv;
   int dk;               // D padded to a multiple of 8
+  int pq;               // Q / K row pitch in elements
   int causal, q_offset;
   int vec16;            // 16-byte copies: widths, strides, pointers allow it
   int vec2;             // float2 stores of the output
   int nqb;              // query blocks per (batch, head)
-  float qscale;         // 1/sqrt(D) * log2(e), applied to Q's fragments
+  float qscale;         // 1/sqrt(D) * log2(e): on Q's fragments (float32) or the scores
 };
+
+// Row pitch in elements of a staged tile of `width` (a multiple of 8) T.
+template <typename T>
+__host__ __device__ constexpr int pitch(int width) {
+  return sizeof(T) == 4 ? width + kPad : (width + 15) / 16 * 16 + kPadBf16;
+}
+
+// A bfloat16 value as a TF32 operand: its bits widened to float32, exact.
+__device__ __forceinline__ uint32_t tf32_of(__nv_bfloat16 x) {
+  return (uint32_t)__bfloat16_as_ushort(x) << 16;
+}
+
+__device__ __forceinline__ void store2(float* o, float a, float b) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* o, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store1(float* o, float a) { *o = a; }
+__device__ __forceinline__ void store1(__nv_bfloat16* o, float a) { *o = __float2bfloat16_rn(a); }
 
 // x = hi + lo in TF32: hi rounded to nearest (ties away), lo the exact
 // remainder cut to TF32
@@ -155,16 +196,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Stage nrows rows of `width` floats (row stride rs) into dst at `pitch`,
-// zero-filling the columns up to `wpad` and the rows from `nvalid` on.
-__device__ __forceinline__ void stage_rows(float* dst, int pitch, const float* src,
-                                           long long rs, int nvalid, int nrows,
-                                           int width, int wpad, bool vec16) {
+// Stage nrows rows of `width` elements (row stride rs) into dst at `pitch`,
+// zero-filling the columns up to `wpad` and the rows from `nvalid` on:
+// 16-byte cp.async chunks where vec16 allows them, else float32 one
+// element at a time by 4-byte cp.async and bfloat16 by plain loads.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int pitch, const T* src, long long rs,
+                                           int nvalid, int nrows, int width, int wpad,
+                                           bool vec16) {
   if (vec16) {
-    const int cpr = wpad >> 2;  // 16-byte chunks per row
+    constexpr int kE = 16 / sizeof(T);  // elements per 16-byte chunk
+    const int cpr = wpad / kE;          // chunks per row
     for (int i = threadIdx.x; i < nrows * cpr; i += blockDim.x) {
       const int r = i / cpr;
-      const int c = (i - r * cpr) << 2;
+      const int c = (i - r * cpr) * kE;
       const bool ok = r < nvalid && c < width;
       cp_async16(dst + r * pitch + c, ok ? src + r * rs + c : src, ok ? 16 : 0);
     }
@@ -173,7 +218,10 @@ __device__ __forceinline__ void stage_rows(float* dst, int pitch, const float* s
       const int r = i / wpad;
       const int c = i - r * wpad;
       const bool ok = r < nvalid && c < width;
-      cp_async4(dst + r * pitch + c, ok ? src + r * rs + c : src, ok ? 4 : 0);
+      if constexpr (sizeof(T) == 4)
+        cp_async4(dst + r * pitch + c, ok ? src + r * rs + c : src, ok ? 4 : 0);
+      else
+        dst[r * pitch + c] = ok ? src[r * rs + c] : __float2bfloat16_rn(0.0f);
     }
   }
 }
@@ -193,30 +241,50 @@ struct Warp {
 // One key tile of NN 8-key steps for one warp.  NN and DV8 are template
 // arguments so that no branch sits around an mma.sync: a guarded mma.sync
 // is a convergence point, and the steps would run one by one.
-template <int NN, int DV8>
-__device__ __forceinline__ void key_tile(Warp<DV8>& w, const Params& p, const float* qa,
-                                         const float* ks, const float* vs, const int* ss,
+template <int NN, int DV8, typename T>
+__device__ __forceinline__ void key_tile(Warp<DV8>& w, const Params& p, const T* qa,
+                                         const T* ks, const T* vs, const int* ss,
                                          bool segmented, int kt, int g, int t) {
-  const int pq = p.dk + kPad;
-  const int pv = DV8 * 8 + kPad;
+  constexpr bool kF32 = sizeof(T) == 4;
+  const int pq = p.pq;
+  constexpr int pv = pitch<T>(DV8 * 8);
 
   // ---- S = Q K^T (16 x 8NN), C layout: s[n] = rows g / g + 8, keys 8n + 2t, + 1
   float s[NN][4];
 #pragma unroll
   for (int n = 0; n < NN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-  const float* kb = ks + g * pq + t;
+  const T* kb = ks + g * pq + t;
   for (int kk = 0; kk < p.dk; kk += 8) {
-    uint32_t ah[4], al[4];
-    split(qa[kk] * p.qscale, ah[0], al[0]);
-    split(qa[kk + 8 * pq] * p.qscale, ah[1], al[1]);
-    split(qa[kk + 4] * p.qscale, ah[2], al[2]);
-    split(qa[kk + 4 + 8 * pq] * p.qscale, ah[3], al[3]);
+    if constexpr (kF32) {
+      uint32_t ah[4], al[4];
+      split(qa[kk] * p.qscale, ah[0], al[0]);
+      split(qa[kk + 8 * pq] * p.qscale, ah[1], al[1]);
+      split(qa[kk + 4] * p.qscale, ah[2], al[2]);
+      split(qa[kk + 4 + 8 * pq] * p.qscale, ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < NN; ++n) {
+        uint32_t bh[2], bl[2];
+        split(kb[n * 8 * pq + kk], bh[0], bl[0]);
+        split(kb[n * 8 * pq + kk + 4], bh[1], bl[1]);
+        mma3(s[n], ah, al, bh, bl);
+      }
+    } else {  // exact TF32 operands: one product
+      const uint32_t a[4] = {tf32_of(qa[kk]), tf32_of(qa[kk + 8 * pq]), tf32_of(qa[kk + 4]),
+                             tf32_of(qa[kk + 4 + 8 * pq])};
+#pragma unroll
+      for (int n = 0; n < NN; ++n) {
+        const uint32_t b[2] = {tf32_of(kb[n * 8 * pq + kk]), tf32_of(kb[n * 8 * pq + kk + 4])};
+        mma(s[n], a, b);
+      }
+    }
+  }
+  if constexpr (!kF32) {
 #pragma unroll
     for (int n = 0; n < NN; ++n) {
-      uint32_t bh[2], bl[2];
-      split(kb[n * 8 * pq + kk], bh[0], bl[0]);
-      split(kb[n * 8 * pq + kk + 4], bh[1], bl[1]);
-      mma3(s[n], ah, al, bh, bl);
+      s[n][0] *= p.qscale;
+      s[n][1] *= p.qscale;
+      s[n][2] *= p.qscale;
+      s[n][3] *= p.qscale;
     }
   }
 
@@ -276,7 +344,7 @@ __device__ __forceinline__ void key_tile(Warp<DV8>& w, const Params& p, const fl
 
   // ---- O += P V: the scores' C fragment is P's A fragment, with the keys
   // of step kk taken in the order 2t (column t), 2t + 1 (column t + 4)
-  const float* vb = vs + 2 * t * pv + g;
+  const T* vb = vs + 2 * t * pv + g;
 #pragma unroll
   for (int kk = 0; kk < NN; ++kk) {
     uint32_t ah[4], al[4];
@@ -286,38 +354,47 @@ __device__ __forceinline__ void key_tile(Warp<DV8>& w, const Params& p, const fl
     split(s[kk][3], ah[3], al[3]);
 #pragma unroll
     for (int n = 0; n < DV8; ++n) {
-      uint32_t bh[2], bl[2];
-      split(vb[8 * kk * pv + 8 * n], bh[0], bl[0]);
-      split(vb[(8 * kk + 1) * pv + 8 * n], bh[1], bl[1]);
-      mma3(w.o[n], ah, al, bh, bl);
+      if constexpr (kF32) {
+        uint32_t bh[2], bl[2];
+        split(vb[8 * kk * pv + 8 * n], bh[0], bl[0]);
+        split(vb[(8 * kk + 1) * pv + 8 * n], bh[1], bl[1]);
+        mma3(w.o[n], ah, al, bh, bl);
+      } else {  // V exact in TF32: P_lo V, then P_hi V
+        const uint32_t b[2] = {tf32_of(vb[8 * kk * pv + 8 * n]),
+                               tf32_of(vb[(8 * kk + 1) * pv + 8 * n])};
+        mma(w.o[n], al, b);
+        mma(w.o[n], ah, b);
+      }
     }
   }
 }
 
-template <int DV8>  // output column tiles of 8 a warp holds: 4, 8 or 16
+// DV8: output column tiles of 8 a warp holds (4, 8 or 16); T: float or
+// __nv_bfloat16, the type of q, k, v and out
+template <int DV8, typename T>
 __global__ void __launch_bounds__(max_warps(DV8) * 32, DV8 <= 4 ? 2 : 1)
 attention_kernel(const Params p) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;  // the mma's group: rows g and g + 8
   const int t = lane & 3;   // thread in group
-  const int pq = p.dk + kPad;
-  const int pv = DV8 * 8 + kPad;
+  const int pq = p.pq;
+  constexpr int pv = pitch<T>(DV8 * 8);
   const int nw = blockDim.x >> 5;
   const int rows = nw * kRows;
-  float* q_s = smem;                                  // [rows][pq]
-  float* k_s = q_s + rows * pq;                       // [2][kKeys][pq]
-  float* v_s = k_s + 2 * kKeys * pq;                  // [2][kKeys][pv]
+  T* q_s = reinterpret_cast<T*>(smem_raw);            // [rows][pq]
+  T* k_s = q_s + rows * pq;                           // [2][kKeys][pq]
+  T* v_s = k_s + 2 * kKeys * pq;                      // [2][kKeys][pv]
   int* seg_s = reinterpret_cast<int*>(v_s + 2 * kKeys * pv);  // [2][kKeys]
 
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int q0 = (p.nqb - 1 - (int)blockIdx.y) * rows;  // heaviest causal block first
-  const float* qg = p.q + b * p.sqb + h * p.sqh + q0 * p.sqs;
-  const float* kg = p.k + b * p.skb + h * p.skh;
-  const float* vg = p.v + b * p.svb + h * p.svh;
+  const T* qg = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh + q0 * p.sqs;
+  const T* kg = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.svb + h * p.svh;
   const int32_t* segb = p.seg == nullptr ? nullptr : p.seg + (long long)b * p.Sk;
   const bool segmented = segb != nullptr;
 
@@ -363,15 +440,15 @@ attention_kernel(const Params p) {
   for (int n = 0; n < DV8; ++n) w.o[n][0] = w.o[n][1] = w.o[n][2] = w.o[n][3] = 0.0f;
   w.m0 = w.m1 = kNegInf;
   w.l0 = w.l1 = 0.0f;
-  const float* qa = q_s + (tile * kRows + g) * pq + t;
+  const T* qa = q_s + (tile * kRows + g) * pq + t;
 
   for (int it = 0; it < ntiles; ++it) {
     if (it + 1 < ntiles) cp_async_wait<1>(); else cp_async_wait<0>();
     __syncthreads();
     const int kt = it * kKeys;
     if (active && kt < wend) {
-      const float* ks = k_s + (it & 1) * kKeys * pq;
-      const float* vs = v_s + (it & 1) * kKeys * pv;
+      const T* ks = k_s + (it & 1) * kKeys * pq;
+      const T* vs = v_s + (it & 1) * kKeys * pv;
       const int* ss = seg_s + (it & 1) * kKeys;
       const int nn = (wend - kt + 7) >> 3;  // 8-key steps holding a key this warp sees
       if (nn > 4)
@@ -393,7 +470,7 @@ attention_kernel(const Params p) {
   l1 += __shfl_xor_sync(kFull, l1, 2);
   const float inv0 = 1.0f / fmaxf(l0, 1e-30f);  // a row that saw no key: 0 / 1e-30
   const float inv1 = 1.0f / fmaxf(l1, 1e-30f);
-  float* ob = p.out + b * p.sob + h * p.soh;
+  T* ob = static_cast<T*>(p.out) + b * p.sob + h * p.soh;
   const int ra = w.r0 + g, rb = w.r0 + g + 8;
   if (p.lse != nullptr && t == 0) {
     float* lb = p.lse + (long long)bh * p.Sq;
@@ -405,21 +482,17 @@ attention_kernel(const Params p) {
     const int c = 8 * n + 2 * t;
     if (c >= p.Dv) continue;
     if (p.vec2) {
-      if (ra < p.Sq)
-        *reinterpret_cast<float2*>(ob + ra * p.sos + c) =
-            make_float2(w.o[n][0] * inv0, w.o[n][1] * inv0);
-      if (rb < p.Sq)
-        *reinterpret_cast<float2*>(ob + rb * p.sos + c) =
-            make_float2(w.o[n][2] * inv1, w.o[n][3] * inv1);
+      if (ra < p.Sq) store2(ob + ra * p.sos + c, w.o[n][0] * inv0, w.o[n][1] * inv0);
+      if (rb < p.Sq) store2(ob + rb * p.sos + c, w.o[n][2] * inv1, w.o[n][3] * inv1);
     } else {
       const bool c1ok = c + 1 < p.Dv;
       if (ra < p.Sq) {
-        ob[ra * p.sos + c] = w.o[n][0] * inv0;
-        if (c1ok) ob[ra * p.sos + c + 1] = w.o[n][1] * inv0;
+        store1(ob + ra * p.sos + c, w.o[n][0] * inv0);
+        if (c1ok) store1(ob + ra * p.sos + c + 1, w.o[n][1] * inv0);
       }
       if (rb < p.Sq) {
-        ob[rb * p.sos + c] = w.o[n][2] * inv1;
-        if (c1ok) ob[rb * p.sos + c + 1] = w.o[n][3] * inv1;
+        store1(ob + rb * p.sos + c, w.o[n][2] * inv1);
+        if (c1ok) store1(ob + rb * p.sos + c + 1, w.o[n][3] * inv1);
       }
     }
   }
@@ -429,24 +502,32 @@ attention_kernel(const Params p) {
 // (batch, head) and dynamic shared memory.
 struct Config {
   void (*kernel)(Params);
-  int dk, dv, nwarps, nqb;
+  int dk, dv, pq, nwarps, nqb;
   size_t smem;
 };
 
-Config configure(int Sq, int D, int Dv, bool segmented) {
+template <typename T>
+Config configure_as(int Sq, int D, int Dv, bool segmented) {
   Config c;
   c.dk = (D + 7) / 8 * 8;
+  c.pq = pitch<T>(c.dk);
   c.dv = Dv <= 32 ? 32 : Dv <= 64 ? 64 : 128;  // the template's column width
-  c.kernel = c.dv == 32 ? attention_kernel<4> : c.dv == 64 ? attention_kernel<8>
-                                                           : attention_kernel<16>;
+  c.kernel = c.dv == 32 ? attention_kernel<4, T> : c.dv == 64 ? attention_kernel<8, T>
+                                                              : attention_kernel<16, T>;
   const int tiles = (Sq + kRows - 1) / kRows;
   const int mw = max_warps(c.dv / 8);
   c.nqb = (tiles + mw - 1) / mw;
   c.nwarps = (tiles + c.nqb - 1) / c.nqb;  // equal blocks, none left with one tile
-  c.smem = sizeof(float) * ((size_t)c.nwarps * kRows * (c.dk + kPad) +
-                            2 * kKeys * (c.dk + kPad) + 2 * kKeys * (c.dv + kPad)) +
+  c.smem = sizeof(T) * ((size_t)c.nwarps * kRows * c.pq + 2 * kKeys * c.pq +
+                        2 * kKeys * pitch<T>(c.dv)) +
            (segmented ? 2 * kKeys * sizeof(int) : 0);
   return c;
+}
+
+// dtype: 0 float32, 1 bfloat16
+Config configure(int Sq, int D, int Dv, bool segmented, int dtype) {
+  return dtype == 1 ? configure_as<__nv_bfloat16>(Sq, D, Dv, segmented)
+                    : configure_as<float>(Sq, D, Dv, segmented);
 }
 
 int allow_smem(const Config& c) {
@@ -462,30 +543,33 @@ extern "C" const char* tao_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// q (B,H,Sq,D), k (B,H,Sk,D), v (B,H,Sk,Dv), out (B,H,Sq,Dv): float32
-// device pointers with element strides (batch, head, sequence) and a
-// contiguous last dimension; seg (B,Sk) int32 contiguous or null; lse
-// (B,H,Sq) float32 contiguous or null.  1 <= D, Dv <= 128.
+// q (B,H,Sq,D), k (B,H,Sk,D), v (B,H,Sk,Dv), out (B,H,Sq,Dv): device
+// pointers of one dtype (0 float32, 1 bfloat16) with element strides
+// (batch, head, sequence) and a contiguous last dimension; seg (B,Sk)
+// int32 contiguous or null; lse (B,H,Sq) float32 contiguous or null.
+// 1 <= D, Dv <= 128.
 extern "C" int tao_flash_attention(
-    const float* q, const float* k, const float* v, const int32_t* seg, float* out,
+    const void* q, const void* k, const void* v, const int32_t* seg, void* out,
     float* lse, long long sqb, long long sqh, long long sqs, long long skb, long long skh,
     long long sks, long long svb, long long svh, long long svs, long long sob,
     long long soh, long long sos, int B, int H, int Sq, int Sk, int D, int Dv,
-    int causal, int q_offset, float scale, void* stream) {
+    int causal, int q_offset, int dtype, float scale, void* stream) {
   if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || D < 1 || D > 128 || Dv < 1 ||
-      Dv > 128 || q_offset < 0)
+      Dv > 128 || q_offset < 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const Config c = configure(Sq, D, Dv, seg != nullptr);
+  const Config c = configure(Sq, D, Dv, seg != nullptr, dtype);
   if (c.nqb > 65535) return (int)cudaErrorInvalidValue;
   const int err = allow_smem(c);
   if (err != 0) return err;
   const long long strides = sqb | sqh | sqs | skb | skh | sks | svb | svh | svs;
   const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
+  const int ev = dtype == 1 ? 8 : 4;  // elements per 16-byte copy
+  const int esize = dtype == 1 ? 2 : 4;
   Params p{q, k, v, seg, out, lse,
            sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos,
-           H, Sq, Sk, D, Dv, c.dk, causal, q_offset,
-           D % 4 == 0 && Dv % 4 == 0 && strides % 4 == 0 && ptrs % 16 == 0,
-           Dv % 2 == 0 && (sob | soh | sos) % 2 == 0 && (uintptr_t)out % 8 == 0,
+           H, Sq, Sk, D, Dv, c.dk, c.pq, causal, q_offset,
+           D % ev == 0 && Dv % ev == 0 && strides % ev == 0 && ptrs % 16 == 0,
+           Dv % 2 == 0 && (sob | soh | sos) % 2 == 0 && (uintptr_t)out % (2 * esize) == 0,
            c.nqb, scale * kLog2e};
   const dim3 grid(B * H, c.nqb);
   c.kernel<<<grid, c.nwarps * 32, c.smem, (cudaStream_t)stream>>>(p);
@@ -496,11 +580,12 @@ extern "C" int tao_flash_attention(
 // registers per thread, [1] dynamic shared bytes per block, [2] threads
 // per block, [3] resident blocks per SM, [4] local (spill) bytes per
 // thread, [5] query blocks per (batch, head).
-extern "C" int tao_flash_attention_info(int Sq, int D, int Dv, int segmented, int* info,
-                                        void* stream) {
+extern "C" int tao_flash_attention_info(int Sq, int D, int Dv, int segmented, int dtype,
+                                        int* info, void* stream) {
   (void)stream;
-  if (Sq < 1 || D < 1 || D > 128 || Dv < 1 || Dv > 128) return (int)cudaErrorInvalidValue;
-  const Config c = configure(Sq, D, Dv, segmented != 0);
+  if (Sq < 1 || D < 1 || D > 128 || Dv < 1 || Dv > 128 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const Config c = configure(Sq, D, Dv, segmented != 0, dtype);
   int err = allow_smem(c);
   if (err != 0) return err;
   cudaFuncAttributes attr;

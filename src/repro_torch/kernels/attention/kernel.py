@@ -14,13 +14,19 @@ for q, k, v and out over 3.35 TB/s) nor the tensor cores bound it, but the
 latency of the longest warp's chain of dependent steps; the source's
 header says why and ``PERF.md`` what it measured.
 
-q, k and v are taken at their strides (the last dimension contiguous), and
-the output is allocated as (B, Sq, H, Dv) and returned as its
-(B, H, Sq, Dv) view, so the Tao block neither copies its packed projection
-apart nor its output back together.  ``FLASH_ATTENTION.launches`` counts
-launches.  With ``return_lse`` the kernel also writes each row's
-log-sum-exp in base 2 (``m + log2(l)`` in the units of the scores it
-exponentiates, +inf for a row that sees no key), what the backward needs.
+q, k and v are float32, or all three bfloat16 (the LLM zoo's compute
+dtype): then, as the TPU kernel does for bfloat16 operands, the inputs are
+upcast, both products accumulate in float32 and P stays float32 — a
+bfloat16 value is exact in TF32, so ``Q Kᵀ`` is one TF32 product per step
+and ``P V`` two (P's split) — and the output is rounded once to bfloat16;
+``lse`` stays float32.  They are taken at their strides (the last
+dimension contiguous), and the output, in q's dtype, is allocated as (B,
+Sq, H, Dv) and returned as its (B, H, Sq, Dv) view, so the Tao block
+neither copies its packed projection apart nor its output back together.
+``FLASH_ATTENTION.launches`` counts launches.  With ``return_lse`` the
+kernel also writes each row's log-sum-exp in base 2 (``m + log2(l)`` in
+the units of the scores it exponentiates, +inf for a row that sees no
+key), what the backward needs.
 
 ``flash_attention_bwd_cuda`` binds the backward (``csrc/attention_bwd.cu``),
 the port's own kernel, for what the Tao trainer gives it (causal or not,
@@ -60,15 +66,17 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 FLASH_ATTENTION = CudaKernel(
     "attention.cu",
     "tao_flash_attention",
-    [_P] * 6 + [_L] * 12 + [_I] * 8 + [ctypes.c_float],
+    [_P] * 6 + [_L] * 12 + [_I] * 9 + [ctypes.c_float],
 )
+# the C entry points' dtype codes
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FLASH_ATTENTION_BWD = CudaKernel(
     "attention_bwd.cu",
     "tao_flash_attention_bwd",
     [_P] * 10 + [ctypes.POINTER(_L)] + [_I] * 5 + [ctypes.c_float],
 )
 _LAUNCH_INFO = CudaKernel(
-    "attention.cu", "tao_flash_attention_info", [_I] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    "attention.cu", "tao_flash_attention_info", [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]
 )
 _INFO_KEYS = ("regs_per_thread", "smem_bytes_per_block", "threads_per_block",
               "blocks_per_sm", "spill_bytes_per_thread", "query_blocks")
@@ -79,11 +87,12 @@ BWD_KERNEL_NAMES = ("bwd_delta", "bwd_dkdv_dq")
 _BWD_INFO_KEYS = _INFO_KEYS[:5] + ("blocks_per_call",)
 
 
-def _check(name: str, t: torch.Tensor) -> None:
+def _check(name: str, t: torch.Tensor, dtypes=(torch.float32,)) -> None:
     if t.shape[-1] > 1 and t.stride(-1) != 1:
         raise ValueError(f"{name} must have a contiguous last dimension, got strides {t.stride()}")
-    if not (t.is_cuda and t.dtype == torch.float32):
-        raise ValueError(f"{name} must be a float32 CUDA tensor")
+    if not (t.is_cuda and t.dtype in dtypes):
+        raise ValueError(f"{name} must be a CUDA tensor of {' or '.join(map(str, dtypes))}, "
+                         f"got {t.dtype} on {t.device}")
 
 
 def flash_attention_cuda(
@@ -96,15 +105,18 @@ def flash_attention_cuda(
     q_offset: int = 0,
     return_lse: bool = False,
 ):
-    """q (B,H,Sq,D), k (B,H,Sk,D), v (B,H,Sk,Dv): float32 CUDA tensors at
-    any strides with a contiguous last dimension; ``segment_ids`` (B,Sk)
-    int32 or None.  Returns (B,H,Sq,Dv), the transposed view of a
-    contiguous (B,Sq,H,Dv) tensor, and with ``return_lse`` also the
-    (B,H,Sq) float32 base-2 log-sum-exp of each row."""
+    """q (B,H,Sq,D), k (B,H,Sk,D), v (B,H,Sk,Dv): CUDA tensors, all float32
+    or all bfloat16, at any strides with a contiguous last dimension;
+    ``segment_ids`` (B,Sk) int32 or None.  Returns (B,H,Sq,Dv) in q's
+    dtype, the transposed view of a contiguous (B,Sq,H,Dv) tensor, and
+    with ``return_lse`` also the (B,H,Sq) float32 base-2 log-sum-exp of
+    each row."""
     B, H, Sq, D = q.shape
     Sk, Dv = k.shape[2], v.shape[3]
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t)
+        _check(name, t, tuple(_DTYPES))
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"q, k, v must share one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.shape != (B, H, Sk, D) or v.shape != (B, H, Sk, Dv):
         raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
     if not (1 <= D <= MAX_HEAD_DIM and 1 <= Dv <= MAX_HEAD_DIM):
@@ -117,13 +129,13 @@ def flash_attention_cuda(
             raise ValueError(f"segment_ids must be (B, Sk)=({B}, {Sk}), got {tuple(segment_ids.shape)}")
         segment_ids = segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
         seg_ptr = segment_ids.data_ptr()
-    out = torch.empty((B, Sq, H, Dv), device=q.device, dtype=torch.float32).transpose(1, 2)
+    out = torch.empty((B, Sq, H, Dv), device=q.device, dtype=q.dtype).transpose(1, 2)
     lse = torch.empty((B, H, Sq), device=q.device, dtype=torch.float32) if return_lse else None
     FLASH_ATTENTION.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ptr, out.data_ptr(),
         None if lse is None else lse.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        B, H, Sq, Sk, D, Dv, int(causal), q_offset, 1.0 / math.sqrt(D),
+        B, H, Sq, Sk, D, Dv, int(causal), q_offset, _DTYPES[q.dtype], 1.0 / math.sqrt(D),
     )
     return (out, lse) if return_lse else out
 
@@ -165,14 +177,16 @@ def flash_attention_bwd_cuda(
     return tuple(grads)
 
 
-def launch_info(Sq: int, D: int, Dv: int, segmented: bool = False) -> Dict[str, int]:
-    """What a launch of the kernel for (Sq, D, Dv) gets on the current
-    device, without launching it: registers and spill bytes per thread
-    (``cudaFuncGetAttributes``), dynamic shared memory and threads per
-    block, resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
-    and query blocks per (batch, head)."""
+def launch_info(Sq: int, D: int, Dv: int, segmented: bool = False,
+                dtype: torch.dtype = torch.float32) -> Dict[str, int]:
+    """What a launch of the kernel for (Sq, D, Dv) in ``dtype`` gets on the
+    current device, without launching it: registers and spill bytes per
+    thread (``cudaFuncGetAttributes``), dynamic shared memory and threads
+    per block, resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and query blocks per
+    (batch, head)."""
     info = (ctypes.c_int * len(_INFO_KEYS))()
-    err = _LAUNCH_INFO._entry()(Sq, D, Dv, int(segmented), info, None)
+    err = _LAUNCH_INFO._entry()(Sq, D, Dv, int(segmented), _DTYPES[dtype], info, None)
     if err != 0:
         raise RuntimeError(f"tao_flash_attention_info: CUDA error {err}")
     return dict(zip(_INFO_KEYS, info))

@@ -32,15 +32,17 @@ def attention_plain(
     causal: bool = True,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """q,k,v: (B,H,S,D); returns (B,H,Sq,Dv) float32.  Optional
-    ``segment_ids`` (B, Sk): rows attend only within their own segment; a
-    query row whose absolute position ``q_offset + row`` is past Sk has
-    segment -2."""
+    """q,k,v: (B,H,S,D), all float32 or all bfloat16; returns (B,H,Sq,Dv)
+    in q's dtype, computed in float32 from the upcast inputs (P kept in
+    float32) and rounded once at the end, as the TPU kernel does.
+    Optional ``segment_ids`` (B, Sk): rows attend only within their own
+    segment; a query row whose absolute position ``q_offset + row`` is past
+    Sk has segment -2."""
     s, mask = _scores(q, k, segment_ids, causal, q_offset)
     s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     p = torch.where(mask.any(dim=-1, keepdim=True), p, torch.zeros((), device=q.device))
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
 def attention_lse_plain(

@@ -1,13 +1,21 @@
 """Language-model assembly and serving entry points, in PyTorch.
 
 Counterpart of ``repro/models/backbone.py::Model`` for the ``ssm`` family
-(a Mamba-2 stack); the reference's other families are ROADMAP item A10.
-The stack is the embedding table, ``n_layers`` pre-norm residual layers
-(``ln`` + a ``Mamba2`` mixer), ``final_norm`` and a head tied to the
-table.  Where the reference scans stacked layer params, the port runs an
-``nn.ModuleList`` eagerly; the cache keeps the reference's stacked layout
-(``{"ssm": (L,B,H,N,P), "conv": (L,B,K-1,C)}``, float32) so the two
-compare leaf by leaf.  Every entry point is forward only.
+(a Mamba-2 stack) and the ``dense`` family (a causal decoder); the
+reference's ``vlm`` / ``audio``, ``moe`` and ``hybrid`` families are
+ROADMAP items A10.3-A10.5.  The stack is the embedding table,
+``n_layers`` pre-norm residual layers, ``final_norm`` and the head: the
+table itself when the embeddings are tied, else ``lm_head``.  An ``ssm``
+layer is ``ln`` + a ``Mamba2`` mixer; a ``dense`` layer ``ln_attn`` +
+``attn`` + ``ln_mlp`` + ``mlp``, its norms rmsnorm or layernorm by
+``cfg.norm``.  Where the reference scans stacked layer params, the port
+runs an ``nn.ModuleList`` eagerly; the caches keep the reference's stacked
+layout so the two compare leaf by leaf: ``{"ssm": (L,B,H,N,P), "conv":
+(L,B,K-1,C)}`` float32 for ``ssm``; ``{"k", "v"}`` (L,B,S,Hkv,hd) for
+``dense`` (plus ``k_scale`` / ``v_scale`` for an int8 cache), in the
+compute dtype from ``prefill`` and in ``kv_cache_dtype`` from
+``init_cache``.  A dense ``decode_step`` writes its rows into the cache in
+place and returns it.  Every entry point is forward only.
 """
 from __future__ import annotations
 
@@ -18,25 +26,44 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
-from ..nn.core import RMSNorm, trunc_normal_param
+from ..nn.core import LayerNorm, RMSNorm, trunc_normal_param
+from .attention import Attention, apply_kv_cache_update, init_kv_cache
 from .config import ArchConfig
 from .mamba2 import Mamba2, init_ssm_state
+from .mlp import MLP
 
 __all__ = ["Model", "VOCAB_CHUNK"]
 
 VOCAB_CHUNK = 2048  # logit/CE chunk along the sequence to bound live logits
+FAMILIES = ("ssm", "dense")
+
+
+def _norm(cfg: ArchConfig, *, device) -> nn.Module:
+    cls = RMSNorm if cfg.norm == "rmsnorm" else LayerNorm
+    return cls(cfg.d_model, dtype=getattr(torch, cfg.param_dtype), device=device)
 
 
 class SSMLayer(nn.Module):
     def __init__(self, cfg: ArchConfig, generator: torch.Generator, *, device):
         super().__init__()
-        self.ln = RMSNorm(cfg.d_model, dtype=getattr(torch, cfg.param_dtype), device=device)
+        self.ln = _norm(cfg, device=device)
         self.mixer = Mamba2(cfg, generator, device=device)
 
 
+class DenseLayer(nn.Module):
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, *, device):
+        super().__init__()
+        self.ln_attn = _norm(cfg, device=device)
+        self.attn = Attention(cfg, generator, device=device)
+        self.ln_mlp = _norm(cfg, device=device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, generator,
+                       param_dtype=getattr(torch, cfg.param_dtype),
+                       compute_dtype=getattr(torch, cfg.compute_dtype), device=device)
+
+
 class Model(nn.Module):
-    """A Mamba-2 language model: ``prefill`` / ``decode_step`` /
-    ``init_cache`` for serving, ``loss`` (forward only).
+    """A language model of the ``ssm`` or ``dense`` family: ``prefill`` /
+    ``decode_step`` / ``init_cache`` for serving, ``loss`` (forward only).
 
     ``Model(cfg, device=None, generator=None)`` builds the parameters on
     ``device`` (``cuda`` by default; raises without it unless
@@ -51,75 +78,131 @@ class Model(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if cfg.family != "ssm":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported (only 'ssm'); "
-                "the other families are ROADMAP item A10"
+                f"{cfg.name}: family {cfg.family!r} is not ported (have {FAMILIES}); "
+                "vlm / audio, moe and hybrid are ROADMAP items A10.3-A10.5"
             )
         dev = resolve_device(device)
         g = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
         pd = getattr(torch, cfg.param_dtype)
         self.cfg = cfg
+        self.cd = getattr(torch, cfg.compute_dtype)
         self.embed = nn.Embedding(cfg.vocab, cfg.d_model, device="meta")
         self.embed.weight = trunc_normal_param((cfg.vocab, cfg.d_model), 0.02, g, device=dev, dtype=pd)
-        self.layers = nn.ModuleList(SSMLayer(cfg, g, device=dev) for _ in range(cfg.n_layers))
-        self.final_norm = RMSNorm(cfg.d_model, dtype=pd, device=dev)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Linear(cfg.d_model, cfg.vocab, bias=False, device="meta")
+            self.lm_head.weight = trunc_normal_param((cfg.vocab, cfg.d_model), cfg.d_model ** -0.5, g,
+                                                     device=dev, dtype=pd)
+        layer = SSMLayer if cfg.family == "ssm" else DenseLayer
+        self.layers = nn.ModuleList(layer(cfg, g, device=dev) for _ in range(cfg.n_layers))
+        self.final_norm = _norm(cfg, device=dev)
 
     @property
     def device(self) -> torch.device:
         return self.embed.weight.device
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed.weight.to(getattr(torch, self.cfg.compute_dtype))[tokens]
+        return self.embed.weight.to(self.cd)[tokens]
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Final norm and the tied head: (..., d) -> (..., V) float32."""
-        head = self.embed.weight.to(getattr(torch, self.cfg.compute_dtype))
-        return F.linear(self.final_norm(x), head).float()
+        """Final norm and the head (the tied table or ``lm_head``):
+        (..., d) -> (..., V) float32."""
+        head = self.lm_head.weight if hasattr(self, "lm_head") else self.embed.weight
+        return F.linear(self.final_norm(x), head.to(self.cd)).float()
+
+    def _dense_layer(self, layer: DenseLayer, x: torch.Tensor, positions: torch.Tensor,
+                     return_kv: bool = False):
+        """One pre-norm decoder layer -> (x, (k, v) when ``return_kv``)."""
+        out = layer.attn(layer.ln_attn(x), positions, causal=True, return_kv=return_kv)
+        attn, kv = out if return_kv else (out, None)
+        x = x + attn
+        return x + layer.mlp(layer.ln_mlp(x)), kv
+
+    def _positions(self, tokens: torch.Tensor) -> torch.Tensor:
+        B, S = tokens.shape
+        return torch.arange(S, device=tokens.device).expand(B, S)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Process prompts (B, S) of token ids: returns the last position's
         logits (B, V) float32 and the decode cache."""
         x = self._embed(tokens)
-        states = []
-        for layer in self.layers:
-            out, st = layer.mixer(layer.ln(x), return_state=True)
-            x = x + out
-            states.append(st)
-        cache = {k: torch.stack([st[k] for st in states]) for k in ("ssm", "conv")}
+        if self.cfg.family == "ssm":
+            states = []
+            for layer in self.layers:
+                out, st = layer.mixer(layer.ln(x), return_state=True)
+                x = x + out
+                states.append(st)
+            cache = {k: torch.stack([st[k] for st in states]) for k in ("ssm", "conv")}
+        else:
+            cfg = self.cfg
+            B, S = tokens.shape
+            positions = self._positions(tokens)
+            shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+            cache = {n: torch.empty(shape, dtype=self.cd, device=x.device) for n in ("k", "v")}
+            for i, layer in enumerate(self.layers):
+                x, (k, v) = self._dense_layer(layer, x, positions, return_kv=True)
+                cache["k"][i].copy_(k)
+                cache["v"][i].copy_(v)
         return self._logits(x[:, -1]), cache
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
-        """Zero cache for ``batch`` sequences (a Mamba-2 state does not grow
-        with ``max_len``)."""
-        return init_ssm_state(self.cfg, self.cfg.n_layers, batch, self.device)
+        """Zero cache for ``batch`` sequences: a Mamba-2 state (which does not
+        grow with ``max_len``) or a KV cache of ``max_len`` positions."""
+        if self.cfg.family == "ssm":
+            return init_ssm_state(self.cfg, self.cfg.n_layers, batch, self.device)
+        return init_kv_cache(self.cfg, self.cfg.n_layers, batch, max_len, self.device)
 
     @torch.no_grad()
     def decode_step(self, cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
                     pos=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One token per sequence: tokens (B,) -> logits (B, V) float32 and
-        the new cache.  ``pos`` is unused by a state-space stack (kept for
-        the reference's signature)."""
+        the new cache.  ``pos`` (an int) is the tokens' position: a dense
+        stack attends over the cache's positions before it and writes the
+        new k / v there, in place (nothing where ``pos`` is past the
+        cache); a state-space stack does not read it."""
         x = self._embed(tokens)[:, None, :]
-        states = []
+        if self.cfg.family == "ssm":
+            states = []
+            for i, layer in enumerate(self.layers):
+                out, st = layer.mixer.decode(
+                    layer.ln(x), {"ssm": cache["ssm"][i], "conv": cache["conv"][i]})
+                x = x + out
+                states.append(st)
+            new_cache = {k: torch.stack([st[k] for st in states]) for k in ("ssm", "conv")}
+            return self._logits(x[:, 0]), new_cache
+        pos = int(pos)
+        k_rows, v_rows = [], []
         for i, layer in enumerate(self.layers):
-            out, st = layer.mixer.decode(
-                layer.ln(x), {"ssm": cache["ssm"][i], "conv": cache["conv"][i]})
+            out, (k_row, v_row) = layer.attn.decode(
+                layer.ln_attn(x), {n: t[i] for n, t in cache.items()}, pos)
             x = x + out
-            states.append(st)
-        new_cache = {k: torch.stack([st[k] for st in states]) for k in ("ssm", "conv")}
-        return self._logits(x[:, 0]), new_cache
+            x = x + layer.mlp(layer.ln_mlp(x))
+            k_rows.append(k_row)
+            v_rows.append(v_row)
+        cache = apply_kv_cache_update(cache, (torch.stack(k_rows), torch.stack(v_rows)), pos)
+        return self._logits(x[:, 0]), cache
+
+    def _hidden(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The stack's output (B, S, d) before the final norm."""
+        x = self._embed(tokens)
+        if self.cfg.family == "ssm":
+            for layer in self.layers:
+                x = x + layer.mixer(layer.ln(x))
+            return x
+        positions = self._positions(tokens)
+        for layer in self.layers:
+            x, _ = self._dense_layer(layer, x, positions)
+        return x
 
     @torch.no_grad()
     def loss(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token cross-entropy over ``batch["tokens"]`` / ``["labels"]``
         (B, S), labels < 0 masked, in sequence chunks of ``VOCAB_CHUNK`` so
         the full-vocabulary logits are never all live.  Returns (loss,
-        {"ce", "aux"}); a Mamba-2 stack has no auxiliary loss."""
-        x = self._embed(batch["tokens"])
-        for layer in self.layers:
-            x = x + layer.mixer(layer.ln(x))
+        {"ce", "aux"}); neither ported family has an auxiliary loss."""
+        x = self._hidden(batch["tokens"])
         xs, labels = x[:, :-1], batch["labels"][:, 1:]
         S = labels.shape[1]
         csz = min(VOCAB_CHUNK, S)

@@ -1,13 +1,15 @@
 """Architecture configuration of the port's language models.
 
 Counterpart of ``repro/models/config.py``, cut to the fields the ported
-``ssm`` (Mamba-2) family reads.  The reference's ``use_pallas``,
+families read: ``ssm`` (Mamba-2) and ``dense`` (a causal decoder of
+MHA / GQA attention with RoPE and a SwiGLU or GELU MLP).  The reference's
+``moe``, ``mla``, ``hybrid``, frontend and M-RoPE fields come with the
+families that read them (ROADMAP A10.3-A10.5).  Its ``use_pallas``,
 ``remat``, ``scan_layers`` and ``prefill_chunks`` are left out: the port
-always launches its SSD kernel on the card, runs eagerly and does not
-rematerialize.  So are ``norm`` and ``tie_embeddings``: every ``ssm``
-config of the reference uses rmsnorm and a head tied to the embedding,
-and the port's ``Model`` builds exactly that.  ``reduced()`` gives the
-reference's smoke-test numbers.
+always launches its kernels on the card (B4 on every windowless
+attention, B5 on every SSD scan), runs eagerly, does not rematerialize
+and prefills the batch whole.  ``reduced()`` gives the reference's
+smoke-test numbers by the reference's rules.
 """
 from __future__ import annotations
 
@@ -40,18 +42,40 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # only "ssm" is ported (ROADMAP A10)
+    family: str                      # ssm | dense are ported (ROADMAP A10)
     n_layers: int
     d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
     vocab: int
+    head_dim: Optional[int] = None   # explicit; else d_model / n_heads
+    qkv_bias: bool = False
+    qk_norm: bool = False            # per-head RMSNorm on q, k
+    rope: str = "rope"               # rope | none
+    rope_theta: float = 10_000.0
+    mlp_act: str = "swiglu"          # swiglu | gelu
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    tie_embeddings: bool = False
     ssm: Optional[SSMConfig] = None
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    kv_cache_dtype: str = "bfloat16"  # bfloat16 | float32 | int8
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
 
     def reduced(self) -> "ArchConfig":
-        """Small same-family variant for CPU tests (the reference's
-        numbers: 4 layers, d_model 64, vocab 512, float32; for ``ssm``
-        d_state 16, head_dim 16, chunk 32)."""
+        """Small same-family variant for CPU tests, by the reference's
+        rules: 4 layers, d_model 64, d_ff 128, vocab 512, float32; at most
+        4 heads, kv heads at most the heads and 1 where they do not divide
+        them, head_dim 16 where it is explicit; for ``ssm`` d_state 16,
+        head_dim 16, chunk 32.  ``kv_cache_dtype`` is kept."""
+        n_heads = min(self.n_heads, 4) if self.n_heads else 0
+        n_kv = min(self.n_kv_heads, n_heads) if self.n_kv_heads else n_heads
+        if n_kv and n_heads % n_kv:
+            n_kv = 1
         return dataclasses.replace(
             self,
             ssm=dataclasses.replace(self.ssm, d_state=16, head_dim=16, chunk=32)
@@ -59,7 +83,11 @@ class ArchConfig:
             else None,
             n_layers=min(self.n_layers, 4),
             d_model=64,
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            d_ff=128,
             vocab=512,
+            head_dim=16 if self.head_dim is not None else None,
             param_dtype="float32",
             compute_dtype="float32",
         )

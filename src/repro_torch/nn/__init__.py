@@ -1,3 +1,5 @@
-from .core import RMSNorm, dense, embed, gelu, layernorm, rmsnorm, trunc_normal_param, truncated_normal_
+from .core import (LayerNorm, RMSNorm, dense, embed, gelu, layernorm, rmsnorm, scaled_layernorm,
+                   trunc_normal_param, truncated_normal_)
 
-__all__ = ["RMSNorm", "dense", "embed", "gelu", "layernorm", "rmsnorm", "trunc_normal_param", "truncated_normal_"]
+__all__ = ["LayerNorm", "RMSNorm", "dense", "embed", "gelu", "layernorm", "rmsnorm", "scaled_layernorm",
+           "trunc_normal_param", "truncated_normal_"]

@@ -5,7 +5,9 @@ arithmetic matches the reference's pure functions: ``dense`` is
 ``nn.Linear`` (the reference's ``(in, out)`` weight ``w`` is this layer's
 ``weight.T``), ``layernorm`` uses the biased variance with eps 1e-5,
 ``gelu`` is the tanh approximation, and ``rmsnorm`` normalizes in float32
-with eps 1e-6.  Initialization draws from an explicit
+with eps 1e-6.  ``LayerNorm`` (``scaled_layernorm``) is the language
+models' layernorm with its ``scale`` / ``bias`` as ``weight`` / ``bias``,
+at the reference's cast points.  Initialization draws from an explicit
 ``torch.Generator``: the distributions are the reference's, the numbers
 are not (``jax.random`` cannot be reproduced in torch), so parity tests
 load the reference's weights through ``repro_torch.convert``.  Layers are
@@ -20,8 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
 
-__all__ = ["RMSNorm", "dense", "embed", "gelu", "layernorm", "rmsnorm", "softmax_cross_entropy",
-           "trunc_normal_param", "truncated_normal_"]
+__all__ = ["LayerNorm", "RMSNorm", "dense", "embed", "gelu", "layernorm", "rmsnorm", "softmax_cross_entropy",
+           "scaled_layernorm", "trunc_normal_param", "truncated_normal_"]
 
 # std of a unit normal truncated to [-2, 2]: dividing by it keeps the
 # requested stddev after truncation (as the reference's initializer does)
@@ -93,3 +95,30 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rmsnorm(x, self.weight)
+
+
+def scaled_layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """Layer normalization over the last axis at the reference's cast
+    points (``repro/nn/core.py:62-66``): the mean and the biased variance
+    are reduced in float32 (``jnp.mean`` / ``jnp.var`` upcast a bfloat16
+    input) and rounded to ``x``'s dtype; the centring, ``rsqrt``, scale and
+    bias then run in ``x``'s dtype.  ``torch.nn.LayerNorm`` keeps a
+    bfloat16 input in float32 throughout, which the reference does not."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True).to(x.dtype)
+    var = xf.var(-1, unbiased=False, keepdim=True).to(x.dtype)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return y * weight + bias
+
+
+class LayerNorm(nn.Module):
+    """``scaled_layernorm`` with its scale (ones) and bias (zeros)."""
+
+    def __init__(self, dim: int, *, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return scaled_layernorm(x, self.weight, self.bias)

@@ -5,7 +5,13 @@
 no reduced variant.  The port's config equals the reference's field by
 field, all but the reference's ``use_pallas`` switch (the port always runs
 its hand-written attention kernel on the card).  ``ARCH_IDS`` is the
-reference's less the LLM zoo not ported yet (ROADMAP A10).
+reference's less the LLM zoo not ported yet (ROADMAP A10.3-A10.5).  The
+four ``dense`` configs equal the reference's field by field, full and
+reduced, on every field the port has; the fields the port leaves out are
+the reference's switches it does not read (``use_pallas``, ``remat``,
+``scan_layers``, ``prefill_chunks``) and those of the families not ported
+(MoE, MLA, hybrid, frontends, M-RoPE), which these configs leave at their
+defaults.
 """
 import dataclasses
 
@@ -22,7 +28,12 @@ from repro_torch.configs import tao as port_tao  # noqa: E402
 from repro_torch.core.model import TaoConfig  # noqa: E402
 
 # the reference's architectures the port runs
-PORTED = ("mamba2-1.3b",)
+DENSE = ("qwen1.5-32b", "qwen2-0.5b", "stablelm-1.6b", "glm4-9b")
+PORTED = DENSE + ("mamba2-1.3b",)
+# reference ArchConfig fields the port leaves out, and their defaults
+LEFT_OUT = {"mrope_sections": (16, 24, 24), "encoder_only": False, "frontend": None,
+            "frontend_dim": 512, "vision_patches": 64, "moe": None, "mla": None, "hybrid": None,
+            "remat": "full", "scan_layers": True, "use_pallas": False, "prefill_chunks": 1}
 
 
 def as_fields(cfg):
@@ -57,3 +68,19 @@ def test_tao_has_no_reduced_variant(package):
     arch = ref_get_arch if package == "reference" else get_arch
     with pytest.raises(AttributeError, match="reduced"):
         arch("tao", reduced=True)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_config_equals_the_reference_field_by_field(arch, reduced):
+    ref, port = ref_get_arch(arch, reduced=reduced), get_arch(arch, reduced=reduced)
+    ref_fields = dataclasses.asdict(ref)
+    port_fields = dataclasses.asdict(port)
+    assert set(port_fields) | set(LEFT_OUT) == set(ref_fields)
+    assert port_fields == {k: v for k, v in ref_fields.items() if k in port_fields}
+    reduced_defaults = {"remat": "none", "frontend_dim": 32, "vision_patches": 4}
+    for k, v in LEFT_OUT.items():  # the families not ported are off in these configs
+        want = reduced_defaults.get(k, v) if reduced else v
+        assert ref_fields[k] == want, k
+    assert port.resolved_head_dim == ref.resolved_head_dim
+    assert port.family == "dense"

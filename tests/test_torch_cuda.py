@@ -23,6 +23,14 @@ version within atol = rtol = 1e-4 in float32 (summation order and the
 chunk's prefix sum differ) and 2e-2 on bfloat16 outputs (one rounding of
 nearly equal float32 values), its float32 final state within 1e-4 either
 way; one Mamba-2 prefill launches it once per layer, a decode step never.
+B4 with bfloat16 I/O is held to its plain version on the same bfloat16
+inputs within 2^-7 |plain| + 1e-5 max|v| (both compute in float32 and
+round once; the sums' order may put an element one rounding apart), its
+float32 lse within 2e-5, at the dense prefill shapes, Sq != Sk with a
+q_offset, rows that see no key and unaligned strides.  Each dense config
+at full width cut to 2 layers matches the CPU in float32 (2e-4 of the
+largest value), and its prefill launches B4 once per layer, a decode step
+never.
 
 The engine's graphed step (one CUDA graph per geometry, replayed per
 batch) is held to the eager step driven through its cache entry, on every
@@ -120,6 +128,7 @@ CPU's and its graphed train step bitwise the eager one; ``qdense`` at
 every one of its dense layer shapes.
 """
 import contextlib
+import dataclasses
 
 import numpy as np
 import pytest
@@ -142,6 +151,7 @@ from repro_torch.kernels.attention.kernel import (  # noqa: E402
     flash_attention_bwd_cuda,
     flash_attention_cuda,
 )
+from repro_torch.kernels.attention.kernel import launch_info as attention_launch_info  # noqa: E402
 from repro_torch.kernels.attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.attention.ref import attention_bwd_plain, attention_lse_plain, attention_plain  # noqa: E402
 from repro_torch.kernels.features import ops as feature_ops  # noqa: E402
@@ -1668,3 +1678,145 @@ def test_resolution_and_int8_beside_a_capture_on_card(dev, tmp_path):
             models["m1"].simulate(trace, precision="int8")]
     for r, w in zip(out, want):
         assert r.metrics == w.metrics
+
+
+
+# ---------------------------------------------------------------------------
+# The dense family: B4 in bfloat16 and the serving path
+# ---------------------------------------------------------------------------
+
+# B4 in bfloat16 against its plain version on the same bfloat16 inputs:
+# both compute in float32 and round the output once, so an element may
+# land a bfloat16 rounding apart (2^-8 relative; 2^-7 with the sums'
+# order); the absolute term covers outputs near 0
+BF16_RTOL, BF16_ATOL_OF_MAX_V = 2.0**-7, 1e-5
+# (B, H, Sq, Sk, D, causal, q_offset, segmented, seed)
+BF16_ATTN_CASES = {
+    "qwen2_prefill_d64": (4, 14, 2048, 2048, 64, True, 0, False, 20),
+    "glm4_prefill_d128": (4, 32, 2048, 2048, 128, True, 0, False, 21),
+    "q_offset_sq_ne_sk": (2, 4, 40, 300, 64, True, 260, False, 22),
+    "rows_without_keys": (2, 4, 40, 129, 32, False, 100, True, 23),
+}
+
+
+def assert_bf16_close(got, ref, v):
+    assert got.dtype == ref.dtype == torch.bfloat16
+    diff = (got.float() - ref.float()).abs()
+    limit = BF16_RTOL * ref.float().abs() + BF16_ATOL_OF_MAX_V * float(v.float().abs().max())
+    assert bool((diff <= limit).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("case", sorted(BF16_ATTN_CASES))
+def test_attention_kernel_bf16_matches_plain(dev, case):
+    B, H, Sq, Sk, D, causal, off, segmented, seed = BF16_ATTN_CASES[case]
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, H, n, D, generator=g).to(dev, torch.bfloat16) for n in (Sq, Sk, Sk))
+    seg = None
+    if segmented:
+        cuts = torch.sort(torch.randint(1, Sk, (B, 3), generator=g), dim=1).values
+        seg = (torch.arange(Sk)[None, :, None] >= cuts[:, None, :]).sum(-1).to(torch.int32).to(dev)
+    launches = FLASH_ATTENTION.launches
+    got, lse = flash_attention_cuda(q, k, v, seg, causal=causal, q_offset=off, return_lse=True)
+    ref = attention_plain(q, k, v, seg, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION.launches == launches + 1
+    assert_bf16_close(got, ref, v)
+    assert got.transpose(1, 2).is_contiguous()
+    assert lse.dtype == torch.float32
+    want = attention_lse_plain(q, k, seg, causal=causal, q_offset=off)
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(lse), finite)
+    torch.testing.assert_close(lse[finite], want[finite], atol=2e-5, rtol=1e-5)
+
+
+def test_attention_kernel_bf16_takes_unaligned_strides_and_packed_views(dev):
+    """bfloat16 widths and strides that are not multiples of 8 elements take
+    the kernel's element-wise staging; packed q / k / v views of one
+    projection go in at their strides; both match the plain version."""
+    g = torch.Generator().manual_seed(24)
+    base = torch.randn(2, 77, 3, 5, 40, generator=g).to(dev, torch.bfloat16)
+    q, k, v = base.permute(2, 0, 3, 1, 4).unbind(0)
+    got = flash_attention_cuda(q, k, v[..., :36], causal=True)
+    assert_bf16_close(got, attention_plain(q, k, v[..., :36], causal=True), v)
+    odd = torch.randn(2, 3, 77, 43, generator=g).to(dev, torch.bfloat16)
+    q, k, v = odd[..., :21], odd[..., 21:42], odd[..., 1:22]
+    got = flash_attention_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert_bf16_close(got, attention_plain(q, k, v, causal=True), v)
+
+
+def test_attention_kernel_bf16_launch_info_at_the_dense_shapes(dev):
+    for D in (64, 128):
+        info = attention_launch_info(2048, D, D, dtype=torch.bfloat16)
+        assert info["spill_bytes_per_thread"] == 0 and info["blocks_per_sm"] >= 1, (D, info)
+        assert info["regs_per_thread"] <= 255
+
+
+def test_flash_attention_refuses_bf16_that_requires_grad(dev):
+    """The backward on the card is float32; bfloat16 operands under
+    autograd wait for the LLM trainer (ROADMAP A.12b)."""
+    q = torch.randn(1, 2, 16, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="A.12b"):
+        flash_attention(q, q, q, causal=True)
+    with torch.no_grad():
+        assert flash_attention(q, q, q, causal=True).dtype == torch.bfloat16
+
+
+def test_attention_kernel_refuses_mixed_dtypes(dev):
+    q = torch.zeros(1, 1, 4, 64, device=dev)
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_attention_cuda(q, q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
+        flash_attention_cuda(q.half(), q.half(), q.half())
+
+
+DENSE_ARCHS = ("qwen2-0.5b", "stablelm-1.6b", "glm4-9b", "qwen1.5-32b")
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_full_width_two_layers_on_card_matches_cpu(dev, arch):
+    """Each dense config at full width cut to 2 layers, float32, random
+    weights: prefill (logits and cache) and a decode step on the card
+    against the same model on the CPU (plain attention), within 2e-4 of
+    the largest logit; B4 once per layer per prefill, never in a step."""
+    import copy
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 64), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    launches = FLASH_ATTENTION.launches
+    logits, cache = model.prefill(toks)
+    assert FLASH_ATTENTION.launches == launches + cfg.n_layers
+    step, cache = model.decode_step(cache, toks[:, 0], 63)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION.launches == launches + cfg.n_layers
+    cpu = copy.deepcopy(model).to("cpu")
+    del model
+    ref, ref_cache = cpu.prefill(toks.cpu())
+    ref_step, ref_cache = cpu.decode_step(ref_cache, toks[:, 0].cpu(), 63)
+    for got, want in ((logits, ref), (step, ref_step), *((cache[k], ref_cache[k]) for k in ref_cache)):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got.cpu(), want, atol=2e-4 * scale, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "stablelm-1.6b"])
+def test_dense_bf16_serving_launches_b4_per_layer(dev, arch):
+    """bfloat16 at full width, 2 layers: a prefill launches B4 once per layer
+    (on bfloat16 q / k / v), a decode step never; logits finite."""
+    cfg = dataclasses.replace(get_arch(arch), n_layers=2)
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 300), device=dev)
+    launches = FLASH_ATTENTION.launches
+    logits, cache = model.prefill(toks)
+    assert FLASH_ATTENTION.launches == launches + cfg.n_layers
+    assert cache["k"].dtype == torch.bfloat16
+    grown = model.init_cache(2, 302)
+    for k in grown:
+        grown[k][:, :, :300] = cache[k]
+    for i in range(2):
+        logits, grown = model.decode_step(grown, logits.argmax(-1), 300 + i)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION.launches == launches + cfg.n_layers
+    assert torch.isfinite(logits).all()

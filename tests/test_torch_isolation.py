@@ -33,9 +33,14 @@ print(len(names), bad, sorted(names))
 """
 
 # modules the walk must reach: one per subpackage, the persistence,
-# joint-training and serving slices' too, and the paper's config
+# joint-training and serving slices' too, the paper's config and the dense
+# family's modules
 _MUST_WALK = (
     "repro_torch.ckpt.checkpoint",
+    "repro_torch.configs.glm4_9b",
+    "repro_torch.configs.qwen1_5_32b",
+    "repro_torch.configs.qwen2_0_5b",
+    "repro_torch.configs.stablelm_1_6b",
     "repro_torch.configs.tao",
     "repro_torch.core.multiarch",
     "repro_torch.core.selection",
@@ -46,6 +51,9 @@ _MUST_WALK = (
     "repro_torch.engine.runner",
     "repro_torch.engine.scheduler",
     "repro_torch.launch.serve",
+    "repro_torch.models.attention",
+    "repro_torch.models.mlp",
+    "repro_torch.models.rotary",
     "repro_torch.resilience.breaker",
     "repro_torch.resilience.faults",
     "repro_torch.resilience.manifest",
@@ -109,6 +117,28 @@ def test_api_imports_alone_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=_env(),
                          timeout=300, check=True).stdout
     assert out.strip() == "[]"
+
+
+def test_dense_modules_import_alone_without_jax_or_reference():
+    """The dense family's modules and configs imported first in a fresh
+    interpreter, and a reduced dense model built on the CPU, bring in
+    neither JAX nor the reference."""
+    code = ("import sys, repro_torch.models.attention, repro_torch.models.rotary, "
+            "repro_torch.models.mlp; from repro_torch.configs import get_arch; "
+            "from repro_torch.models import Model; "
+            "Model(get_arch('qwen2-0.5b', reduced=True), device='cpu'); "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=_env(),
+                         timeout=300, check=True).stdout
+    assert out.strip() == "[]"
+
+
+def test_bf16_matmul_reductions_stay_float32():
+    """bfloat16 products accumulate in float32 throughout, as XLA's do:
+    cuBLAS's reduced-precision split-K reductions are off."""
+    import repro_torch  # noqa: F401
+
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
 
 
 def test_tf32_is_off():
