@@ -27,8 +27,10 @@ and ``nvcc``.  Phases, one JSON line each:
            q/k/v views the model hands over and on contiguous operands, 1024
            causal keys, q_offset / segment / masked-row cases, with its
            registers, shared memory and blocks per SM; in bfloat16 at the
-           dense prefill shapes (4, 14, 2048, 64) and (4, 32, 2048, 128),
-           causal, timed beside SDPA in bfloat16), its backward (the
+           dense prefill shapes (4, 14, 2048, 64), (4, 32, 2048, 64) and
+           (4, 32, 2048, 128), causal, timed beside SDPA in bfloat16, with
+           the wgmma (HGMMA) and mma.sync (HMMA) instructions of the kernel
+           it launches), its backward (the
            port's own kernel: the Tao training shapes at batch 16 and 64,
            S 17 / 200, D 16 / 64 / 128, causal and not, the edges of its
            16-row and 64-row tiles, widths and strides that are not
@@ -240,7 +242,6 @@ import json
 import logging
 import math
 import os
-import re
 import shutil
 import signal
 import subprocess
@@ -439,9 +440,15 @@ GPU_CPU_REL = 1e-3         # kernel path on the card vs plain path on the CPU
 # sums' order) apart; the absolute term covers outputs near 0
 ATTN_BF16_RTOL = 2.0**-7
 ATTN_BF16_ATOL_OF_MAX_V = 1e-5
+# ...and at least this share of its elements bitwise the plain version's:
+# with P kept in float32 (two bfloat16 terms) both round to the same
+# bfloat16 but where the sums' order tips it; with P rounded to one
+# bfloat16 term far fewer do (tests/test_torch_attention.py models both)
+ATTN_BF16_MIN_BITWISE = 0.99
 # (B, H, S, D) of the dense serving cells' prefill: qwen2-0.5b (14 heads
-# of 64 after the GQA repeat) and glm4-9b / qwen1.5-32b's width (32 of 128)
-ATTN_BF16_SHAPES = ((4, 14, 2048, 64), (4, 32, 2048, 128))
+# of 64 after the GQA repeat), stablelm-1.6b (32 of 64) and glm4-9b /
+# qwen1.5-32b's width (32 of 128)
+ATTN_BF16_SHAPES = ((4, 14, 2048, 64), (4, 32, 2048, 64), (4, 32, 2048, 128))
 # the dense serving cells: prompts x tokens, greedy decode steps
 DENSE_FULL = ("qwen2-0.5b", "stablelm-1.6b")    # full width and depth
 DENSE_CUT = ("glm4-9b", "qwen1.5-32b")          # full width, DENSE_CUT_LAYERS
@@ -875,15 +882,26 @@ def check_attention_kernel(failures, results):
 def check_attention_bf16(failures, results):
     """B4 with bfloat16 I/O at the dense prefill shapes, causal, against its
     plain version on the same bfloat16 inputs (every element within
-    ATTN_BF16_RTOL * |plain| + ATTN_BF16_ATOL_OF_MAX_V * max|v|, and the
-    share that is bitwise equal); its time beside the plain version's and
+    ATTN_BF16_RTOL * |plain| + ATTN_BF16_ATOL_OF_MAX_V * max|v|, and at
+    least ATTN_BF16_MIN_BITWISE of them bitwise equal); its time beside the plain version's and
     SDPA's on the same bfloat16 operands, its bound (FLOPs at the bf16
-    tensor rate, as for B5) and what a launch gets."""
+    tensor rate, as for B5), what a launch gets and the tensor-core
+    instructions of the kernel it launches (wgmma's HGMMA, and no
+    mma.sync HMMA); and the float32 instantiations' (HMMA, no HGMMA)."""
     import torch
 
-    from repro_torch.kernels.attention.kernel import flash_attention_cuda, launch_info
+    from repro_torch.kernels._cuda import sass_counts
+    from repro_torch.kernels.attention.kernel import FLASH_ATTENTION, flash_attention_cuda, launch_info
     from repro_torch.kernels.attention.ref import attention_plain
 
+    sass = sass_counts(FLASH_ATTENTION.source, "attention_kernel")
+    # the float32 (mma.sync) instantiations, by output column tiles of 8
+    f32_sass = {dv8: ops for dv8 in (4, 8, 16)
+                for k, ops in sass.items() if f"attention_kernelILi{dv8}EE" in k}
+    emit({"phase": "kernels", "kernel": "flash_attention", "dtype": "float32", "check": "sass",
+          "dv8": f32_sass})
+    if len(f32_sass) != 3 or any(ops["HGMMA"] or not ops["HMMA"] for ops in f32_sass.values()):
+        failures.append(f"flash_attention float32 SASS: {f32_sass}")
     g = torch.Generator(device="cuda").manual_seed(3)
     readings = {}
     for B, H, S, D in ATTN_BF16_SHAPES:
@@ -902,16 +920,22 @@ def check_attention_bf16(failures, results):
         visible = B * H * S * (S + 1) // 2
         b_ms, b_by = bound(4 * B * H * S * D * 2, visible * 4 * D, BF16_TENSOR_FLOPS_PER_S)
         info = launch_info(S, D, D, dtype=torch.bfloat16)
+        [ops] = [v for k, v in sass.items() if f"wgmmaILi{64 if D <= 64 else 128}E" in k]
         r = {"shape": [B, H, S, D], "max_abs_err": float(diff.max()),
              "bitwise_share": float((a == b).float().mean()), "ok": ok, "ms": ms,
              "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-             "x_bound": ms / b_ms, "x_library": ms / lib_ms, **info}
-        readings[f"d{D}"] = r
+             "x_bound": ms / b_ms, "x_library": ms / lib_ms, **info,
+             "sass_hgmma": ops["HGMMA"], "sass_hmma": ops["HMMA"]}
+        readings[f"h{H}_d{D}"] = r
         emit({"phase": "kernels", "kernel": "flash_attention", "dtype": "bfloat16", "causal": True,
-              "rtol": ATTN_BF16_RTOL, "atol_of_max_v": ATTN_BF16_ATOL_OF_MAX_V, **r})
-        if not ok or info["spill_bytes_per_thread"]:
+              "rtol": ATTN_BF16_RTOL, "atol_of_max_v": ATTN_BF16_ATOL_OF_MAX_V,
+              "min_bitwise_share": ATTN_BF16_MIN_BITWISE, **r})
+        if (not ok or r["bitwise_share"] < ATTN_BF16_MIN_BITWISE or info["spill_bytes_per_thread"]
+                or not r["sass_hgmma"] or r["sass_hmma"]):
             failures.append(f"flash_attention bf16 at {[B, H, S, D]}: ok {ok}, error "
-                            f"{r['max_abs_err']}, spills {info['spill_bytes_per_thread']}")
+                            f"{r['max_abs_err']}, bitwise share {r['bitwise_share']}, "
+                            f"spills {info['spill_bytes_per_thread']}, "
+                            f"HGMMA {r['sass_hgmma']}, HMMA {r['sass_hmma']}")
         del q, k, v, a, b, diff, limit
     keep = ("shape", "max_abs_err", "bitwise_share", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")
@@ -1129,24 +1153,6 @@ def ssd_inputs(B, S, H, P, G, N, dtype, seed):
     return rand(B, S, H, P), dt, A, rand(B, S, G, N, scale=0.5), rand(B, S, G, N, scale=0.5)
 
 
-def sass_hmma_counts(library: Path, kernel: str) -> dict:
-    """HMMA (tensor-core) instructions in each instantiation of ``kernel``
-    in a built library's SASS, from ``cuobjdump -sass``: {mangled name: n}."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
-                          check=True, timeout=300).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = m.group(1) if kernel in m.group(1) else None
-            if name:
-                counts[name] = 0
-        elif name and re.search(r"\bHMMA\b", line):
-            counts[name] += 1
-    return counts
-
-
 def check_ssd_kernel(failures, results):
     """B5 against its plain chunked version (y and the final state) at the
     full mamba2-1.3b prefill shape in float32 and bfloat16, with two
@@ -1157,7 +1163,7 @@ def check_ssd_kernel(failures, results):
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.kernels._cuda import build
+    from repro_torch.kernels._cuda import sass_counts
     from repro_torch.kernels.ssd.kernel import SSD_SCAN, launch_info, ssd_scan_cuda
     from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_sequential_ref
 
@@ -1225,7 +1231,7 @@ def check_ssd_kernel(failures, results):
         failures.append(f"ssd: {info['spill_bytes_per_thread']} spill bytes per thread")
     if info["blocks_per_sm"] < 1:
         failures.append("ssd: no block fits on an SM")
-    hmma = sass_hmma_counts(build([SSD_SCAN.source])[SSD_SCAN.source], "ssd_kernel")
+    hmma = {k: v["HMMA"] for k, v in sass_counts(SSD_SCAN.source, "ssd_kernel").items()}
     if len(hmma) != 2 or not all(hmma.values()):
         failures.append(f"ssd: no tensor-core (HMMA) instructions in an instantiation: {hmma}")
     results["ssd"] = {

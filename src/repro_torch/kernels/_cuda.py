@@ -20,12 +20,15 @@ the kernel is recorded, not run, so ``launch`` adds one to ``captured``
 instead; whoever replays the graph adds its launches (``engine/aot.py``).
 ``KERNELS`` lists every entry point.  Every source also exports
 ``tao_error_string`` (the text of a CUDA error code) for that message.
+``sass_counts`` reads a built library's machine code (``cuobjdump``): which
+tensor-core instructions each kernel holds.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -35,7 +38,7 @@ import torch
 
 __all__ = [
     "CSRC", "BUILD_COUNTERS", "BUILD_DIR", "DEFAULT_BUILD_DIR", "KERNELS", "NVCC_FLAGS", "CudaKernel",
-    "build", "check_cuda_tensor", "library_path",
+    "build", "check_cuda_tensor", "library_path", "sass_counts",
 ]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -110,6 +113,31 @@ def build(sources: Optional[Iterable[Path]] = None) -> Dict[Path, Path]:
                 proc.kill()
                 proc.wait()
     return libs
+
+
+def sass_counts(source: Path, kernel: str) -> Dict[str, Dict[str, int]]:
+    """Instructions in the SASS of the library built from ``source``
+    (``cuobjdump -sass``, from the toolkit beside ``nvcc``), for each
+    function whose mangled name holds ``kernel``: {mangled name: {"HMMA":
+    mma.sync instructions, "HGMMA": wgmma instructions, "total": all
+    instructions}}."""
+    lib = build([source])[source]
+    tool = shutil.which("cuobjdump") or str(Path(_nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            if name:
+                counts[name] = {"HMMA": 0, "HGMMA": 0, "total": 0}
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            counts[name]["total"] += 1
+            for op in ("HMMA", "HGMMA"):
+                counts[name][op] += re.search(rf"\b{op}\b", line) is not None
+    return counts
 
 
 def check_cuda_tensor(

@@ -1,32 +1,42 @@
-"""ctypes binding of the hand-written attention kernel (``csrc/attention.cu``).
+"""ctypes binding of the hand-written attention kernels (``csrc/attention.cu``).
 
 The CUDA counterpart of ``repro/kernels/attention/kernel.py:38``
-(``flash_attention_kernel``).  Both products, ``Q Kᵀ`` and ``P V``, run on
-the tensor cores as ``mma.sync.m16n8k8`` TF32 tiles in the 3xTF32 split
-(each float32 operand as a TF32 high part plus its TF32 remainder, three
-products accumulated in float32): float32-level error, where plain TF32's
-10-bit mantissa would break the port's rule that parity paths keep full
-float32 products.  A warp owns 16 query rows and a block up to 9 warps, so
-a Tao window of 129 rows is one block; keys stream through shared memory
-in double-buffered 64-key ``cp.async`` tiles, and the online softmax runs
-on the accumulator fragments.  At the Tao shape neither the bytes (5.0 µs
-for q, k, v and out over 3.35 TB/s) nor the tensor cores bound it, but the
-latency of the longest warp's chain of dependent steps; the source's
-header says why and ``PERF.md`` what it measured.
+(``flash_attention_kernel``), in two designs behind one entry point.
 
-q, k and v are float32, or all three bfloat16 (the LLM zoo's compute
-dtype): then, as the TPU kernel does for bfloat16 operands, the inputs are
-upcast, both products accumulate in float32 and P stays float32 — a
-bfloat16 value is exact in TF32, so ``Q Kᵀ`` is one TF32 product per step
-and ``P V`` two (P's split) — and the output is rounded once to bfloat16;
-``lse`` stays float32.  They are taken at their strides (the last
-dimension contiguous), and the output, in q's dtype, is allocated as (B,
-Sq, H, Dv) and returned as its (B, H, Sq, Dv) view, so the Tao block
-neither copies its packed projection apart nor its output back together.
-``FLASH_ATTENTION.launches`` counts launches.  With ``return_lse`` the
-kernel also writes each row's log-sum-exp in base 2 (``m + log2(l)`` in
-the units of the scores it exponentiates, +inf for a row that sees no
-key), what the backward needs.
+float32 q, k and v: both products, ``Q Kᵀ`` and ``P V``, run on the tensor
+cores as ``mma.sync.m16n8k8`` TF32 tiles in the 3xTF32 split (each float32
+operand as a TF32 high part plus its TF32 remainder, three products
+accumulated in float32): float32-level error, where plain TF32's 10-bit
+mantissa would break the port's rule that parity paths keep full float32
+products.  A warp owns 16 query rows and a block up to 9 warps, so a Tao
+window of 129 rows is one block; keys stream through shared memory in
+double-buffered 64-key ``cp.async`` tiles, and the online softmax runs on
+the accumulator fragments.  At the Tao shape neither the bytes (5.0 µs for
+q, k, v and out over 3.35 TB/s) nor the tensor cores bound it, but the
+latency of the longest warp's chain of dependent steps.
+
+bfloat16 q, k and v (the LLM zoo's compute dtype): the function is bound
+by the tensor cores (4·D FLOPs per visible pair against 8·D bytes per
+row), and only ``wgmma`` reaches their bf16 rate.  A block is two
+warpgroups of 64 query rows; Q and 64-key K / V tiles sit in shared memory
+in the 128-byte-swizzled layout ``wgmma`` descriptors read; ``S = Q Kᵀ`` is
+a ``wgmma`` chain with both operands from shared memory, and ``P V`` takes
+P from registers as the TPU kernel keeps it, in float32: ``P = P_hi +
+P_lo``, two bfloat16 terms, two ``wgmma`` chains (the dropped part is at
+most 2^-16 of P).  As the TPU kernel does for bfloat16 operands, the
+inputs are upcast, both products accumulate in float32, and the output is
+rounded once to bfloat16; ``lse`` stays float32.  A bfloat16 call
+launches this kernel or raises.
+
+Operands are taken at their strides (the last dimension contiguous), and
+the output, in q's dtype, is allocated as (B, Sq, H, Dv) and returned as
+its (B, H, Sq, Dv) view, so the Tao block neither copies its packed
+projection apart nor its output back together.  ``FLASH_ATTENTION.launches``
+counts launches of either design.  With ``return_lse`` the kernel also
+writes each row's log-sum-exp in base 2 (``m + log2(l)`` in the units of
+the scores it exponentiates, +inf for a row that sees no key), what the
+backward needs.  The sources' headers say what bounds each design and
+``PERF.md`` what it measured.
 
 ``flash_attention_bwd_cuda`` binds the backward (``csrc/attention_bwd.cu``),
 the port's own kernel, for what the Tao trainer gives it (causal or not,

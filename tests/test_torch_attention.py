@@ -256,3 +256,46 @@ def test_bwd_cuda_wrapper_refuses_what_it_does_not_take():
     q = torch.zeros(1, 1, 4, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         port_kernel.flash_attention_bwd_cuda(q, q, q, q, torch.zeros(1, 1, 4), q)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_p_split_into_two_bfloat16_terms_stays_within_the_stated_bound(D):
+    """The bfloat16 kernel's P V (``csrc/attention.cu``): P, float32 in [0,
+    1] as the online softmax makes it, split into P_hi = bf16(P) and P_lo =
+    bf16(P - P_hi), each times bfloat16 V in float32, stays within 2^-15
+    sum_k |P||V| of float32 P V in every row, the bound the kernel's header
+    states (P - P_hi - P_lo is at most 2^-16 |P|).  P_hi alone does not."""
+    rng = np.random.default_rng(40 + D)
+    rows, keys = 64, 2048
+    s = 3.0 * rng.standard_normal((rows, keys)).astype(np.float32)
+    p = torch.from_numpy(np.exp2(s - s.max(-1, keepdims=True)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((keys, D)).astype(np.float32)).to(torch.bfloat16).float()
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    assert torch.equal(p - hi, (p.double() - hi.double()).float())  # the residual is exact
+    want = p @ v
+    bound = 2.0**-15 * (p.abs() @ v.abs())
+    assert bool(((lo @ v + hi @ v) - want).abs().le(bound).all())
+    assert not bool(((hi @ v) - want).abs().le(bound).all())
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_p_split_keeps_the_bfloat16_output_where_one_bfloat16_term_moves_it(D):
+    """Why the card's checks ask the bfloat16 kernel for >= 99% of its
+    output bitwise the plain version's: O = P V / l rounded to bfloat16,
+    with P split into two bfloat16 terms, equals the float32 product's
+    rounding in >= 99% of elements; with P rounded to one bfloat16 term
+    (a kernel that drops P_lo) it does in < 90%."""
+    rng = np.random.default_rng(50 + D)
+    rows, keys = 256, 2048
+    s = rng.standard_normal((rows, keys)).astype(np.float32)  # base-2 scores
+    p = torch.from_numpy(np.exp2(s - s.max(-1, keepdims=True)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((keys, D)).astype(np.float32)).to(torch.bfloat16).float()
+    l = p.sum(-1, keepdim=True)
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    want = (p @ v / l).to(torch.bfloat16)
+    split = ((lo @ v + hi @ v) / l).to(torch.bfloat16)
+    one = (hi @ v / l).to(torch.bfloat16)
+    assert float((split == want).float().mean()) >= 0.99
+    assert float((one == want).float().mean()) < 0.9

@@ -23,14 +23,18 @@ version within atol = rtol = 1e-4 in float32 (summation order and the
 chunk's prefix sum differ) and 2e-2 on bfloat16 outputs (one rounding of
 nearly equal float32 values), its float32 final state within 1e-4 either
 way; one Mamba-2 prefill launches it once per layer, a decode step never.
-B4 with bfloat16 I/O is held to its plain version on the same bfloat16
-inputs within 2^-7 |plain| + 1e-5 max|v| (both compute in float32 and
-round once; the sums' order may put an element one rounding apart), its
-float32 lse within 2e-5, at the dense prefill shapes, Sq != Sk with a
-q_offset, rows that see no key and unaligned strides.  Each dense config
-at full width cut to 2 layers matches the CPU in float32 (2e-4 of the
-largest value), and its prefill launches B4 once per layer, a decode step
-never.
+B4 with bfloat16 I/O (the wgmma kernel) is held to its plain version on
+the same bfloat16 inputs within 2^-7 |plain| + 1e-5 max|v| (both compute
+in float32 and round once; the sums' order may put an element one
+rounding apart) and in >= 99% of elements bitwise (P kept in float32), its
+float32 lse within 2e-5, at the dense prefill shapes
+(qwen2-0.5b, stablelm-1.6b, glm4-9b's width), a full non-causal case,
+ragged tails at width 128, width 80, Sq != Sk with a q_offset, segments,
+rows that see no key and unaligned strides; its SASS holds wgmma (HGMMA)
+and no mma.sync (HMMA), and the float32 kernel's HMMA count is as it
+was.  Each dense config at full width cut to 2 layers matches the CPU in
+float32 (2e-4 of the largest value), and its prefill launches B4 once per
+layer, a decode step never.
 
 The engine's graphed step (one CUDA graph per geometry, replayed per
 batch) is held to the eager step driven through its cache entry, on every
@@ -143,6 +147,7 @@ from repro_torch.engine.aot import WARMUP_RUNS, graph_kernel_names  # noqa: E402
 from repro_torch.core import build_adjusted_trace, build_windows, multi_metric_loss  # noqa: E402
 from repro_torch.core import tao_forward, train_tao_impl, transfer_finetune, warmup_train_step  # noqa: E402
 from repro_torch.core.transfer import to_device  # noqa: E402
+from repro_torch.kernels._cuda import sass_counts  # noqa: E402
 from repro_torch.kernels.attention.kernel import (  # noqa: E402
     BWD_KERNEL_NAMES,
     FLASH_ATTENTION,
@@ -1690,13 +1695,28 @@ def test_resolution_and_int8_beside_a_capture_on_card(dev, tmp_path):
 # land a bfloat16 rounding apart (2^-8 relative; 2^-7 with the sums'
 # order); the absolute term covers outputs near 0
 BF16_RTOL, BF16_ATOL_OF_MAX_V = 2.0**-7, 1e-5
+# ...and at least this share of elements bitwise equal: P kept in float32
+# (two bfloat16 terms) rounds as the plain version does but where the sums'
+# order tips it; P rounded to one bfloat16 term does not (the CPU model of
+# both is in tests/test_torch_attention.py)
+BF16_MIN_BITWISE = 0.99
 # (B, H, Sq, Sk, D, causal, q_offset, segmented, seed)
 BF16_ATTN_CASES = {
     "qwen2_prefill_d64": (4, 14, 2048, 2048, 64, True, 0, False, 20),
     "glm4_prefill_d128": (4, 32, 2048, 2048, 128, True, 0, False, 21),
     "q_offset_sq_ne_sk": (2, 4, 40, 300, 64, True, 260, False, 22),
     "rows_without_keys": (2, 4, 40, 129, 32, False, 100, True, 23),
+    "stablelm_prefill_d64": (4, 32, 2048, 2048, 64, True, 0, False, 25),
+    "full_noncausal_d64": (2, 8, 1024, 1024, 64, False, 0, False, 26),
+    "ragged_s2047_d128": (1, 8, 2047, 2047, 128, True, 0, False, 27),
+    "ragged_s129_d128": (2, 4, 129, 129, 128, True, 0, False, 28),
+    "width_80": (2, 4, 300, 300, 80, True, 0, False, 29),
+    "segments_q_offset_d64": (2, 4, 100, 300, 64, True, 150, True, 30),
 }
+# the float32 (mma.sync) instantiations' HMMA instructions, as in the
+# build from before the bfloat16 path moved to wgmma: {output column tiles
+# of 8: HMMA instructions}
+F32_ATTENTION_HMMA = {4: 210, 8: 378, 16: 750}
 
 
 def assert_bf16_close(got, ref, v):
@@ -1704,6 +1724,8 @@ def assert_bf16_close(got, ref, v):
     diff = (got.float() - ref.float()).abs()
     limit = BF16_RTOL * ref.float().abs() + BF16_ATOL_OF_MAX_V * float(v.float().abs().max())
     assert bool((diff <= limit).all()), float(diff.max())
+    share = float((got == ref).float().mean())
+    assert share >= BF16_MIN_BITWISE, share
 
 
 @pytest.mark.parametrize("case", sorted(BF16_ATTN_CASES))
@@ -1750,6 +1772,40 @@ def test_attention_kernel_bf16_launch_info_at_the_dense_shapes(dev):
         info = attention_launch_info(2048, D, D, dtype=torch.bfloat16)
         assert info["spill_bytes_per_thread"] == 0 and info["blocks_per_sm"] >= 1, (D, info)
         assert info["regs_per_thread"] <= 255
+        assert info["threads_per_block"] == 256 and info["query_blocks"] == 16  # 2 x 64 rows
+
+
+def test_attention_sass_bf16_on_wgmma_and_float32_as_it_was(dev):
+    """Both bfloat16 instantiations (widths 64 and 128) run their products
+    as wgmma (HGMMA) and hold no mma.sync (HMMA); the float32 ones hold the
+    same HMMA count as before and no HGMMA."""
+    sass = sass_counts(FLASH_ATTENTION.source, "attention_kernel")
+    wgmma = {k: v for k, v in sass.items() if "attention_kernel_wgmma" in k}
+    assert len(wgmma) == 2, sorted(sass)
+    for name, ops in wgmma.items():
+        assert ops["HGMMA"] > 0 and ops["HMMA"] == 0, (name, ops)
+    for dv8, hmma in F32_ATTENTION_HMMA.items():
+        [ops] = [v for k, v in sass.items() if f"attention_kernelILi{dv8}E" in k]
+        assert (ops["HMMA"], ops["HGMMA"]) == (hmma, 0), (dv8, ops)
+
+
+def test_bf16_calls_launch_the_wgmma_kernel_and_float32_the_mma_sync_one(dev):
+    """By the profiler: a bfloat16 call of ``flash_attention`` runs one
+    kernel, the wgmma one, at either width; a float32 call the mma.sync one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    for D, dtype, piece in ((64, torch.bfloat16, "attention_kernel_wgmma<64>"),
+                            (128, torch.bfloat16, "attention_kernel_wgmma<128>"),
+                            (64, torch.float32, "attention_kernel<8>")):
+        x = torch.randn(1, 2, 300, D, generator=g, device=dev).to(dtype)
+        flash_attention(x, x, x, causal=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flash_attention(x, x, x, causal=True)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if "attention_kernel" in e.key]
+        assert len(names) == 1 and piece in names[0], (D, dtype, names)
 
 
 def test_flash_attention_refuses_bf16_that_requires_grad(dev):
