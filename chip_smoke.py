@@ -28,7 +28,9 @@ and ``nvcc``.  Phases, one JSON line each:
            causal keys, q_offset / segment / masked-row cases, with its
            registers, shared memory and blocks per SM; in bfloat16 at the
            dense prefill shapes (4, 14, 2048, 64), (4, 32, 2048, 64) and
-           (4, 32, 2048, 128), causal, timed beside SDPA in bfloat16, with
+           (4, 32, 2048, 128), causal, qwen2-vl-2b's (4, 12, 2048, 128),
+           causal, and hubert-xlarge's (4, 16, 2048, 80), bidirectional,
+           timed beside SDPA in bfloat16, with
            the wgmma (HGMMA) and mma.sync (HMMA) instructions of the kernel
            it launches), its backward (the
            port's own kernel: the Tao training shapes at batch 16 and 64,
@@ -219,12 +221,24 @@ and ``nvcc``.  Phases, one JSON line each:
            peak bytes and the profiles of one prefill and one step; for the
            two full-depth models the prefill/decode handoff on a float32
            copy of the weights, and the card against the CPU at 2 layers
-           and 256 tokens.
+           and 256 tokens;
+  vlm_audio  the vlm and audio families at full width and depth (bfloat16,
+           random weights from a CUDA generator, seed 0): qwen2-vl-2b (28
+           layers, M-RoPE, GQA 6:1 at head dim 128) served as the dense
+           cells are, each prompt with 64 random patches of width 1280
+           over its first positions (B4 once per layer per prefill, none
+           in a decode step; the handoff and the card against the CPU
+           with the patches); hubert-xlarge (48 layers, 16 heads of 80)
+           through Model.encode of 4 x 2048 random frames of width 512
+           (B4 once per layer, bidirectional, by the counter and the
+           profiler; frames/s, weight and peak bytes, a profile, finite
+           (B, S, 504) logits) and the card against the CPU at 2 layers
+           and 256 frames.
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main path, error, times and bound (B4's and its backward's entries also
 hold their readings at the paper's width, B4's its bfloat16 readings and
-the dense cells' launches); the card's name and power limit
+the dense, vlm and audio cells' launches); the card's name and power limit
 as ``nvidia-smi`` prints them; and, last, the device line.  With phase
 names as arguments, the build and those phases run, and the last line is
 the device line with the phases' names; no kernels line.  Any failed check
@@ -445,16 +459,22 @@ ATTN_BF16_ATOL_OF_MAX_V = 1e-5
 # bfloat16 but where the sums' order tips it; with P rounded to one
 # bfloat16 term far fewer do (tests/test_torch_attention.py models both)
 ATTN_BF16_MIN_BITWISE = 0.99
-# (B, H, S, D) of the dense serving cells' prefill: qwen2-0.5b (14 heads
-# of 64 after the GQA repeat), stablelm-1.6b (32 of 64) and glm4-9b /
-# qwen1.5-32b's width (32 of 128)
-ATTN_BF16_SHAPES = ((4, 14, 2048, 64), (4, 32, 2048, 64), (4, 32, 2048, 128))
+# (B, H, S, D, causal) of the serving cells' attention: the dense
+# prefills of qwen2-0.5b (14 heads of 64 after the GQA repeat),
+# stablelm-1.6b (32 of 64) and glm4-9b / qwen1.5-32b's width (32 of 128);
+# qwen2-vl-2b's prefill (12 of 128 after the GQA repeat); hubert-xlarge's
+# encode (16 of 80, bidirectional)
+ATTN_BF16_SHAPES = ((4, 14, 2048, 64, True), (4, 32, 2048, 64, True), (4, 32, 2048, 128, True),
+                    (4, 12, 2048, 128, True), (4, 16, 2048, 80, False))
 # the dense serving cells: prompts x tokens, greedy decode steps
 DENSE_FULL = ("qwen2-0.5b", "stablelm-1.6b")    # full width and depth
 DENSE_CUT = ("glm4-9b", "qwen1.5-32b")          # full width, DENSE_CUT_LAYERS
 DENSE_CUT_LAYERS = 2
 DENSE_BATCH, DENSE_PROMPT, DENSE_DECODE = 4, 2048, 32
 DENSE_CPU_LAYERS, DENSE_CPU_SEQ = 2, 256
+# the vlm_audio cells run the dense cells' traffic; hubert's frames are
+# HuBERT's 20 ms hops, so 4 x 2048 frames are 4 clips of ~41 s
+HUBERT_FRAME_S = 0.02
 
 
 def emit(obj) -> None:
@@ -880,8 +900,9 @@ def check_attention_kernel(failures, results):
 
 
 def check_attention_bf16(failures, results):
-    """B4 with bfloat16 I/O at the dense prefill shapes, causal, against its
-    plain version on the same bfloat16 inputs (every element within
+    """B4 with bfloat16 I/O at the serving cells' shapes (ATTN_BF16_SHAPES,
+    causal or not) against its plain version on the same bfloat16 inputs
+    (every element within
     ATTN_BF16_RTOL * |plain| + ATTN_BF16_ATOL_OF_MAX_V * max|v|, and at
     least ATTN_BF16_MIN_BITWISE of them bitwise equal); its time beside the plain version's and
     SDPA's on the same bfloat16 operands, its bound (FLOPs at the bf16
@@ -904,41 +925,41 @@ def check_attention_bf16(failures, results):
         failures.append(f"flash_attention float32 SASS: {f32_sass}")
     g = torch.Generator(device="cuda").manual_seed(3)
     readings = {}
-    for B, H, S, D in ATTN_BF16_SHAPES:
+    for B, H, S, D, causal in ATTN_BF16_SHAPES:
         q, k, v = (torch.randn(B, H, S, D, generator=g, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
-        a = flash_attention_cuda(q, k, v, causal=True)
-        b = attention_plain(q, k, v, causal=True)
+        a = flash_attention_cuda(q, k, v, causal=causal)
+        b = attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
         diff = (a.float() - b.float()).abs()
         limit = ATTN_BF16_RTOL * b.float().abs() + ATTN_BF16_ATOL_OF_MAX_V * float(v.float().abs().max())
         ok = bool(torch.all(diff <= limit)) and a.dtype == torch.bfloat16
-        ms = graph_ms(lambda: flash_attention_cuda(q, k, v, causal=True))
-        plain_ms = cuda_ms(lambda: attention_plain(q, k, v, causal=True), 5)
+        ms = graph_ms(lambda: flash_attention_cuda(q, k, v, causal=causal))
+        plain_ms = cuda_ms(lambda: attention_plain(q, k, v, causal=causal), 5)
         lib_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True))
-        visible = B * H * S * (S + 1) // 2
+            q, k, v, is_causal=causal))
+        visible = B * H * S * (S + 1) // 2 if causal else B * H * S * S
         b_ms, b_by = bound(4 * B * H * S * D * 2, visible * 4 * D, BF16_TENSOR_FLOPS_PER_S)
         info = launch_info(S, D, D, dtype=torch.bfloat16)
         [ops] = [v for k, v in sass.items() if f"wgmmaILi{64 if D <= 64 else 128}E" in k]
-        r = {"shape": [B, H, S, D], "max_abs_err": float(diff.max()),
+        r = {"shape": [B, H, S, D], "causal": causal, "max_abs_err": float(diff.max()),
              "bitwise_share": float((a == b).float().mean()), "ok": ok, "ms": ms,
              "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
              "x_bound": ms / b_ms, "x_library": ms / lib_ms, **info,
              "sass_hgmma": ops["HGMMA"], "sass_hmma": ops["HMMA"]}
         readings[f"h{H}_d{D}"] = r
-        emit({"phase": "kernels", "kernel": "flash_attention", "dtype": "bfloat16", "causal": True,
+        emit({"phase": "kernels", "kernel": "flash_attention", "dtype": "bfloat16",
               "rtol": ATTN_BF16_RTOL, "atol_of_max_v": ATTN_BF16_ATOL_OF_MAX_V,
               "min_bitwise_share": ATTN_BF16_MIN_BITWISE, **r})
         if (not ok or r["bitwise_share"] < ATTN_BF16_MIN_BITWISE or info["spill_bytes_per_thread"]
                 or not r["sass_hgmma"] or r["sass_hmma"]):
-            failures.append(f"flash_attention bf16 at {[B, H, S, D]}: ok {ok}, error "
-                            f"{r['max_abs_err']}, bitwise share {r['bitwise_share']}, "
+            failures.append(f"flash_attention bf16 at {[B, H, S, D]}, causal {causal}: ok {ok}, "
+                            f"error {r['max_abs_err']}, bitwise share {r['bitwise_share']}, "
                             f"spills {info['spill_bytes_per_thread']}, "
                             f"HGMMA {r['sass_hgmma']}, HMMA {r['sass_hmma']}")
         del q, k, v, a, b, diff, limit
-    keep = ("shape", "max_abs_err", "bitwise_share", "ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")
+    keep = ("shape", "causal", "max_abs_err", "bitwise_share", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "regs_per_thread", "blocks_per_sm")
     results.setdefault("flash_attention", {})["bf16"] = {
         name: {k: r[k] for k in keep} for name, r in readings.items()}
 
@@ -4169,15 +4190,17 @@ def phase_mamba2(failures, results, traces):
           "gpu_ssd_launches": g_launches, "cpu_seconds": cpu_s, "ok": ok})
 
 
-def dense_serve(failures, cfg, gen) -> dict:
-    """One dense model at ``cfg`` (bfloat16, random weights from ``gen``):
-    a warm-up prefill and step, then prefill of DENSE_BATCH x DENSE_PROMPT
-    tokens and DENSE_DECODE greedy steps into a cache grown by DENSE_DECODE
-    positions, with every kernel's launches read around each call (B4 once
-    per layer per prefill, nothing else, and no launch in a decode step),
-    tokens/s, ms per step, weight and peak bytes, and the profiles of one
-    prefill and one step (B4's device ms and launches from the profiler).
-    Returns the model, the prompts and the reading."""
+def dense_serve(failures, cfg, gen, phase="dense") -> tuple:
+    """One decoder at ``cfg`` (bfloat16, random weights from ``gen``): a
+    warm-up prefill and step, then prefill of DENSE_BATCH x DENSE_PROMPT
+    tokens (for a ``vlm``, with ``vision_patches`` random patches each,
+    from ``gen``) and DENSE_DECODE greedy steps into a cache grown by
+    DENSE_DECODE positions, with every kernel's launches read around each
+    call (B4 once per layer per prefill, nothing else, and no launch in a
+    decode step), tokens/s, ms per step, weight and peak bytes, and the
+    profiles of one prefill and one step (B4's device ms and launches from
+    the profiler).  Returns the model, the prompts, the patches (None but
+    for a ``vlm``) and the reading."""
     import torch
 
     from repro_torch.models import Model
@@ -4189,7 +4212,11 @@ def dense_serve(failures, cfg, gen) -> dict:
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
     prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
-    logits, cache = model.prefill(prompts)  # warm-up: cuBLAS handles, allocator pools
+    patches = None
+    if cfg.family == "vlm":
+        patches = torch.randn(B, cfg.vision_patches, cfg.frontend_dim, generator=gen,
+                              device="cuda").to(model.cd)
+    logits, cache = model.prefill(prompts, patches)  # warm-up: cuBLAS handles, allocator pools
     model.decode_step(cache, logits.argmax(-1), S)
     del logits, cache
     torch.cuda.synchronize()
@@ -4198,7 +4225,7 @@ def dense_serve(failures, cfg, gen) -> dict:
 
     zero_counts()
     t0 = time.perf_counter()
-    logits, pre = model.prefill(prompts)
+    logits, pre = model.prefill(prompts, patches)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     p_launches = read_counts()
@@ -4223,19 +4250,20 @@ def dense_serve(failures, cfg, gen) -> dict:
     expected_p = none | {"flash_attention": cfg.n_layers}
     track = ("attention_kernel",)
     groups = {"b4": track, "gemm": ("nvjet", "gemm", "gemv"), "copy": ("copy", "Copy")}
-    prof_p = profile_breakdown(lambda: model.prefill(prompts), track=track, groups=groups)
+    prof_p = profile_breakdown(lambda: model.prefill(prompts, patches), track=track, groups=groups)
     prof_d = profile_breakdown(lambda: model.decode_step(cache, tok, S + steps - 1), track=track,
                                groups=groups)
     prof_launches = [sum(p.get("tracked_count", {}).values()) for p in (prof_p, prof_d)]
     if p_launches != expected_p or prof_launches != [cfg.n_layers, 0]:
-        failures.append(f"dense {cfg.name}: prefill launches {p_launches} (profiler "
+        failures.append(f"{phase} {cfg.name}: prefill launches {p_launches} (profiler "
                         f"{prof_launches[0]}), expected {expected_p}")
     if any(d != none for d in d_launches) or prof_launches[1]:
-        failures.append(f"dense {cfg.name}: a decode step launched a kernel: {d_launches}")
+        failures.append(f"{phase} {cfg.name}: a decode step launched a kernel: {d_launches}")
     if not finite:
-        failures.append(f"dense {cfg.name}: non-finite logits")
+        failures.append(f"{phase} {cfg.name}: non-finite logits")
     reading = {"config": cfg.name, "dtype": cfg.compute_dtype, "layers": cfg.n_layers,
                "params": n_params, "init_seconds": init_s, "batch": B, "prompt_tokens": S,
+               **({"patches": list(patches.shape)} if patches is not None else {}),
                "prefill_seconds": prefill_s, "prefill_tokens_per_s": B * S / prefill_s,
                "prefill_launches": p_launches, "prefill_b4_launches_profiler": prof_launches[0],
                "decode_steps": steps,
@@ -4245,20 +4273,21 @@ def dense_serve(failures, cfg, gen) -> dict:
                "decode_b4_launches": [d["flash_attention"] for d in d_launches],
                "decode_b4_launches_profiler": prof_launches[1],
                "weights_bytes": base, "peak_bytes": peak, "finite_logits": finite}
-    emit({"phase": "dense", **reading})
+    emit({"phase": phase, **reading})
     for call, prof in (("prefill", prof_p), ("decode_step", prof_d)):
-        emit({"phase": "dense", "config": cfg.name, "check": "profile", "call": call, **prof})
+        emit({"phase": phase, "config": cfg.name, "check": "profile", "call": call, **prof})
     reading["prefill_b4_device_ms"] = sum(prof_p["tracked_ms"].values())
     del cache, logits
-    return model, prompts, reading
+    return model, prompts, patches, reading
 
 
-def dense_handoff_and_cpu(failures, model, prompts):
+def dense_handoff_and_cpu(failures, model, prompts, patches=None, phase="dense"):
     """On a float32 copy of ``model``'s weights: the handoff (the last
     logits of prefill(p + t) against prefill(p), then decode_step(t)) at
     the full prompt, and the card's path against the same model on the CPU
     (the plain versions) at DENSE_CPU_LAYERS layers and DENSE_CPU_SEQ
-    tokens: prefill logits, every cache leaf and one decode step."""
+    tokens: prefill logits, every cache leaf and one decode step.  A
+    ``vlm``'s ``patches`` go with every prefill."""
     import torch
 
     from repro_torch.models import Model
@@ -4270,16 +4299,16 @@ def dense_handoff_and_cpu(failures, model, prompts):
     m32.load_state_dict(model.state_dict())
     tok = torch.randint(0, cfg.vocab, (prompts.shape[0],), device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(2))
-    full, _ = m32.prefill(torch.cat([prompts, tok[:, None]], dim=1))
-    _, cache32 = m32.prefill(prompts)
+    full, _ = m32.prefill(torch.cat([prompts, tok[:, None]], dim=1), patches)
+    _, cache32 = m32.prefill(prompts, patches)
     dec, _ = m32.decode_step(cache32, tok, S)
     torch.cuda.synchronize()
     handoff = rel_diff(dec, full)
     del cache32
     ok = handoff <= HANDOFF_REL and bool(torch.isfinite(full).all())
     if not ok:
-        failures.append(f"dense {cfg.name}: prefill/decode handoff {handoff} > {HANDOFF_REL}")
-    emit({"phase": "dense", "config": cfg.name, "check": "handoff_f32", "prompt_tokens": S,
+        failures.append(f"{phase} {cfg.name}: prefill/decode handoff {handoff} > {HANDOFF_REL}")
+    emit({"phase": phase, "config": cfg.name, "check": "handoff_f32", "prompt_tokens": S,
           "max_abs_diff_rel_to_max_logit": handoff, "limit": HANDOFF_REL, "ok": ok})
 
     cfg_cut = dataclasses.replace(cfg32, n_layers=DENSE_CPU_LAYERS)
@@ -4291,13 +4320,14 @@ def dense_handoff_and_cpu(failures, model, prompts):
     cpu = Model(cfg_cut, device="cpu", generator=torch.Generator().manual_seed(1))
     cpu.load_state_dict({k: v.cpu() for k, v in sd.items()})
     toks = prompts[:2, :DENSE_CPU_SEQ]
+    pt = patches[:2] if patches is not None else None
     zero_counts()
-    g_logits, g_cache = gpu.prefill(toks)
+    g_logits, g_cache = gpu.prefill(toks, pt)
     g_step, g_cache = gpu.decode_step(g_cache, toks[:, 0], DENSE_CPU_SEQ - 1)
     torch.cuda.synchronize()
     g_launches = read_counts()["flash_attention"]
     t0 = time.perf_counter()
-    c_logits, c_cache = cpu.prefill(toks.cpu())
+    c_logits, c_cache = cpu.prefill(toks.cpu(), pt.cpu() if pt is not None else None)
     c_step, c_cache = cpu.decode_step(c_cache, toks[:, 0].cpu(), DENSE_CPU_SEQ - 1)
     cpu_s = time.perf_counter() - t0
     diffs = {"prefill_logits": rel_diff(g_logits.cpu(), c_logits),
@@ -4305,9 +4335,9 @@ def dense_handoff_and_cpu(failures, model, prompts):
              **{f"cache_{k}": rel_diff(g_cache[k].cpu(), c_cache[k]) for k in c_cache}}
     ok = max(diffs.values()) <= GPU_CPU_REL and g_launches == DENSE_CPU_LAYERS
     if not ok:
-        failures.append(f"dense {cfg.name}: GPU and CPU disagree beyond {GPU_CPU_REL}: {diffs}, "
-                        f"{g_launches} B4 launches")
-    emit({"phase": "dense", "config": cfg.name, "check": "gpu_vs_cpu", "layers": DENSE_CPU_LAYERS,
+        failures.append(f"{phase} {cfg.name}: GPU and CPU disagree beyond {GPU_CPU_REL}: "
+                        f"{diffs}, {g_launches} B4 launches")
+    emit({"phase": phase, "config": cfg.name, "check": "gpu_vs_cpu", "layers": DENSE_CPU_LAYERS,
           "tokens": list(toks.shape), "rel_diffs": diffs, "limit": GPU_CPU_REL,
           "gpu_b4_launches": g_launches, "cpu_seconds": cpu_s, "ok": ok})
 
@@ -4325,14 +4355,10 @@ def phase_dense(failures, results, traces):
         if name in DENSE_CUT:
             cfg = dataclasses.replace(cfg, n_layers=DENSE_CUT_LAYERS)
         gen = torch.Generator(device="cuda").manual_seed(0)
-        model, prompts, reading = dense_serve(failures, cfg, gen)
+        model, prompts, _, reading = dense_serve(failures, cfg, gen)
         if name in DENSE_FULL and not failures:
             dense_handoff_and_cpu(failures, model, prompts)
-        keep = ("layers", "prefill_tokens_per_s", "decode_ms_per_step_median", "peak_bytes",
-                "prefill_b4_device_ms")
-        readings[name] = {"launches_per_prefill": reading["prefill_launches"]["flash_attention"],
-                          "launches_per_decode_step": max(reading["decode_b4_launches"]),
-                          **{k: reading[k] for k in keep}}
+        readings[name] = serve_summary(reading)
         del model, prompts
         torch.cuda.empty_cache()
         if failures:
@@ -4341,10 +4367,142 @@ def phase_dense(failures, results, traces):
     emit({"phase": "dense", "check": "seconds", "seconds": time.perf_counter() - t0})
 
 
+def serve_summary(reading) -> dict:
+    """What the kernels line keeps of a decoder's serving reading."""
+    keep = ("layers", "prefill_tokens_per_s", "decode_ms_per_step_median", "peak_bytes",
+            "prefill_b4_device_ms")
+    return {"launches_per_prefill": reading["prefill_launches"]["flash_attention"],
+            "launches_per_decode_step": max(reading["decode_b4_launches"]),
+            **{k: reading[k] for k in keep}}
+
+
+def audio_encode(failures, cfg, gen) -> tuple:
+    """The encoder at ``cfg`` (bfloat16, random weights from ``gen``): a
+    warm-up encode, then ``Model.encode`` of DENSE_BATCH x DENSE_PROMPT
+    random frames (from ``gen``) with every kernel's launches read around
+    it (B4 once per layer, bidirectional, nothing else), frames/s, weight
+    and peak bytes and its profile (B4's device ms and launches from the
+    profiler).  Returns the model, the frames and the reading."""
+    import torch
+
+    from repro_torch.models import Model
+
+    B, S = DENSE_BATCH, DENSE_PROMPT
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    frames = torch.randn(B, S, cfg.frontend_dim, generator=gen, device="cuda").to(model.cd)
+    model.encode(frames)  # warm-up: cuBLAS handles, allocator pools
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    logits = model.encode(frames)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(logits).all())
+    track = ("attention_kernel",)
+    groups = {"b4": track, "gemm": ("nvjet", "gemm", "gemv"), "copy": ("copy", "Copy")}
+    prof = profile_breakdown(lambda: model.encode(frames), track=track, groups=groups)
+    prof_launches = sum(prof.get("tracked_count", {}).values())
+    expected = {k: 0 for k in launches} | {"flash_attention": cfg.n_layers}
+    if launches != expected or prof_launches != cfg.n_layers:
+        failures.append(f"vlm_audio {cfg.name}: encode launches {launches} (profiler "
+                        f"{prof_launches}), expected {expected}")
+    if not finite or tuple(logits.shape) != (B, S, cfg.vocab) or logits.dtype != torch.float32:
+        failures.append(f"vlm_audio {cfg.name}: encode gave {logits.dtype} "
+                        f"{tuple(logits.shape)}, finite {finite}")
+    reading = {"config": cfg.name, "dtype": cfg.compute_dtype, "layers": cfg.n_layers,
+               "params": n_params, "init_seconds": init_s, "batch": B, "frames": S,
+               "audio_seconds": B * S * HUBERT_FRAME_S, "encode_seconds": encode_s,
+               "frames_per_s": B * S / encode_s, "encode_launches": launches,
+               "encode_b4_launches_profiler": prof_launches, "weights_bytes": base,
+               "peak_bytes": peak, "logits": list(logits.shape), "finite_logits": finite}
+    emit({"phase": "vlm_audio", **reading})
+    emit({"phase": "vlm_audio", "config": cfg.name, "check": "profile", "call": "encode", **prof})
+    reading["encode_b4_device_ms"] = sum(prof["tracked_ms"].values())
+    return model, frames, reading
+
+
+def audio_cpu(failures, model, frames):
+    """The encoder's path on the card (B4) against the same model on the CPU
+    (the plain versions), float32, at DENSE_CPU_LAYERS layers and
+    DENSE_CPU_SEQ frames: the frame logits."""
+    import torch
+
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(model.cfg, param_dtype="float32", compute_dtype="float32",
+                              n_layers=DENSE_CPU_LAYERS)
+    sd = {k: v for k, v in model.state_dict().items()
+          if not k.startswith("layers.") or int(k.split(".")[1]) < DENSE_CPU_LAYERS}
+    gpu = Model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+    gpu.load_state_dict(sd)
+    cpu = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    cpu.load_state_dict({k: v.cpu() for k, v in sd.items()})
+    fr = frames[:2, :DENSE_CPU_SEQ].float()
+    zero_counts()
+    g = gpu.encode(fr)
+    torch.cuda.synchronize()
+    g_launches = read_counts()["flash_attention"]
+    t0 = time.perf_counter()
+    c = cpu.encode(fr.cpu())
+    cpu_s = time.perf_counter() - t0
+    diff = rel_diff(g.cpu(), c)
+    ok = diff <= GPU_CPU_REL and g_launches == DENSE_CPU_LAYERS
+    if not ok:
+        failures.append(f"vlm_audio {cfg.name}: GPU and CPU encodes disagree beyond "
+                        f"{GPU_CPU_REL}: {diff}, {g_launches} B4 launches")
+    emit({"phase": "vlm_audio", "config": cfg.name, "check": "gpu_vs_cpu",
+          "layers": DENSE_CPU_LAYERS, "frames": list(fr.shape),
+          "rel_diffs": {"encode_logits": diff},
+          "limit": GPU_CPU_REL, "gpu_b4_launches": g_launches, "cpu_seconds": cpu_s, "ok": ok})
+
+
+def phase_vlm_audio(failures, results, traces):
+    """qwen2-vl-2b's serving path and hubert-xlarge's encoder at full width
+    and depth (module note)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    t0 = time.perf_counter()
+    readings = {}
+    cfg = get_arch("qwen2-vl-2b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model, prompts, patches, reading = dense_serve(failures, cfg, gen, phase="vlm_audio")
+    if not failures:
+        dense_handoff_and_cpu(failures, model, prompts, patches, phase="vlm_audio")
+    readings[cfg.name] = serve_summary(reading)
+    del model, prompts, patches
+    torch.cuda.empty_cache()
+    if not failures:
+        cfg = get_arch("hubert-xlarge")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model, frames, reading = audio_encode(failures, cfg, gen)
+        if not failures:
+            audio_cpu(failures, model, frames)
+        readings[cfg.name] = {
+            "launches_per_encode": reading["encode_launches"]["flash_attention"],
+            **{k: reading[k] for k in ("layers", "frames_per_s", "peak_bytes",
+                                       "encode_b4_device_ms")}}
+        del model, frames
+        torch.cuda.empty_cache()
+    results.setdefault("flash_attention", {})["vlm_audio"] = readings
+    emit({"phase": "vlm_audio", "check": "seconds", "seconds": time.perf_counter() - t0})
+
+
 PHASES = {"build": phase_build, "kernels": phase_kernels, "slice": phase_slice,
           "sweep": phase_sweep, "train": phase_train, "persist": phase_persist,
           "joint": phase_joint, "session": phase_session, "serve": phase_serve,
-          "paper": phase_paper, "mamba2": phase_mamba2, "dense": phase_dense}
+          "paper": phase_paper, "mamba2": phase_mamba2, "dense": phase_dense,
+          "vlm_audio": phase_vlm_audio}
 
 
 def main(argv) -> int:

@@ -5,9 +5,10 @@ Counterpart of ``repro/configs/__init__.py``.  ``get_arch("qwen2-0.5b")``
 ``get_arch("tao")`` -> the paper's ``TaoConfig`` (not an ``ArchConfig``, so
 not in ``ARCH_IDS``; it has no reduced variant, and ``reduced=True``
 raises ``AttributeError`` as the reference's does).  ``ARCH_IDS`` lists
-the ported ids in the reference's order: the ``dense`` family and
-``mamba2-1.3b``; the ``vlm`` / ``audio``, ``moe`` and ``hybrid`` families
-are ROADMAP items A10.3-A10.5.
+the ported ids in the reference's order: the ``dense`` family,
+``mamba2-1.3b``, ``hubert-xlarge`` (``audio``) and ``qwen2-vl-2b``
+(``vlm``); the ``moe`` and ``hybrid`` families are ROADMAP items
+A10.4-A10.5.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ _MODULES = {
     "stablelm-1.6b": "stablelm_1_6b",
     "glm4-9b": "glm4_9b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "hubert-xlarge": "hubert_xlarge",
+    "qwen2-vl-2b": "qwen2_vl_2b",
     "tao": "tao",
 }
 
@@ -34,7 +37,7 @@ def get_arch(name: str, reduced: bool = False) -> ArchConfig:
     if name not in _MODULES:
         raise KeyError(
             f"architecture {name!r} is not ported (have {sorted(_MODULES)}); the "
-            "vlm / audio, moe and hybrid families are ROADMAP items A10.3-A10.5"
+            "moe and hybrid families are ROADMAP items A10.4-A10.5"
         )
     mod = importlib.import_module(f".{_MODULES[name]}", __package__)
     cfg: ArchConfig = mod.CONFIG

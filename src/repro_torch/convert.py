@@ -16,7 +16,9 @@ stacked on a leading axis: it unstacks them into ``layers.{i}`` and maps
 ``table`` / ``scale`` -> ``weight`` (a layernorm's ``bias`` keeps its
 name).  The ``(in, out)`` arrays become ``nn.Linear`` weights,
 TRANSPOSED: the Mamba-2 mixer's ``in_proj`` / ``out_proj``, the MLP's
-``w_up`` / ``w_gate`` / ``w_down`` and an untied ``lm_head`` ``(d, V)``.
+``w_up`` / ``w_gate`` / ``w_down``, an untied ``lm_head`` ``(d, V)`` and
+the modality stub's ``frontend`` / ``proj`` ``(frontend_dim, d)``, which
+becomes ``frontend.proj.weight``.
 The dense attention's projections are RESHAPED as well: ``wq`` / ``wk`` /
 ``wv`` ``(d, H, hd)`` are flattened to ``(d, H·hd)``, transposed and
 CONCATENATED along the output axis into the port's packed ``qkv.weight``
@@ -53,7 +55,7 @@ __all__ = ["lm_params_from_jax", "params_from_jax", "params_to_jax", "qparams_fr
 # become nn.Linear weights, transposed
 _TAO_LEAVES = {"table": "weight", "w": "weight", "b": "bias", "scale": "weight", "bias": "bias"}
 _TAO_TRANSPOSED = frozenset({"w"})
-_LM_LINEAR = ("in_proj", "out_proj", "w_up", "w_gate", "w_down", "lm_head")
+_LM_LINEAR = ("in_proj", "out_proj", "w_up", "w_gate", "w_down", "lm_head", "proj")
 _LM_LEAVES = {"table": "weight", "scale": "weight", **{k: f"{k}.weight" for k in _LM_LINEAR}}
 _LM_TRANSPOSED = frozenset(_LM_LINEAR)
 # the leaves that mark a quantized layer, whose leaves are renamed by

@@ -1,5 +1,5 @@
-"""Standard attention (MHA / GQA / MQA) with RoPE, QKV bias and QK-norm, and
-its KV-cache decode path, in PyTorch.
+"""Standard attention (MHA / GQA / MQA) with RoPE or M-RoPE, QKV bias and
+QK-norm, and its KV-cache decode path, in PyTorch.
 
 Counterpart of the standard half of ``repro/models/attention.py``:
 ``init_attention``'s distributions, ``_project_qkv``, ``_attend``,
@@ -44,7 +44,7 @@ from torch import nn
 from ..kernels.attention.ops import flash_attention
 from ..nn.core import RMSNorm, rmsnorm, trunc_normal_param
 from .config import ArchConfig
-from .rotary import apply_rope
+from .rotary import apply_mrope, apply_rope, text_mrope_positions
 
 __all__ = ["Attention", "apply_kv_cache_update", "init_kv_cache", "quantize_kv"]
 
@@ -91,6 +91,10 @@ class Attention(nn.Module):
         if cfg.rope == "rope":
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
+        elif cfg.rope == "mrope":
+            pos3 = text_mrope_positions(positions)
+            q = apply_mrope(q, pos3, cfg.mrope_sections, cfg.rope_theta)
+            k = apply_mrope(k, pos3, cfg.mrope_sections, cfg.rope_theta)
         return q, k, v
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *, causal: bool = True,

@@ -1,24 +1,33 @@
 """Language-model assembly and serving entry points, in PyTorch.
 
 Counterpart of ``repro/models/backbone.py::Model`` for the ``ssm`` family
-(a Mamba-2 stack) and the ``dense`` family (a causal decoder); the
-reference's ``vlm`` / ``audio``, ``moe`` and ``hybrid`` families are
-ROADMAP items A10.3-A10.5.  The stack is the embedding table,
-``n_layers`` pre-norm residual layers, ``final_norm`` and the head: the
-table itself when the embeddings are tied, else ``lm_head``.  An ``ssm``
-layer is ``ln`` + a ``Mamba2`` mixer; a ``dense`` layer ``ln_attn`` +
-``attn`` + ``ln_mlp`` + ``mlp``, its norms rmsnorm or layernorm by
-``cfg.norm``.  Where the reference scans stacked layer params, the port
-runs an ``nn.ModuleList`` eagerly; the caches keep the reference's stacked
-layout so the two compare leaf by leaf: ``{"ssm": (L,B,H,N,P), "conv":
-(L,B,K-1,C)}`` float32 for ``ssm``; ``{"k", "v"}`` (L,B,S,Hkv,hd) for
-``dense`` (plus ``k_scale`` / ``v_scale`` for an int8 cache), in the
-compute dtype from ``prefill`` and in ``kv_cache_dtype`` from
-``init_cache``.  A dense ``decode_step`` writes its rows into the cache in
-place and returns it.  Every entry point is forward only.
+(a Mamba-2 stack), the ``dense`` family (a causal decoder), ``vlm`` (the
+decoder with M-RoPE, its first positions' embeddings replaced by
+projected image patches) and ``audio`` (a bidirectional encoder over
+projected frames, run through ``encode``); the reference's ``moe`` and
+``hybrid`` families are ROADMAP items A10.4-A10.5.  The stack is the
+embedding table, ``n_layers`` pre-norm residual layers, ``final_norm``
+and the head: the table itself when the embeddings are tied, else
+``lm_head``.  A config with a ``frontend`` also has ``frontend.proj``
+(frontend_dim -> d_model, no bias), the modality stub's projection.  An
+``ssm`` layer is ``ln`` + a ``Mamba2`` mixer; a ``dense`` / ``vlm`` /
+``audio`` layer ``ln_attn`` + ``attn`` + ``ln_mlp`` + ``mlp``, its norms
+rmsnorm or layernorm by ``cfg.norm``, its attention bidirectional when
+``cfg.encoder_only``.  Where the reference scans stacked layer params,
+the port runs an ``nn.ModuleList`` eagerly; the caches keep the
+reference's stacked layout so the two compare leaf by leaf: ``{"ssm":
+(L,B,H,N,P), "conv": (L,B,K-1,C)}`` float32 for ``ssm``; ``{"k", "v"}``
+(L,B,S,Hkv,hd) for ``dense`` and ``vlm`` (plus ``k_scale`` / ``v_scale``
+for an int8 cache), in the compute dtype from ``prefill`` and in
+``kv_cache_dtype`` from ``init_cache``.  A decoder's ``decode_step``
+writes its rows into the cache in place and returns it.  An encoder
+(``encoder_only``) has no cache: ``prefill``, ``init_cache`` and
+``decode_step`` refuse it, as the reference routes its encoder only
+through ``encode``.  Every entry point is forward only.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -35,7 +44,7 @@ from .mlp import MLP
 __all__ = ["Model", "VOCAB_CHUNK"]
 
 VOCAB_CHUNK = 2048  # logit/CE chunk along the sequence to bound live logits
-FAMILIES = ("ssm", "dense")
+FAMILIES = ("ssm", "dense", "vlm", "audio")
 
 
 def _norm(cfg: ArchConfig, *, device) -> nn.Module:
@@ -61,9 +70,23 @@ class DenseLayer(nn.Module):
                        compute_dtype=getattr(torch, cfg.compute_dtype), device=device)
 
 
+class Frontend(nn.Module):
+    """The modality stub: ``proj`` maps precomputed frame or patch
+    embeddings (..., frontend_dim) to the model width, drawn as the
+    reference draws it (std 1/sqrt(frontend_dim))."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, *, device):
+        super().__init__()
+        self.proj = nn.Linear(cfg.frontend_dim, cfg.d_model, bias=False, device="meta")
+        self.proj.weight = trunc_normal_param((cfg.d_model, cfg.frontend_dim),
+                                              1.0 / math.sqrt(cfg.frontend_dim), generator,
+                                              device=device, dtype=getattr(torch, cfg.param_dtype))
+
+
 class Model(nn.Module):
-    """A language model of the ``ssm`` or ``dense`` family: ``prefill`` /
-    ``decode_step`` / ``init_cache`` for serving, ``loss`` (forward only).
+    """A language model of the ``ssm``, ``dense``, ``vlm`` or ``audio``
+    family: ``prefill`` / ``decode_step`` / ``init_cache`` for serving a
+    decoder, ``encode`` for an encoder, ``loss`` (forward only).
 
     ``Model(cfg, device=None, generator=None)`` builds the parameters on
     ``device`` (``cuda`` by default; raises without it unless
@@ -81,7 +104,7 @@ class Model(nn.Module):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported (have {FAMILIES}); "
-                "vlm / audio, moe and hybrid are ROADMAP items A10.3-A10.5"
+                "moe and hybrid are ROADMAP items A10.4-A10.5"
             )
         dev = resolve_device(device)
         g = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
@@ -94,6 +117,8 @@ class Model(nn.Module):
             self.lm_head = nn.Linear(cfg.d_model, cfg.vocab, bias=False, device="meta")
             self.lm_head.weight = trunc_normal_param((cfg.vocab, cfg.d_model), cfg.d_model ** -0.5, g,
                                                      device=dev, dtype=pd)
+        if cfg.frontend is not None:
+            self.frontend = Frontend(cfg, g, device=dev)
         layer = SSMLayer if cfg.family == "ssm" else DenseLayer
         self.layers = nn.ModuleList(layer(cfg, g, device=dev) for _ in range(cfg.n_layers))
         self.final_norm = _norm(cfg, device=dev)
@@ -105,6 +130,28 @@ class Model(nn.Module):
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embed.weight.to(self.cd)[tokens]
 
+    def _inputs(self, tokens: Optional[torch.Tensor] = None, frames: Optional[torch.Tensor] = None,
+                patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The stack's input (B, S, d) in the compute dtype, as the
+        reference's ``_embed_inputs`` builds it: ``frames`` (B,S,frontend_dim)
+        through ``frontend.proj`` for ``audio``; else the token embeddings,
+        for ``vlm`` with the first P positions replaced by ``patches``
+        (B,P,frontend_dim) through ``frontend.proj``."""
+        cfg = self.cfg
+        if cfg.family == "audio":
+            return F.linear(frames.to(self.cd), self.frontend.proj.weight.to(self.cd))
+        if (patches is not None) != (cfg.family == "vlm"):
+            raise ValueError(
+                f"{cfg.name}: the vlm family takes patches (B, {cfg.vision_patches}, "
+                f"{cfg.frontend_dim}) beside its tokens, and no other family takes any; "
+                f"got family {cfg.family!r} with patches={patches is not None}"
+            )
+        x = self._embed(tokens)
+        if cfg.family == "vlm":
+            p = F.linear(patches.to(self.cd), self.frontend.proj.weight.to(self.cd))
+            x = torch.cat([p, x[:, p.shape[1]:]], dim=1)
+        return x
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and the head (the tied table or ``lm_head``):
         (..., d) -> (..., V) float32."""
@@ -113,21 +160,34 @@ class Model(nn.Module):
 
     def _dense_layer(self, layer: DenseLayer, x: torch.Tensor, positions: torch.Tensor,
                      return_kv: bool = False):
-        """One pre-norm decoder layer -> (x, (k, v) when ``return_kv``)."""
-        out = layer.attn(layer.ln_attn(x), positions, causal=True, return_kv=return_kv)
+        """One pre-norm layer, causal unless ``encoder_only`` -> (x, (k, v)
+        when ``return_kv``)."""
+        out = layer.attn(layer.ln_attn(x), positions, causal=not self.cfg.encoder_only,
+                         return_kv=return_kv)
         attn, kv = out if return_kv else (out, None)
         x = x + attn
         return x + layer.mlp(layer.ln_mlp(x)), kv
 
-    def _positions(self, tokens: torch.Tensor) -> torch.Tensor:
-        B, S = tokens.shape
-        return torch.arange(S, device=tokens.device).expand(B, S)
+    def _positions(self, x: torch.Tensor) -> torch.Tensor:
+        B, S = x.shape[:2]
+        return torch.arange(S, device=x.device).expand(B, S)
+
+    def _decoder_only(self, entry: str) -> None:
+        if self.cfg.encoder_only:
+            raise NotImplementedError(
+                f"{self.cfg.name} is an encoder (encoder_only): it has no {entry}; an encoder "
+                "runs through encode(frames), as the reference serves it"
+            )
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Process prompts (B, S) of token ids: returns the last position's
-        logits (B, V) float32 and the decode cache."""
-        x = self._embed(tokens)
+    def prefill(self, tokens: torch.Tensor, patches: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Process prompts (B, S) of token ids (and, for ``vlm``, their
+        ``patches`` (B, P, frontend_dim), which take the first P positions):
+        returns the last position's logits (B, V) float32 and the decode
+        cache."""
+        self._decoder_only("prefill")
+        x = self._inputs(tokens, patches=patches)
         if self.cfg.family == "ssm":
             states = []
             for layer in self.layers:
@@ -138,7 +198,7 @@ class Model(nn.Module):
         else:
             cfg = self.cfg
             B, S = tokens.shape
-            positions = self._positions(tokens)
+            positions = self._positions(x)
             shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
             cache = {n: torch.empty(shape, dtype=self.cd, device=x.device) for n in ("k", "v")}
             for i, layer in enumerate(self.layers):
@@ -150,6 +210,7 @@ class Model(nn.Module):
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
         """Zero cache for ``batch`` sequences: a Mamba-2 state (which does not
         grow with ``max_len``) or a KV cache of ``max_len`` positions."""
+        self._decoder_only("cache")
         if self.cfg.family == "ssm":
             return init_ssm_state(self.cfg, self.cfg.n_layers, batch, self.device)
         return init_kv_cache(self.cfg, self.cfg.n_layers, batch, max_len, self.device)
@@ -158,10 +219,11 @@ class Model(nn.Module):
     def decode_step(self, cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
                     pos=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One token per sequence: tokens (B,) -> logits (B, V) float32 and
-        the new cache.  ``pos`` (an int) is the tokens' position: a dense
-        stack attends over the cache's positions before it and writes the
-        new k / v there, in place (nothing where ``pos`` is past the
-        cache); a state-space stack does not read it."""
+        the new cache.  ``pos`` (an int) is the tokens' position: an
+        attention stack attends over the cache's positions before it and
+        writes the new k / v there, in place (nothing where ``pos`` is past
+        the cache); a state-space stack does not read it."""
+        self._decoder_only("decode_step")
         x = self._embed(tokens)[:, None, :]
         if self.cfg.family == "ssm":
             states = []
@@ -184,26 +246,43 @@ class Model(nn.Module):
         cache = apply_kv_cache_update(cache, (torch.stack(k_rows), torch.stack(v_rows)), pos)
         return self._logits(x[:, 0]), cache
 
-    def _hidden(self, tokens: torch.Tensor) -> torch.Tensor:
-        """The stack's output (B, S, d) before the final norm."""
-        x = self._embed(tokens)
+    def _hidden(self, x: torch.Tensor) -> torch.Tensor:
+        """The stack's output (B, S, d) on its input ``x``, before the final
+        norm."""
         if self.cfg.family == "ssm":
             for layer in self.layers:
                 x = x + layer.mixer(layer.ln(x))
             return x
-        positions = self._positions(tokens)
+        positions = self._positions(x)
         for layer in self.layers:
             x, _ = self._dense_layer(layer, x, positions)
         return x
 
     @torch.no_grad()
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """Encoder inference (the ``audio`` family): frames (B, S,
+        frontend_dim) -> frame logits (B, S, V) float32 through the
+        bidirectional stack, the final norm and the head."""
+        if self.cfg.family != "audio":
+            raise NotImplementedError(
+                f"{self.cfg.name}: encode takes frames, the audio family's input; family "
+                f"{self.cfg.family!r} serves through prefill / decode_step"
+            )
+        return self._logits(self._hidden(self._inputs(frames=frames)))
+
+    @torch.no_grad()
     def loss(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Next-token cross-entropy over ``batch["tokens"]`` / ``["labels"]``
-        (B, S), labels < 0 masked, in sequence chunks of ``VOCAB_CHUNK`` so
-        the full-vocabulary logits are never all live.  Returns (loss,
-        {"ce", "aux"}); neither ported family has an auxiliary loss."""
-        x = self._hidden(batch["tokens"])
-        xs, labels = x[:, :-1], batch["labels"][:, 1:]
+        """Cross-entropy over ``batch["labels"]`` (B, S), labels < 0 masked:
+        next-token for a decoder (on ``"tokens"``, and ``"patches"`` for
+        ``vlm``), per frame for an encoder (on ``"frames"``, no shift), in
+        sequence chunks of ``VOCAB_CHUNK`` so the full-vocabulary logits are
+        never all live.  Returns (loss, {"ce", "aux"}); no ported family has
+        an auxiliary loss."""
+        x = self._hidden(self._inputs(batch.get("tokens"), batch.get("frames"),
+                                      batch.get("patches")))
+        xs, labels = x, batch["labels"]
+        if not self.cfg.encoder_only:
+            xs, labels = x[:, :-1], labels[:, 1:]
         S = labels.shape[1]
         csz = min(VOCAB_CHUNK, S)
         tot = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -1,10 +1,13 @@
 """Architecture configuration of the port's language models.
 
 Counterpart of ``repro/models/config.py``, cut to the fields the ported
-families read: ``ssm`` (Mamba-2) and ``dense`` (a causal decoder of
-MHA / GQA attention with RoPE and a SwiGLU or GELU MLP).  The reference's
-``moe``, ``mla``, ``hybrid``, frontend and M-RoPE fields come with the
-families that read them (ROADMAP A10.3-A10.5).  Its ``use_pallas``,
+families read: ``ssm`` (Mamba-2), ``dense`` (a causal decoder of MHA /
+GQA attention with RoPE and a SwiGLU or GELU MLP), ``vlm`` (the same
+decoder with M-RoPE and a vision stub: precomputed patch embeddings
+projected over the first positions) and ``audio`` (a bidirectional
+encoder over projected frame embeddings).  The reference's ``moe``,
+``mla`` and ``hybrid`` fields come with the families that read them
+(ROADMAP A10.4-A10.5).  Its ``use_pallas``,
 ``remat``, ``scan_layers`` and ``prefill_chunks`` are left out: the port
 always launches its kernels on the card (B4 on every windowless
 attention, B5 on every SSD scan), runs eagerly, does not rematerialize
@@ -14,7 +17,7 @@ smoke-test numbers by the reference's rules.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 __all__ = ["SSMConfig", "ArchConfig"]
 
@@ -42,7 +45,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # ssm | dense are ported (ROADMAP A10)
+    family: str                      # ssm | dense | vlm | audio are ported (ROADMAP A10)
     n_layers: int
     d_model: int
     n_heads: int
@@ -52,11 +55,16 @@ class ArchConfig:
     head_dim: Optional[int] = None   # explicit; else d_model / n_heads
     qkv_bias: bool = False
     qk_norm: bool = False            # per-head RMSNorm on q, k
-    rope: str = "rope"               # rope | none
+    rope: str = "rope"               # rope | mrope | none
     rope_theta: float = 10_000.0
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
     mlp_act: str = "swiglu"          # swiglu | gelu
     norm: str = "rmsnorm"            # rmsnorm | layernorm
     tie_embeddings: bool = False
+    encoder_only: bool = False       # hubert: bidirectional, no decode
+    frontend: Optional[str] = None   # audio_stub | vision_stub
+    frontend_dim: int = 512          # stub embedding dim
+    vision_patches: int = 64         # patches prepended per sample (vlm stub)
     ssm: Optional[SSMConfig] = None
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
@@ -70,7 +78,9 @@ class ArchConfig:
         """Small same-family variant for CPU tests, by the reference's
         rules: 4 layers, d_model 64, d_ff 128, vocab 512, float32; at most
         4 heads, kv heads at most the heads and 1 where they do not divide
-        them, head_dim 16 where it is explicit; for ``ssm`` d_state 16,
+        them, head_dim 16 where it is explicit; frontend_dim 32, 4 vision
+        patches and M-RoPE sections (2, 3, 3) (summing to the reduced
+        head_dim / 2 = 8) under ``rope="mrope"``; for ``ssm`` d_state 16,
         head_dim 16, chunk 32.  ``kv_cache_dtype`` is kept."""
         n_heads = min(self.n_heads, 4) if self.n_heads else 0
         n_kv = min(self.n_kv_heads, n_heads) if self.n_kv_heads else n_heads
@@ -78,6 +88,7 @@ class ArchConfig:
             n_kv = 1
         return dataclasses.replace(
             self,
+            mrope_sections=(2, 3, 3) if self.rope == "mrope" else self.mrope_sections,
             ssm=dataclasses.replace(self.ssm, d_state=16, head_dim=16, chunk=32)
             if self.ssm
             else None,
@@ -88,6 +99,8 @@ class ArchConfig:
             d_ff=128,
             vocab=512,
             head_dim=16 if self.head_dim is not None else None,
+            frontend_dim=32,
+            vision_patches=4,
             param_dtype="float32",
             compute_dtype="float32",
         )

@@ -1,16 +1,21 @@
-"""Rotary position embeddings (RoPE), in PyTorch.
+"""Rotary position embeddings: standard RoPE and Qwen2-VL's M-RoPE, in
+PyTorch.
 
-Counterpart of ``repro/models/rotary.py:16-42`` (``rope_freqs``,
-``apply_rope``).  The angles are float32; ``cos`` and ``sin`` are cast to
-``x``'s dtype before the products, as the reference casts them, so a
-bfloat16 ``x`` rotates in bfloat16.  M-RoPE (``apply_mrope``) comes with
-the ``vlm`` family (ROADMAP A10.3).
+Counterpart of ``repro/models/rotary.py`` (``rope_freqs``, ``apply_rope``,
+``text_mrope_positions``, ``apply_mrope``).  The angles are float32;
+``cos`` and ``sin`` are cast to ``x``'s dtype before the products, as the
+reference casts them, so a bfloat16 ``x`` rotates in bfloat16.  M-RoPE
+splits the head_dim/2 frequencies into (temporal, height, width) sections,
+each rotated by its own position stream; on text the three streams
+coincide and M-RoPE is RoPE, bitwise.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
-__all__ = ["apply_rope", "rope_freqs"]
+__all__ = ["apply_mrope", "apply_rope", "rope_freqs", "text_mrope_positions"]
 
 
 def rope_freqs(head_dim: int, theta: float = 10_000.0, device=None) -> torch.Tensor:
@@ -36,3 +41,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0
         positions = positions[None, :]
     angles = positions[:, None, :, None].to(torch.float32) * freqs  # (B,1,S,D/2)
     return _rotate(x, angles)
+
+
+def text_mrope_positions(positions: torch.Tensor) -> torch.Tensor:
+    """(B, S) or (S,) -> (3, B, S): the t / h / w streams coincide for text."""
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    return positions[None].expand(3, *positions.shape)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections: Tuple[int, int, int],
+                theta: float = 10_000.0) -> torch.Tensor:
+    """x: (B, H, S, D); positions3: (3, B, S); ``sections`` sum to D/2: the
+    first ``sections[0]`` frequencies take stream 0's angles, the next
+    ``sections[1]`` stream 1's, the last stream 2's."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to head_dim / 2 = {half}")
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+    ang = positions3[..., None].to(torch.float32) * freqs  # (3,B,S,D/2)
+    bounds = [0, sections[0], sections[0] + sections[1], half]
+    angles = torch.cat([ang[i, ..., bounds[i] : bounds[i + 1]] for i in range(3)], dim=-1)
+    return _rotate(x, angles[:, None])

@@ -5,13 +5,13 @@
 no reduced variant.  The port's config equals the reference's field by
 field, all but the reference's ``use_pallas`` switch (the port always runs
 its hand-written attention kernel on the card).  ``ARCH_IDS`` is the
-reference's less the LLM zoo not ported yet (ROADMAP A10.3-A10.5).  The
-four ``dense`` configs equal the reference's field by field, full and
-reduced, on every field the port has; the fields the port leaves out are
-the reference's switches it does not read (``use_pallas``, ``remat``,
-``scan_layers``, ``prefill_chunks``) and those of the families not ported
-(MoE, MLA, hybrid, frontends, M-RoPE), which these configs leave at their
-defaults.
+reference's less the LLM zoo not ported yet (ROADMAP A10.4-A10.5).  The
+four ``dense`` configs, ``qwen2-vl-2b`` and ``hubert-xlarge`` equal the
+reference's field by field, full and reduced, on every field the port
+has; the fields the port leaves out are the reference's switches it does
+not read (``use_pallas``, ``remat``, ``scan_layers``, ``prefill_chunks``)
+and those of the families not ported (MoE, MLA, hybrid), which these
+configs leave at their defaults.
 """
 import dataclasses
 
@@ -29,11 +29,11 @@ from repro_torch.core.model import TaoConfig  # noqa: E402
 
 # the reference's architectures the port runs
 DENSE = ("qwen1.5-32b", "qwen2-0.5b", "stablelm-1.6b", "glm4-9b")
-PORTED = DENSE + ("mamba2-1.3b",)
+VLM_AUDIO = ("qwen2-vl-2b", "hubert-xlarge")
+PORTED = DENSE + ("mamba2-1.3b",) + VLM_AUDIO
 # reference ArchConfig fields the port leaves out, and their defaults
-LEFT_OUT = {"mrope_sections": (16, 24, 24), "encoder_only": False, "frontend": None,
-            "frontend_dim": 512, "vision_patches": 64, "moe": None, "mla": None, "hybrid": None,
-            "remat": "full", "scan_layers": True, "use_pallas": False, "prefill_chunks": 1}
+LEFT_OUT = {"moe": None, "mla": None, "hybrid": None, "remat": "full", "scan_layers": True,
+            "use_pallas": False, "prefill_chunks": 1}
 
 
 def as_fields(cfg):
@@ -78,9 +78,37 @@ def test_dense_config_equals_the_reference_field_by_field(arch, reduced):
     port_fields = dataclasses.asdict(port)
     assert set(port_fields) | set(LEFT_OUT) == set(ref_fields)
     assert port_fields == {k: v for k, v in ref_fields.items() if k in port_fields}
-    reduced_defaults = {"remat": "none", "frontend_dim": 32, "vision_patches": 4}
+    reduced_defaults = {"remat": "none"}
     for k, v in LEFT_OUT.items():  # the families not ported are off in these configs
         want = reduced_defaults.get(k, v) if reduced else v
         assert ref_fields[k] == want, k
     assert port.resolved_head_dim == ref.resolved_head_dim
     assert port.family == "dense"
+    assert (port.frontend, port.encoder_only, port.rope) == (None, False, "rope")
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", VLM_AUDIO)
+def test_vlm_audio_config_equals_the_reference_field_by_field(arch, reduced):
+    """qwen2-vl-2b and hubert-xlarge, full and reduced (frontend_dim 32, 4
+    patches, M-RoPE sections (2, 3, 3) for the vlm), on every field the
+    port has."""
+    ref, port = ref_get_arch(arch, reduced=reduced), get_arch(arch, reduced=reduced)
+    ref_fields = dataclasses.asdict(ref)
+    port_fields = dataclasses.asdict(port)
+    assert set(port_fields) | set(LEFT_OUT) == set(ref_fields)
+    assert port_fields == {k: v for k, v in ref_fields.items() if k in port_fields}
+    assert all(ref_fields[k] == (("none" if reduced else v) if k == "remat" else v)
+               for k, v in LEFT_OUT.items())
+    want = {"qwen2-vl-2b": {"family": "vlm", "frontend": "vision_stub", "frontend_dim": 1280,
+                            "encoder_only": False, "rope": "mrope", "mrope_sections": (16, 24, 24)},
+            "hubert-xlarge": {"family": "audio", "frontend": "audio_stub", "frontend_dim": 512,
+                              "encoder_only": True, "rope": "rope"}}[arch]
+    want["vision_patches"] = 64
+    if reduced:
+        want.update(frontend_dim=32, vision_patches=4)
+        if want["rope"] == "mrope":
+            want["mrope_sections"] = (2, 3, 3)
+    assert {k: port_fields[k] for k in want} == want
+    head_dim = {"qwen2-vl-2b": 128, "hubert-xlarge": 80}[arch]
+    assert port.resolved_head_dim == (16 if reduced else head_dim)

@@ -28,13 +28,16 @@ the same bfloat16 inputs within 2^-7 |plain| + 1e-5 max|v| (both compute
 in float32 and round once; the sums' order may put an element one
 rounding apart) and in >= 99% of elements bitwise (P kept in float32), its
 float32 lse within 2e-5, at the dense prefill shapes
-(qwen2-0.5b, stablelm-1.6b, glm4-9b's width), a full non-causal case,
+(qwen2-0.5b, stablelm-1.6b, glm4-9b's width), qwen2-vl-2b's prefill and
+hubert-xlarge's bidirectional encode at head dim 80, a full non-causal case,
 ragged tails at width 128, width 80, Sq != Sk with a q_offset, segments,
 rows that see no key and unaligned strides; its SASS holds wgmma (HGMMA)
 and no mma.sync (HMMA), and the float32 kernel's HMMA count is as it
 was.  Each dense config at full width cut to 2 layers matches the CPU in
 float32 (2e-4 of the largest value), and its prefill launches B4 once per
-layer, a decode step never.
+layer, a decode step never; so do qwen2-vl-2b (prefill with patches and a
+decode step) and hubert-xlarge (``encode``, bidirectional) at reduced
+width.
 
 The engine's graphed step (one CUDA graph per geometry, replayed per
 batch) is held to the eager step driven through its cache entry, on every
@@ -1712,6 +1715,8 @@ BF16_ATTN_CASES = {
     "ragged_s129_d128": (2, 4, 129, 129, 128, True, 0, False, 28),
     "width_80": (2, 4, 300, 300, 80, True, 0, False, 29),
     "segments_q_offset_d64": (2, 4, 100, 300, 64, True, 150, True, 30),
+    "hubert_encode_d80_noncausal": (2, 16, 2048, 2048, 80, False, 0, False, 32),
+    "qwen2vl_prefill_d128": (2, 12, 2048, 2048, 128, True, 0, False, 33),
 }
 # the float32 (mma.sync) instantiations' HMMA instructions, as in the
 # build from before the bfloat16 path moved to wgmma: {output column tiles
@@ -1876,3 +1881,42 @@ def test_dense_bf16_serving_launches_b4_per_layer(dev, arch):
     torch.cuda.synchronize()
     assert FLASH_ATTENTION.launches == launches + cfg.n_layers
     assert torch.isfinite(logits).all()
+
+
+VLM_AUDIO_ARCHS = ("qwen2-vl-2b", "hubert-xlarge")
+
+
+@pytest.mark.parametrize("arch", VLM_AUDIO_ARCHS)
+def test_vlm_audio_reduced_on_card_matches_cpu(dev, arch):
+    """Each config reduced (4 layers, head dim 16, float32), random weights:
+    qwen2-vl's prefill with random patches (logits and cache) and a decode
+    step, hubert's ``encode``, on the card against the same model on the
+    CPU (plain attention), within 2e-4 of the largest value; B4 once per
+    layer (bidirectional for hubert), never in a decode step."""
+    import copy
+
+    cfg = get_arch(arch, reduced=True)
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    cpu = copy.deepcopy(model).to("cpu")
+    g = torch.Generator(device=dev).manual_seed(1)
+    launches = FLASH_ATTENTION.launches
+    if cfg.encoder_only:
+        frames = torch.randn(2, 64, cfg.frontend_dim, generator=g, device=dev)
+        got = model.encode(frames)
+        torch.cuda.synchronize()
+        assert FLASH_ATTENTION.launches == launches + cfg.n_layers
+        pairs = [(got, cpu.encode(frames.cpu()))]
+    else:
+        toks = torch.randint(0, cfg.vocab, (2, 64), device=dev, generator=g)
+        patches = torch.randn(2, cfg.vision_patches, cfg.frontend_dim, generator=g, device=dev)
+        logits, cache = model.prefill(toks, patches)
+        assert FLASH_ATTENTION.launches == launches + cfg.n_layers
+        step, cache = model.decode_step(cache, toks[:, 0], 63)
+        torch.cuda.synchronize()
+        assert FLASH_ATTENTION.launches == launches + cfg.n_layers
+        ref, ref_cache = cpu.prefill(toks.cpu(), patches.cpu())
+        ref_step, ref_cache = cpu.decode_step(ref_cache, toks[:, 0].cpu(), 63)
+        pairs = [(logits, ref), (step, ref_step), *((cache[k], ref_cache[k]) for k in ref_cache)]
+    for got, want in pairs:
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got.cpu(), want, atol=2e-4 * scale, rtol=0)

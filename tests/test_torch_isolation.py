@@ -33,13 +33,15 @@ print(len(names), bad, sorted(names))
 """
 
 # modules the walk must reach: one per subpackage, the persistence,
-# joint-training and serving slices' too, the paper's config and the dense
-# family's modules
+# joint-training and serving slices' too, the paper's config, the dense
+# family's modules and the vlm / audio configs
 _MUST_WALK = (
     "repro_torch.ckpt.checkpoint",
     "repro_torch.configs.glm4_9b",
+    "repro_torch.configs.hubert_xlarge",
     "repro_torch.configs.qwen1_5_32b",
     "repro_torch.configs.qwen2_0_5b",
+    "repro_torch.configs.qwen2_vl_2b",
     "repro_torch.configs.stablelm_1_6b",
     "repro_torch.configs.tao",
     "repro_torch.core.multiarch",
