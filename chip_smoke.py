@@ -29,8 +29,9 @@ and ``nvcc``.  Phases, one JSON line each:
            registers, shared memory and blocks per SM; in bfloat16 at the
            dense prefill shapes (4, 14, 2048, 64), (4, 32, 2048, 64) and
            (4, 32, 2048, 128), causal, qwen2-vl-2b's (4, 12, 2048, 128),
-           causal, and hubert-xlarge's (4, 16, 2048, 80), bidirectional,
-           timed beside SDPA in bfloat16, with
+           causal, hubert-xlarge's (4, 16, 2048, 80), bidirectional, and
+           qwen3-moe-235b-a22b's (4, 64, 2048, 128), causal, k / v drawn
+           at 4 heads and repeated 16x, timed beside SDPA in bfloat16, with
            the wgmma (HGMMA) and mma.sync (HMMA) instructions of the kernel
            it launches), its backward (the
            port's own kernel: the Tao training shapes at batch 16 and 64,
@@ -233,12 +234,27 @@ and ``nvcc``.  Phases, one JSON line each:
            (B4 once per layer, bidirectional, by the counter and the
            profiler; frames/s, weight and peak bytes, a profile, finite
            (B, S, 504) logits) and the card against the CPU at 2 layers
-           and 256 frames.
+           and 256 frames;
+  moe      the moe family at full width (bfloat16, random weights from a
+           CUDA generator, seed 0, the published capacity_factor 1.25),
+           the models one after the other: deepseek-v2-lite-16b at full
+           depth (27 layers, the first dense; MLA, so no B4 launch) and
+           qwen3-moe-235b-a22b cut to 4 of its 94 layers (GQA 16:1 after
+           QK-norm, B4 once per layer), each served as the dense cells are
+           (launches by the counter and the profiler), with the device ms
+           of a prefill and of a decode step split by stage (B4, expert
+           GEMMs and their SwiGLU, routing, dispatch / combine, MLA's
+           plain attention, other GEMMs, the rest) and the share of
+           routed slots dropped at capacity in each; the handoff on a
+           float32 copy at capacity_factor = E (no slot can drop) on 4 x
+           64-token prompts; and the card against the CPU in float32 at
+           the published capacity (deepseek at 2 layers, qwen3-moe at 1;
+           2 x 256 tokens), with the routing choices that differ counted.
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main path, error, times and bound (B4's and its backward's entries also
 hold their readings at the paper's width, B4's its bfloat16 readings and
-the dense, vlm and audio cells' launches); the card's name and power limit
+the dense, vlm, audio and moe cells' launches); the card's name and power limit
 as ``nvidia-smi`` prints them; and, last, the device line.  With phase
 names as arguments, the build and those phases run, and the last line is
 the device line with the phases' names; no kernels line.  Any failed check
@@ -463,9 +479,13 @@ ATTN_BF16_MIN_BITWISE = 0.99
 # prefills of qwen2-0.5b (14 heads of 64 after the GQA repeat),
 # stablelm-1.6b (32 of 64) and glm4-9b / qwen1.5-32b's width (32 of 128);
 # qwen2-vl-2b's prefill (12 of 128 after the GQA repeat); hubert-xlarge's
-# encode (16 of 80, bidirectional)
-ATTN_BF16_SHAPES = ((4, 14, 2048, 64, True), (4, 32, 2048, 64, True), (4, 32, 2048, 128, True),
-                    (4, 12, 2048, 128, True), (4, 16, 2048, 80, False))
+# encode (16 of 80, bidirectional);
+# qwen3-moe-235b-a22b's (64 of 128 after the GQA repeat over its 4 kv
+# heads, after QK-norm), whose k / v are drawn at 4 heads and repeated 16x
+# as B4 gets them.  (B, H, S, D, causal, kv heads' repeat)
+ATTN_BF16_SHAPES = ((4, 14, 2048, 64, True, 1), (4, 32, 2048, 64, True, 1),
+                    (4, 32, 2048, 128, True, 1), (4, 12, 2048, 128, True, 1),
+                    (4, 16, 2048, 80, False, 1), (4, 64, 2048, 128, True, 16))
 # the dense serving cells: prompts x tokens, greedy decode steps
 DENSE_FULL = ("qwen2-0.5b", "stablelm-1.6b")    # full width and depth
 DENSE_CUT = ("glm4-9b", "qwen1.5-32b")          # full width, DENSE_CUT_LAYERS
@@ -475,6 +495,26 @@ DENSE_CPU_LAYERS, DENSE_CPU_SEQ = 2, 256
 # the vlm_audio cells run the dense cells' traffic; hubert's frames are
 # HuBERT's 20 ms hops, so 4 x 2048 frames are 4 clips of ~41 s
 HUBERT_FRAME_S = 0.02
+# the moe cells run the dense cells' traffic: deepseek-v2-lite-16b at full
+# width and depth (27 layers, the first dense); qwen3-moe-235b-a22b at full
+# width cut to MOE_CUT_LAYERS of its 94 layers (~22.4 GB of bfloat16
+# weights; all 94 would be ~470 GB), both at the published capacity_factor
+MOE_FULL = "deepseek-v2-lite-16b"
+MOE_CUT = "qwen3-moe-235b-a22b"
+MOE_CUT_LAYERS = 4
+# the card against the CPU in float32 at the published capacity: layers of
+# the cut copy (one dense and one MoE layer of deepseek; one full-width
+# qwen3-moe layer is ~10 GB of float32 weights) and the prompts (2 x 256)
+MOE_CPU_LAYERS = {"deepseek-v2-lite-16b": 2, "qwen3-moe-235b-a22b": 1}
+MOE_CPU_SEQ = 256
+# the handoff runs where no slot can drop, capacity_factor = E (C >= Tg *
+# k), whose dispatch buffers grow with E: 4 prompts of this many tokens
+MOE_HANDOFF_PROMPT = 64
+# the port's profiler ranges (models/moe.py, models/attention.py::MLA)
+MOE_RANGES = {"moe.route": "routing", "moe.dispatch": "dispatch_combine",
+              "moe.combine": "dispatch_combine", "moe.experts": "experts",
+              "mla.attention": "mla_attention"}
+GEMM_PIECES = ("nvjet", "gemm", "gemv")
 
 
 def emit(obj) -> None:
@@ -657,8 +697,9 @@ def profile_breakdown(fn, track: tuple = (), groups: dict = None) -> dict:
     list.
     ``groups`` ({group: pieces}): also the device ms summed per group, a
     kernel going to the first group one of whose pieces its name holds,
-    the rest to "other".  Raises when the profile cannot be taken or shows
-    no device time."""
+    the rest to "other".  Where the profile holds the port's profiler
+    ranges, also ``device_ms_split`` (``range_split``).  Raises when the
+    profile cannot be taken or shows no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -669,7 +710,8 @@ def profile_breakdown(fn, track: tuple = (), groups: dict = None) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+              and not annotation(e)]
     if not events:
         raise RuntimeError("torch.profiler recorded no device time")
     busy_us = sum(e.self_device_time_total for e in events)
@@ -688,7 +730,59 @@ def profile_breakdown(fn, track: tuple = (), groups: dict = None) -> dict:
         "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top],
         **({"tracked_ms": tracked, "tracked_count": tracked_count} if track else {}),
         **({"group_ms": group_ms(events, groups)} if groups else {}),
+        **({"device_ms_split": split} if (split := range_split(prof.events())) else {}),
     }
+
+
+def annotation(e) -> bool:
+    """Whether a profiler event is a ``record_function`` range (the port's
+    MOE_RANGES), which the profiler also lays on the device's timeline as a
+    span around that range's kernels: a span, not a kernel, so no device
+    time of its own."""
+    return bool(getattr(e, "is_user_annotation", False)) or e.key in MOE_RANGES
+
+
+def range_split(events) -> dict:
+    """Device ms of a profile's kernel events by what they do, each event
+    counted once, or None when the profile holds none of the port's
+    profiler ranges (MOE_RANGES).  The profiler lays each range on the
+    device's timeline as a span from its first kernel's start to its last
+    one's end; one stream runs one kernel at a time, so the spans do not
+    overlap (raises if they do) and a kernel inside a span is that range's.
+    Inside ``moe.experts`` a GEMM (GEMM_PIECES) is an expert GEMM and the
+    rest its SwiGLU; outside every span a kernel goes by its name to B4
+    (``attention_kernel``), another GEMM or the rest.  (The ops' own
+    ``kernels`` lists are not used: the profiler joins kernels to CPU events
+    by correlation id, and its "Activity Buffer Request" event can share an
+    op's id, so one kernel is listed under both.)"""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end, MOE_RANGES[e.name])
+                   for e in on_device if annotation(e) and e.name in MOE_RANGES)
+    if not spans:
+        return None
+    if any(b[0] < a[1] for a, b in zip(spans, spans[1:])):
+        raise RuntimeError("profiler ranges overlap on the device's timeline")
+    starts = [s[0] for s in spans]
+    split = dict.fromkeys(("b4", "expert_gemm", "expert_swiglu", "routing", "dispatch_combine",
+                           "mla_attention", "other_gemm", "rest"), 0.0)
+    for e in on_device:
+        if annotation(e):
+            continue
+        j = bisect.bisect_right(starts, e.time_range.start) - 1
+        where = spans[j][2] if j >= 0 and e.time_range.end <= spans[j][1] else None
+        gemm = any(p in e.name for p in GEMM_PIECES)
+        if "attention_kernel" in e.name:
+            g = "b4"
+        elif where == "experts":
+            g = "expert_gemm" if gemm else "expert_swiglu"
+        else:
+            g = where or ("other_gemm" if gemm else "rest")
+        split[g] += e.time_range.elapsed_us() / 1e3
+    return split
 
 
 def group_ms(events, groups: dict) -> dict:
@@ -901,7 +995,8 @@ def check_attention_kernel(failures, results):
 
 def check_attention_bf16(failures, results):
     """B4 with bfloat16 I/O at the serving cells' shapes (ATTN_BF16_SHAPES,
-    causal or not) against its plain version on the same bfloat16 inputs
+    causal or not, k / v repeated over the query heads where the cell's
+    GQA does) against its plain version on the same bfloat16 inputs
     (every element within
     ATTN_BF16_RTOL * |plain| + ATTN_BF16_ATOL_OF_MAX_V * max|v|, and at
     least ATTN_BF16_MIN_BITWISE of them bitwise equal); its time beside the plain version's and
@@ -925,9 +1020,10 @@ def check_attention_bf16(failures, results):
         failures.append(f"flash_attention float32 SASS: {f32_sass}")
     g = torch.Generator(device="cuda").manual_seed(3)
     readings = {}
-    for B, H, S, D, causal in ATTN_BF16_SHAPES:
-        q, k, v = (torch.randn(B, H, S, D, generator=g, device="cuda").to(torch.bfloat16)
-                   for _ in range(3))
+    for B, H, S, D, causal, rep in ATTN_BF16_SHAPES:
+        q = torch.randn(B, H, S, D, generator=g, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(B, H // rep, S, D, generator=g, device="cuda").to(torch.bfloat16)
+                .repeat_interleave(rep, dim=1) for _ in range(2))
         a = flash_attention_cuda(q, k, v, causal=causal)
         b = attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -942,7 +1038,8 @@ def check_attention_bf16(failures, results):
         b_ms, b_by = bound(4 * B * H * S * D * 2, visible * 4 * D, BF16_TENSOR_FLOPS_PER_S)
         info = launch_info(S, D, D, dtype=torch.bfloat16)
         [ops] = [v for k, v in sass.items() if f"wgmmaILi{64 if D <= 64 else 128}E" in k]
-        r = {"shape": [B, H, S, D], "causal": causal, "max_abs_err": float(diff.max()),
+        r = {"shape": [B, H, S, D], "causal": causal, "kv_repeat": rep,
+             "max_abs_err": float(diff.max()),
              "bitwise_share": float((a == b).float().mean()), "ok": ok, "ms": ms,
              "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
              "x_bound": ms / b_ms, "x_library": ms / lib_ms, **info,
@@ -958,8 +1055,8 @@ def check_attention_bf16(failures, results):
                             f"spills {info['spill_bytes_per_thread']}, "
                             f"HGMMA {r['sass_hgmma']}, HMMA {r['sass_hmma']}")
         del q, k, v, a, b, diff, limit
-    keep = ("shape", "causal", "max_abs_err", "bitwise_share", "ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by", "regs_per_thread", "blocks_per_sm")
+    keep = ("shape", "causal", "kv_repeat", "max_abs_err", "bitwise_share", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "regs_per_thread", "blocks_per_sm")
     results.setdefault("flash_attention", {})["bf16"] = {
         name: {k: r[k] for k in keep} for name, r in readings.items()}
 
@@ -4190,17 +4287,25 @@ def phase_mamba2(failures, results, traces):
           "gpu_ssd_launches": g_launches, "cpu_seconds": cpu_s, "ok": ok})
 
 
+def b4_per_prefill(cfg) -> int:
+    """B4's launches in one prefill at ``cfg``: one a layer, none under MLA
+    (whose prefill runs the reference's plain blocked attention)."""
+    return 0 if cfg.mla else cfg.n_layers
+
+
 def dense_serve(failures, cfg, gen, phase="dense") -> tuple:
     """One decoder at ``cfg`` (bfloat16, random weights from ``gen``): a
     warm-up prefill and step, then prefill of DENSE_BATCH x DENSE_PROMPT
     tokens (for a ``vlm``, with ``vision_patches`` random patches each,
     from ``gen``) and DENSE_DECODE greedy steps into a cache grown by
     DENSE_DECODE positions, with every kernel's launches read around each
-    call (B4 once per layer per prefill, nothing else, and no launch in a
-    decode step), tokens/s, ms per step, weight and peak bytes, and the
-    profiles of one prefill and one step (B4's device ms and launches from
-    the profiler).  Returns the model, the prompts, the patches (None but
-    for a ``vlm``) and the reading."""
+    call (B4 ``b4_per_prefill`` times a prefill, nothing else, and no
+    launch in a decode step), tokens/s, ms per step (wall and this
+    thread's CPU time), weight and peak bytes, and the profiles of one
+    prefill and one step (B4's device ms and launches from the profiler;
+    by stage where the model runs the port's profiler ranges).  Returns
+    the model, the prompts, the patches (None but for a ``vlm``) and the
+    reading."""
     import torch
 
     from repro_torch.models import Model
@@ -4224,10 +4329,10 @@ def dense_serve(failures, cfg, gen, phase="dense") -> tuple:
     torch.cuda.reset_peak_memory_stats()
 
     zero_counts()
-    t0 = time.perf_counter()
+    t0, c0 = time.perf_counter(), time.thread_time()
     logits, pre = model.prefill(prompts, patches)
     torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
+    prefill_s, prefill_cpu_s = time.perf_counter() - t0, time.thread_time() - c0
     p_launches = read_counts()
     cache = model.init_cache(B, S + steps)
     for k in cache:
@@ -4235,26 +4340,28 @@ def dense_serve(failures, cfg, gen, phase="dense") -> tuple:
     del pre
     finite = bool(torch.isfinite(logits).all())
     tok = logits.argmax(-1)
-    step_ms, d_launches = [], []
+    step_ms, step_cpu_ms, d_launches = [], [], []
     for i in range(steps):
         zero_counts()
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), time.thread_time()
         logits, cache = model.decode_step(cache, tok, S + i)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_cpu_ms.append((time.thread_time() - c0) * 1e3)
         d_launches.append(read_counts())
         finite &= bool(torch.isfinite(logits).all())
         tok = logits.argmax(-1)
     peak = torch.cuda.max_memory_allocated()
     none = {k: 0 for k in p_launches}
-    expected_p = none | {"flash_attention": cfg.n_layers}
+    n_b4 = b4_per_prefill(cfg)
+    expected_p = none | {"flash_attention": n_b4}
     track = ("attention_kernel",)
-    groups = {"b4": track, "gemm": ("nvjet", "gemm", "gemv"), "copy": ("copy", "Copy")}
+    groups = {"b4": track, "gemm": GEMM_PIECES, "copy": ("copy", "Copy")}
     prof_p = profile_breakdown(lambda: model.prefill(prompts, patches), track=track, groups=groups)
     prof_d = profile_breakdown(lambda: model.decode_step(cache, tok, S + steps - 1), track=track,
                                groups=groups)
     prof_launches = [sum(p.get("tracked_count", {}).values()) for p in (prof_p, prof_d)]
-    if p_launches != expected_p or prof_launches != [cfg.n_layers, 0]:
+    if p_launches != expected_p or prof_launches != [n_b4, 0]:
         failures.append(f"{phase} {cfg.name}: prefill launches {p_launches} (profiler "
                         f"{prof_launches[0]}), expected {expected_p}")
     if any(d != none for d in d_launches) or prof_launches[1]:
@@ -4265,10 +4372,13 @@ def dense_serve(failures, cfg, gen, phase="dense") -> tuple:
                "params": n_params, "init_seconds": init_s, "batch": B, "prompt_tokens": S,
                **({"patches": list(patches.shape)} if patches is not None else {}),
                "prefill_seconds": prefill_s, "prefill_tokens_per_s": B * S / prefill_s,
+               "prefill_host_cpu_seconds": prefill_cpu_s,
                "prefill_launches": p_launches, "prefill_b4_launches_profiler": prof_launches[0],
                "decode_steps": steps,
                "decode_ms_per_step_median": sorted(step_ms)[steps // 2],
                "decode_ms_per_step_mean": sum(step_ms) / steps,
+               # the thread's CPU clock may tick in 10 ms: a mean over the steps
+               "decode_host_cpu_ms_per_step_mean": sum(step_cpu_ms) / steps,
                "decode_tokens_per_s": B * steps / (sum(step_ms) / 1e3),
                "decode_b4_launches": [d["flash_attention"] for d in d_launches],
                "decode_b4_launches_profiler": prof_launches[1],
@@ -4276,7 +4386,11 @@ def dense_serve(failures, cfg, gen, phase="dense") -> tuple:
     emit({"phase": phase, **reading})
     for call, prof in (("prefill", prof_p), ("decode_step", prof_d)):
         emit({"phase": phase, "config": cfg.name, "check": "profile", "call": call, **prof})
-    reading["prefill_b4_device_ms"] = sum(prof_p["tracked_ms"].values())
+    reading["prefill_b4_device_ms"] = sum(prof_p.get("tracked_ms", {}).values())
+    reading["idle_share"] = {"prefill": prof_p["idle_share"], "decode_step": prof_d["idle_share"]}
+    for call, prof in (("prefill", prof_p), ("decode_step", prof_d)):
+        if "device_ms_split" in prof:
+            reading[f"{call}_device_ms_split"] = prof["device_ms_split"]
     del cache, logits
     return model, prompts, patches, reading
 
@@ -4498,11 +4612,218 @@ def phase_vlm_audio(failures, results, traces):
     emit({"phase": "vlm_audio", "check": "seconds", "seconds": time.perf_counter() - t0})
 
 
+def moe_routing(model, fn) -> list:
+    """Per MoE layer, in order, its tokens' expert ids (T, k) and the share
+    of their slots dropped at the layer's capacity, over one ``fn()``
+    (forward hooks on the ``MoE`` modules; the routing and the dispatch
+    plan recomputed from each layer's input)."""
+    import torch
+
+    from repro_torch.models.moe import capacity, dispatch_meta
+
+    seen = []
+
+    def hook(mod, args, _out):
+        xt = args[0].reshape(-1, args[0].shape[-1])
+        _, ids, _ = mod.route(xt)
+        G, C = capacity(mod.m, xt.shape[0])
+        keep = dispatch_meta(ids.view(G, -1, mod.m.top_k), mod.m.num_experts, C)[2]
+        seen.append((ids, 1.0 - float(keep.float().mean())))
+
+    moes = [m for m in model.modules() if hasattr(m, "router")]
+    handles = [m.register_forward_hook(hook) for m in moes]
+    try:
+        with torch.no_grad():
+            fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def routing_flips(a: list, b: list, n_experts: int) -> int:
+    """(token, expert) routing choices that differ between two runs' MoE
+    layers (each choice made on one side and not on the other counts once)."""
+    import torch
+
+    flips = 0
+    for (ia, _), (ib, _) in zip(a, b):
+        ia, ib = ia.cpu(), ib.cpu()
+        oa = torch.zeros(ia.shape[0], n_experts).scatter_(1, ia, 1.0)
+        ob = torch.zeros(ib.shape[0], n_experts).scatter_(1, ib, 1.0)
+        flips += int((oa != ob).sum()) // 2
+    return flips
+
+
+def moe_cut_state(sd: dict, cfg, n_layers: int) -> dict:
+    """``sd`` for the first ``n_layers`` decoder layers (``dense_layers``
+    whole, then the first of ``layers``)."""
+    nd = cfg.moe.first_dense_layers
+    return {k: v for k, v in sd.items()
+            if not k.startswith("layers.") or int(k.split(".")[1]) < n_layers - nd}
+
+
+def moe_serve(failures, cfg) -> tuple:
+    """One MoE model at ``cfg`` (bfloat16, random weights from a CUDA
+    generator, seed 0) served as the dense cells are (``dense_serve``, whose
+    profiles split each call's device ms by stage), then the share of
+    routed slots dropped at the published capacity in one more prefill and
+    decode step.  Returns the weights on the host and the reading."""
+    import torch
+
+    from repro_torch.models.moe import capacity
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model, prompts, _, reading = dense_serve(failures, cfg, gen, phase="moe")
+    B, S = prompts.shape
+    out = []
+    drops = {"prefill": moe_routing(model, lambda: out.append(model.prefill(prompts)[1]))}
+    cache = model.init_cache(B, S + 1)
+    for k in cache:
+        cache[k][:, :, :S] = out[0][k]
+    del out
+    tok = prompts[:, -1]
+    drops["decode_step"] = moe_routing(model, lambda: model.decode_step(cache, tok, S))
+    m = cfg.moe
+    for call in ("prefill", "decode_step"):
+        if f"{call}_device_ms_split" not in reading:
+            failures.append(f"moe {cfg.name}: the {call} profile holds no MoE range")
+        T = B * (S if call == "prefill" else 1)
+        G, C = capacity(m, T)
+        shares = [d for _, d in drops[call]]
+        emit({"phase": "moe", "config": cfg.name, "check": "routing", "call": call,
+              "tokens": T, "groups": G, "capacity": C, "capacity_factor": m.capacity_factor,
+              "dropped_slot_share_per_layer": shares,
+              "dropped_slot_share_mean": sum(shares) / len(shares)})
+        reading[f"{call}_dropped_slot_share"] = sum(shares) / len(shares)
+    sd = {k: v.to("cpu") for k, v in model.state_dict().items()}
+    del model, cache, prompts
+    torch.cuda.empty_cache()
+    return sd, reading
+
+
+def moe_handoff(failures, cfg, sd):
+    """The handoff (the last logits of prefill(p + t) against prefill(p), then
+    decode_step(t)) on a float32 copy of the weights at capacity_factor = E,
+    where no slot can drop, for 4 prompts of MOE_HANDOFF_PROMPT tokens."""
+    import torch
+
+    from repro_torch.models import Model
+
+    m = cfg.moe
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32",
+                                moe=dataclasses.replace(m, capacity_factor=float(m.num_experts)))
+    m32 = Model(cfg32, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+    m32.load_state_dict(sd)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    P = MOE_HANDOFF_PROMPT
+    toks = torch.randint(0, cfg.vocab, (DENSE_BATCH, P + 1), device="cuda", generator=g)
+    full, _ = m32.prefill(toks)
+    _, cache = m32.prefill(toks[:, :P])
+    dec, _ = m32.decode_step(cache, toks[:, P], P)
+    torch.cuda.synchronize()
+    handoff = rel_diff(dec, full)
+    ok = handoff <= HANDOFF_REL and bool(torch.isfinite(full).all())
+    if not ok:
+        failures.append(f"moe {cfg.name}: prefill/decode handoff {handoff} > {HANDOFF_REL}")
+    emit({"phase": "moe", "config": cfg.name, "check": "handoff_f32_dropless",
+          "layers": cfg.n_layers, "prompt_tokens": P, "batch": DENSE_BATCH,
+          "capacity_factor": cfg32.moe.capacity_factor,
+          "max_abs_diff_rel_to_max_logit": handoff, "limit": HANDOFF_REL, "ok": ok})
+    del m32, cache
+    torch.cuda.empty_cache()
+
+
+def moe_gpu_vs_cpu(failures, cfg, sd):
+    """The card's path against the same model on the CPU (plain versions),
+    float32, the published capacity, MOE_CPU_LAYERS[name] layers, 2 x
+    MOE_CPU_SEQ tokens: prefill logits, every cache leaf and one decode
+    step, within GPU_CPU_REL, with the (token, expert) routing choices that
+    differ between the two sides counted."""
+    import torch
+
+    from repro_torch.models import Model
+
+    n = MOE_CPU_LAYERS[cfg.name]
+    cut = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32", n_layers=n)
+    gpu = Model(cut, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+    gpu.load_state_dict(moe_cut_state(sd, cfg, n))
+    toks = torch.randint(0, cfg.vocab, (2, MOE_CPU_SEQ), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(3))
+
+    def run(model, tokens, out):
+        logits, cache = model.prefill(tokens)
+        step, cache = model.decode_step(cache, tokens[:, 0], MOE_CPU_SEQ - 1)
+        out.update({"prefill_logits": logits.cpu(), "decode_logits": step.cpu(),
+                    **{f"cache_{k}": v.cpu() for k, v in cache.items()}})
+
+    zero_counts()
+    g_out, c_out = {}, {}
+    g_route = moe_routing(gpu, lambda: run(gpu, toks, g_out))
+    torch.cuda.synchronize()
+    g_launches = read_counts()["flash_attention"]
+    cpu = gpu.to("cpu")  # the same weights, moved
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    c_route = moe_routing(cpu, lambda: run(cpu, toks.cpu(), c_out))
+    cpu_s = time.perf_counter() - t0
+    diffs = {k: rel_diff(g_out[k], c_out[k]) for k in c_out}
+    flips = routing_flips(g_route, c_route, cfg.moe.num_experts)
+    want_b4 = b4_per_prefill(cut)
+    ok = max(diffs.values()) <= GPU_CPU_REL and g_launches == want_b4
+    if not ok:
+        failures.append(f"moe {cfg.name}: GPU and CPU disagree beyond {GPU_CPU_REL}: {diffs}, "
+                        f"{flips} routing choices differ, {g_launches} B4 launches")
+    emit({"phase": "moe", "config": cfg.name, "check": "gpu_vs_cpu", "layers": n,
+          "layers_cut_from": cfg.n_layers, "tokens": list(toks.shape),
+          "capacity_factor": cfg.moe.capacity_factor, "rel_diffs": diffs, "limit": GPU_CPU_REL,
+          "routing_choices": sum(int(i.numel()) for i, _ in c_route),
+          "routing_choices_differing": flips,
+          "dropped_slot_share_gpu": [d for _, d in g_route],
+          "dropped_slot_share_cpu": [d for _, d in c_route],
+          "gpu_b4_launches": g_launches, "cpu_seconds": cpu_s, "ok": ok})
+
+
+def phase_moe(failures, results, traces):
+    """The moe family's serving path at full width (module note): the two
+    models one after the other, each freed before the next."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    t0 = time.perf_counter()
+    readings = {}
+    for name in (MOE_FULL, MOE_CUT):
+        cfg = get_arch(name)
+        if name == MOE_CUT:
+            emit({"phase": "moe", "config": name, "check": "cut", "layers": MOE_CUT_LAYERS,
+                  "of_layers": cfg.n_layers, "why": "94 full-width layers hold ~470 GB of "
+                  "bfloat16 weights; 4 hold ~22.4 GB on the 80 GB card"})
+            cfg = dataclasses.replace(cfg, n_layers=MOE_CUT_LAYERS)
+        sd, reading = moe_serve(failures, cfg)
+        if not failures:
+            moe_handoff(failures, cfg, sd)
+        if not failures:
+            moe_gpu_vs_cpu(failures, cfg, sd)
+        readings[name] = {**serve_summary(reading),
+                          **{k: reading.get(k) for k in ("params", "idle_share",
+                                                     "prefill_device_ms_split",
+                                                     "decode_step_device_ms_split",
+                                                     "prefill_dropped_slot_share",
+                                                     "decode_step_dropped_slot_share")}}
+        del sd
+        torch.cuda.empty_cache()
+        if failures:
+            break
+    results.setdefault("flash_attention", {})["moe"] = readings
+    emit({"phase": "moe", "check": "seconds", "seconds": time.perf_counter() - t0})
+
+
 PHASES = {"build": phase_build, "kernels": phase_kernels, "slice": phase_slice,
           "sweep": phase_sweep, "train": phase_train, "persist": phase_persist,
           "joint": phase_joint, "session": phase_session, "serve": phase_serve,
           "paper": phase_paper, "mamba2": phase_mamba2, "dense": phase_dense,
-          "vlm_audio": phase_vlm_audio}
+          "vlm_audio": phase_vlm_audio, "moe": phase_moe}
 
 
 def main(argv) -> int:

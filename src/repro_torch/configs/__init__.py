@@ -6,9 +6,9 @@ Counterpart of ``repro/configs/__init__.py``.  ``get_arch("qwen2-0.5b")``
 not in ``ARCH_IDS``; it has no reduced variant, and ``reduced=True``
 raises ``AttributeError`` as the reference's does).  ``ARCH_IDS`` lists
 the ported ids in the reference's order: the ``dense`` family,
-``mamba2-1.3b``, ``hubert-xlarge`` (``audio``) and ``qwen2-vl-2b``
-(``vlm``); the ``moe`` and ``hybrid`` families are ROADMAP items
-A10.4-A10.5.
+``mamba2-1.3b``, ``hubert-xlarge`` (``audio``), ``qwen2-vl-2b`` (``vlm``),
+``qwen3-moe-235b-a22b`` and ``deepseek-v2-lite-16b`` (``moe``); the
+``hybrid`` family is ROADMAP item A10.5.
 """
 from __future__ import annotations
 
@@ -27,6 +27,8 @@ _MODULES = {
     "mamba2-1.3b": "mamba2_1_3b",
     "hubert-xlarge": "hubert_xlarge",
     "qwen2-vl-2b": "qwen2_vl_2b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "tao": "tao",
 }
 
@@ -37,7 +39,7 @@ def get_arch(name: str, reduced: bool = False) -> ArchConfig:
     if name not in _MODULES:
         raise KeyError(
             f"architecture {name!r} is not ported (have {sorted(_MODULES)}); the "
-            "moe and hybrid families are ROADMAP items A10.4-A10.5"
+            "hybrid family is ROADMAP item A10.5"
         )
     mod = importlib.import_module(f".{_MODULES[name]}", __package__)
     cfg: ArchConfig = mod.CONFIG

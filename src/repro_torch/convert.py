@@ -12,7 +12,8 @@ like ``nn.ModuleList``.
 
 ``lm_params_from_jax`` does the same for the reference's language-model
 tree (``repro/models/backbone.py::Model.init``), whose layer params are
-stacked on a leading axis: it unstacks them into ``layers.{i}`` and maps
+stacked on a leading axis: it unstacks ``layers`` into ``layers.{i}``
+(and a MoE model's ``dense_layers`` into ``dense_layers.{i}``) and maps
 ``table`` / ``scale`` -> ``weight`` (a layernorm's ``bias`` keeps its
 name).  The ``(in, out)`` arrays become ``nn.Linear`` weights,
 TRANSPOSED: the Mamba-2 mixer's ``in_proj`` / ``out_proj``, the MLP's
@@ -24,7 +25,13 @@ The dense attention's projections are RESHAPED as well: ``wq`` / ``wk`` /
 CONCATENATED along the output axis into the port's packed ``qkv.weight``
 (q rows first, then k, then v), ``bq`` / ``bk`` / ``bv`` ``(H, hd)``
 flattened and concatenated into ``qkv.bias``, and ``wo`` ``(H, hd, d)``
-flattened to ``(H·hd, d)`` and transposed into ``wo.weight``.
+flattened to ``(H·hd, d)`` and transposed into ``wo.weight``.  An
+``attn`` holding ``w_dkv`` is MLA, whose leaves keep their names and
+layout (``kv_norm``'s ``scale`` -> ``weight``).  A ``moe`` node (it holds
+``router``) keeps its leaves' names and layout: ``router`` (d, E), which
+the port keeps float32 in any model, and the experts' ``w_gate`` /
+``w_up`` (E, d, f) and ``w_down`` (E, f, d); its ``shared`` experts are
+an MLP, mapped as one.
 
 ``params_to_jax`` is the inverse of ``params_from_jax``: a ``Tao`` state
 dict back to the reference's nested tree of NumPy arrays, each layer
@@ -63,40 +70,51 @@ _LM_TRANSPOSED = frozenset(_LM_LINEAR)
 # layernorm's)
 _QUANT_MARKS = frozenset({"w_q", "table_q"})
 _QUANT_LEAVES = {"b": "bias"}
+# the leaf that marks a MoE node, whose leaves keep their names and layout
+_MOE_MARK = "router"
+# top-level keys whose arrays are stacked layers
+_STACKED = ("layers", "dense_layers")
 
 
 def _state_dict(np_tree: Mapping, leaf_names: Mapping[str, str],
                 transposed: frozenset) -> Dict[str, torch.Tensor]:
     """Walk the tree: dict keys and list indices join with dots, arrays under
-    a top-level ``layers`` key are unstacked on their first axis into
-    ``layers.{i}``, and each leaf is renamed and transposed as told (in a
-    node holding one of ``_QUANT_MARKS``, by ``_QUANT_LEAVES`` alone).
-    Integer leaves keep their dtype, the others become float32."""
+    a top-level ``_STACKED`` key are unstacked on their first axis into
+    ``{key}.{i}``, and each leaf is renamed and transposed as told (in a
+    node holding one of ``_QUANT_MARKS``, renamed by ``_QUANT_LEAVES``
+    alone; in a node holding ``_MOE_MARK``, kept as it is).  Integer leaves
+    keep their dtype, the others become float32."""
     out: Dict[str, torch.Tensor] = {}
 
-    def put(path, a, names):
+    def put(path, a, names, trans):
         leaf = path[-1]
-        if leaf in transposed:
+        if leaf in trans:
             a = a.T
         dtype = a.dtype if np.issubdtype(a.dtype, np.integer) else np.float32
         name = ".".join(path[:-1] + [names.get(leaf, leaf)])
         out[name] = torch.from_numpy(np.array(a, dtype=dtype, order="C"))
 
-    def walk(node, path, names):
+    def walk(node, path, names, trans):
         if isinstance(node, Mapping):
-            sub = _QUANT_LEAVES if _QUANT_MARKS & set(node) else leaf_names
+            if _QUANT_MARKS & set(node):
+                names = _QUANT_LEAVES
+            elif _MOE_MARK in node:
+                names, trans = {}, frozenset()
             for k, v in node.items():
-                walk(v, path + [str(k)], sub)
+                if isinstance(v, Mapping):  # a sub-node is named by its own leaves
+                    walk(v, path + [str(k)], leaf_names, transposed)
+                else:
+                    walk(v, path + [str(k)], names, trans)
         elif isinstance(node, (list, tuple)):
             for i, v in enumerate(node):
-                walk(v, path + [str(i)], names)
-        elif path[0] == "layers":
+                walk(v, path + [str(i)], names, trans)
+        elif path[0] in _STACKED:
             for i, a in enumerate(np.asarray(node)):
-                put(["layers", str(i)] + path[1:], a, names)
+                put([path[0], str(i)] + path[1:], a, names, trans)
         else:
-            put(path, np.asarray(node), names)
+            put(path, np.asarray(node), names, trans)
 
-    walk(np_tree, [], leaf_names)
+    walk(np_tree, [], leaf_names, transposed)
     return out
 
 
@@ -152,6 +170,8 @@ def lm_params_from_jax(np_tree: Mapping) -> Dict[str, torch.Tensor]:
     sd = _state_dict(np_tree, _LM_LEAVES, _LM_TRANSPOSED)
     for name in [n for n in sd if n.endswith(".attn.wq")]:
         pre = name[: -len("wq")]
+        if pre + "w_dkv" in sd:  # MLA: its leaves are the port's as they are
+            continue
         wq, wk, wv, wo = (sd.pop(pre + w) for w in ("wq", "wk", "wv", "wo"))
         sd[pre + "qkv.weight"] = torch.cat([w.flatten(1).T for w in (wq, wk, wv)]).contiguous()
         sd[pre + "wo.weight"] = wo.flatten(0, 1).T.contiguous()

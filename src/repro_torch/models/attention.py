@@ -1,13 +1,15 @@
 """Standard attention (MHA / GQA / MQA) with RoPE or M-RoPE, QKV bias and
-QK-norm, and its KV-cache decode path, in PyTorch.
+QK-norm, DeepSeek-V2's MLA, and their cache decode paths, in PyTorch.
 
-Counterpart of the standard half of ``repro/models/attention.py``:
-``init_attention``'s distributions, ``_project_qkv``, ``_attend``,
-``attention_forward(return_kv=)`` (``:55-275``), ``init_kv_cache``,
-``_quantize_kv``, ``attention_decode`` and ``apply_kv_cache_update``
-without a mesh (``:278-459``), the int8 KV cache included.  MLA, a local
-window and ``exclude_slot`` come with the ``moe`` and ``hybrid`` families
-(ROADMAP A10.4-A10.5).
+Counterpart of ``repro/models/attention.py`` without a mesh: the
+standard half, ``init_attention``'s distributions, ``_project_qkv``,
+``_attend``, ``attention_forward(return_kv=)`` (``:55-275``),
+``init_kv_cache``, ``_quantize_kv``, ``attention_decode`` and
+``apply_kv_cache_update`` (``:278-459``), the int8 KV cache included;
+and MLA, ``init_mla``, ``mla_forward``, ``init_mla_cache``, ``mla_decode``
+and ``apply_mla_cache_update`` (``:462-610``), with ``flash_ref``
+(``:122-203``), which MLA's prefill runs.  A local window and
+``exclude_slot`` come with the ``hybrid`` family (ROADMAP A10.5).
 
 The projections are packed: ``qkv`` is one ``nn.Linear`` whose weight is
 the reference's ``wq``, ``wk`` and ``wv`` ``(d, H, hd)`` flattened to
@@ -25,6 +27,21 @@ repeats k / v over the query heads before the launch (query head ``h``
 uses kv head ``h // (H // Hkv)``), as the reference does.  Decoding runs
 plain torch, as the reference's decode runs plain jnp.
 
+MLA keeps its weights in the reference's layout (``wq`` (d, H, nope +
+rope), ``w_dkv`` (d, r), ``w_kr`` (d, rope), ``kv_norm``, ``w_uk`` (r, H,
+nope), ``w_uv`` (r, H, v), ``wo`` (H, v, d)) and multiplies by their
+flattened views.  Its prefill attends with ``flash_ref``, plain torch,
+as the reference does even under ``use_pallas`` (``attention.py:523``):
+q / k are nope + rope wide and v is v_head_dim wide, which B4 (D == Dv)
+does not take.  ``flash_ref`` keeps the reference's blocked online
+softmax, so a 2048-token prefill holds one (B, H, 512, 512) block of
+scores at a time, and rounds P to the compute dtype before ``P V``; it
+skips the key blocks a causal query block cannot see, which changes no
+bit (such a block leaves the running max, sum and output as they were).
+Its decode is weight-absorbed, over the compressed cache ``c_kv`` (L, B,
+S, r) and ``k_rope`` (L, B, S, rope), bfloat16 when ``kv_cache_dtype``
+is int8, written in place by ``apply_mla_cache_update``.
+
 The KV cache is a dict of stacked-layer tensors ``k`` / ``v`` (L, B, S,
 Hkv, hd), plus float32 ``k_scale`` / ``v_scale`` (L, B, S, Hkv) when it is
 int8.  ``apply_kv_cache_update`` writes the new rows into the cache's
@@ -40,13 +57,15 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from ..kernels.attention.ops import flash_attention
 from ..nn.core import RMSNorm, rmsnorm, trunc_normal_param
 from .config import ArchConfig
 from .rotary import apply_mrope, apply_rope, text_mrope_positions
 
-__all__ = ["Attention", "apply_kv_cache_update", "init_kv_cache", "quantize_kv"]
+__all__ = ["Attention", "MLA", "apply_kv_cache_update", "apply_mla_cache_update", "flash_ref",
+           "init_kv_cache", "init_mla_cache", "quantize_kv"]
 
 NEG_INF = -1e30  # the reference decode's mask value
 
@@ -203,7 +222,166 @@ def apply_kv_cache_update(cache: Dict[str, torch.Tensor], new_kv, write_slot: in
         rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     else:
         rows = {"k": k_rows, "v": v_rows}
-    if 0 <= write_slot < cache["k"].shape[2]:
+    _write_rows(cache, rows, write_slot)
+    return cache
+
+
+def _write_rows(cache: Dict[str, torch.Tensor], rows: Dict[str, torch.Tensor], slot: int) -> None:
+    """Write (L, B, 1, ...) rows at sequence position ``slot`` (dim 2) of each
+    cache tensor, in place; nothing when ``slot`` is outside [0, S)."""
+    if 0 <= slot < next(iter(cache.values())).shape[2]:
         for name, r in rows.items():
-            cache[name][:, :, write_slot : write_slot + 1] = r.to(cache[name].dtype)
+            cache[name][:, :, slot : slot + 1] = r.to(cache[name].dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): compressed-KV attention
+# ---------------------------------------------------------------------------
+
+
+def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+              q_offset: int = 0, block_q: int = 512, block_k: int = 512) -> torch.Tensor:
+    """The reference's ``flash_ref`` without a window: q (B,H,Sq,D), k
+    (B,H,Sk,D), v (B,H,Sk,Dv) -> (B,H,Sq,Dv) in q's dtype.  Per block of
+    ``block_q`` queries, an online softmax over blocks of ``block_k`` keys:
+    scores ``q kᵀ`` in q's dtype, then float32 times 1/sqrt(D); P rounded
+    to q's dtype before ``P V``; running max, sum and output float32.
+    ``q_offset`` is the absolute position of q's first row."""
+    B, H, Sq, D = q.shape
+    Sk, Dv = k.shape[2], v.shape[-1]
+    scale = 1.0 / math.sqrt(D)
+    out = q.new_empty(B, H, Sq, Dv)
+    for q0 in range(0, Sq, block_q):
+        qb = q[:, :, q0 : q0 + block_q]
+        qpos = q_offset + q0 + torch.arange(qb.shape[2], device=q.device)
+        m = torch.full(qb.shape[:3], -math.inf, dtype=torch.float32, device=q.device)
+        ls = torch.zeros_like(m)
+        acc = torch.zeros(qb.shape[:3] + (Dv,), dtype=torch.float32, device=q.device)
+        k_end = min(Sk, q_offset + q0 + qb.shape[2]) if causal else Sk
+        for k0 in range(0, k_end, block_k):
+            kb, vb = k[:, :, k0 : k0 + block_k], v[:, :, k0 : k0 + block_k]
+            s = (qb @ kb.transpose(-1, -2)).float() * scale
+            if causal:
+                mask = qpos[:, None] >= (k0 + torch.arange(kb.shape[2], device=q.device))[None, :]
+                s = s.masked_fill(~mask, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(s - m_safe[..., None])  # exp(-inf) = 0 where masked
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            ls = ls * corr + p.sum(-1)
+            acc = acc * corr[..., None] + (p.to(q.dtype) @ vb).float()
+            m = m_new
+        out[:, :, q0 : q0 + block_q] = (acc / ls.clamp(min=1e-30)[..., None]).to(q.dtype)
+    return out
+
+
+class MLA(nn.Module):
+    """Multi-head latent attention: ``wq``, ``w_dkv``, ``w_kr``, ``kv_norm``,
+    ``w_uk``, ``w_uv``, ``wo`` in the reference's layout, each drawn from
+    the fan-in truncated normal of ``init_mla`` (``attention.py:462-476``)."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, *, device):
+        super().__init__()
+        m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+        pd = getattr(torch, cfg.param_dtype)
+        self.cfg, self.H = cfg, H
+        self.cd = getattr(torch, cfg.compute_dtype)
+        self.nope, self.rope_d, self.dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+        r = m.kv_lora_rank
+
+        def param(shape, fan_in):
+            return trunc_normal_param(shape, 1.0 / math.sqrt(fan_in), generator, device=device,
+                                      dtype=pd)
+
+        self.wq = param((d, H, self.nope + self.rope_d), d)
+        self.w_dkv = param((d, r), d)
+        self.w_kr = param((d, self.rope_d), d)
+        self.kv_norm = RMSNorm(r, dtype=pd, device=device)
+        self.w_uk = param((r, H, self.nope), r)
+        self.w_uv = param((r, H, self.dv), r)
+        self.wo = param((H, self.dv, d), H * self.dv)
+
+    def _project(self, x: torch.Tensor, positions: torch.Tensor):
+        """x (B,S,d) in the compute dtype -> q_nope, q_rope (B,H,S,·) with
+        RoPE on q_rope, c_kv (B,S,r) normalized, k_rope (B,1,S,rope)."""
+        cd, B, S = self.cd, x.shape[0], x.shape[1]
+        q = (x @ self.wq.to(cd).flatten(1)).view(B, S, self.H, -1).transpose(1, 2)
+        q_nope, q_rope = q[..., : self.nope], q[..., self.nope :]
+        q_rope = apply_rope(q_rope, positions, self.cfg.rope_theta)
+        c_kv = rmsnorm(x @ self.w_dkv.to(cd), self.kv_norm.weight)
+        k_rope = apply_rope((x @ self.w_kr.to(cd))[:, None], positions, self.cfg.rope_theta)
+        return q_nope, q_rope, c_kv, k_rope
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, *, return_kv: bool = False):
+        """Full-sequence causal MLA (prefill / loss), x (B,S,d) -> (B,S,d);
+        with ``return_kv`` also the compressed cache rows (c_kv (B,S,r),
+        k_rope (B,S,rope))."""
+        cd = self.cd
+        x = x.to(cd)
+        B, S, H = x.shape[0], x.shape[1], self.H
+        q_nope, q_rope, c_kv, k_rope = self._project(x, positions)
+        k_nope = (c_kv @ self.w_uk.to(cd).flatten(1)).view(B, S, H, -1).transpose(1, 2)
+        v = (c_kv @ self.w_uv.to(cd).flatten(1)).view(B, S, H, -1).transpose(1, 2)
+        qf = torch.cat([q_nope, q_rope], dim=-1)
+        kf = torch.cat([k_nope, k_rope.expand(B, H, S, self.rope_d)], dim=-1)
+        with record_function("mla.attention"):
+            o = flash_ref(qf, kf, v, causal=True)
+        out = o.transpose(1, 2).reshape(B, S, H * self.dv) @ self.wo.to(cd).flatten(0, 1)
+        if return_kv:
+            return out, (c_kv, k_rope[:, 0])
+        return out
+
+    def decode(self, x: torch.Tensor, layer_cache: Dict[str, torch.Tensor], pos: int
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """Weight-absorbed decode of one token per sequence, read-only over
+        ``layer_cache`` (c_kv (B,S,r), k_rope (B,S,rope)): the scores of
+        ``q_nope W_uk`` against c_kv plus q_rope against k_rope over the
+        positions < ``pos`` and the token's own rows inline, the context
+        over c_kv then through ``W_uv``.  x (B,1,d) -> (out (B,1,d),
+        (c_row (B,1,r), kr_row (B,1,rope))); the caller writes the rows
+        (``apply_mla_cache_update``)."""
+        cd = self.cd
+        x = x.to(cd)
+        B = x.shape[0]
+        positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+        q_nope, q_rope, c_new, kr_new = self._project(x, positions)
+        q_nope, q_rope, kr_new = q_nope[:, :, 0], q_rope[:, :, 0], kr_new[:, 0]  # (B,H,·), (B,1,rope)
+        c_all = layer_cache["c_kv"].to(cd)
+        kr_all = layer_cache["k_rope"].to(cd)
+        S = c_all.shape[1]
+        q_c = torch.einsum("bhk,rhk->bhr", q_nope, self.w_uk.to(cd))
+        s_c = torch.einsum("bhr,bsr->bhs", q_c, c_all)
+        s_r = torch.einsum("bhk,bsk->bhs", q_rope, kr_all)
+        scale = 1.0 / math.sqrt(self.nope + self.rope_d)
+        scores = (s_c + s_r).float() * scale
+        scores = scores.masked_fill(~(torch.arange(S, device=x.device) < pos), NEG_INF)
+        s_new = (torch.einsum("bhr,br->bh", q_c, c_new[:, 0])
+                 + torch.einsum("bhk,bk->bh", q_rope, kr_new[:, 0])).float()[..., None] * scale
+        probs = torch.softmax(torch.cat([scores, s_new], dim=-1), dim=-1).to(cd)
+        ctx_c = torch.einsum("bhs,bsr->bhr", probs[..., :S], c_all)
+        ctx_c = ctx_c + probs[..., S][..., None] * c_new[:, 0][:, None, :]
+        ctx = torch.einsum("bhr,rhk->bhk", ctx_c, self.w_uv.to(cd))
+        out = (ctx.reshape(B, -1) @ self.wo.to(cd).flatten(0, 1))[:, None]
+        return out, (c_new, kr_new)
+
+
+def init_mla_cache(cfg: ArchConfig, n_layers: int, batch: int, max_len: int,
+                   device: Optional[torch.device] = None) -> Dict[str, torch.Tensor]:
+    """Zero stacked-layer MLA cache: ``c_kv`` (L,B,S,r) and ``k_rope``
+    (L,B,S,rope) in ``kv_cache_dtype``, bfloat16 for ``"int8"``
+    (``attention.py:532-538``)."""
+    m = cfg.mla
+    dt = torch.bfloat16 if cfg.kv_cache_dtype == "int8" else getattr(torch, cfg.kv_cache_dtype)
+    return {"c_kv": torch.zeros(n_layers, batch, max_len, m.kv_lora_rank, dtype=dt, device=device),
+            "k_rope": torch.zeros(n_layers, batch, max_len, m.qk_rope_head_dim, dtype=dt,
+                                  device=device)}
+
+
+def apply_mla_cache_update(cache: Dict[str, torch.Tensor], new_rows, pos: int
+                           ) -> Dict[str, torch.Tensor]:
+    """Write the stacked rows ``new_rows = (c_rows, kr_rows)`` (L,B,1,·) at
+    sequence position ``pos`` of every layer, in place; a position outside
+    [0, S) writes nothing.  Returns ``cache``."""
+    c_rows, kr_rows = new_rows
+    _write_rows(cache, {"c_kv": c_rows, "k_rope": kr_rows}, pos)
     return cache

@@ -3,27 +3,35 @@
 Counterpart of ``repro/models/backbone.py::Model`` for the ``ssm`` family
 (a Mamba-2 stack), the ``dense`` family (a causal decoder), ``vlm`` (the
 decoder with M-RoPE, its first positions' embeddings replaced by
-projected image patches) and ``audio`` (a bidirectional encoder over
-projected frames, run through ``encode``); the reference's ``moe`` and
-``hybrid`` families are ROADMAP items A10.4-A10.5.  The stack is the
+projected image patches), ``audio`` (a bidirectional encoder over
+projected frames, run through ``encode``) and ``moe`` (the decoder with a
+mixture-of-experts MLP, and MLA attention where ``cfg.mla``); the
+reference's ``hybrid`` family is ROADMAP item A10.5.  The stack is the
 embedding table, ``n_layers`` pre-norm residual layers, ``final_norm``
 and the head: the table itself when the embeddings are tied, else
 ``lm_head``.  A config with a ``frontend`` also has ``frontend.proj``
 (frontend_dim -> d_model, no bias), the modality stub's projection.  An
-``ssm`` layer is ``ln`` + a ``Mamba2`` mixer; a ``dense`` / ``vlm`` /
-``audio`` layer ``ln_attn`` + ``attn`` + ``ln_mlp`` + ``mlp``, its norms
-rmsnorm or layernorm by ``cfg.norm``, its attention bidirectional when
-``cfg.encoder_only``.  Where the reference scans stacked layer params,
-the port runs an ``nn.ModuleList`` eagerly; the caches keep the
-reference's stacked layout so the two compare leaf by leaf: ``{"ssm":
-(L,B,H,N,P), "conv": (L,B,K-1,C)}`` float32 for ``ssm``; ``{"k", "v"}``
-(L,B,S,Hkv,hd) for ``dense`` and ``vlm`` (plus ``k_scale`` / ``v_scale``
-for an int8 cache), in the compute dtype from ``prefill`` and in
-``kv_cache_dtype`` from ``init_cache``.  A decoder's ``decode_step``
-writes its rows into the cache in place and returns it.  An encoder
-(``encoder_only``) has no cache: ``prefill``, ``init_cache`` and
-``decode_step`` refuse it, as the reference routes its encoder only
-through ``encode``.  Every entry point is forward only.
+``ssm`` layer is ``ln`` + a ``Mamba2`` mixer; a decoder or encoder layer
+``ln_attn`` + ``attn`` (``Attention``, or ``MLA`` when ``cfg.mla``) +
+``ln_mlp`` + ``mlp`` (or ``moe``, a ``MoE``, in a ``moe`` model's layers),
+its norms rmsnorm or layernorm by ``cfg.norm``, its attention
+bidirectional when ``cfg.encoder_only``.  A ``moe`` config with
+``first_dense_layers`` holds those layers, with a dense ``mlp``, in a
+separate ``dense_layers`` list ahead of ``layers``, as the reference's
+tree does.  Where the reference scans stacked layer params, the port runs
+``nn.ModuleList``s eagerly; the caches keep the reference's stacked
+layout so the two compare leaf by leaf: ``{"ssm": (L,B,H,N,P), "conv":
+(L,B,K-1,C)}`` float32 for ``ssm``; ``{"k", "v"}`` (L,B,S,Hkv,hd) for
+standard attention (plus ``k_scale`` / ``v_scale`` for an int8 cache),
+``{"c_kv": (L,B,S,r), "k_rope": (L,B,S,rope)}`` for MLA, dense layers
+first, in the compute dtype from ``prefill`` and in ``kv_cache_dtype``
+from ``init_cache``.  A decoder's ``decode_step`` writes its rows into the
+cache in place and returns it.  An encoder (``encoder_only``) has no
+cache: ``prefill``, ``init_cache`` and ``decode_step`` refuse it, as the
+reference routes its encoder only through ``encode``.  ``loss`` adds each
+MoE layer's ``router_aux_weight · load_balance + router_z_weight ·
+router_z`` to ``aux``.  The reference's ``prefill_chunks`` is not ported:
+the port prefills the batch whole.  Every entry point is forward only.
 """
 from __future__ import annotations
 
@@ -36,15 +44,23 @@ from torch import nn
 
 from .. import resolve_device
 from ..nn.core import LayerNorm, RMSNorm, trunc_normal_param
-from .attention import Attention, apply_kv_cache_update, init_kv_cache
+from .attention import (
+    MLA,
+    Attention,
+    apply_kv_cache_update,
+    apply_mla_cache_update,
+    init_kv_cache,
+    init_mla_cache,
+)
 from .config import ArchConfig
 from .mamba2 import Mamba2, init_ssm_state
 from .mlp import MLP
+from .moe import MoE
 
 __all__ = ["Model", "VOCAB_CHUNK"]
 
 VOCAB_CHUNK = 2048  # logit/CE chunk along the sequence to bound live logits
-FAMILIES = ("ssm", "dense", "vlm", "audio")
+FAMILIES = ("ssm", "dense", "vlm", "audio", "moe")
 
 
 def _norm(cfg: ArchConfig, *, device) -> nn.Module:
@@ -59,15 +75,28 @@ class SSMLayer(nn.Module):
         self.mixer = Mamba2(cfg, generator, device=device)
 
 
-class DenseLayer(nn.Module):
-    def __init__(self, cfg: ArchConfig, generator: torch.Generator, *, device):
+class DecoderLayer(nn.Module):
+    """``ln_attn``, ``attn`` (``MLA`` when ``cfg.mla``, else ``Attention``),
+    ``ln_mlp`` and ``moe`` (a ``MoE``) when ``moe``, else ``mlp``."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, *, device, moe: bool = False):
         super().__init__()
         self.ln_attn = _norm(cfg, device=device)
-        self.attn = Attention(cfg, generator, device=device)
+        self.attn = (MLA if cfg.mla else Attention)(cfg, generator, device=device)
         self.ln_mlp = _norm(cfg, device=device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, generator,
-                       param_dtype=getattr(torch, cfg.param_dtype),
-                       compute_dtype=getattr(torch, cfg.compute_dtype), device=device)
+        if moe:
+            self.moe = MoE(cfg, generator, device=device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, generator,
+                           param_dtype=getattr(torch, cfg.param_dtype),
+                           compute_dtype=getattr(torch, cfg.compute_dtype), device=device)
+
+    def ffn(self, x: torch.Tensor):
+        """The MLP half on the normalized ``x`` -> (out, the MoE's aux
+        losses or None)."""
+        if hasattr(self, "moe"):
+            return self.moe(x)
+        return self.mlp(x), None
 
 
 class Frontend(nn.Module):
@@ -84,9 +113,9 @@ class Frontend(nn.Module):
 
 
 class Model(nn.Module):
-    """A language model of the ``ssm``, ``dense``, ``vlm`` or ``audio``
-    family: ``prefill`` / ``decode_step`` / ``init_cache`` for serving a
-    decoder, ``encode`` for an encoder, ``loss`` (forward only).
+    """A language model of the ``ssm``, ``dense``, ``vlm``, ``audio`` or
+    ``moe`` family: ``prefill`` / ``decode_step`` / ``init_cache`` for
+    serving a decoder, ``encode`` for an encoder, ``loss`` (forward only).
 
     ``Model(cfg, device=None, generator=None)`` builds the parameters on
     ``device`` (``cuda`` by default; raises without it unless
@@ -104,7 +133,7 @@ class Model(nn.Module):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported (have {FAMILIES}); "
-                "moe and hybrid are ROADMAP items A10.4-A10.5"
+                "hybrid is ROADMAP item A10.5"
             )
         dev = resolve_device(device)
         g = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
@@ -119,8 +148,14 @@ class Model(nn.Module):
                                                      device=dev, dtype=pd)
         if cfg.frontend is not None:
             self.frontend = Frontend(cfg, g, device=dev)
-        layer = SSMLayer if cfg.family == "ssm" else DenseLayer
-        self.layers = nn.ModuleList(layer(cfg, g, device=dev) for _ in range(cfg.n_layers))
+        if cfg.family == "ssm":
+            self.layers = nn.ModuleList(SSMLayer(cfg, g, device=dev) for _ in range(cfg.n_layers))
+        else:
+            nd = cfg.moe.first_dense_layers if cfg.moe else 0
+            if nd:
+                self.dense_layers = nn.ModuleList(DecoderLayer(cfg, g, device=dev) for _ in range(nd))
+            self.layers = nn.ModuleList(DecoderLayer(cfg, g, device=dev, moe=cfg.moe is not None)
+                                        for _ in range(cfg.n_layers - nd))
         self.final_norm = _norm(cfg, device=dev)
 
     @property
@@ -158,15 +193,23 @@ class Model(nn.Module):
         head = self.lm_head.weight if hasattr(self, "lm_head") else self.embed.weight
         return F.linear(self.final_norm(x), head.to(self.cd)).float()
 
-    def _dense_layer(self, layer: DenseLayer, x: torch.Tensor, positions: torch.Tensor,
-                     return_kv: bool = False):
-        """One pre-norm layer, causal unless ``encoder_only`` -> (x, (k, v)
-        when ``return_kv``)."""
-        out = layer.attn(layer.ln_attn(x), positions, causal=not self.cfg.encoder_only,
-                         return_kv=return_kv)
+    def _decoder_layers(self):
+        """Every attention layer in order: ``dense_layers`` first."""
+        return [*getattr(self, "dense_layers", ()), *self.layers]
+
+    def _layer(self, layer: DecoderLayer, x: torch.Tensor, positions: torch.Tensor,
+               return_kv: bool = False):
+        """One pre-norm layer, causal unless ``encoder_only`` -> (x, its cache
+        rows when ``return_kv``, the MoE's aux losses or None)."""
+        h = layer.ln_attn(x)
+        if self.cfg.mla:
+            out = layer.attn(h, positions, return_kv=return_kv)
+        else:
+            out = layer.attn(h, positions, causal=not self.cfg.encoder_only, return_kv=return_kv)
         attn, kv = out if return_kv else (out, None)
         x = x + attn
-        return x + layer.mlp(layer.ln_mlp(x)), kv
+        y, aux = layer.ffn(layer.ln_mlp(x))
+        return x + y, kv, aux
 
     def _positions(self, x: torch.Tensor) -> torch.Tensor:
         B, S = x.shape[:2]
@@ -199,21 +242,29 @@ class Model(nn.Module):
             cfg = self.cfg
             B, S = tokens.shape
             positions = self._positions(x)
-            shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
-            cache = {n: torch.empty(shape, dtype=self.cd, device=x.device) for n in ("k", "v")}
-            for i, layer in enumerate(self.layers):
-                x, (k, v) = self._dense_layer(layer, x, positions, return_kv=True)
-                cache["k"][i].copy_(k)
-                cache["v"][i].copy_(v)
+            L = cfg.n_layers
+            if cfg.mla:
+                shapes = {"c_kv": (L, B, S, cfg.mla.kv_lora_rank),
+                          "k_rope": (L, B, S, cfg.mla.qk_rope_head_dim)}
+            else:
+                shapes = dict.fromkeys(("k", "v"), (L, B, S, cfg.n_kv_heads, cfg.resolved_head_dim))
+            cache = {n: torch.empty(sh, dtype=self.cd, device=x.device) for n, sh in shapes.items()}
+            for i, layer in enumerate(self._decoder_layers()):
+                x, rows, _ = self._layer(layer, x, positions, return_kv=True)
+                for t, r in zip(cache.values(), rows):
+                    t[i].copy_(r)
         return self._logits(x[:, -1]), cache
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
         """Zero cache for ``batch`` sequences: a Mamba-2 state (which does not
-        grow with ``max_len``) or a KV cache of ``max_len`` positions."""
+        grow with ``max_len``), or a KV cache (MLA's compressed one where
+        ``cfg.mla``) of ``max_len`` positions."""
         self._decoder_only("cache")
-        if self.cfg.family == "ssm":
-            return init_ssm_state(self.cfg, self.cfg.n_layers, batch, self.device)
-        return init_kv_cache(self.cfg, self.cfg.n_layers, batch, max_len, self.device)
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return init_ssm_state(cfg, cfg.n_layers, batch, self.device)
+        init = init_mla_cache if cfg.mla else init_kv_cache
+        return init(cfg, cfg.n_layers, batch, max_len, self.device)
 
     @torch.no_grad()
     def decode_step(self, cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
@@ -235,28 +286,32 @@ class Model(nn.Module):
             new_cache = {k: torch.stack([st[k] for st in states]) for k in ("ssm", "conv")}
             return self._logits(x[:, 0]), new_cache
         pos = int(pos)
-        k_rows, v_rows = [], []
-        for i, layer in enumerate(self.layers):
-            out, (k_row, v_row) = layer.attn.decode(
-                layer.ln_attn(x), {n: t[i] for n, t in cache.items()}, pos)
+        rows = []
+        for i, layer in enumerate(self._decoder_layers()):
+            out, row = layer.attn.decode(layer.ln_attn(x), {n: t[i] for n, t in cache.items()}, pos)
             x = x + out
-            x = x + layer.mlp(layer.ln_mlp(x))
-            k_rows.append(k_row)
-            v_rows.append(v_row)
-        cache = apply_kv_cache_update(cache, (torch.stack(k_rows), torch.stack(v_rows)), pos)
+            x = x + layer.ffn(layer.ln_mlp(x))[0]
+            rows.append(row)
+        update = apply_mla_cache_update if self.cfg.mla else apply_kv_cache_update
+        cache = update(cache, tuple(torch.stack(r) for r in zip(*rows)), pos)
         return self._logits(x[:, 0]), cache
 
-    def _hidden(self, x: torch.Tensor) -> torch.Tensor:
+    def _hidden(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The stack's output (B, S, d) on its input ``x``, before the final
-        norm."""
+        norm, and the sum of its MoE layers' weighted aux losses (float32)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.cfg.family == "ssm":
             for layer in self.layers:
                 x = x + layer.mixer(layer.ln(x))
-            return x
+            return x, aux
+        m = self.cfg.moe
         positions = self._positions(x)
-        for layer in self.layers:
-            x, _ = self._dense_layer(layer, x, positions)
-        return x
+        for layer in self._decoder_layers():
+            x, _, layer_aux = self._layer(layer, x, positions)
+            if layer_aux is not None:
+                aux = aux + (m.router_aux_weight * layer_aux["load_balance"]
+                             + m.router_z_weight * layer_aux["router_z"])
+        return x, aux
 
     @torch.no_grad()
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
@@ -268,7 +323,7 @@ class Model(nn.Module):
                 f"{self.cfg.name}: encode takes frames, the audio family's input; family "
                 f"{self.cfg.family!r} serves through prefill / decode_step"
             )
-        return self._logits(self._hidden(self._inputs(frames=frames)))
+        return self._logits(self._hidden(self._inputs(frames=frames))[0])
 
     @torch.no_grad()
     def loss(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -276,10 +331,10 @@ class Model(nn.Module):
         next-token for a decoder (on ``"tokens"``, and ``"patches"`` for
         ``vlm``), per frame for an encoder (on ``"frames"``, no shift), in
         sequence chunks of ``VOCAB_CHUNK`` so the full-vocabulary logits are
-        never all live.  Returns (loss, {"ce", "aux"}); no ported family has
-        an auxiliary loss."""
-        x = self._hidden(self._inputs(batch.get("tokens"), batch.get("frames"),
-                                      batch.get("patches")))
+        never all live.  Returns (ce + aux, {"ce", "aux"}); ``aux`` is the
+        MoE layers' weighted router losses, 0 for the other families."""
+        x, aux = self._hidden(self._inputs(batch.get("tokens"), batch.get("frames"),
+                                           batch.get("patches")))
         xs, labels = x, batch["labels"]
         if not self.cfg.encoder_only:
             xs, labels = x[:, :-1], labels[:, 1:]
@@ -295,5 +350,4 @@ class Model(nn.Module):
             tot = tot + ((torch.logsumexp(logits, -1) - gold) * mask).sum()
             cnt = cnt + mask.sum()
         ce = tot / cnt.clamp(min=1.0)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return ce + aux, {"ce": ce, "aux": aux}

@@ -5,9 +5,10 @@ families read: ``ssm`` (Mamba-2), ``dense`` (a causal decoder of MHA /
 GQA attention with RoPE and a SwiGLU or GELU MLP), ``vlm`` (the same
 decoder with M-RoPE and a vision stub: precomputed patch embeddings
 projected over the first positions) and ``audio`` (a bidirectional
-encoder over projected frame embeddings).  The reference's ``moe``,
-``mla`` and ``hybrid`` fields come with the families that read them
-(ROADMAP A10.4-A10.5).  Its ``use_pallas``,
+encoder over projected frame embeddings) and ``moe`` (the decoder with a
+mixture-of-experts MLP, ``MoEConfig``, and for DeepSeek-V2 MLA attention,
+``MLAConfig``).  The reference's ``hybrid`` field comes with the family
+that reads it (ROADMAP A10.5).  Its ``use_pallas``,
 ``remat``, ``scan_layers`` and ``prefill_chunks`` are left out: the port
 always launches its kernels on the card (B4 on every windowless
 attention, B5 on every SSD scan), runs eagerly, does not rematerialize
@@ -19,7 +20,29 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["SSMConfig", "ArchConfig"]
+__all__ = ["ArchConfig", "MLAConfig", "MoEConfig", "SSMConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared: int = 0
+    d_ff_shared: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    router_z_weight: float = 1e-3
+    # layers before this index use a dense MLP (DeepSeek: first layer dense)
+    first_dense_layers: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +68,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # ssm | dense | vlm | audio are ported (ROADMAP A10)
+    family: str                      # ssm | dense | vlm | audio | moe are ported (ROADMAP A10)
     n_layers: int
     d_model: int
     n_heads: int
@@ -65,6 +88,8 @@ class ArchConfig:
     frontend: Optional[str] = None   # audio_stub | vision_stub
     frontend_dim: int = 512          # stub embedding dim
     vision_patches: int = 64         # patches prepended per sample (vlm stub)
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
@@ -81,7 +106,11 @@ class ArchConfig:
         them, head_dim 16 where it is explicit; frontend_dim 32, 4 vision
         patches and M-RoPE sections (2, 3, 3) (summing to the reduced
         head_dim / 2 = 8) under ``rope="mrope"``; for ``ssm`` d_state 16,
-        head_dim 16, chunk 32.  ``kv_cache_dtype`` is kept."""
+        head_dim 16, chunk 32; for ``moe`` at most 8 experts, top_k at
+        most 2, d_ff_expert 64, d_ff_shared 64 where there are shared
+        experts, and capacity_factor 8.0 (dropless: C >= Tg * k for any
+        routing); for ``mla`` ranks 32 / 16 / 8 / 16 (kv_lora, nope,
+        rope, v).  ``kv_cache_dtype`` is kept."""
         n_heads = min(self.n_heads, 4) if self.n_heads else 0
         n_kv = min(self.n_kv_heads, n_heads) if self.n_kv_heads else n_heads
         if n_kv and n_heads % n_kv:
@@ -89,6 +118,20 @@ class ArchConfig:
         return dataclasses.replace(
             self,
             mrope_sections=(2, 3, 3) if self.rope == "mrope" else self.mrope_sections,
+            moe=dataclasses.replace(
+                self.moe,
+                num_experts=min(self.moe.num_experts, 8),
+                top_k=min(self.moe.top_k, 2),
+                d_ff_expert=64,
+                d_ff_shared=64 if self.moe.num_shared else 0,
+                capacity_factor=8.0,
+            )
+            if self.moe
+            else None,
+            mla=dataclasses.replace(self.mla, kv_lora_rank=32, qk_nope_head_dim=16,
+                                    qk_rope_head_dim=8, v_head_dim=16)
+            if self.mla
+            else None,
             ssm=dataclasses.replace(self.ssm, d_state=16, head_dim=16, chunk=32)
             if self.ssm
             else None,

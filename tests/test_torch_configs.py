@@ -5,13 +5,13 @@
 no reduced variant.  The port's config equals the reference's field by
 field, all but the reference's ``use_pallas`` switch (the port always runs
 its hand-written attention kernel on the card).  ``ARCH_IDS`` is the
-reference's less the LLM zoo not ported yet (ROADMAP A10.4-A10.5).  The
-four ``dense`` configs, ``qwen2-vl-2b`` and ``hubert-xlarge`` equal the
-reference's field by field, full and reduced, on every field the port
-has; the fields the port leaves out are the reference's switches it does
-not read (``use_pallas``, ``remat``, ``scan_layers``, ``prefill_chunks``)
-and those of the families not ported (MoE, MLA, hybrid), which these
-configs leave at their defaults.
+reference's less the LLM zoo not ported yet (ROADMAP A10.5).  The four
+``dense`` configs, ``qwen2-vl-2b``, ``hubert-xlarge`` and the two ``moe``
+configs equal the reference's field by field, full and reduced (the MoE
+and MLA fields nested), on every field the port has; the fields the port
+leaves out are the reference's switches it does not read
+(``use_pallas``, ``remat``, ``scan_layers``, ``prefill_chunks``) and the
+``hybrid`` family's, which these configs leave at their defaults.
 """
 import dataclasses
 
@@ -30,10 +30,11 @@ from repro_torch.core.model import TaoConfig  # noqa: E402
 # the reference's architectures the port runs
 DENSE = ("qwen1.5-32b", "qwen2-0.5b", "stablelm-1.6b", "glm4-9b")
 VLM_AUDIO = ("qwen2-vl-2b", "hubert-xlarge")
-PORTED = DENSE + ("mamba2-1.3b",) + VLM_AUDIO
+MOE = ("qwen3-moe-235b-a22b", "deepseek-v2-lite-16b")
+PORTED = DENSE + ("mamba2-1.3b",) + VLM_AUDIO + MOE
 # reference ArchConfig fields the port leaves out, and their defaults
-LEFT_OUT = {"moe": None, "mla": None, "hybrid": None, "remat": "full", "scan_layers": True,
-            "use_pallas": False, "prefill_chunks": 1}
+LEFT_OUT = {"hybrid": None, "remat": "full", "scan_layers": True, "use_pallas": False,
+            "prefill_chunks": 1}
 
 
 def as_fields(cfg):
@@ -112,3 +113,41 @@ def test_vlm_audio_config_equals_the_reference_field_by_field(arch, reduced):
     assert {k: port_fields[k] for k in want} == want
     head_dim = {"qwen2-vl-2b": 128, "hubert-xlarge": 80}[arch]
     assert port.resolved_head_dim == (16 if reduced else head_dim)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_config_equals_the_reference_field_by_field(arch, reduced):
+    """qwen3-moe-235b-a22b and deepseek-v2-lite-16b, full and reduced (at
+    most 8 experts, top_k at most 2, expert d_ff 64, shared d_ff 64 where
+    there are shared experts, capacity_factor 8.0; MLA ranks 32 / 16 / 8 /
+    16), on every field the port has, the nested MoE and MLA fields
+    included."""
+    ref, port = ref_get_arch(arch, reduced=reduced), get_arch(arch, reduced=reduced)
+    ref_fields = dataclasses.asdict(ref)
+    port_fields = dataclasses.asdict(port)
+    assert set(port_fields) | set(LEFT_OUT) == set(ref_fields)
+    assert port_fields == {k: v for k, v in ref_fields.items() if k in port_fields}
+    assert all(ref_fields[k] == (("none" if reduced else v) if k == "remat" else v)
+               for k, v in LEFT_OUT.items())
+    assert [f.name for f in dataclasses.fields(port.moe)] == [
+        f.name for f in dataclasses.fields(ref.moe)]
+    m = port.moe
+    want = {"qwen3-moe-235b-a22b": dict(num_experts=128, top_k=8, d_ff_expert=1536, num_shared=0,
+                                        d_ff_shared=0, first_dense_layers=0),
+            "deepseek-v2-lite-16b": dict(num_experts=64, top_k=6, d_ff_expert=1408, num_shared=2,
+                                         d_ff_shared=2816, first_dense_layers=1)}[arch]
+    want["capacity_factor"] = 1.25
+    if reduced:
+        want.update(num_experts=8, top_k=2, d_ff_expert=64, capacity_factor=8.0,
+                    d_ff_shared=64 if want["num_shared"] else 0)
+    assert {k: getattr(m, k) for k in want} == want
+    assert (m.router_aux_weight, m.router_z_weight) == (0.01, 1e-3)
+    if arch == "deepseek-v2-lite-16b":
+        assert dataclasses.astuple(port.mla) == ((32, 16, 8, 16) if reduced else (512, 128, 64, 128))
+        assert (port.n_layers, port.d_model, port.n_heads) == ((4, 64, 4) if reduced else (27, 2048, 16))
+    else:
+        assert port.mla is None and port.qk_norm
+        assert (port.n_heads, port.n_kv_heads, port.resolved_head_dim) == (
+            (4, 4, 16) if reduced else (64, 4, 128))
+    assert port.family == "moe"

@@ -37,7 +37,12 @@ was.  Each dense config at full width cut to 2 layers matches the CPU in
 float32 (2e-4 of the largest value), and its prefill launches B4 once per
 layer, a decode step never; so do qwen2-vl-2b (prefill with patches and a
 decode step) and hubert-xlarge (``encode``, bidirectional) at reduced
-width.
+width.  The moe family: B4 in bfloat16 at qwen3-moe-235b-a22b's prefill
+shape (64 query heads over 4 kv heads repeated 16x); each moe config at
+full width cut to its first MoE layer matches the CPU in float32 (MoE
+routing, dispatch and combine; MLA's plain prefill and absorbed decode),
+and in bfloat16 a qwen3-moe prefill launches B4 once per layer, an MLA
+(deepseek) prefill and every decode step never.
 
 The engine's graphed step (one CUDA graph per geometry, replayed per
 batch) is held to the eager step driven through its cache entry, on every
@@ -1920,3 +1925,89 @@ def test_vlm_audio_reduced_on_card_matches_cpu(dev, arch):
     for got, want in pairs:
         scale = float(want.abs().max())
         torch.testing.assert_close(got.cpu(), want, atol=2e-4 * scale, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The moe family: MoE and MLA on the card, B4 at qwen3-moe's GQA 16:1
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("qwen3-moe-235b-a22b", "deepseek-v2-lite-16b")
+# full width cut to the first MoE layer: deepseek's dense layer and one MoE
+# layer, qwen3-moe's first layer (~10 GB of float32 weights)
+MOE_CUT_LAYERS = {"qwen3-moe-235b-a22b": 1, "deepseek-v2-lite-16b": 2}
+
+
+def b4_per_prefill(cfg) -> int:
+    """B4's launches in one prefill: one a layer, none under MLA (whose
+    prefill runs the reference's plain blocked attention)."""
+    return 0 if cfg.mla else cfg.n_layers
+
+
+def test_attention_kernel_bf16_at_qwen3_moe_gqa_16(dev):
+    """qwen3-moe-235b-a22b's prefill shape: 64 query heads over 4 kv heads
+    (k / v drawn at 4 heads and repeated 16x as B4 gets them), causal."""
+    g = torch.Generator().manual_seed(34)
+    q = torch.randn(4, 64, 2048, 128, generator=g).to(dev, torch.bfloat16)
+    k, v = (torch.randn(4, 4, 2048, 128, generator=g).to(dev, torch.bfloat16)
+            .repeat_interleave(16, dim=1) for _ in range(2))
+    launches = FLASH_ATTENTION.launches
+    got = flash_attention_cuda(q, k, v, causal=True)
+    ref = attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION.launches == launches + 1
+    assert_bf16_close(got, ref, v)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_full_width_cut_on_card_matches_cpu(dev, arch):
+    """Each moe config at full width cut to its first MoE layer, float32,
+    the published capacity_factor, random weights: prefill (logits and
+    cache) and a decode step on the card against the same model on the
+    CPU, within 2e-4 of the largest value; B4 once per layer a qwen3-moe
+    prefill, never for MLA (deepseek), never in a step."""
+    import copy
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=MOE_CUT_LAYERS[arch],
+                              param_dtype="float32", compute_dtype="float32")
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 64), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    b4 = b4_per_prefill(cfg)
+    launches = FLASH_ATTENTION.launches
+    logits, cache = model.prefill(toks)
+    assert FLASH_ATTENTION.launches == launches + b4
+    step, cache = model.decode_step(cache, toks[:, 0], 63)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION.launches == launches + b4
+    assert sorted(cache) == (["c_kv", "k_rope"] if cfg.mla else ["k", "v"])
+    got = [t.cpu() for t in (logits, step, *cache.values())]
+    del logits, step, cache
+    cpu = model.to("cpu")
+    ref, ref_cache = cpu.prefill(toks.cpu())
+    ref_step, ref_cache = cpu.decode_step(ref_cache, toks[:, 0].cpu(), 63)
+    for g, want in zip(got, (ref, ref_step, *ref_cache.values())):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(g, want, atol=2e-4 * scale, rtol=0)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_bf16_serving_launches_b4_per_layer_unless_mla(dev, arch):
+    """bfloat16 at full width, cut to 2 layers: a qwen3-moe prefill launches
+    B4 once per layer (GQA 16:1 after QK-norm), a deepseek prefill (MLA)
+    never, a decode step never; the router stays float32; logits finite."""
+    cfg = dataclasses.replace(get_arch(arch), n_layers=2)
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    assert model.layers[-1].moe.router.dtype == torch.float32
+    toks = torch.randint(0, cfg.vocab, (2, 300), device=dev)
+    b4 = b4_per_prefill(cfg)
+    launches = FLASH_ATTENTION.launches
+    logits, cache = model.prefill(toks)
+    assert FLASH_ATTENTION.launches == launches + b4
+    grown = model.init_cache(2, 302)
+    for k in grown:
+        grown[k][:, :, :300] = cache[k]
+    for i in range(2):
+        logits, grown = model.decode_step(grown, logits.argmax(-1), 300 + i)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION.launches == launches + b4
+    assert torch.isfinite(logits).all()

@@ -34,14 +34,17 @@ print(len(names), bad, sorted(names))
 
 # modules the walk must reach: one per subpackage, the persistence,
 # joint-training and serving slices' too, the paper's config, the dense
-# family's modules and the vlm / audio configs
+# family's modules, the vlm / audio configs and the moe family's module
+# and configs
 _MUST_WALK = (
     "repro_torch.ckpt.checkpoint",
+    "repro_torch.configs.deepseek_v2_lite_16b",
     "repro_torch.configs.glm4_9b",
     "repro_torch.configs.hubert_xlarge",
     "repro_torch.configs.qwen1_5_32b",
     "repro_torch.configs.qwen2_0_5b",
     "repro_torch.configs.qwen2_vl_2b",
+    "repro_torch.configs.qwen3_moe_235b_a22b",
     "repro_torch.configs.stablelm_1_6b",
     "repro_torch.configs.tao",
     "repro_torch.core.multiarch",
@@ -55,6 +58,7 @@ _MUST_WALK = (
     "repro_torch.launch.serve",
     "repro_torch.models.attention",
     "repro_torch.models.mlp",
+    "repro_torch.models.moe",
     "repro_torch.models.rotary",
     "repro_torch.resilience.breaker",
     "repro_torch.resilience.faults",
@@ -129,6 +133,22 @@ def test_dense_modules_import_alone_without_jax_or_reference():
             "repro_torch.models.mlp; from repro_torch.configs import get_arch; "
             "from repro_torch.models import Model; "
             "Model(get_arch('qwen2-0.5b', reduced=True), device='cpu'); "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=_env(),
+                         timeout=300, check=True).stdout
+    assert out.strip() == "[]"
+
+
+def test_moe_modules_import_alone_without_jax_or_reference():
+    """The moe family's module and configs imported first in a fresh
+    interpreter, and a reduced deepseek-v2-lite-16b (MLA, MoE, a dense
+    first layer) built on the CPU and run, bring in neither JAX nor the
+    reference."""
+    code = ("import sys, torch, repro_torch.models.moe, repro_torch.configs.deepseek_v2_lite_16b, "
+            "repro_torch.configs.qwen3_moe_235b_a22b; from repro_torch.configs import get_arch; "
+            "from repro_torch.models import Model; "
+            "m = Model(get_arch('deepseek-v2-lite-16b', reduced=True), device='cpu'); "
+            "m.prefill(torch.zeros((1, 8), dtype=torch.long)); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=_env(),
                          timeout=300, check=True).stdout

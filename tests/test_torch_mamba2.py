@@ -83,8 +83,8 @@ def test_config_copy_equals_reference(reduced):
 
 def test_registry_and_model_refuse_what_is_not_ported():
     with pytest.raises(KeyError, match="A10"):
-        get_arch("qwen3-moe-235b-a22b")
-    cfg = dataclasses.replace(get_arch(ARCH, reduced=True), family="moe")
+        get_arch("recurrentgemma-9b")
+    cfg = dataclasses.replace(get_arch(ARCH, reduced=True), family="hybrid")
     with pytest.raises(NotImplementedError, match="A10"):
         Model(cfg, device="cpu")
 
