@@ -249,12 +249,31 @@ and ``nvcc``.  Phases, one JSON line each:
            float32 copy at capacity_factor = E (no slot can drop) on 4 x
            64-token prompts; and the card against the CPU in float32 at
            the published capacity (deepseek at 2 layers, qwen3-moe at 1;
-           2 x 256 tokens), with the routing choices that differ counted.
+           2 x 256 tokens), with the routing choices that differ counted;
+  hybrid   recurrentgemma-9b at full width and depth (38 layers: 12 units
+           of two RG-LRU layers and one local-attention layer, window
+           2048, 16 query heads of 256 over 1 kv head, and a tail of two
+           RG-LRU layers; bfloat16, random weights from a CUDA generator,
+           seed 0) served as the dense cells are: B4 launched by no call
+           (the windowed attention runs the reference's plain blocked
+           attention; by the counter and the profiler), 32 decode steps
+           into a ring of 2048 slots that wrap at position 2048, device ms
+           split by stage (the RG-LRU scan, conv + gates, the windowed
+           attention, GEMMs, the rest); the handoff across position 2048
+           and the card against the CPU (2 x 256 tokens) on a float32 copy
+           cut to one unit and one tail layer.
+
+Each LLM phase (mamba2, dense, vlm_audio, moe, hybrid) prints, before
+each model's reading, a ``roofline`` line per prefill (or encode) and per
+median decode step: the port's analytic FLOPs and HBM bytes
+(``launch/roofline.py``, with the model's parameter count and its cache's
+bytes), the bound (the larger of FLOPs over the bfloat16 tensor-core peak
+and bytes over the HBM rate), the measured ms and their ratio.
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main path, error, times and bound (B4's and its backward's entries also
 hold their readings at the paper's width, B4's its bfloat16 readings and
-the dense, vlm, audio and moe cells' launches); the card's name and power limit
+the dense, vlm, audio, moe and hybrid cells' launches); the card's name and power limit
 as ``nvidia-smi`` prints them; and, last, the device line.  With phase
 names as arguments, the build and those phases run, and the last line is
 the device line with the phases' names; no kernels line.  Any failed check
@@ -510,10 +529,20 @@ MOE_CPU_SEQ = 256
 # the handoff runs where no slot can drop, capacity_factor = E (C >= Tg *
 # k), whose dispatch buffers grow with E: 4 prompts of this many tokens
 MOE_HANDOFF_PROMPT = 64
-# the port's profiler ranges (models/moe.py, models/attention.py::MLA)
-MOE_RANGES = {"moe.route": "routing", "moe.dispatch": "dispatch_combine",
-              "moe.combine": "dispatch_combine", "moe.experts": "experts",
-              "mla.attention": "mla_attention"}
+# the hybrid cell: recurrentgemma-9b at full width and depth, the dense
+# cells' traffic (DENSE_BATCH x DENSE_PROMPT, DENSE_DECODE steps: positions
+# 2048-2079 overwrite ring slots 0-31); its handoff and the card against the
+# CPU on a float32 copy of one unit and one tail layer, the latter on 2 x
+# HYBRID_CPU_SEQ tokens
+HYBRID_CUT_LAYERS = 4
+HYBRID_CPU_SEQ = 256
+# the port's profiler ranges (models/moe.py, models/attention.py: MLA's and
+# the windowed attention, models/rglru.py) and the stage each one is
+PROFILE_RANGES = {"moe.route": "routing", "moe.dispatch": "dispatch_combine",
+                  "moe.combine": "dispatch_combine", "moe.experts": "experts",
+                  "mla.attention": "mla_attention", "rglru.scan": "rglru_scan",
+                  "rglru.conv": "conv_gates", "rglru.gates": "conv_gates",
+                  "attention.windowed": "windowed_attention"}
 GEMM_PIECES = ("nvjet", "gemm", "gemv")
 
 
@@ -736,16 +765,16 @@ def profile_breakdown(fn, track: tuple = (), groups: dict = None) -> dict:
 
 def annotation(e) -> bool:
     """Whether a profiler event is a ``record_function`` range (the port's
-    MOE_RANGES), which the profiler also lays on the device's timeline as a
+    PROFILE_RANGES), which the profiler also lays on the device's timeline as a
     span around that range's kernels: a span, not a kernel, so no device
     time of its own."""
-    return bool(getattr(e, "is_user_annotation", False)) or e.key in MOE_RANGES
+    return bool(getattr(e, "is_user_annotation", False)) or e.key in PROFILE_RANGES
 
 
 def range_split(events) -> dict:
     """Device ms of a profile's kernel events by what they do, each event
     counted once, or None when the profile holds none of the port's
-    profiler ranges (MOE_RANGES).  The profiler lays each range on the
+    profiler ranges (PROFILE_RANGES).  The profiler lays each range on the
     device's timeline as a span from its first kernel's start to its last
     one's end; one stream runs one kernel at a time, so the spans do not
     overlap (raises if they do) and a kernel inside a span is that range's.
@@ -760,15 +789,16 @@ def range_split(events) -> dict:
     from torch.autograd import DeviceType
 
     on_device = [e for e in events if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end, MOE_RANGES[e.name])
-                   for e in on_device if annotation(e) and e.name in MOE_RANGES)
+    spans = sorted((e.time_range.start, e.time_range.end, PROFILE_RANGES[e.name])
+                   for e in on_device if annotation(e) and e.name in PROFILE_RANGES)
     if not spans:
         return None
     if any(b[0] < a[1] for a, b in zip(spans, spans[1:])):
         raise RuntimeError("profiler ranges overlap on the device's timeline")
     starts = [s[0] for s in spans]
     split = dict.fromkeys(("b4", "expert_gemm", "expert_swiglu", "routing", "dispatch_combine",
-                           "mla_attention", "other_gemm", "rest"), 0.0)
+                           "mla_attention", "rglru_scan", "conv_gates", "windowed_attention",
+                           "other_gemm", "rest"), 0.0)
     for e in on_device:
         if annotation(e):
             continue
@@ -4172,6 +4202,34 @@ def paper_session(failures, cfg):
                         f"unseen {unseen}, bwd launches per step {per_step}, checkpoints {saved}")
 
 
+def tree_bytes(tree) -> int:
+    """Bytes of the tensors of a cache (a dict of tensors or of dicts)."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def roofline(phase, cfg, kind, batch, seq, n_params, cache_bytes, ms) -> float:
+    """Emit the analytic bound of one call at ``cfg`` (the port's
+    ``launch/roofline.py``: ``kind`` "prefill" over ``seq`` positions, or
+    "decode" of one token over ``seq`` cached ones; bfloat16 tensor-core
+    peak and HBM rate) beside its measured ``ms``; returns the bound."""
+    from repro_torch.launch.roofline import analytic_flops, analytic_hbm_bytes
+
+    meta = {"batch": batch, "seq": seq, "kind": kind}
+    flops = analytic_flops(cfg, meta)
+    nbytes = analytic_hbm_bytes(cfg, meta, n_params, cache_bytes)
+    t_ops = flops / BF16_TENSOR_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ms = max(t_ops, t_bytes)
+    emit({"phase": phase, "config": cfg.name, "check": "roofline", "call": kind,
+          "layers": cfg.n_layers, "batch": batch, "seq": seq, "analytic_flops": flops,
+          "analytic_hbm_bytes": nbytes, "n_params": n_params, "cache_bytes": cache_bytes,
+          "bound_ms": b_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+          "ms": ms, "x_bound": ms / b_ms})
+    return b_ms
+
+
 def phase_mamba2(failures, results, traces):
     import torch
 
@@ -4222,11 +4280,14 @@ def phase_mamba2(failures, results, traces):
     if not finite:
         failures.append("mamba2: non-finite logits")
     results.setdefault("ssd", {})["launches"] = p_launches["ssd"]
+    step_median = sorted(step_ms)[steps // 2]
+    roofline("mamba2", cfg, "prefill", B, S, n_params, tree_bytes(cache), prefill_s * 1e3)
+    roofline("mamba2", cfg, "decode", B, S + steps // 2, n_params, tree_bytes(cache), step_median)
     emit({"phase": "mamba2", "config": cfg.name, "dtype": cfg.compute_dtype,
           "params": n_params, "init_seconds": init_s, "batch": B, "prompt_tokens": S,
           "prefill_seconds": prefill_s, "prefill_tokens_per_s": B * S / prefill_s,
           "prefill_launches": p_launches, "decode_steps": steps,
-          "decode_ms_per_step_median": sorted(step_ms)[steps // 2],
+          "decode_ms_per_step_median": step_median,
           "decode_ms_per_step_mean": sum(step_ms) / steps,
           "decode_tokens_per_s": B * steps / (sum(step_ms) / 1e3),
           "decode_ssd_launches": [d["ssd"] for d in d_launches],
@@ -4289,8 +4350,25 @@ def phase_mamba2(failures, results, traces):
 
 def b4_per_prefill(cfg) -> int:
     """B4's launches in one prefill at ``cfg``: one a layer, none under MLA
-    (whose prefill runs the reference's plain blocked attention)."""
-    return 0 if cfg.mla else cfg.n_layers
+    or in a hybrid stack (whose prefills run the reference's plain blocked
+    attention, a hybrid's over its window)."""
+    return 0 if cfg.mla or cfg.family == "hybrid" else cfg.n_layers
+
+
+def grown_cache(model, pre, batch: int, max_len: int):
+    """A prefill's cache ``pre`` copied into ``model.init_cache(batch,
+    max_len)``: a KV cache's first positions, or a hybrid cache's ring
+    slots and recurrent states."""
+    cache = model.init_cache(batch, max_len)
+    if "attn" in cache:
+        for k, t in pre["attn"].items():
+            cache["attn"][k][:, :, : t.shape[2]] = t
+        for k, t in pre["rec"].items():
+            cache["rec"][k].copy_(t)
+    else:
+        for k, t in pre.items():
+            cache[k][:, :, : t.shape[2]] = t
+    return cache
 
 
 def dense_serve(failures, cfg, gen, phase="dense") -> tuple:
@@ -4301,9 +4379,12 @@ def dense_serve(failures, cfg, gen, phase="dense") -> tuple:
     DENSE_DECODE positions, with every kernel's launches read around each
     call (B4 ``b4_per_prefill`` times a prefill, nothing else, and no
     launch in a decode step), tokens/s, ms per step (wall and this
-    thread's CPU time), weight and peak bytes, and the profiles of one
-    prefill and one step (B4's device ms and launches from the profiler;
-    by stage where the model runs the port's profiler ranges).  Returns
+    thread's CPU time), weight and peak bytes, the analytic bound of the
+    prefill and of the median step (``roofline``, on lines before the
+    reading), and the profiles of one prefill and one step (B4's device ms
+    and launches from the profiler; by stage where the model runs the
+    port's profiler ranges).  A hybrid model's cache grows to
+    min(S + DENSE_DECODE, window) ring slots.  Returns
     the model, the prompts, the patches (None but for a ``vlm``) and the
     reading."""
     import torch
@@ -4334,9 +4415,8 @@ def dense_serve(failures, cfg, gen, phase="dense") -> tuple:
     torch.cuda.synchronize()
     prefill_s, prefill_cpu_s = time.perf_counter() - t0, time.thread_time() - c0
     p_launches = read_counts()
-    cache = model.init_cache(B, S + steps)
-    for k in cache:
-        cache[k][:, :, :S] = pre[k]
+    pre_bytes = tree_bytes(pre)
+    cache = grown_cache(model, pre, B, S + steps)
     del pre
     finite = bool(torch.isfinite(logits).all())
     tok = logits.argmax(-1)
@@ -4368,6 +4448,9 @@ def dense_serve(failures, cfg, gen, phase="dense") -> tuple:
         failures.append(f"{phase} {cfg.name}: a decode step launched a kernel: {d_launches}")
     if not finite:
         failures.append(f"{phase} {cfg.name}: non-finite logits")
+    step_median = sorted(step_ms)[steps // 2]
+    roofline(phase, cfg, "prefill", B, S, n_params, pre_bytes, prefill_s * 1e3)
+    roofline(phase, cfg, "decode", B, S + steps // 2, n_params, tree_bytes(cache), step_median)
     reading = {"config": cfg.name, "dtype": cfg.compute_dtype, "layers": cfg.n_layers,
                "params": n_params, "init_seconds": init_s, "batch": B, "prompt_tokens": S,
                **({"patches": list(patches.shape)} if patches is not None else {}),
@@ -4375,7 +4458,7 @@ def dense_serve(failures, cfg, gen, phase="dense") -> tuple:
                "prefill_host_cpu_seconds": prefill_cpu_s,
                "prefill_launches": p_launches, "prefill_b4_launches_profiler": prof_launches[0],
                "decode_steps": steps,
-               "decode_ms_per_step_median": sorted(step_ms)[steps // 2],
+               "decode_ms_per_step_median": step_median,
                "decode_ms_per_step_mean": sum(step_ms) / steps,
                # the thread's CPU clock may tick in 10 ms: a mean over the steps
                "decode_host_cpu_ms_per_step_mean": sum(step_cpu_ms) / steps,
@@ -4532,6 +4615,7 @@ def audio_encode(failures, cfg, gen) -> tuple:
     if not finite or tuple(logits.shape) != (B, S, cfg.vocab) or logits.dtype != torch.float32:
         failures.append(f"vlm_audio {cfg.name}: encode gave {logits.dtype} "
                         f"{tuple(logits.shape)}, finite {finite}")
+    roofline("vlm_audio", cfg, "prefill", B, S, n_params, 0, encode_s * 1e3)
     reading = {"config": cfg.name, "dtype": cfg.compute_dtype, "layers": cfg.n_layers,
                "params": n_params, "init_seconds": init_s, "batch": B, "frames": S,
                "audio_seconds": B * S * HUBERT_FRAME_S, "encode_seconds": encode_s,
@@ -4678,9 +4762,7 @@ def moe_serve(failures, cfg) -> tuple:
     B, S = prompts.shape
     out = []
     drops = {"prefill": moe_routing(model, lambda: out.append(model.prefill(prompts)[1]))}
-    cache = model.init_cache(B, S + 1)
-    for k in cache:
-        cache[k][:, :, :S] = out[0][k]
+    cache = grown_cache(model, out[0], B, S + 1)
     del out
     tok = prompts[:, -1]
     drops["decode_step"] = moe_routing(model, lambda: model.decode_step(cache, tok, S))
@@ -4819,11 +4901,109 @@ def phase_moe(failures, results, traces):
     emit({"phase": "moe", "check": "seconds", "seconds": time.perf_counter() - t0})
 
 
+def hybrid_cut_state(sd: dict) -> dict:
+    """``sd`` of a hybrid model for its first unit and its first tail layer
+    (the stack of HYBRID_CUT_LAYERS = 4 layers ``reduced()`` also builds)."""
+    return {k: v for k, v in sd.items()
+            if not k.startswith(("layers.", "tail.")) or k.split(".")[1] == "0"}
+
+
+def hybrid_checks(failures, cfg, sd, prompts):
+    """On a float32 copy of the first unit and tail layer of the weights
+    ``sd`` (HYBRID_CUT_LAYERS layers, full width): the handoff (the last
+    logits of prefill(p + t) against prefill(p), then decode_step(t)) at the
+    full prompt, whose decode step at position 2048 overwrites ring slot 0;
+    then the card against the same model moved to the CPU (plain versions)
+    on 2 x HYBRID_CPU_SEQ tokens: prefill logits, a decode step and every
+    cache leaf after it, with B4's launches on the card (none)."""
+    import torch
+
+    from repro_torch.models import Model
+
+    cut = dataclasses.replace(cfg, n_layers=HYBRID_CUT_LAYERS, param_dtype="float32",
+                              compute_dtype="float32", kv_cache_dtype="float32")
+    m32 = Model(cut, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+    m32.load_state_dict(hybrid_cut_state(sd))
+    B, S = prompts.shape
+    tok = torch.randint(0, cfg.vocab, (B,), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(2))
+    full, _ = m32.prefill(torch.cat([prompts, tok[:, None]], dim=1))
+    _, cache = m32.prefill(prompts)
+    slots = cache["attn"]["k"].shape[2]
+    dec, _ = m32.decode_step(cache, tok, S)
+    torch.cuda.synchronize()
+    handoff = rel_diff(dec, full)
+    del cache
+    ok = handoff <= HANDOFF_REL and bool(torch.isfinite(full).all())
+    if not ok:
+        failures.append(f"hybrid {cfg.name}: prefill/decode handoff {handoff} > {HANDOFF_REL}")
+    emit({"phase": "hybrid", "config": cfg.name, "check": "handoff_f32",
+          "layers": cut.n_layers, "batch": B, "prompt_tokens": S, "ring_slots": slots,
+          "decode_slot": S % slots, "max_abs_diff_rel_to_max_logit": handoff,
+          "limit": HANDOFF_REL, "ok": ok})
+
+    toks = prompts[:2, :HYBRID_CPU_SEQ]
+
+    def run(model, tokens, out):
+        logits, cache = model.prefill(tokens)
+        step, cache = model.decode_step(cache, tokens[:, 0], HYBRID_CPU_SEQ - 1)
+        out.update({"prefill_logits": logits.cpu(), "decode_logits": step.cpu(),
+                    **{f"cache_{g}_{k}": v.cpu() for g in cache for k, v in cache[g].items()}})
+
+    zero_counts()
+    g_out, c_out = {}, {}
+    run(m32, toks, g_out)
+    torch.cuda.synchronize()
+    g_launches = read_counts()["flash_attention"]
+    cpu = m32.to("cpu")  # the same weights, moved
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run(cpu, toks.cpu(), c_out)
+    cpu_s = time.perf_counter() - t0
+    diffs = {k: rel_diff(g_out[k], c_out[k]) for k in c_out}
+    ok = max(diffs.values()) <= GPU_CPU_REL and g_launches == 0
+    if not ok:
+        failures.append(f"hybrid {cfg.name}: GPU and CPU disagree beyond {GPU_CPU_REL}: {diffs}, "
+                        f"{g_launches} B4 launches")
+    emit({"phase": "hybrid", "config": cfg.name, "check": "gpu_vs_cpu", "layers": cut.n_layers,
+          "tokens": list(toks.shape), "rel_diffs": diffs, "limit": GPU_CPU_REL,
+          "gpu_b4_launches": g_launches, "cpu_seconds": cpu_s, "ok": ok})
+
+
+def phase_hybrid(failures, results, traces):
+    """recurrentgemma-9b's serving path at full width and depth (module
+    note): served as the dense cells are, then the handoff and the card
+    against the CPU on a float32 copy cut to HYBRID_CUT_LAYERS layers."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    t0 = time.perf_counter()
+    cfg = get_arch("recurrentgemma-9b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model, prompts, _, reading = dense_serve(failures, cfg, gen, phase="hybrid")
+    if "prefill_device_ms_split" not in reading:
+        failures.append("hybrid: the prefill profile holds no RG-LRU or windowed range")
+    sd = {k: v.clone() for k, v in hybrid_cut_state(model.state_dict()).items()}
+    del model
+    torch.cuda.empty_cache()
+    if not failures:
+        hybrid_checks(failures, cfg, sd, prompts)
+    results.setdefault("flash_attention", {})["hybrid"] = {
+        cfg.name: {**serve_summary(reading),
+                   **{k: reading.get(k) for k in ("params", "idle_share",
+                                                  "prefill_device_ms_split",
+                                                  "decode_step_device_ms_split")}}}
+    del sd, prompts
+    torch.cuda.empty_cache()
+    emit({"phase": "hybrid", "check": "seconds", "seconds": time.perf_counter() - t0})
+
+
 PHASES = {"build": phase_build, "kernels": phase_kernels, "slice": phase_slice,
           "sweep": phase_sweep, "train": phase_train, "persist": phase_persist,
           "joint": phase_joint, "session": phase_session, "serve": phase_serve,
           "paper": phase_paper, "mamba2": phase_mamba2, "dense": phase_dense,
-          "vlm_audio": phase_vlm_audio, "moe": phase_moe}
+          "vlm_audio": phase_vlm_audio, "moe": phase_moe, "hybrid": phase_hybrid}
 
 
 def main(argv) -> int:

@@ -7,8 +7,8 @@ not in ``ARCH_IDS``; it has no reduced variant, and ``reduced=True``
 raises ``AttributeError`` as the reference's does).  ``ARCH_IDS`` lists
 the ported ids in the reference's order: the ``dense`` family,
 ``mamba2-1.3b``, ``hubert-xlarge`` (``audio``), ``qwen2-vl-2b`` (``vlm``),
-``qwen3-moe-235b-a22b`` and ``deepseek-v2-lite-16b`` (``moe``); the
-``hybrid`` family is ROADMAP item A10.5.
+``qwen3-moe-235b-a22b`` and ``deepseek-v2-lite-16b`` (``moe``) and
+``recurrentgemma-9b`` (``hybrid``): every id of the reference's.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ _MODULES = {
     "qwen2-vl-2b": "qwen2_vl_2b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
     "tao": "tao",
 }
 
@@ -37,10 +38,7 @@ ARCH_IDS: List[str] = [k for k in _MODULES if k != "tao"]
 
 def get_arch(name: str, reduced: bool = False) -> ArchConfig:
     if name not in _MODULES:
-        raise KeyError(
-            f"architecture {name!r} is not ported (have {sorted(_MODULES)}); the "
-            "hybrid family is ROADMAP item A10.5"
-        )
+        raise KeyError(f"unknown architecture {name!r} (have {sorted(_MODULES)})")
     mod = importlib.import_module(f".{_MODULES[name]}", __package__)
     cfg: ArchConfig = mod.CONFIG
     return cfg.reduced() if reduced else cfg

@@ -13,7 +13,9 @@ like ``nn.ModuleList``.
 ``lm_params_from_jax`` does the same for the reference's language-model
 tree (``repro/models/backbone.py::Model.init``), whose layer params are
 stacked on a leading axis: it unstacks ``layers`` into ``layers.{i}``
-(and a MoE model's ``dense_layers`` into ``dense_layers.{i}``) and maps
+(and a MoE model's ``dense_layers`` into ``dense_layers.{i}``, a hybrid
+model's ``tail`` into ``tail.{i}``; a hybrid unit's ``recs``, stacked
+``(n_units, rec_per_unit, …)``, into ``layers.{i}.recs.{j}``) and maps
 ``table`` / ``scale`` -> ``weight`` (a layernorm's ``bias`` keeps its
 name).  The ``(in, out)`` arrays become ``nn.Linear`` weights,
 TRANSPOSED: the Mamba-2 mixer's ``in_proj`` / ``out_proj``, the MLP's
@@ -31,7 +33,9 @@ layout (``kv_norm``'s ``scale`` -> ``weight``).  A ``moe`` node (it holds
 ``router``) keeps its leaves' names and layout: ``router`` (d, E), which
 the port keeps float32 in any model, and the experts' ``w_gate`` /
 ``w_up`` (E, d, f) and ``w_down`` (E, f, d); its ``shared`` experts are
-an MLP, mapped as one.
+an MLP, mapped as one.  So does an RG-LRU block (it holds ``lambda``):
+``w_x``, ``w_gate``, ``conv_w``, ``conv_b``, ``w_r``, ``w_i``,
+``lambda`` and ``out``.
 
 ``params_to_jax`` is the inverse of ``params_from_jax``: a ``Tao`` state
 dict back to the reference's nested tree of NumPy arrays, each layer
@@ -70,10 +74,13 @@ _LM_TRANSPOSED = frozenset(_LM_LINEAR)
 # layernorm's)
 _QUANT_MARKS = frozenset({"w_q", "table_q"})
 _QUANT_LEAVES = {"b": "bias"}
-# the leaf that marks a MoE node, whose leaves keep their names and layout
-_MOE_MARK = "router"
-# top-level keys whose arrays are stacked layers
-_STACKED = ("layers", "dense_layers")
+# the leaves that mark a MoE node and an RG-LRU block, whose leaves keep
+# their names and layout
+_KEEP_MARKS = frozenset({"router", "lambda"})
+# top-level keys whose arrays are stacked layers, and the key under them
+# whose arrays are stacked twice (a hybrid unit's recurrent layers)
+_STACKED = ("layers", "dense_layers", "tail")
+_STACKED_TWICE = "recs"
 
 
 def _state_dict(np_tree: Mapping, leaf_names: Mapping[str, str],
@@ -82,7 +89,9 @@ def _state_dict(np_tree: Mapping, leaf_names: Mapping[str, str],
     a top-level ``_STACKED`` key are unstacked on their first axis into
     ``{key}.{i}``, and each leaf is renamed and transposed as told (in a
     node holding one of ``_QUANT_MARKS``, renamed by ``_QUANT_LEAVES``
-    alone; in a node holding ``_MOE_MARK``, kept as it is).  Integer leaves
+    alone; in a node holding one of ``_KEEP_MARKS``, kept as it is; under
+    ``{key}.recs`` unstacked on their first two axes into
+    ``{key}.{i}.recs.{j}``).  Integer leaves
     keep their dtype, the others become float32."""
     out: Dict[str, torch.Tensor] = {}
 
@@ -98,7 +107,7 @@ def _state_dict(np_tree: Mapping, leaf_names: Mapping[str, str],
         if isinstance(node, Mapping):
             if _QUANT_MARKS & set(node):
                 names = _QUANT_LEAVES
-            elif _MOE_MARK in node:
+            elif _KEEP_MARKS & set(node):
                 names, trans = {}, frozenset()
             for k, v in node.items():
                 if isinstance(v, Mapping):  # a sub-node is named by its own leaves
@@ -110,7 +119,11 @@ def _state_dict(np_tree: Mapping, leaf_names: Mapping[str, str],
                 walk(v, path + [str(i)], names, trans)
         elif path[0] in _STACKED:
             for i, a in enumerate(np.asarray(node)):
-                put([path[0], str(i)] + path[1:], a, names, trans)
+                if path[1:2] == [_STACKED_TWICE]:
+                    for j, b in enumerate(a):
+                        put([path[0], str(i), path[1], str(j)] + path[2:], b, names, trans)
+                else:
+                    put([path[0], str(i)] + path[1:], a, names, trans)
         else:
             put(path, np.asarray(node), names, trans)
 

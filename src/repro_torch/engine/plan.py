@@ -11,7 +11,7 @@ the single-device one, whose answers are a plain copy to the device, the
 body as it is, shard 0 and the identity.  A sharded plan, or any mesh,
 raises ``NotImplementedError``: the reference's sharded-plan tests fail
 on this tree, so there is nothing to hold a port of them to (ROADMAP
-§A item 8, §C).
+A.14, §C).
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ _ALIGN = 16
 
 _SINGLE_ONLY = (
     "the port runs on one GPU: sharded plans and meshes are not ported "
-    "(ROADMAP §A item 8; the reference's sharded-plan tests fail on this tree)"
+    "(ROADMAP A.14, §C; the reference's sharded-plan tests fail on this tree)"
 )
 
 

@@ -8,8 +8,10 @@ standard half, ``init_attention``'s distributions, ``_project_qkv``,
 ``apply_kv_cache_update`` (``:278-459``), the int8 KV cache included;
 and MLA, ``init_mla``, ``mla_forward``, ``init_mla_cache``, ``mla_decode``
 and ``apply_mla_cache_update`` (``:462-610``), with ``flash_ref``
-(``:122-203``), which MLA's prefill runs.  A local window and
-``exclude_slot`` come with the ``hybrid`` family (ROADMAP A10.5).
+(``:122-203``), which MLA's prefill and every windowed attention run.  A
+local window (the ``hybrid`` family's) masks the keys ``window`` or more
+positions behind the query, and ``Attention.decode``'s ``exclude_slot``
+leaves out the ring-buffer slot the step is about to overwrite.
 
 The projections are packed: ``qkv`` is one ``nn.Linear`` whose weight is
 the reference's ``wq``, ``wk`` and ``wv`` ``(d, H, hd)`` flattened to
@@ -24,7 +26,11 @@ Full-sequence attention launches the hand-written kernel B4
 layer; the reference reaches its Pallas kernel only under ``use_pallas``
 and otherwise runs ``flash_ref``, which computes the same function.  GQA
 repeats k / v over the query heads before the launch (query head ``h``
-uses kv head ``h // (H // Hkv)``), as the reference does.  Decoding runs
+uses kv head ``h // (H // Hkv)``), as the reference does.  A windowed
+attention runs ``flash_ref`` after the same repeat, as the reference's
+does even under ``use_pallas`` (``attention.py:237-242``), under the
+profiler range ``attention.windowed``: B4 takes no window (and
+recurrentgemma's heads are 256 wide, past B4's D ≤ 128).  Decoding runs
 plain torch, as the reference's decode runs plain jnp.
 
 MLA keeps its weights in the reference's layout (``wq`` (d, H, nope +
@@ -36,8 +42,9 @@ q / k are nope + rope wide and v is v_head_dim wide, which B4 (D == Dv)
 does not take.  ``flash_ref`` keeps the reference's blocked online
 softmax, so a 2048-token prefill holds one (B, H, 512, 512) block of
 scores at a time, and rounds P to the compute dtype before ``P V``; it
-skips the key blocks a causal query block cannot see, which changes no
-bit (such a block leaves the running max, sum and output as they were).
+skips the key blocks a causal query block cannot see and those wholly
+before a window, which changes no bit (such a block leaves the running
+max, sum and output as they were).
 Its decode is weight-absorbed, over the compressed cache ``c_kv`` (L, B,
 S, r) and ``k_rope`` (L, B, S, rope), bfloat16 when ``kv_cache_dtype``
 is int8, written in place by ``apply_mla_cache_update``.
@@ -117,24 +124,27 @@ class Attention(nn.Module):
         return q, k, v
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *, causal: bool = True,
-                return_kv: bool = False):
-        """Full-sequence attention (prefill / loss), x (B,S,d) -> (B,S,d);
-        with ``return_kv`` also (k, v) in cache layout (B,S,Hkv,hd)."""
+                window: Optional[int] = None, return_kv: bool = False):
+        """Full-sequence attention (prefill / loss), x (B,S,d) -> (B,S,d),
+        over the keys fewer than ``window`` positions back where it is
+        given; with ``return_kv`` also (k, v) in cache layout (B,S,Hkv,hd)."""
         B, S = x.shape[:2]
         q, k, v = self.project_qkv(x, positions)
-        o = attend(q, k, v, causal=causal)
+        o = attend(q, k, v, causal=causal, window=window)
         o = o.transpose(1, 2).reshape(B, S, self.H * self.hd)
         out = F.linear(o, self.wo.weight.to(self.cd))
         if return_kv:
             return out, (k.transpose(1, 2), v.transpose(1, 2))
         return out
 
-    def decode(self, x: torch.Tensor, layer_cache: Dict[str, torch.Tensor], pos: int
+    def decode(self, x: torch.Tensor, layer_cache: Dict[str, torch.Tensor], pos: int,
+               exclude_slot: Optional[int] = None
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """One token per sequence, read-only over ``layer_cache`` (k / v
-        (B,S,Hkv,hd)): attends over the cache's positions < ``pos`` and the
-        token's own k / v inline.  x (B,1,d) -> (out (B,1,d), (k_row,
-        v_row) (B,1,Hkv,hd)); the caller writes the rows
+        (B,S,Hkv,hd)): attends over the cache's slots < ``pos`` but
+        ``exclude_slot`` (a ring buffer's stale slot, which this step
+        overwrites) and the token's own k / v inline.  x (B,1,d) -> (out
+        (B,1,d), (k_row, v_row) (B,1,Hkv,hd)); the caller writes the rows
         (``apply_kv_cache_update``)."""
         cd = self.cd
         B = x.shape[0]
@@ -150,7 +160,10 @@ class Attention(nn.Module):
         S, Hkv, H = k_all.shape[1], k_all.shape[2], self.H
         scale = 1.0 / math.sqrt(self.hd)
         qh = q[:, :, 0]  # (B,H,hd)
-        valid = torch.arange(S, device=x.device) < pos
+        slots = torch.arange(S, device=x.device)
+        valid = slots < pos
+        if exclude_slot is not None:
+            valid &= slots != exclude_slot
         if H != Hkv:
             qg = qh.reshape(B, Hkv, H // Hkv, self.hd)
             s_cache = torch.einsum("bgrd,bsgd->bgrs", qg, k_all).float() * scale
@@ -171,15 +184,25 @@ class Attention(nn.Module):
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-           q_offset: int = 0) -> torch.Tensor:
-    """Windowless attention over q (B,H,Sq,D) and k / v (B,Hkv,Sk,D): k and
-    v repeated over the query heads, then B4 (the plain version on the
-    CPU).  Returns (B,H,Sq,D) in q's dtype."""
+           q_offset: int = 0, window: Optional[int] = None) -> torch.Tensor:
+    """Attention over q (B,H,Sq,D) and k / v (B,Hkv,Sk,D), k and v repeated
+    over the query heads: B4 (the plain version on the CPU) without a
+    window, ``flash_ref`` with one.  Returns (B,H,Sq,D) in q's dtype."""
+    if window is not None:
+        with record_function("attention.windowed"):
+            k, v = _repeat_kv(q, k, v)
+            return flash_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    k, v = _repeat_kv(q, k, v)
+    return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+
+
+def _repeat_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """k and v repeated over q's heads (GQA / MQA)."""
     H, Hkv = q.shape[1], k.shape[1]
     if H != Hkv:
         k = k.repeat_interleave(H // Hkv, dim=1)
         v = v.repeat_interleave(H // Hkv, dim=1)
-    return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    return k, v
 
 
 def init_kv_cache(cfg: ArchConfig, n_layers: int, batch: int, max_len: int,
@@ -240,12 +263,15 @@ def _write_rows(cache: Dict[str, torch.Tensor], rows: Dict[str, torch.Tensor], s
 
 
 def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-              q_offset: int = 0, block_q: int = 512, block_k: int = 512) -> torch.Tensor:
-    """The reference's ``flash_ref`` without a window: q (B,H,Sq,D), k
-    (B,H,Sk,D), v (B,H,Sk,Dv) -> (B,H,Sq,Dv) in q's dtype.  Per block of
-    ``block_q`` queries, an online softmax over blocks of ``block_k`` keys:
-    scores ``q kᵀ`` in q's dtype, then float32 times 1/sqrt(D); P rounded
-    to q's dtype before ``P V``; running max, sum and output float32.
+              window: Optional[int] = None, q_offset: int = 0, block_q: int = 512,
+              block_k: int = 512) -> torch.Tensor:
+    """The reference's ``flash_ref``: q (B,H,Sq,D), k (B,H,Sk,D), v
+    (B,H,Sk,Dv) -> (B,H,Sq,Dv) in q's dtype.  Per block of ``block_q``
+    queries, an online softmax over blocks of ``block_k`` keys: scores
+    ``q kᵀ`` in q's dtype, then float32 times 1/sqrt(D); P rounded to q's
+    dtype before ``P V``; running max, sum and output float32.  A key is
+    masked past the query when ``causal`` and ``window`` or more positions
+    behind it when ``window`` is given (``q_pos - k_pos < window``).
     ``q_offset`` is the absolute position of q's first row."""
     B, H, Sq, D = q.shape
     Sk, Dv = k.shape[2], v.shape[-1]
@@ -258,11 +284,16 @@ def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
         ls = torch.zeros_like(m)
         acc = torch.zeros(qb.shape[:3] + (Dv,), dtype=torch.float32, device=q.device)
         k_end = min(Sk, q_offset + q0 + qb.shape[2]) if causal else Sk
-        for k0 in range(0, k_end, block_k):
+        # the block holding the first query's first key in the window
+        k_start = 0 if window is None else max(0, q_offset + q0 - window + 1) // block_k * block_k
+        for k0 in range(k_start, k_end, block_k):
             kb, vb = k[:, :, k0 : k0 + block_k], v[:, :, k0 : k0 + block_k]
             s = (qb @ kb.transpose(-1, -2)).float() * scale
-            if causal:
-                mask = qpos[:, None] >= (k0 + torch.arange(kb.shape[2], device=q.device))[None, :]
+            if causal or window is not None:
+                dist = qpos[:, None] - (k0 + torch.arange(kb.shape[2], device=q.device))[None, :]
+                mask = dist >= 0 if causal else torch.ones_like(dist, dtype=torch.bool)
+                if window is not None:
+                    mask &= dist < window
                 s = s.masked_fill(~mask, -math.inf)
             m_new = torch.maximum(m, s.amax(-1))
             m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)

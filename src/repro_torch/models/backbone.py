@@ -4,12 +4,13 @@ Counterpart of ``repro/models/backbone.py::Model`` for the ``ssm`` family
 (a Mamba-2 stack), the ``dense`` family (a causal decoder), ``vlm`` (the
 decoder with M-RoPE, its first positions' embeddings replaced by
 projected image patches), ``audio`` (a bidirectional encoder over
-projected frames, run through ``encode``) and ``moe`` (the decoder with a
-mixture-of-experts MLP, and MLA attention where ``cfg.mla``); the
-reference's ``hybrid`` family is ROADMAP item A10.5.  The stack is the
-embedding table, ``n_layers`` pre-norm residual layers, ``final_norm``
-and the head: the table itself when the embeddings are tied, else
-``lm_head``.  A config with a ``frontend`` also has ``frontend.proj``
+projected frames, run through ``encode``), ``moe`` (the decoder with a
+mixture-of-experts MLP, and MLA attention where ``cfg.mla``) and
+``hybrid`` (RecurrentGemma: units of ``rec_per_unit`` RG-LRU layers and
+one local-attention layer, then a tail of the remaining RG-LRU layers).
+The stack is the embedding table, ``n_layers`` pre-norm residual
+layers, ``final_norm`` and the head: the table itself when the
+embeddings are tied, else ``lm_head``.  A config with a ``frontend`` also has ``frontend.proj``
 (frontend_dim -> d_model, no bias), the modality stub's projection.  An
 ``ssm`` layer is ``ln`` + a ``Mamba2`` mixer; a decoder or encoder layer
 ``ln_attn`` + ``attn`` (``Attention``, or ``MLA`` when ``cfg.mla``) +
@@ -18,15 +19,29 @@ its norms rmsnorm or layernorm by ``cfg.norm``, its attention
 bidirectional when ``cfg.encoder_only``.  A ``moe`` config with
 ``first_dense_layers`` holds those layers, with a dense ``mlp``, in a
 separate ``dense_layers`` list ahead of ``layers``, as the reference's
-tree does.  Where the reference scans stacked layer params, the port runs
-``nn.ModuleList``s eagerly; the caches keep the reference's stacked
+tree does.  A ``hybrid`` model's ``layers`` are its units, each
+``recs`` (a list of recurrent layers: ``ln_mix`` + ``rec``, an ``RGLRU``,
++ ``ln_mlp`` + ``mlp``) and ``attn`` (a decoder layer whose attention
+sees the last ``window`` positions), and ``tail`` the recurrent layers
+past the last whole unit.  Where the reference scans stacked layer
+params, the port runs ``nn.ModuleList``s eagerly; the caches keep the reference's stacked
 layout so the two compare leaf by leaf: ``{"ssm": (L,B,H,N,P), "conv":
 (L,B,K-1,C)}`` float32 for ``ssm``; ``{"k", "v"}`` (L,B,S,Hkv,hd) for
 standard attention (plus ``k_scale`` / ``v_scale`` for an int8 cache),
 ``{"c_kv": (L,B,S,r), "k_rope": (L,B,S,rope)}`` for MLA, dense layers
 first, in the compute dtype from ``prefill`` and in ``kv_cache_dtype``
-from ``init_cache``.  A decoder's ``decode_step`` writes its rows into the
-cache in place and returns it.  An encoder (``encoder_only``) has no
+from ``init_cache``; for ``hybrid`` ``{"attn": {"k", "v"} (U,B,W,Hkv,hd),
+"rec": {"h": (R,B,w), "conv": (R,B,K-1,w)}}``, U units, W = min(length,
+window) slots, the R recurrent layers' float32 states each unit's in
+order, then the tail's.  The window cache is a ring: position p sits in
+slot p mod W.  (The reference's prefill keeps the last ``window`` keys in
+slots 0 … W-1 while its decode reads slot ``pos mod W``; the two agree
+only when the prompt is at most the window or a multiple of it, and the
+port keeps the ring throughout, so that prefill then decode equals the
+prefill of the longer prompt.)  A decoder's ``decode_step`` writes its
+rows (a hybrid's ring slot and recurrent states too) into the cache in
+place and returns it: to decode n tokens after a prefill of S, copy its
+cache into ``init_cache(B, S + n)``.  An encoder (``encoder_only``) has no
 cache: ``prefill``, ``init_cache`` and ``decode_step`` refuse it, as the
 reference routes its encoder only through ``encode``.  ``loss`` adds each
 MoE layer's ``router_aux_weight · load_balance + router_z_weight ·
@@ -56,11 +71,12 @@ from .config import ArchConfig
 from .mamba2 import Mamba2, init_ssm_state
 from .mlp import MLP
 from .moe import MoE
+from .rglru import RGLRU, init_rglru_state
 
 __all__ = ["Model", "VOCAB_CHUNK"]
 
 VOCAB_CHUNK = 2048  # logit/CE chunk along the sequence to bound live logits
-FAMILIES = ("ssm", "dense", "vlm", "audio", "moe")
+FAMILIES = ("ssm", "dense", "vlm", "audio", "moe", "hybrid")
 
 
 def _norm(cfg: ArchConfig, *, device) -> nn.Module:
@@ -99,6 +115,31 @@ class DecoderLayer(nn.Module):
         return self.mlp(x), None
 
 
+class RecurrentLayer(nn.Module):
+    """A hybrid model's recurrent layer: ``ln_mix``, ``rec`` (an ``RGLRU``),
+    ``ln_mlp`` and ``mlp``."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, *, device):
+        super().__init__()
+        self.ln_mix = _norm(cfg, device=device)
+        self.rec = RGLRU(cfg, generator, device=device)
+        self.ln_mlp = _norm(cfg, device=device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, generator,
+                       param_dtype=getattr(torch, cfg.param_dtype),
+                       compute_dtype=getattr(torch, cfg.compute_dtype), device=device)
+
+
+class HybridUnit(nn.Module):
+    """``recs`` (``rec_per_unit`` recurrent layers) and ``attn`` (one
+    decoder layer, local attention), as the reference's unit holds them."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, *, device):
+        super().__init__()
+        self.recs = nn.ModuleList(RecurrentLayer(cfg, generator, device=device)
+                                  for _ in range(cfg.hybrid.rec_per_unit))
+        self.attn = DecoderLayer(cfg, generator, device=device)
+
+
 class Frontend(nn.Module):
     """The modality stub: ``proj`` maps precomputed frame or patch
     embeddings (..., frontend_dim) to the model width, drawn as the
@@ -113,9 +154,10 @@ class Frontend(nn.Module):
 
 
 class Model(nn.Module):
-    """A language model of the ``ssm``, ``dense``, ``vlm``, ``audio`` or
-    ``moe`` family: ``prefill`` / ``decode_step`` / ``init_cache`` for
-    serving a decoder, ``encode`` for an encoder, ``loss`` (forward only).
+    """A language model of the ``ssm``, ``dense``, ``vlm``, ``audio``,
+    ``moe`` or ``hybrid`` family: ``prefill`` / ``decode_step`` /
+    ``init_cache`` for serving a decoder, ``encode`` for an encoder,
+    ``loss`` (forward only).
 
     ``Model(cfg, device=None, generator=None)`` builds the parameters on
     ``device`` (``cuda`` by default; raises without it unless
@@ -131,9 +173,11 @@ class Model(nn.Module):
     ):
         super().__init__()
         if cfg.family not in FAMILIES:
+            raise NotImplementedError(f"{cfg.name}: unknown family {cfg.family!r} (have {FAMILIES})")
+        if cfg.family == "hybrid" and cfg.hybrid.attn_per_unit != 1:
             raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported (have {FAMILIES}); "
-                "hybrid is ROADMAP item A10.5"
+                f"{cfg.name}: a hybrid unit holds one attention layer, as the reference's "
+                f"does; attn_per_unit={cfg.hybrid.attn_per_unit}"
             )
         dev = resolve_device(device)
         g = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
@@ -150,6 +194,11 @@ class Model(nn.Module):
             self.frontend = Frontend(cfg, g, device=dev)
         if cfg.family == "ssm":
             self.layers = nn.ModuleList(SSMLayer(cfg, g, device=dev) for _ in range(cfg.n_layers))
+        elif cfg.family == "hybrid":
+            n_units, rem = divmod(cfg.n_layers, cfg.hybrid.rec_per_unit + 1)
+            self.layers = nn.ModuleList(HybridUnit(cfg, g, device=dev) for _ in range(n_units))
+            if rem:
+                self.tail = nn.ModuleList(RecurrentLayer(cfg, g, device=dev) for _ in range(rem))
         else:
             nd = cfg.moe.first_dense_layers if cfg.moe else 0
             if nd:
@@ -198,18 +247,33 @@ class Model(nn.Module):
         return [*getattr(self, "dense_layers", ()), *self.layers]
 
     def _layer(self, layer: DecoderLayer, x: torch.Tensor, positions: torch.Tensor,
-               return_kv: bool = False):
-        """One pre-norm layer, causal unless ``encoder_only`` -> (x, its cache
-        rows when ``return_kv``, the MoE's aux losses or None)."""
+               return_kv: bool = False, window: Optional[int] = None):
+        """One pre-norm layer, causal unless ``encoder_only``, local where
+        ``window`` is given -> (x, its cache rows when ``return_kv``, the
+        MoE's aux losses or None)."""
         h = layer.ln_attn(x)
         if self.cfg.mla:
             out = layer.attn(h, positions, return_kv=return_kv)
         else:
-            out = layer.attn(h, positions, causal=not self.cfg.encoder_only, return_kv=return_kv)
+            out = layer.attn(h, positions, causal=not self.cfg.encoder_only, window=window,
+                             return_kv=return_kv)
         attn, kv = out if return_kv else (out, None)
         x = x + attn
         y, aux = layer.ffn(layer.ln_mlp(x))
         return x + y, kv, aux
+
+    def _rec_layers(self):
+        """Every recurrent layer of a hybrid stack, in its states' order:
+        each unit's, then the tail's."""
+        return [*(r for unit in self.layers for r in unit.recs), *getattr(self, "tail", ())]
+
+    @staticmethod
+    def _rec_layer(layer: RecurrentLayer, x: torch.Tensor, return_state: bool = False):
+        """One recurrent layer -> (x, its state when ``return_state``)."""
+        out = layer.rec(layer.ln_mix(x), return_state=return_state)
+        out, st = out if return_state else (out, None)
+        x = x + out
+        return x + layer.mlp(layer.ln_mlp(x)), st
 
     def _positions(self, x: torch.Tensor) -> torch.Tensor:
         B, S = x.shape[:2]
@@ -238,6 +302,8 @@ class Model(nn.Module):
                 x = x + out
                 states.append(st)
             cache = {k: torch.stack([st[k] for st in states]) for k in ("ssm", "conv")}
+        elif self.cfg.family == "hybrid":
+            x, cache = self._hybrid_prefill(x)
         else:
             cfg = self.cfg
             B, S = tokens.shape
@@ -255,14 +321,49 @@ class Model(nn.Module):
                     t[i].copy_(r)
         return self._logits(x[:, -1]), cache
 
+    def _hybrid_prefill(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        """The hybrid stack over the prompt's embeddings ``x`` -> its output
+        and its cache: each unit's last min(S, window) keys and values at
+        ring slot p mod window, and each recurrent layer's states."""
+        cfg = self.cfg
+        B, S = x.shape[:2]
+        W = min(S, cfg.hybrid.window)
+        positions = self._positions(x)
+        rec = init_rglru_state(cfg, len(self._rec_layers()), B, x.device)
+        kv_shape = (len(self.layers), B, W, cfg.n_kv_heads, cfg.resolved_head_dim)
+        attn = {n: torch.empty(kv_shape, dtype=self.cd, device=x.device) for n in ("k", "v")}
+        i = 0
+        for u, unit in enumerate(self.layers):
+            for layer in unit.recs:
+                x, st = self._rec_layer(layer, x, return_state=True)
+                for n, t in st.items():
+                    rec[n][i].copy_(t)
+                i += 1
+            x, rows, _ = self._layer(unit.attn, x, positions, return_kv=True,
+                                     window=cfg.hybrid.window)
+            for t, r in zip(attn.values(), rows):
+                t[u].copy_(torch.roll(r[:, S - W:], S % W, dims=1))
+        for layer in getattr(self, "tail", ()):
+            x, st = self._rec_layer(layer, x, return_state=True)
+            for n, t in st.items():
+                rec[n][i].copy_(t)
+            i += 1
+        return x, {"attn": attn, "rec": rec}
+
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
         """Zero cache for ``batch`` sequences: a Mamba-2 state (which does not
-        grow with ``max_len``), or a KV cache (MLA's compressed one where
-        ``cfg.mla``) of ``max_len`` positions."""
+        grow with ``max_len``), a KV cache (MLA's compressed one where
+        ``cfg.mla``) of ``max_len`` positions, or for ``hybrid`` a ring of
+        min(``max_len``, window) slots per unit and the recurrent states."""
         self._decoder_only("cache")
         cfg = self.cfg
         if cfg.family == "ssm":
             return init_ssm_state(cfg, cfg.n_layers, batch, self.device)
+        if cfg.family == "hybrid":
+            n_rec = len(self._rec_layers())
+            return {"attn": init_kv_cache(cfg, len(self.layers), batch,
+                                          min(max_len, cfg.hybrid.window), self.device),
+                    "rec": init_rglru_state(cfg, n_rec, batch, self.device)}
         init = init_mla_cache if cfg.mla else init_kv_cache
         return init(cfg, cfg.n_layers, batch, max_len, self.device)
 
@@ -273,7 +374,9 @@ class Model(nn.Module):
         the new cache.  ``pos`` (an int) is the tokens' position: an
         attention stack attends over the cache's positions before it and
         writes the new k / v there, in place (nothing where ``pos`` is past
-        the cache); a state-space stack does not read it."""
+        the cache); a hybrid stack's ring writes slot ``pos`` mod its slots,
+        leaving that slot's stale entry out of the attention; a state-space
+        stack does not read it."""
         self._decoder_only("decode_step")
         x = self._embed(tokens)[:, None, :]
         if self.cfg.family == "ssm":
@@ -286,6 +389,8 @@ class Model(nn.Module):
             new_cache = {k: torch.stack([st[k] for st in states]) for k in ("ssm", "conv")}
             return self._logits(x[:, 0]), new_cache
         pos = int(pos)
+        if self.cfg.family == "hybrid":
+            return self._hybrid_decode(cache, x, pos)
         rows = []
         for i, layer in enumerate(self._decoder_layers()):
             out, row = layer.attn.decode(layer.ln_attn(x), {n: t[i] for n, t in cache.items()}, pos)
@@ -296,6 +401,36 @@ class Model(nn.Module):
         cache = update(cache, tuple(torch.stack(r) for r in zip(*rows)), pos)
         return self._logits(x[:, 0]), cache
 
+    def _hybrid_decode(self, cache: Dict, x: torch.Tensor, pos: int):
+        """``decode_step`` of a hybrid stack on the token embeddings ``x``
+        (B, 1, d); the caches are written in place."""
+        attn, rec = cache["attn"], cache["rec"]
+        slot = pos % attn["k"].shape[2]
+        rows, i = [], 0
+
+        def rec_step(layer, x, i):
+            out, st = layer.rec.decode(layer.ln_mix(x), {n: t[i] for n, t in rec.items()})
+            for n, t in st.items():
+                rec[n][i].copy_(t)
+            x = x + out
+            return x + layer.mlp(layer.ln_mlp(x))
+
+        for u, unit in enumerate(self.layers):
+            for layer in unit.recs:
+                x = rec_step(layer, x, i)
+                i += 1
+            layer = unit.attn
+            out, row = layer.attn.decode(layer.ln_attn(x), {n: t[u] for n, t in attn.items()},
+                                         pos, exclude_slot=slot)
+            x = x + out
+            x = x + layer.ffn(layer.ln_mlp(x))[0]
+            rows.append(row)
+        for layer in getattr(self, "tail", ()):
+            x = rec_step(layer, x, i)
+            i += 1
+        apply_kv_cache_update(attn, tuple(torch.stack(r) for r in zip(*rows)), slot)
+        return self._logits(x[:, 0]), cache
+
     def _hidden(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The stack's output (B, S, d) on its input ``x``, before the final
         norm, and the sum of its MoE layers' weighted aux losses (float32)."""
@@ -304,8 +439,16 @@ class Model(nn.Module):
             for layer in self.layers:
                 x = x + layer.mixer(layer.ln(x))
             return x, aux
-        m = self.cfg.moe
         positions = self._positions(x)
+        if self.cfg.family == "hybrid":
+            for unit in self.layers:
+                for layer in unit.recs:
+                    x = self._rec_layer(layer, x)[0]
+                x = self._layer(unit.attn, x, positions, window=self.cfg.hybrid.window)[0]
+            for layer in getattr(self, "tail", ()):
+                x = self._rec_layer(layer, x)[0]
+            return x, aux
+        m = self.cfg.moe
         for layer in self._decoder_layers():
             x, _, layer_aux = self._layer(layer, x, positions)
             if layer_aux is not None:

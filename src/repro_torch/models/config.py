@@ -7,12 +7,12 @@ decoder with M-RoPE and a vision stub: precomputed patch embeddings
 projected over the first positions) and ``audio`` (a bidirectional
 encoder over projected frame embeddings) and ``moe`` (the decoder with a
 mixture-of-experts MLP, ``MoEConfig``, and for DeepSeek-V2 MLA attention,
-``MLAConfig``).  The reference's ``hybrid`` field comes with the family
-that reads it (ROADMAP A10.5).  Its ``use_pallas``,
-``remat``, ``scan_layers`` and ``prefill_chunks`` are left out: the port
-always launches its kernels on the card (B4 on every windowless
-attention, B5 on every SSD scan), runs eagerly, does not rematerialize
-and prefills the batch whole.  ``reduced()`` gives the reference's
+``MLAConfig``) and ``hybrid`` (RecurrentGemma: units of RG-LRU layers
+and one local-attention layer, ``HybridConfig``).  The reference's
+``use_pallas``, ``remat``, ``scan_layers`` and ``prefill_chunks`` are
+left out: the port always launches its kernels on the card (B4 on every
+windowless attention, B5 on every SSD scan), runs eagerly, does not
+rematerialize and prefills the batch whole.  ``reduced()`` gives the reference's
 smoke-test numbers by the reference's rules.
 """
 from __future__ import annotations
@@ -20,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["ArchConfig", "MLAConfig", "MoEConfig", "SSMConfig"]
+__all__ = ["ArchConfig", "HybridConfig", "MLAConfig", "MoEConfig", "SSMConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,9 +66,20 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    """RecurrentGemma-style: repeating (recurrent × rec_per_unit, attention)."""
+
+    rec_per_unit: int = 2            # RG-LRU layers per unit
+    attn_per_unit: int = 1           # local-attention layers per unit
+    window: int = 2048               # local attention window
+    lru_width: Optional[int] = None  # defaults to d_model
+    conv_kernel: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # ssm | dense | vlm | audio | moe are ported (ROADMAP A10)
+    family: str                      # dense | ssm | moe | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -91,6 +102,7 @@ class ArchConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     kv_cache_dtype: str = "bfloat16"  # bfloat16 | float32 | int8
@@ -110,7 +122,9 @@ class ArchConfig:
         most 2, d_ff_expert 64, d_ff_shared 64 where there are shared
         experts, and capacity_factor 8.0 (dropless: C >= Tg * k for any
         routing); for ``mla`` ranks 32 / 16 / 8 / 16 (kv_lora, nope,
-        rope, v).  ``kv_cache_dtype`` is kept."""
+        rope, v); for ``hybrid`` window 32, ``lru_width`` None and
+        ``rec_per_unit + attn_per_unit + 1`` layers (one unit and a
+        one-layer tail) in place of 4.  ``kv_cache_dtype`` is kept."""
         n_heads = min(self.n_heads, 4) if self.n_heads else 0
         n_kv = min(self.n_kv_heads, n_heads) if self.n_kv_heads else n_heads
         if n_kv and n_heads % n_kv:
@@ -135,7 +149,12 @@ class ArchConfig:
             ssm=dataclasses.replace(self.ssm, d_state=16, head_dim=16, chunk=32)
             if self.ssm
             else None,
-            n_layers=min(self.n_layers, 4),
+            hybrid=dataclasses.replace(self.hybrid, window=32, lru_width=None)
+            if self.hybrid
+            else None,
+            n_layers=min(self.n_layers, 4)
+            if not self.hybrid
+            else self.hybrid.rec_per_unit + self.hybrid.attn_per_unit + 1,
             d_model=64,
             n_heads=n_heads,
             n_kv_heads=n_kv,

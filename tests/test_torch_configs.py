@@ -5,13 +5,13 @@
 no reduced variant.  The port's config equals the reference's field by
 field, all but the reference's ``use_pallas`` switch (the port always runs
 its hand-written attention kernel on the card).  ``ARCH_IDS`` is the
-reference's less the LLM zoo not ported yet (ROADMAP A10.5).  The four
-``dense`` configs, ``qwen2-vl-2b``, ``hubert-xlarge`` and the two ``moe``
-configs equal the reference's field by field, full and reduced (the MoE
-and MLA fields nested), on every field the port has; the fields the port
+reference's, every id.  The four ``dense`` configs, ``qwen2-vl-2b``,
+``hubert-xlarge``, the two ``moe`` configs and ``recurrentgemma-9b``
+equal the reference's field by field, full and reduced (the MoE, MLA and
+hybrid fields nested), on every field the port has; the fields the port
 leaves out are the reference's switches it does not read
-(``use_pallas``, ``remat``, ``scan_layers``, ``prefill_chunks``) and the
-``hybrid`` family's, which these configs leave at their defaults.
+(``use_pallas``, ``remat``, ``scan_layers``, ``prefill_chunks``), which
+these configs leave at their defaults.
 """
 import dataclasses
 
@@ -31,10 +31,10 @@ from repro_torch.core.model import TaoConfig  # noqa: E402
 DENSE = ("qwen1.5-32b", "qwen2-0.5b", "stablelm-1.6b", "glm4-9b")
 VLM_AUDIO = ("qwen2-vl-2b", "hubert-xlarge")
 MOE = ("qwen3-moe-235b-a22b", "deepseek-v2-lite-16b")
-PORTED = DENSE + ("mamba2-1.3b",) + VLM_AUDIO + MOE
+HYBRID = "recurrentgemma-9b"
+PORTED = DENSE + ("mamba2-1.3b",) + VLM_AUDIO + MOE + (HYBRID,)
 # reference ArchConfig fields the port leaves out, and their defaults
-LEFT_OUT = {"hybrid": None, "remat": "full", "scan_layers": True, "use_pallas": False,
-            "prefill_chunks": 1}
+LEFT_OUT = {"remat": "full", "scan_layers": True, "use_pallas": False, "prefill_chunks": 1}
 
 
 def as_fields(cfg):
@@ -59,7 +59,7 @@ def test_tao_config_equals_the_reference_field_by_field():
 
 def test_arch_ids_are_the_reference_less_the_zoo_not_ported():
     assert "tao" not in ARCH_IDS and "tao" not in REF_ARCH_IDS
-    assert ARCH_IDS == [a for a in REF_ARCH_IDS if a in PORTED]
+    assert ARCH_IDS == [a for a in REF_ARCH_IDS if a in PORTED] == REF_ARCH_IDS
     for name in ARCH_IDS:  # the fields are held in tests/test_torch_mamba2.py
         assert get_arch(name).name == ref_get_arch(name).name == name
 
@@ -151,3 +151,26 @@ def test_moe_config_equals_the_reference_field_by_field(arch, reduced):
         assert (port.n_heads, port.n_kv_heads, port.resolved_head_dim) == (
             (4, 4, 16) if reduced else (64, 4, 128))
     assert port.family == "moe"
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_hybrid_config_equals_the_reference_field_by_field(reduced):
+    """recurrentgemma-9b, full and reduced (window 32, ``lru_width`` None,
+    one unit and a one-layer tail), on every field the port has, the nested
+    hybrid fields included."""
+    ref, port = ref_get_arch(HYBRID, reduced=reduced), get_arch(HYBRID, reduced=reduced)
+    ref_fields = dataclasses.asdict(ref)
+    port_fields = dataclasses.asdict(port)
+    assert set(port_fields) | set(LEFT_OUT) == set(ref_fields)
+    assert port_fields == {k: v for k, v in ref_fields.items() if k in port_fields}
+    assert all(ref_fields[k] == (("none" if reduced else v) if k == "remat" else v)
+               for k, v in LEFT_OUT.items())
+    assert [f.name for f in dataclasses.fields(port.hybrid)] == [
+        f.name for f in dataclasses.fields(ref.hybrid)]
+    assert dataclasses.astuple(port.hybrid) == ((2, 1, 32, None, 4) if reduced
+                                                else (2, 1, 2048, None, 4))
+    want = (4, 64, 4, 1, 16, 128, 512) if reduced else (38, 4096, 16, 1, 256, 12288, 256000)
+    assert (port.n_layers, port.d_model, port.n_heads, port.n_kv_heads, port.resolved_head_dim,
+            port.d_ff, port.vocab) == want
+    assert (port.family, port.mlp_act, port.norm, port.rope, port.tie_embeddings) == (
+        "hybrid", "gelu", "rmsnorm", "rope", False)

@@ -132,6 +132,14 @@ the CPU's is.  The int8 step has its own graph, with ``n_layers``
 attention nodes, and is held to the eager int8 step as the float32 one
 is.
 
+The hybrid family (``recurrentgemma-9b``): the RG-LRU's Hillis–Steele
+scan at 2,048 positions within 1e-5 of the CPU's largest |h|, the
+windowed ``flash_ref`` at its attention shape (16 heads of 256) within
+1e-5 of max|v| in float32 and 2^-7 in bfloat16, the model at full width
+cut to one unit and a tail layer against the CPU in float32 (2e-4 of the
+largest value), and a bfloat16 prefill past the window and decode steps
+on its ring that launch no B4.
+
 The paper's model (``configs/tao.py``: 6 layers, width 512, 8 heads of 64)
 runs through the same paths: B4 and its backward at (·, 8, 129, 64) on the
 packed views; its graphed fused simulate bitwise the eager step and held
@@ -2010,4 +2018,89 @@ def test_moe_bf16_serving_launches_b4_per_layer_unless_mla(dev, arch):
         logits, grown = model.decode_step(grown, logits.argmax(-1), 300 + i)
     torch.cuda.synchronize()
     assert FLASH_ATTENTION.launches == launches + b4
+    assert torch.isfinite(logits).all()
+
+
+# ---------------------------------------------------------------------------
+# The hybrid family: RG-LRU and windowed attention on the card, no B4
+# ---------------------------------------------------------------------------
+
+HYBRID = "recurrentgemma-9b"
+
+
+def test_linear_scan_on_card_matches_cpu(dev):
+    """The RG-LRU's Hillis–Steele scan at the prefill's 2,048 positions
+    (a in [e^-8, 1), 512 channels), float32: the card's within 1e-5 of the
+    largest |h| of the CPU's (FMA against separate rounding per step)."""
+    from repro_torch.models import linear_scan
+
+    g = torch.Generator().manual_seed(36)
+    a = torch.exp(-8.0 * torch.rand(2, 2048, 512, generator=g))
+    b = torch.randn(2, 2048, 512, generator=g)
+    want = linear_scan(a, b)
+    got = linear_scan(a.to(dev), b.to(dev)).cpu()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_windowed_flash_ref_on_card_matches_cpu(dev, dtype):
+    """recurrentgemma's attention shape, 16 heads of 256 (k / v of its one
+    kv head repeated), 1,100 positions in 512-key blocks, window 300 (the
+    first block skipped from the second query block on): the card against
+    the CPU within 1e-5 of max|v| in float32, 2^-7 in bfloat16 (scores and
+    P rounded to bfloat16 on both sides)."""
+    from repro_torch.models import flash_ref
+
+    g = torch.Generator().manual_seed(37)
+    q = torch.randn(1, 16, 1100, 256, generator=g).to(dtype)
+    k, v = (torch.randn(1, 1, 1100, 256, generator=g).to(dtype).repeat_interleave(16, 1)
+            for _ in range(2))
+    want = flash_ref(q, k, v, causal=True, window=300).float()
+    got = flash_ref(q.to(dev), k.to(dev), v.to(dev), causal=True, window=300).float().cpu()
+    tol = (1e-5 if dtype == torch.float32 else 2.0**-7) * float(v.float().abs().max())
+    torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+def test_hybrid_full_width_cut_on_card_matches_cpu(dev):
+    """recurrentgemma-9b at full width cut to one unit and a tail layer (4
+    layers), float32, random weights: prefill of 2 x 300 tokens (past no
+    window) and a decode step, logits and every cache leaf after it,
+    against the same model on the CPU within 2e-4 of the largest value;
+    no B4 launch."""
+    cfg = dataclasses.replace(get_arch(HYBRID), n_layers=4, param_dtype="float32",
+                              compute_dtype="float32", kv_cache_dtype="float32")
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 300), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    launches = FLASH_ATTENTION.launches
+    logits, cache = model.prefill(toks)
+    step, cache = model.decode_step(cache, toks[:, 0], 299)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION.launches == launches
+    got = [t.cpu() for t in (logits, step, *cache["attn"].values(), *cache["rec"].values())]
+    del logits, step, cache
+    cpu = model.to("cpu")
+    ref, ref_cache = cpu.prefill(toks.cpu())
+    ref_step, ref_cache = cpu.decode_step(ref_cache, toks[:, 0].cpu(), 299)
+    for g, want in zip(got, (ref, ref_step, *ref_cache["attn"].values(),
+                             *ref_cache["rec"].values())):
+        torch.testing.assert_close(g, want, atol=2e-4 * float(want.abs().max()), rtol=0)
+
+
+def test_hybrid_bf16_serving_launches_no_b4(dev):
+    """bfloat16 at full width, cut to one unit and a tail layer: a prefill
+    of 2 x 2,100 tokens (past the 2,048 window: the ring rolled) and three
+    decode steps into a 2,048-slot ring launch no B4; logits finite; the
+    recurrent states float32."""
+    cfg = dataclasses.replace(get_arch(HYBRID), n_layers=4)
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 2100), device=dev)
+    launches = FLASH_ATTENTION.launches
+    logits, cache = model.prefill(toks)
+    assert cache["attn"]["k"].shape[2] == 2048 and cache["rec"]["h"].dtype == torch.float32
+    for i in range(3):
+        logits, cache = model.decode_step(cache, logits.argmax(-1), 2100 + i)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION.launches == launches
     assert torch.isfinite(logits).all()

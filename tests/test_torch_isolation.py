@@ -34,8 +34,8 @@ print(len(names), bad, sorted(names))
 
 # modules the walk must reach: one per subpackage, the persistence,
 # joint-training and serving slices' too, the paper's config, the dense
-# family's modules, the vlm / audio configs and the moe family's module
-# and configs
+# family's modules, the vlm / audio configs, the moe family's module and
+# configs, the hybrid family's module and config and the roofline counts
 _MUST_WALK = (
     "repro_torch.ckpt.checkpoint",
     "repro_torch.configs.deepseek_v2_lite_16b",
@@ -45,6 +45,7 @@ _MUST_WALK = (
     "repro_torch.configs.qwen2_0_5b",
     "repro_torch.configs.qwen2_vl_2b",
     "repro_torch.configs.qwen3_moe_235b_a22b",
+    "repro_torch.configs.recurrentgemma_9b",
     "repro_torch.configs.stablelm_1_6b",
     "repro_torch.configs.tao",
     "repro_torch.core.multiarch",
@@ -55,10 +56,12 @@ _MUST_WALK = (
     "repro_torch.engine.plan",
     "repro_torch.engine.runner",
     "repro_torch.engine.scheduler",
+    "repro_torch.launch.roofline",
     "repro_torch.launch.serve",
     "repro_torch.models.attention",
     "repro_torch.models.mlp",
     "repro_torch.models.moe",
+    "repro_torch.models.rglru",
     "repro_torch.models.rotary",
     "repro_torch.resilience.breaker",
     "repro_torch.resilience.faults",
@@ -149,6 +152,24 @@ def test_moe_modules_import_alone_without_jax_or_reference():
             "from repro_torch.models import Model; "
             "m = Model(get_arch('deepseek-v2-lite-16b', reduced=True), device='cpu'); "
             "m.prefill(torch.zeros((1, 8), dtype=torch.long)); "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=_env(),
+                         timeout=300, check=True).stdout
+    assert out.strip() == "[]"
+
+
+def test_hybrid_modules_import_alone_without_jax_or_reference():
+    """The hybrid family's module and config and the roofline counts
+    imported first in a fresh interpreter, and a reduced recurrentgemma-9b
+    built on the CPU and run past its window, bring in neither JAX nor the
+    reference."""
+    code = ("import sys, torch, repro_torch.models.rglru, repro_torch.configs.recurrentgemma_9b, "
+            "repro_torch.launch.roofline; from repro_torch.configs import get_arch; "
+            "from repro_torch.models import Model; "
+            "cfg = get_arch('recurrentgemma-9b', reduced=True); m = Model(cfg, device='cpu'); "
+            "m.prefill(torch.zeros((1, 40), dtype=torch.long)); "
+            "repro_torch.launch.roofline.analytic_flops(cfg, {'batch': 1, 'seq': 40, "
+            "'kind': 'prefill'}); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=_env(),
                          timeout=300, check=True).stdout

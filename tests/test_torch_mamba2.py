@@ -82,10 +82,12 @@ def test_config_copy_equals_reference(reduced):
 
 
 def test_registry_and_model_refuse_what_is_not_ported():
-    with pytest.raises(KeyError, match="A10"):
-        get_arch("recurrentgemma-9b")
-    cfg = dataclasses.replace(get_arch(ARCH, reduced=True), family="hybrid")
-    with pytest.raises(NotImplementedError, match="A10"):
+    """Every reference id is ported; an unknown id and an unknown family
+    still raise."""
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_arch("retnet-7b")
+    cfg = dataclasses.replace(get_arch(ARCH, reduced=True), family="retention")
+    with pytest.raises(NotImplementedError, match="unknown family"):
         Model(cfg, device="cpu")
 
 
