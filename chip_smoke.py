@@ -41,7 +41,12 @@ and ``nvcc``.  Phases, one JSON line each:
            bitwise, the forward's output bitwise with and without its
            log-sum-exp; what each of its kernels gets, no spills; timed
            beside SDPA's backward, with each kernel's device time and one
-           (batch, head) alone),
+           (batch, head) alone; and on bfloat16 operands, the LLM trainer's,
+           at qwen2-0.5b's (4, 14, 2048, 64) with k / v repeated 7x,
+           qwen2-vl-2b's (4, 12, 2048, 128), causal, hubert-xlarge's (4,
+           16, 2048, 80), bidirectional, and at unaligned strides, against
+           the plain formulas rounded once, timed beside SDPA's bfloat16
+           backward and the bound, with what each kernel gets),
            and the Mamba-2
            SSD scan (B5) at the full mamba2-1.3b prefill shape in float32
            and bfloat16, with two groups, in one chunk, at chunk 200, at
@@ -261,7 +266,21 @@ and ``nvcc``.  Phases, one JSON line each:
            split by stage (the RG-LRU scan, conv + gates, the windowed
            attention, GEMMs, the rest); the handoff across position 2048
            and the card against the CPU (2 x 256 tokens) on a float32 copy
-           cut to one unit and one tail layer.
+           cut to one unit and one tail layer;
+  train_lm the LLM trainer: python -m repro_torch.launch.train's loop
+           (launch/train.py::run) on qwen2-0.5b at full width and depth
+           (24 layers, bfloat16, weights from seed 0), 4 x 2048 tokens a
+           step of LMDataPipeline's stream, AdamW, 20 steps with a
+           checkpoint at step 10 and 20: the losses (finite, the last below
+           the first), wall ms a step with the card synchronised (median
+           and range), tokens/s, B4's forward and backward launches in
+           every step (24 each, nothing else) by the counters and, in one
+           more profiled step, by the profiler, with its device ms by
+           kernel and idle share, the peak memory and the analytic bound
+           of a step (roofline, kind "train"); then the checkpoint of step
+           20 removed and the same command run again: it resumes from step
+           10 in a fresh Model, and its losses of steps 11-20 are held to
+           the uninterrupted run's.
 
 Each LLM phase (mamba2, dense, vlm_audio, moe, hybrid) prints, before
 each model's reading, a ``roofline`` line per prefill (or encode) and per
@@ -273,7 +292,9 @@ and bytes over the HBM rate), the measured ms and their ratio.
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main path, error, times and bound (B4's and its backward's entries also
 hold their readings at the paper's width, B4's its bfloat16 readings and
-the dense, vlm, audio, moe and hybrid cells' launches); the card's name and power limit
+the dense, vlm, audio, moe, hybrid and train_lm cells' launches; the
+bfloat16 backward's entry its readings at the training shapes and its
+launches in train_lm's 20 steps); the card's name and power limit
 as ``nvidia-smi`` prints them; and, last, the device line.  With phase
 names as arguments, the build and those phases run, and the last line is
 the device line with the phases' names; no kernels line.  Any failed check
@@ -505,6 +526,33 @@ ATTN_BF16_MIN_BITWISE = 0.99
 ATTN_BF16_SHAPES = ((4, 14, 2048, 64, True, 1), (4, 32, 2048, 64, True, 1),
                     (4, 32, 2048, 128, True, 1), (4, 12, 2048, 128, True, 1),
                     (4, 16, 2048, 80, False, 1), (4, 64, 2048, 128, True, 16))
+# B4's backward in bfloat16 against its plain version on the same bfloat16
+# inputs (dO too): both compute in float32 and round each gradient once, so
+# an element may land one bfloat16 rounding apart (2^-7 relative with the
+# float32 sums' order), the absolute term covering gradients near 0; and
+# at least ATTN_BWD_BF16_MIN_BITWISE of the elements bitwise the plain
+# version's
+ATTN_BWD_BF16_RTOL = 2.0**-7
+ATTN_BWD_BF16_ATOL_OF_MAX = 1e-4
+ATTN_BWD_BF16_MIN_BITWISE = 0.99
+# (B, H, S, D, causal, kv heads' repeat) of the LLM trainer's attention:
+# qwen2-0.5b's (14 heads of 64 after the GQA repeat of its 2 kv heads),
+# qwen2-vl-2b's (12 of 128), hubert-xlarge's (16 of 80, bidirectional);
+# then (B, H, S, D) with strides and widths that are not multiples of 8
+# elements: q, k, v cut from one (B, H, S, 2 D + 1) tensor
+ATTN_BWD_BF16_SHAPES = ((4, 14, 2048, 64, True, 7), (4, 12, 2048, 128, True, 1),
+                        (4, 16, 2048, 80, False, 1))
+ATTN_BWD_BF16_UNALIGNED = (2, 4, 300, 60)
+# the LLM training cell: qwen2-0.5b at full width and depth, batch x seq
+# of the serving cells, TRAIN_LM_STEPS steps of the launcher's loop with a
+# checkpoint every TRAIN_LM_CKPT_EVERY, then a resume from that step in a
+# fresh Model
+TRAIN_LM_ARCH = "qwen2-0.5b"
+TRAIN_LM_STEPS, TRAIN_LM_CKPT_EVERY = 20, 10
+# the resumed steps' losses against the uninterrupted run's: every kernel
+# of the step is deterministic, so bitwise is expected; the tolerance is
+# what the phase accepts where the eager ops' kernels choose otherwise
+TRAIN_LM_RESUME_REL = 1e-6
 # the dense serving cells: prompts x tokens, greedy decode steps
 DENSE_FULL = ("qwen2-0.5b", "stablelm-1.6b")    # full width and depth
 DENSE_CUT = ("glm4-9b", "qwen1.5-32b")          # full width, DENSE_CUT_LAYERS
@@ -948,6 +996,7 @@ def phase_kernels(failures, results, traces):
     check_attention_kernel(failures, results)
     check_attention_bf16(failures, results)
     check_attention_bwd_kernel(failures, results)
+    check_attention_bwd_bf16(failures, results)
     check_ssd_kernel(failures, results)
 
 
@@ -1182,23 +1231,13 @@ def attention_bwd_times(q, k, v, out, lse, do):
     one = tuple(x[:1, :1] for x in (q, k, v, out, lse, do))
     one_bh_ms = graph_ms(lambda: flash_attention_bwd_cuda(*one, causal=True))
     plain_ms = cuda_ms(lambda: attention_bwd_plain(q, k, v, out, lse, do, True), 20)
-    qs, ks, vs = (x.detach().contiguous().requires_grad_() for x in (q, k, v))
-    lib_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    dc = do.contiguous()
-
-    def sdpa_bwd():
-        for _ in range(20):
-            torch.autograd.grad(lib_out, (qs, ks, vs), dc, retain_graph=True)
-
-    sdpa_bwd()
-    prof = profile_breakdown(sdpa_bwd)
-    lib_ms = prof["device_busy_s"] * 1e3 / 20
+    lib_ms, lib_kernels = sdpa_bwd_ms(q, k, v, do, True)
     b_ms, b_by = attention_bwd_bound(B, H, S, D, True)
     line = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": b_ms, "bound_by": b_by}
     return line, {"x_bound": ms / b_ms, "x_library": ms / lib_ms, "kernel_ms": kernel_ms,
                   "one_batch_head_ms": one_bh_ms, "library": "scaled_dot_product_attention backward",
-                  "library_kernels": [t[0] for t in prof["top_device_ms"][:4]]}
+                  "library_kernels": lib_kernels}
 
 
 def check_attention_bwd_kernel(failures, results):
@@ -1281,6 +1320,127 @@ def check_attention_bwd_kernel(failures, results):
         "replaces": "src/repro/core/model.py:217",
         "max_abs_err": worst, "ms": at["ms"], "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"], "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+    }
+
+
+def sdpa_bwd_ms(q, k, v, do, causal) -> tuple:
+    """SDPA's backward on contiguous copies of ``q, k, v`` (the library's
+    yardstick): its kernels' device ms per call from the profiler over 20
+    calls of autograd.grad, and the names of the four longest."""
+    import torch
+
+    qs, ks, vs = (x.detach().contiguous().requires_grad_() for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    dc = do.contiguous()
+
+    def calls():
+        for _ in range(20):
+            torch.autograd.grad(out, (qs, ks, vs), dc, retain_graph=True)
+
+    calls()
+    prof = profile_breakdown(calls)
+    return prof["device_busy_s"] * 1e3 / 20, [t[0] for t in prof["top_device_ms"][:4]]
+
+
+def check_attention_bwd_bf16(failures, results):
+    """B4's backward on bfloat16 operands (the LLM trainer's) against its
+    plain version on the same bfloat16 inputs at the training cells'
+    shapes (ATTN_BWD_BF16_SHAPES, k / v repeated over the query heads where
+    the cell's GQA does) and at unaligned strides and widths: every
+    gradient element within ATTN_BWD_BF16_RTOL |plain| +
+    ATTN_BWD_BF16_ATOL_OF_MAX max |plain|, at least
+    ATTN_BWD_BF16_MIN_BITWISE of them bitwise the plain version's, the
+    forward's lse from the wgmma kernel; then each shape's time (graph
+    replay), the plain version's, SDPA's bfloat16 backward (device time),
+    the bound (10 D FLOPs a visible pair at the bf16 tensor rate, or the 8
+    bfloat16 tensors and the float32 lse read or written once) and what
+    each of its kernels gets (registers, spills, blocks per SM)."""
+    import torch
+
+    from repro_torch.kernels.attention.kernel import (
+        bwd_launch_info,
+        flash_attention_bwd_cuda,
+        flash_attention_cuda,
+    )
+    from repro_torch.kernels.attention.ref import attention_bwd_plain
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    bf = torch.bfloat16
+
+    def held(q, k, v, do, causal):
+        out, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+        got = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+        again = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+        ref = attention_bwd_plain(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        ok, err, share = True, 0.0, 1.0
+        for a, b in zip(got, ref):
+            a32, b32 = a.float(), b.float()
+            diff = (a32 - b32).abs()
+            limit = ATTN_BWD_BF16_RTOL * b32.abs() + ATTN_BWD_BF16_ATOL_OF_MAX * float(b32.abs().max())
+            ok &= bool(torch.all(diff <= limit)) and a.dtype == bf
+            err = max(err, float(diff.max()))
+            share = min(share, float((a == b).float().mean()))
+        r = {"max_abs_err": err, "bitwise_share_min": share,
+             "two_calls_bitwise": all(torch.equal(a, b) for a, b in zip(got, again))}
+        r["ok"] = ok and share >= ATTN_BWD_BF16_MIN_BITWISE and r["two_calls_bitwise"]
+        return r, out, lse
+
+    def inputs(B, H, S, D, rep):
+        """q, k, v, dO of a training shape, k / v drawn at H / rep heads and
+        repeated; or, for rep None, cut from wider tensors at strides and
+        widths that are not multiples of 8 elements."""
+        if rep is None:
+            base = torch.randn(B, H, S, 2 * D + 1, generator=g, device="cuda").to(bf)
+            do = torch.randn(B, H, S, 2 * D + 1, generator=g, device="cuda").to(bf)[..., 2:D + 2]
+            return base[..., :D], base[..., D:2 * D], base[..., 1:D + 1], do
+        q = torch.randn(B, H, S, D, generator=g, device="cuda").to(bf)
+        k, v = (torch.randn(B, H // rep, S, D, generator=g, device="cuda").to(bf)
+                .repeat_interleave(rep, dim=1) for _ in range(2))
+        return q, k, v, torch.randn(B, H, S, D, generator=g, device="cuda").to(bf)
+
+    readings, worst = {}, 0.0
+    cases = {f"h{H}_d{D}": (B, H, S, D, causal, rep)
+             for B, H, S, D, causal, rep in ATTN_BWD_BF16_SHAPES}
+    cases["unaligned_strides"] = (*ATTN_BWD_BF16_UNALIGNED, True, None)
+    for name, (B, H, S, D, causal, rep) in cases.items():
+        q, k, v, do = inputs(B, H, S, D, rep)
+        r, out, lse = held(q, k, v, do, causal)
+        worst = max(worst, r["max_abs_err"])
+        ms = graph_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal),
+                      per_graph=5, replays=5)
+        plain_ms = cuda_ms(lambda: attention_bwd_plain(q, k, v, out, lse, do, causal), 3, warmup=1)
+        lib_ms, lib_kernels = sdpa_bwd_ms(q, k, v, do, causal)
+        pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+        nbytes, flops = 8 * B * H * S * D * 2 + B * H * S * 4, pairs * 10 * D
+        b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS_PER_S)
+        info = bwd_launch_info(B, H, S, D, bf)
+        r.update({"case": name, "shape": [B, H, S, D], "causal": causal, "kv_repeat": rep,
+                  "q_strides": list(q.stride()), "dout_strides": list(do.stride()), "ms": ms,
+                  "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                  "bound_operations_ms": flops / BF16_TENSOR_FLOPS_PER_S * 1e3,
+                  "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                  "x_bound": ms / b_ms, "x_library": ms / lib_ms,
+                  "library": "scaled_dot_product_attention backward, bfloat16",
+                  "library_kernels": lib_kernels, "launch_info": info})
+        readings[name] = r
+        emit({"phase": "kernels", "kernel": "flash_attention_bwd", "dtype": "bfloat16",
+              "rtol": ATTN_BWD_BF16_RTOL, "atol_of_max": ATTN_BWD_BF16_ATOL_OF_MAX,
+              "min_bitwise_share": ATTN_BWD_BF16_MIN_BITWISE, **r})
+        if not r["ok"]:
+            failures.append(f"flash_attention_bwd bf16 {name} at {[B, H, S, D]}, causal {causal}: {r}")
+        del q, k, v, do, out, lse
+    at = readings["h14_d64"]
+    keep = ("shape", "causal", "kv_repeat", "max_abs_err", "bitwise_share_min", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")
+    results["flash_attention_bwd_bf16"] = {
+        "name": "flash_attention_bwd_bf16", "route": "cuda",
+        "source": "src/repro_torch/csrc/attention_bwd.cu",
+        # no TPU kernel: the reference's LLM trainer differentiates flash_ref
+        "replaces": "src/repro/models/attention.py:122",
+        "max_abs_err": worst, "ms": at["ms"], "plain_ms": at["plain_ms"],
+        "bound_ms": at["bound_ms"], "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+        "shapes": {name: {k: r[k] for k in keep} for name, r in readings.items()},
     }
 
 
@@ -4999,11 +5159,145 @@ def phase_hybrid(failures, results, traces):
     emit({"phase": "hybrid", "check": "seconds", "seconds": time.perf_counter() - t0})
 
 
+def train_lm_run(flags, track_steps: bool) -> tuple:
+    """One run of the launcher's loop (``launch/train.py::run``) with
+    ``flags``, its printed lines captured: (its result, the lines, per
+    step the wall seconds to the step's end with the card synchronised and
+    every kernel's launches, when ``track_steps``)."""
+    import torch
+
+    from repro_torch.launch import train as launcher
+
+    per_step = []
+    clock = [time.perf_counter()]
+
+    def on_step(i, state, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        per_step.append({"step": i, "s": now - clock[0], "launches": read_counts()})
+        zero_counts()
+        clock[0] = now
+
+    buf = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(buf):
+        out = launcher.run(launcher.build_parser().parse_args(flags),
+                           on_step=on_step if track_steps else None)
+    return out, buf.getvalue().splitlines(), per_step
+
+
+def phase_train_lm(failures, results, traces):
+    """The LLM trainer at full width and depth (module note): the
+    launcher's loop on TRAIN_LM_ARCH, DENSE_BATCH x DENSE_PROMPT tokens a
+    step, TRAIN_LM_STEPS steps from seed 0 with a checkpoint every
+    TRAIN_LM_CKPT_EVERY; then the run resumed from that checkpoint in a
+    fresh Model, its losses against the uninterrupted run's."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.train import TrainConfig, make_train_step
+
+    t0 = time.perf_counter()
+    B, S, n = DENSE_BATCH, DENSE_PROMPT, TRAIN_LM_STEPS
+    cfg = get_arch(TRAIN_LM_ARCH)
+    with tempfile.TemporaryDirectory() as ckpt:
+        flags = ["--arch", TRAIN_LM_ARCH, "--full", "--steps", str(n), "--batch", str(B),
+                 "--seq", str(S), "--ckpt-dir", ckpt, "--ckpt-every", str(TRAIN_LM_CKPT_EVERY),
+                 "--seed", "0", "--device", "cuda"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out, lines, per_step = train_lm_run(flags, track_steps=True)
+        peak = torch.cuda.max_memory_allocated()
+        model, state = out["model"], out["state"]
+        n_params = sum(p.numel() for p in model.parameters())
+        losses = [float(m["loss"]) for m in out["metrics"]]
+        logged = {i: losses[i] for i in range(n) if i % 5 == 0 or i == n - 1}
+        falling = all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+        launches = [p["launches"] for p in per_step]
+        none = {k: 0 for k in launches[0]}
+        expected = none | {"flash_attention": cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+        # the first step warms cuBLAS and the allocator's pools; the
+        # checkpoint at TRAIN_LM_CKPT_EVERY copies the state to the host in
+        # its step and writes it from a thread during the next ones
+        all_ms = [p["s"] * 1e3 for p in per_step]
+        step_ms = sorted(all_ms[1:])
+        median = step_ms[len(step_ms) // 2]
+        before = sorted(all_ms[1:TRAIN_LM_CKPT_EVERY - 1])
+        median_before = before[len(before) // 2]
+        if not falling:
+            failures.append(f"train_lm: losses not finite and falling: {losses}")
+        if any(x != expected for x in launches):
+            failures.append(f"train_lm: launches per step {launches}, expected {expected}")
+        roofline("train_lm", cfg, "train", B, S, n_params, 0, median)
+        # one more step under the profiler: device ms by kernel, B4's and its
+        # backward's launches, idle share
+        tcfg = TrainConfig(lr=3e-4, total_steps=n, warmup_steps=max(1, n // 10))
+        step_fn = make_train_step(model, tcfg)
+        batch = batch_to_device(LMDataPipeline(cfg, B, S, seed=0).make_batch(n), torch.device("cuda"))
+        track = ("attention_kernel", "bwd_dkdv_dq", "bwd_delta")
+        prof = profile_breakdown(lambda: step_fn(state, batch), track=track,
+                                 groups={"b4_fwd": ("attention_kernel",),
+                                         "b4_bwd": ("bwd_dkdv_dq", "bwd_delta"),
+                                         "gemm": GEMM_PIECES, "copy": ("copy",)})
+        counts = prof["tracked_count"]
+        prof_launches = {"flash_attention": sum(c for k, c in counts.items()
+                                                if k.startswith("attention_kernel")),
+                         "flash_attention_bwd": sum(c for k, c in counts.items()
+                                                    if k.startswith("bwd_dkdv_dq"))}
+        if prof_launches != {"flash_attention": cfg.n_layers, "flash_attention_bwd": cfg.n_layers}:
+            failures.append(f"train_lm: the profiled step ran {prof_launches} B4 kernels")
+        reading = {"config": cfg.name, "dtype": cfg.compute_dtype, "layers": cfg.n_layers,
+                   "params": n_params, "batch": B, "seq": S, "steps": n,
+                   "losses_logged": logged, "losses": losses, "finite_and_falling": falling,
+                   "first_step_ms_with_setup": per_step[0]["s"] * 1e3, "step_ms_median": median,
+                   "step_ms_range": [step_ms[0], step_ms[-1]], "step_ms": all_ms,
+                   "step_ms_median_before_checkpoint": median_before,
+                   "tokens_per_s": B * S / (median / 1e3),
+                   "launches_per_step": launches[1], "launches_per_step_all_as_expected":
+                   all(x == expected for x in launches),
+                   "b4_launches_profiler": prof_launches, "peak_bytes": peak,
+                   "loop_seconds": out["seconds"], "launcher_lines": lines}
+        emit({"phase": "train_lm", **reading})
+        emit({"phase": "train_lm", "config": cfg.name, "check": "profile", "call": "train_step",
+              **prof})
+        results.setdefault("flash_attention_bwd_bf16", {})["launches"] = sum(
+            p["launches"]["flash_attention_bwd"] for p in per_step)
+        results.setdefault("flash_attention", {})["train_lm"] = {
+            k: reading[k] for k in ("layers", "step_ms_median", "tokens_per_s", "peak_bytes")}
+        del model, state, out, step_fn, batch
+        torch.cuda.empty_cache()
+
+        # ---- resume: from the checkpoint at TRAIN_LM_CKPT_EVERY, in a fresh Model
+        shutil.rmtree(os.path.join(ckpt, f"step_{n}"))
+        resumed, r_lines, r_steps = train_lm_run(flags, track_steps=True)
+        r_losses = [float(m["loss"]) for m in resumed["metrics"]]
+        want = losses[TRAIN_LM_CKPT_EVERY:]
+        bitwise = r_losses == want
+        worst = max((abs(a - b) / abs(b) for a, b in zip(r_losses, want)), default=math.inf)
+        ok = (resumed["start_step"] == TRAIN_LM_CKPT_EVERY and len(r_losses) == len(want)
+              and worst <= TRAIN_LM_RESUME_REL
+              and all(p["launches"] == expected for p in r_steps))
+        if not ok:
+            failures.append(f"train_lm: resumed run {r_losses} against {want}")
+        emit({"phase": "train_lm", "check": "resume", "from_step": resumed["start_step"],
+              "steps": len(r_losses), "losses": r_losses, "losses_bitwise": bitwise,
+              "max_rel_diff": worst, "limit": TRAIN_LM_RESUME_REL,
+              "launcher_lines": r_lines[:2], "ok": ok})
+        del resumed
+        torch.cuda.empty_cache()
+    emit({"phase": "train_lm", "check": "seconds", "seconds": time.perf_counter() - t0})
+
+
 PHASES = {"build": phase_build, "kernels": phase_kernels, "slice": phase_slice,
           "sweep": phase_sweep, "train": phase_train, "persist": phase_persist,
           "joint": phase_joint, "session": phase_session, "serve": phase_serve,
           "paper": phase_paper, "mamba2": phase_mamba2, "dense": phase_dense,
-          "vlm_audio": phase_vlm_audio, "moe": phase_moe, "hybrid": phase_hybrid}
+          "vlm_audio": phase_vlm_audio, "moe": phase_moe, "hybrid": phase_hybrid,
+          "train_lm": phase_train_lm}
 
 
 def main(argv) -> int:
@@ -5044,7 +5338,7 @@ def main(argv) -> int:
         return 0
     emit({"kernels": [results[k] for k in
                       ("fused_features", "branch_history", "memdist_delta", "flash_attention",
-                       "flash_attention_bwd", "ssd")]})
+                       "flash_attention_bwd", "flash_attention_bwd_bf16", "ssd")]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": device})
     return 0

@@ -1,5 +1,5 @@
 // The backward of the online-softmax attention (attention.cu), for Hopper
-// (sm_90a), float32, on the tensor cores.
+// (sm_90a), float32 or bfloat16 I/O, on the tensor cores.
 //
 // The port's own kernel: the reference has no backward of its attention
 // kernel (no custom_vjp under src/repro/kernels/); its trainer
@@ -16,7 +16,21 @@
 //
 // What it takes: causal or not, no segment ids, q_offset 0, Sq == Sk = S,
 // D == Dv <= 128; q, k, v, o, dO read and dq, dk, dv written at their
-// (batch, head, sequence) strides with the last dimension contiguous.
+// (batch, head, sequence) strides with the last dimension contiguous, all
+// float32 or all bfloat16 (dtype 0 or 1); lse and delta float32.
+//
+// bfloat16 I/O (the LLM trainer's): the same kernels on bfloat16 tiles,
+// computing in float32 as the float32 path does and rounding each gradient
+// once to bfloat16 (to nearest even).  q, k, v, o and dO are staged into
+// shared memory as they come (16-byte cp.async, 8 elements, where widths,
+// strides and pointers allow it; element by element otherwise: cp.async
+// has no 2-byte copy) and widened as a fragment is loaded.  A bfloat16
+// value is exact in TF32 (8 mantissa bits of TF32's 10), so its TF32
+// remainder is 0 and the products between staged operands (S = Q K^T,
+// dP = dO V^T) take one mma.sync each, exact products summed in float32;
+// the products with P or dS (float32, split into two TF32 terms) take two.
+// That is 6 mma.sync per step and pair of tiles in the dK / dV pass and 4
+// in the dQ pass, against the float32 path's 12 and 9.
 //
 // Two kernels on one stream, no atomics, so two calls give the same bits:
 //   * bwd_delta: one warp per row, delta = rowsum(dO o) by a fixed
@@ -80,6 +94,7 @@
 // hide it, so one (batch, head) alone takes most of batch 16's time.
 // PERF.md has the times.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,7 +104,7 @@ constexpr int kTile = 64;        // streamed rows per shared-memory tile
 constexpr int kSteps = kTile / 8;
 constexpr int kRows = 16;        // own rows per warp (the mma's M)
 constexpr int kMaxWarps = 4;     // warps per block at most: one per scheduler
-constexpr int kPad = 4;          // row pitch = template width + 4 floats
+constexpr int kPadBytes = 16;    // row pitch = template width + 16 bytes
 constexpr int kDeltaThreads = 256;
 constexpr int kMaxSmem = 232448;
 constexpr unsigned kFull = 0xffffffffu;
@@ -99,22 +114,23 @@ struct Strides {
   long long b, h, s;
 };
 
+template <typename T>
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* o;
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* o;
   const float* lse;  // (B, H, S) contiguous, base 2
-  const float* dout;
-  float* dq;
-  float* dk;
-  float* dv;
+  const T* dout;
+  T* dq;
+  T* dk;
+  T* dv;
   float* delta;      // (B, H, S) contiguous scratch
   Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
   int H, S, D;
   int causal;
   int vec16;         // 16-byte copies of q, k, v, dO: widths, strides, pointers allow it
-  int vec2;          // float2 stores of dq, dk, dv
+  int vec2;          // two-element stores of dq, dk, dv
   float scale;       // 1 / sqrt(D)
   float qscale;      // scale * log2(e)
 };
@@ -125,6 +141,40 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
+
+// What the element type gives the tensor cores: a float32 element is split
+// as above; a bfloat16 element is its own TF32 high part (its bits moved up
+// 16) with a zero remainder, which the products then skip (kExact).
+template <typename T>
+struct Elem;
+template <>
+struct Elem<float> {
+  static constexpr bool kExact = false;
+  static constexpr int kPad = kPadBytes / 4;  // row pitch padding in elements
+  __device__ static __forceinline__ float widen(float x) { return x; }
+  __device__ static __forceinline__ void tf32(const float* p, uint32_t& hi, uint32_t& lo) {
+    split(*p, hi, lo);
+  }
+  __device__ static __forceinline__ void store2(float* o, float a, float b) {
+    *reinterpret_cast<float2*>(o) = make_float2(a, b);
+  }
+  __device__ static __forceinline__ void store1(float* o, float a) { *o = a; }
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr bool kExact = true;
+  static constexpr int kPad = kPadBytes / 2;
+  __device__ static __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+  __device__ static __forceinline__ void tf32(const __nv_bfloat16* p, uint32_t& hi, uint32_t&) {
+    hi = (uint32_t)__bfloat16_as_ushort(*p) << 16;
+  }
+  __device__ static __forceinline__ void store2(__nv_bfloat16* o, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+  }
+  __device__ static __forceinline__ void store1(__nv_bfloat16* o, float a) {
+    *o = __float2bfloat16_rn(a);
+  }
+};
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -141,11 +191,13 @@ __device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t*
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c += a b in 3xTF32: the two small cross terms first, then hi * hi
+// c += a b in 3xTF32: the two small cross terms first, then hi * hi; an
+// operand exact in TF32 (EA, EB: its remainder is 0) drops its cross term
+template <bool EA, bool EB>
 __device__ __forceinline__ void mma3(float* c, const uint32_t* ahi, const uint32_t* alo,
                                      const uint32_t* bhi, const uint32_t* blo) {
-  mma(c, alo, bhi);
-  mma(c, ahi, blo);
+  if constexpr (!EA) mma(c, alo, bhi);
+  if constexpr (!EB) mma(c, ahi, blo);
   mma(c, ahi, bhi);
 }
 
@@ -166,20 +218,25 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Stage nrows rows of `width` floats (row stride rs) into dst at `pitch`,
-// zero-filling the columns up to `wpad` and the rows from `nvalid` on.
-__device__ __forceinline__ void stage_rows(float* dst, int pitch, const float* src,
+// Stage nrows rows of `width` elements (row stride rs) into dst at `pitch`,
+// zero-filling the columns up to `wpad` and the rows from `nvalid` on:
+// 16-byte cp.async chunks where vec16 allows them; otherwise 4-byte
+// cp.async for float32 and plain copies for bfloat16 (cp.async copies 4,
+// 8 or 16 bytes), which the barrier before the tile's use publishes.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int pitch, const T* src,
                                            long long rs, int nvalid, int nrows,
                                            int width, int wpad, bool vec16) {
+  constexpr int epc = 16 / sizeof(T);  // elements per 16-byte chunk
   if (vec16) {
-    // a thread keeps one 16-byte column of every step-th row: 8, 16 or 32
+    // a thread keeps one 16-byte column of every step-th row: 4 to 32
     // chunks per row divide the block's threads
-    const int cpr = wpad >> 2;
+    const int cpr = wpad / epc;
     const int step = blockDim.x / cpr;
-    const int c = (threadIdx.x % cpr) << 2;
+    const int c = (threadIdx.x % cpr) * epc;
     int r = threadIdx.x / cpr;
-    const float* s = src + r * rs + c;
-    float* d = dst + r * pitch + c;
+    const T* s = src + r * rs + c;
+    T* d = dst + r * pitch + c;
     for (; r < nrows; r += step, s += step * rs, d += step * pitch) {
       const bool ok = r < nvalid && c < width;
       cp_async16(d, ok ? s : src, ok ? 16 : 0);
@@ -189,23 +246,27 @@ __device__ __forceinline__ void stage_rows(float* dst, int pitch, const float* s
       const int r = i / wpad;
       const int c = i - r * wpad;
       const bool ok = r < nvalid && c < width;
-      cp_async4(dst + r * pitch + c, ok ? src + r * rs + c : src, ok ? 4 : 0);
+      if constexpr (sizeof(T) == 4)
+        cp_async4(dst + r * pitch + c, ok ? src + r * rs + c : src, ok ? 4 : 0);
+      else
+        dst[r * pitch + c] = ok ? src[r * rs + c] : T(0.0f);
     }
   }
 }
 
 // delta = rowsum(dO o): one warp per row
-__global__ void __launch_bounds__(kDeltaThreads) bwd_delta(const Params p, int rows) {
+template <typename T>
+__global__ void __launch_bounds__(kDeltaThreads) bwd_delta(const Params<T> p, int rows) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (kDeltaThreads / 32) + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int bh = row / p.S;
   const int s = row - bh * p.S;
   const int b = bh / p.H, h = bh - (bh / p.H) * p.H;
-  const float* o = p.o + b * p.so.b + h * p.so.h + s * p.so.s;
-  const float* d = p.dout + b * p.sdo.b + h * p.sdo.h + s * p.sdo.s;
+  const T* o = p.o + b * p.so.b + h * p.so.h + s * p.so.s;
+  const T* d = p.dout + b * p.sdo.b + h * p.sdo.h + s * p.sdo.s;
   float acc = 0.0f;
-  for (int c = lane; c < p.D; c += 32) acc = fmaf(d[c], o[c], acc);
+  for (int c = lane; c < p.D; c += 32) acc = fmaf(Elem<T>::widen(d[c]), Elem<T>::widen(o[c]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
   if (lane == 0) p.delta[row] = acc;
@@ -219,13 +280,15 @@ __global__ void __launch_bounds__(kDeltaThreads) bwd_delta(const Params p, int r
 // dS^T Q.  Otherwise the dQ pass: own (Q, dO) with their lse and delta in
 // registers, streamed (K, V); then acc1 (dQ) += dS K.  `masked`: some pair
 // of the chunk lies past S or across the causal diagonal.
-template <bool KV, int NN, int W8>
+template <typename T, bool KV, int NN, int W8>
 __device__ __forceinline__ void chunk(float (&acc1)[W8][4], float (&acc2)[KV ? W8 : 1][4],
-                                      const float* xa, const float* ya, const float* us,
-                                      const float* zs, const float* st, const float (&own_lse)[2],
+                                      const T* xa, const T* ya, const T* us,
+                                      const T* zs, const float* st, const float (&own_lse)[2],
                                       const float (&own_delta)[2], bool masked, int own0,
-                                      int str0, const Params& p, int g, int t) {
-  constexpr int pitch = W8 * 8 + kPad;
+                                      int str0, const Params<T>& p, int g, int t) {
+  using E = Elem<T>;
+  constexpr bool X = E::kExact;
+  constexpr int pitch = W8 * 8 + E::kPad;
 
   // ---- s = x u^T and dp = y z^T: x's and y's fragments once per 8 columns
   float s[NN][4], dp[NN][4];
@@ -233,28 +296,28 @@ __device__ __forceinline__ void chunk(float (&acc1)[W8][4], float (&acc2)[KV ? W
   for (int n = 0; n < NN; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
-  const float* ub = us + g * pitch + t;
-  const float* zb = zs + g * pitch + t;
+  const T* ub = us + g * pitch + t;
+  const T* zb = zs + g * pitch + t;
 #pragma unroll
   for (int kk = 0; kk < W8 * 8; kk += 8) {
     uint32_t xh[4], xl[4], yh[4], yl[4];
-    split(xa[kk], xh[0], xl[0]);
-    split(xa[kk + 8 * pitch], xh[1], xl[1]);
-    split(xa[kk + 4], xh[2], xl[2]);
-    split(xa[kk + 4 + 8 * pitch], xh[3], xl[3]);
-    split(ya[kk], yh[0], yl[0]);
-    split(ya[kk + 8 * pitch], yh[1], yl[1]);
-    split(ya[kk + 4], yh[2], yl[2]);
-    split(ya[kk + 4 + 8 * pitch], yh[3], yl[3]);
+    E::tf32(xa + kk, xh[0], xl[0]);
+    E::tf32(xa + kk + 8 * pitch, xh[1], xl[1]);
+    E::tf32(xa + kk + 4, xh[2], xl[2]);
+    E::tf32(xa + kk + 4 + 8 * pitch, xh[3], xl[3]);
+    E::tf32(ya + kk, yh[0], yl[0]);
+    E::tf32(ya + kk + 8 * pitch, yh[1], yl[1]);
+    E::tf32(ya + kk + 4, yh[2], yl[2]);
+    E::tf32(ya + kk + 4 + 8 * pitch, yh[3], yl[3]);
 #pragma unroll
     for (int n = 0; n < NN; ++n) {
       uint32_t bh[2], bl[2];
-      split(ub[n * 8 * pitch + kk], bh[0], bl[0]);
-      split(ub[n * 8 * pitch + kk + 4], bh[1], bl[1]);
-      mma3(s[n], xh, xl, bh, bl);
-      split(zb[n * 8 * pitch + kk], bh[0], bl[0]);
-      split(zb[n * 8 * pitch + kk + 4], bh[1], bl[1]);
-      mma3(dp[n], yh, yl, bh, bl);
+      E::tf32(ub + n * 8 * pitch + kk, bh[0], bl[0]);
+      E::tf32(ub + n * 8 * pitch + kk + 4, bh[1], bl[1]);
+      mma3<X, X>(s[n], xh, xl, bh, bl);
+      E::tf32(zb + n * 8 * pitch + kk, bh[0], bl[0]);
+      E::tf32(zb + n * 8 * pitch + kk + 4, bh[1], bl[1]);
+      mma3<X, X>(dp[n], yh, yl, bh, bl);
     }
   }
 
@@ -312,23 +375,23 @@ __device__ __forceinline__ void chunk(float (&acc1)[W8][4], float (&acc2)[KV ? W
       split(s[n][3], ph[n][3], pl[n][3]);
     }
   }
-  const float* uc = us + 2 * t * pitch + g;
-  const float* zc = zs + 2 * t * pitch + g;
+  const T* uc = us + 2 * t * pitch + g;
+  const T* zc = zs + 2 * t * pitch + g;
 #pragma unroll
   for (int m = 0; m < W8; ++m) {
     float c1[4] = {0.0f, 0.0f, 0.0f, 0.0f}, c2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int n = 0; n < NN; ++n) {
       uint32_t bh[2], bl[2];
-      split(uc[8 * n * pitch + 8 * m], bh[0], bl[0]);
-      split(uc[(8 * n + 1) * pitch + 8 * m], bh[1], bl[1]);
+      E::tf32(uc + 8 * n * pitch + 8 * m, bh[0], bl[0]);
+      E::tf32(uc + (8 * n + 1) * pitch + 8 * m, bh[1], bl[1]);
       if constexpr (KV) {
-        mma3(c2, dh[n], dl[n], bh, bl);  // dK += dS^T Q
-        split(zc[8 * n * pitch + 8 * m], bh[0], bl[0]);
-        split(zc[(8 * n + 1) * pitch + 8 * m], bh[1], bl[1]);
-        mma3(c1, ph[n], pl[n], bh, bl);  // dV += P^T dO
+        mma3<false, X>(c2, dh[n], dl[n], bh, bl);  // dK += dS^T Q
+        E::tf32(zc + 8 * n * pitch + 8 * m, bh[0], bl[0]);
+        E::tf32(zc + (8 * n + 1) * pitch + 8 * m, bh[1], bl[1]);
+        mma3<false, X>(c1, ph[n], pl[n], bh, bl);  // dV += P^T dO
       } else {
-        mma3(c1, dh[n], dl[n], bh, bl);  // dQ += dS K
+        mma3<false, X>(c1, dh[n], dl[n], bh, bl);  // dQ += dS K
       }
     }
 #pragma unroll
@@ -341,28 +404,27 @@ __device__ __forceinline__ void chunk(float (&acc1)[W8][4], float (&acc2)[KV ? W
 
 // Write a warp's 16 rows (r0 + g, r0 + g + 8) of one gradient from its C
 // fragments, times `mul`.
-template <int W8>
-__device__ __forceinline__ void store_rows(float* base, long long rs, const float (&acc)[W8][4],
-                                           float mul, int r0, const Params& p, int g, int t) {
+template <typename T, int W8>
+__device__ __forceinline__ void store_rows(T* base, long long rs, const float (&acc)[W8][4],
+                                           float mul, int r0, const Params<T>& p, int g, int t) {
+  using E = Elem<T>;
   const int ra = r0 + g, rb = r0 + g + 8;
 #pragma unroll
   for (int m = 0; m < W8; ++m) {
     const int c = 8 * m + 2 * t;
     if (c >= p.D) continue;
     if (p.vec2) {
-      if (ra < p.S)
-        *reinterpret_cast<float2*>(base + ra * rs + c) = make_float2(acc[m][0] * mul, acc[m][1] * mul);
-      if (rb < p.S)
-        *reinterpret_cast<float2*>(base + rb * rs + c) = make_float2(acc[m][2] * mul, acc[m][3] * mul);
+      if (ra < p.S) E::store2(base + ra * rs + c, acc[m][0] * mul, acc[m][1] * mul);
+      if (rb < p.S) E::store2(base + rb * rs + c, acc[m][2] * mul, acc[m][3] * mul);
     } else {
       const bool c1ok = c + 1 < p.D;
       if (ra < p.S) {
-        base[ra * rs + c] = acc[m][0] * mul;
-        if (c1ok) base[ra * rs + c + 1] = acc[m][1] * mul;
+        E::store1(base + ra * rs + c, acc[m][0] * mul);
+        if (c1ok) E::store1(base + ra * rs + c + 1, acc[m][1] * mul);
       }
       if (rb < p.S) {
-        base[rb * rs + c] = acc[m][2] * mul;
-        if (c1ok) base[rb * rs + c + 1] = acc[m][3] * mul;
+        E::store1(base + rb * rs + c, acc[m][2] * mul);
+        if (c1ok) E::store1(base + rb * rs + c + 1, acc[m][3] * mul);
       }
     }
   }
@@ -371,23 +433,24 @@ __device__ __forceinline__ void store_rows(float* base, long long rs, const floa
 // Block `blk` of `nb` of one pass: KV the dK / dV pass, otherwise the dQ
 // pass.  The block owns nw row tiles of 16 of one (batch, head) and streams
 // the other pair of operands through shared memory in 64-row tiles.
-template <bool KV, int W>
-__device__ __forceinline__ void bwd_pass(const Params& p, int blk, int nb) {
+template <typename T, bool KV, int W>
+__device__ __forceinline__ void bwd_pass(const Params<T>& p, int blk, int nb) {
   constexpr int W8 = W / 8;
-  constexpr int pitch = W + kPad;
+  constexpr int pitch = W + Elem<T>::kPad;
   constexpr int kMaxNN = W8 <= 8 ? 4 : 2;  // steps per chunk at most (registers)
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;  // the mma's group: rows g and g + 8
   const int t = lane & 3;   // thread in group
   const int nw = blockDim.x >> 5;
   const int rows = nw * kRows;
-  float* x_s = smem;                    // [rows][pitch]: K (KV) or Q
-  float* y_s = x_s + rows * pitch;      // V or dO
-  float* u_s = y_s + rows * pitch;      // [2][kTile][pitch]: Q (KV) or K
-  float* z_s = u_s + 2 * kTile * pitch; // dO or V
-  float* st_s = z_s + 2 * kTile * pitch;  // KV: [2][lse, delta][kTile]
+  T* x_s = smem;                        // [rows][pitch]: K (KV) or Q
+  T* y_s = x_s + rows * pitch;          // V or dO
+  T* u_s = y_s + rows * pitch;          // [2][kTile][pitch]: Q (KV) or K
+  T* z_s = u_s + 2 * kTile * pitch;     // dO or V
+  float* st_s = reinterpret_cast<float*>(z_s + 2 * kTile * pitch);  // KV: [2][lse, delta][kTile]
 
   const int bh = blockIdx.x;
   const int b = bh / p.H;
@@ -398,10 +461,10 @@ __device__ __forceinline__ void bwd_pass(const Params& p, int blk, int nb) {
   const Strides& sy = KV ? p.sv : p.sdo;
   const Strides& su = KV ? p.sq : p.sk;
   const Strides& sz = KV ? p.sdo : p.sv;
-  const float* xg = (KV ? p.k : p.q) + b * sx.b + h * sx.h;
-  const float* yg = (KV ? p.v : p.dout) + b * sy.b + h * sy.h;
-  const float* ug = (KV ? p.q : p.k) + b * su.b + h * su.h;
-  const float* zg = (KV ? p.dout : p.v) + b * sz.b + h * sz.h;
+  const T* xg = (KV ? p.k : p.q) + b * sx.b + h * sx.h;
+  const T* yg = (KV ? p.v : p.dout) + b * sy.b + h * sy.h;
+  const T* ug = (KV ? p.q : p.k) + b * su.b + h * su.h;
+  const T* zg = (KV ? p.dout : p.v) + b * sz.b + h * sz.h;
   const float* lse_bh = p.lse + (long long)bh * p.S;
   const float* delta_bh = p.delta + (long long)bh * p.S;
 
@@ -459,8 +522,8 @@ __device__ __forceinline__ void bwd_pass(const Params& p, int blk, int nb) {
   for (int m = 0; m < W8; ++m) acc1[m][0] = acc1[m][1] = acc1[m][2] = acc1[m][3] = 0.0f;
 #pragma unroll
   for (int m = 0; m < (KV ? W8 : 1); ++m) acc2[m][0] = acc2[m][1] = acc2[m][2] = acc2[m][3] = 0.0f;
-  const float* xa = x_s + (tile * kRows + g) * pitch + t;
-  const float* ya = y_s + (tile * kRows + g) * pitch + t;
+  const T* xa = x_s + (tile * kRows + g) * pitch + t;
+  const T* ya = y_s + (tile * kRows + g) * pitch + t;
 
   for (int it = it0; it < it1; ++it) {
     if (it + 1 < it1) cp_async_wait<1>(); else cp_async_wait<0>();
@@ -468,8 +531,8 @@ __device__ __forceinline__ void bwd_pass(const Params& p, int blk, int nb) {
     const int r = it * kTile;
     if (active && r < wend) {
       const int buf = (it - it0) & 1;
-      const float* us = u_s + buf * kTile * pitch;
-      const float* zs = z_s + buf * kTile * pitch;
+      const T* us = u_s + buf * kTile * pitch;
+      const T* zs = z_s + buf * kTile * pitch;
       const float* st = st_s + buf * 2 * kTile;
       // steps of this tile holding a pair this warp sees: KV under causal
       // masking from its diagonal on; dQ up to it
@@ -478,19 +541,19 @@ __device__ __forceinline__ void bwd_pass(const Params& p, int blk, int nb) {
       while (s0 < e) {
         const int c = e - s0;
         const int str0 = r + 8 * s0;
-        const float* u0 = us + 8 * s0 * pitch;
-        const float* z0 = zs + 8 * s0 * pitch;
+        const T* u0 = us + 8 * s0 * pitch;
+        const T* z0 = zs + 8 * s0 * pitch;
         const float* st0 = st + 8 * s0;
         const int nn = c >= kMaxNN ? kMaxNN : c >= 2 ? 2 : 1;
         const int str1 = str0 + 8 * nn;
         const bool masked = str1 > p.S ||
                             (p.causal && (KV ? str0 < r0 + kRows - 1 : str1 - 1 > r0));
         if (nn == kMaxNN)
-          chunk<KV, kMaxNN, W8>(acc1, acc2, xa, ya, u0, z0, st0, own_lse, own_delta, masked, r0, str0, p, g, t);
+          chunk<T, KV, kMaxNN, W8>(acc1, acc2, xa, ya, u0, z0, st0, own_lse, own_delta, masked, r0, str0, p, g, t);
         else if (nn == 2)
-          chunk<KV, 2, W8>(acc1, acc2, xa, ya, u0, z0, st0, own_lse, own_delta, masked, r0, str0, p, g, t);
+          chunk<T, KV, 2, W8>(acc1, acc2, xa, ya, u0, z0, st0, own_lse, own_delta, masked, r0, str0, p, g, t);
         else
-          chunk<KV, 1, W8>(acc1, acc2, xa, ya, u0, z0, st0, own_lse, own_delta, masked, r0, str0, p, g, t);
+          chunk<T, KV, 1, W8>(acc1, acc2, xa, ya, u0, z0, st0, own_lse, own_delta, masked, r0, str0, p, g, t);
         s0 += nn;
       }
     }
@@ -500,48 +563,52 @@ __device__ __forceinline__ void bwd_pass(const Params& p, int blk, int nb) {
 
   if (!active) return;
   if constexpr (KV) {
-    store_rows<W8>(p.dv + b * p.sdv.b + h * p.sdv.h, p.sdv.s, acc1, 1.0f, r0, p, g, t);
-    store_rows<W8>(p.dk + b * p.sdk.b + h * p.sdk.h, p.sdk.s, acc2, p.scale, r0, p, g, t);
+    store_rows<T, W8>(p.dv + b * p.sdv.b + h * p.sdv.h, p.sdv.s, acc1, 1.0f, r0, p, g, t);
+    store_rows<T, W8>(p.dk + b * p.sdk.b + h * p.sdk.h, p.sdk.s, acc2, p.scale, r0, p, g, t);
   } else {
-    store_rows<W8>(p.dq + b * p.sdq.b + h * p.sdq.h, p.sdq.s, acc1, p.scale, r0, p, g, t);
+    store_rows<T, W8>(p.dq + b * p.sdq.b + h * p.sdq.h, p.sdq.s, acc1, p.scale, r0, p, g, t);
   }
 }
 
 // Both passes in one grid, so that they run side by side: even blocks
 // (y = 2i) take the dK / dV pass's block i, odd ones the dQ pass's, the
 // heaviest of each first.
-template <int W>  // D padded to 32, 64 or 128
-__global__ void __launch_bounds__(kMaxWarps * 32) bwd_dkdv_dq(const Params p) {
+template <typename T, int W>  // D padded to 32, 64 or 128
+__global__ void __launch_bounds__(kMaxWarps * 32) bwd_dkdv_dq(const Params<T> p) {
   if (blockIdx.y & 1)
-    bwd_pass<false, W>(p, blockIdx.y >> 1, gridDim.y >> 1);
+    bwd_pass<T, false, W>(p, blockIdx.y >> 1, gridDim.y >> 1);
   else
-    bwd_pass<true, W>(p, blockIdx.y >> 1, gridDim.y >> 1);
+    bwd_pass<T, true, W>(p, blockIdx.y >> 1, gridDim.y >> 1);
 }
 
 // The launch a call gets: kernel, warps (own row tiles) per block, blocks
 // per pass and (batch, head), dynamic shared memory (the dK / dV pass's,
 // the larger).
+template <typename T>
 struct Config {
-  void (*kernel)(Params);
+  void (*kernel)(Params<T>);
   int nw, nb;
   size_t smem;
 };
 
-Config configure(long long bhs, int S, int D, int sms) {
+template <typename T>
+Config<T> configure(long long bhs, int S, int D, int sms) {
   const int w = D <= 32 ? 32 : D <= 64 ? 64 : 128;
-  Config c;
-  c.kernel = w == 32 ? bwd_dkdv_dq<32> : w == 64 ? bwd_dkdv_dq<64> : bwd_dkdv_dq<128>;
+  Config<T> c;
+  c.kernel = w == 32 ? bwd_dkdv_dq<T, 32> : w == 64 ? bwd_dkdv_dq<T, 64> : bwd_dkdv_dq<T, 128>;
   const int tiles = (S + kRows - 1) / kRows;
   int nb = (tiles + kMaxWarps - 1) / kMaxWarps;
   while (nb < tiles && bhs * nb < sms) ++nb;  // each pass a block per SM where the tiles allow it
   c.nw = (tiles + nb - 1) / nb;
   c.nb = (tiles + c.nw - 1) / c.nw;         // equal blocks
-  const int pitch = w + kPad;
-  c.smem = sizeof(float) * ((size_t)2 * c.nw * kRows * pitch + 2 * 2 * kTile * pitch + 2 * kTile * 2);
+  const int pitch = w + Elem<T>::kPad;
+  c.smem = sizeof(T) * ((size_t)2 * c.nw * kRows * pitch + 2 * 2 * kTile * pitch) +
+           sizeof(float) * 2 * kTile * 2;
   return c;
 }
 
-int allow_smem(const Config& c) {
+template <typename T>
+int allow_smem(const Config<T>& c) {
   if (c.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (c.smem <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(c.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -555,31 +622,22 @@ int sm_count(int* sms) {
   return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
-bool valid(int B, int H, int S, int D) {
-  return B >= 1 && H >= 1 && S >= 1 && D >= 1 && D <= 128 && (long long)B * H <= 2147483647LL;
+bool valid(int B, int H, int S, int D, int dtype) {
+  return B >= 1 && H >= 1 && S >= 1 && D >= 1 && D <= 128 && (long long)B * H <= 2147483647LL &&
+         (dtype == 0 || dtype == 1);
 }
 
-}  // namespace
-
-extern "C" const char* tao_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
-
-// q, k, v, o, dout, dq, dk, dv: (B, H, S, D) float32 device pointers with
-// element strides (batch, head, sequence) given as 8 triples in that
-// order and a contiguous last dimension; lse (B, H, S) float32 contiguous,
-// base 2, as tao_flash_attention writes it; delta (B, H, S) float32
-// scratch.  1 <= D <= 128, no segment ids, q_offset 0.
-extern "C" int tao_flash_attention_bwd(
-    const float* q, const float* k, const float* v, const float* o, const float* lse,
-    const float* dout, float* dq, float* dk, float* dv, float* delta, const long long* strides,
-    int B, int H, int S, int D, int causal, float scale, void* stream) {
-  if (!valid(B, H, S, D)) return (int)cudaErrorInvalidValue;
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* o, const float* lse,
+           const void* dout, void* dq, void* dk, void* dv, float* delta,
+           const long long* strides, int B, int H, int S, int D, int causal, float scale,
+           cudaStream_t s) {
+  constexpr int epc = 16 / sizeof(T);  // elements per 16-byte copy
   int sms = 0;
   int err = sm_count(&sms);
   if (err != 0) return err;
   const long long bhs = (long long)B * H;
-  const Config c = configure(bhs, S, D, sms);
+  const Config<T> c = configure<T>(bhs, S, D, sms);
   if (2 * c.nb > 65535) return (int)cudaErrorInvalidValue;
   if ((err = allow_smem(c)) != 0) return err;
   Strides st[8];
@@ -592,15 +650,16 @@ extern "C" int tao_flash_attention_bwd(
   }
   const uintptr_t in_ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout;
   const uintptr_t out_ptrs = (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv;
-  Params p{q, k, v, o, lse, dout, dq, dk, dv, delta,
-           st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-           H, S, D, causal,
-           D % 4 == 0 && in_strides % 4 == 0 && in_ptrs % 16 == 0,
-           D % 2 == 0 && out_strides % 2 == 0 && out_ptrs % 8 == 0,
-           scale, scale * kLog2e};
-  const cudaStream_t s = (cudaStream_t)stream;
+  Params<T> p{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+              static_cast<const T*>(o), lse, static_cast<const T*>(dout),
+              static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), delta,
+              st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+              H, S, D, causal,
+              D % epc == 0 && in_strides % epc == 0 && in_ptrs % 16 == 0,
+              D % 2 == 0 && out_strides % 2 == 0 && out_ptrs % (2 * sizeof(T)) == 0,
+              scale, scale * kLog2e};
   const int rows = B * H * S;
-  bwd_delta<<<(rows + kDeltaThreads / 32 - 1) / (kDeltaThreads / 32), kDeltaThreads, 0, s>>>(p, rows);
+  bwd_delta<T><<<(rows + kDeltaThreads / 32 - 1) / (kDeltaThreads / 32), kDeltaThreads, 0, s>>>(p, rows);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   c.kernel<<<dim3((unsigned)bhs, 2 * c.nb), c.nw * 32, c.smem, s>>>(p);
   return (int)cudaGetLastError();
@@ -627,17 +686,50 @@ int report(F* kernel, int threads, size_t smem, long long blocks_per_call, int* 
   return 0;
 }
 
-extern "C" int tao_flash_attention_bwd_info(int B, int H, int S, int D, int* info, void* stream) {
-  (void)stream;
-  if (!valid(B, H, S, D)) return (int)cudaErrorInvalidValue;
+template <typename T>
+int info(int B, int H, int S, int D, int* out) {
   int sms = 0;
   int err = sm_count(&sms);
   if (err != 0) return err;
   const long long bhs = (long long)B * H;
   const int rows_per_block = kDeltaThreads / 32;
-  err = report(bwd_delta, kDeltaThreads, 0, (bhs * S + rows_per_block - 1) / rows_per_block, info);
+  err = report(bwd_delta<T>, kDeltaThreads, 0, (bhs * S + rows_per_block - 1) / rows_per_block, out);
   if (err != 0) return err;
-  const Config c = configure(bhs, S, D, sms);
+  const Config<T> c = configure<T>(bhs, S, D, sms);
   if ((err = allow_smem(c)) != 0) return err;
-  return report(c.kernel, c.nw * 32, c.smem, bhs * 2 * c.nb, info + 6);
+  return report(c.kernel, c.nw * 32, c.smem, bhs * 2 * c.nb, out + 6);
+}
+
+}  // namespace
+
+extern "C" const char* tao_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// q, k, v, o, dout, dq, dk, dv: (B, H, S, D) device pointers, all float32
+// (dtype 0) or all bfloat16 (dtype 1), with element strides (batch, head,
+// sequence) given as 8 triples in that order and a contiguous last
+// dimension; lse (B, H, S) float32 contiguous, base 2, as
+// tao_flash_attention writes it; delta (B, H, S) float32 scratch.
+// 1 <= D <= 128, no segment ids, q_offset 0.
+extern "C" int tao_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o, const float* lse,
+    const void* dout, void* dq, void* dk, void* dv, float* delta, const long long* strides,
+    int B, int H, int S, int D, int causal, int dtype, float scale, void* stream) {
+  if (!valid(B, H, S, D, dtype)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, o, lse, dout, dq, dk, dv, delta, strides, B, H, S, D,
+                                 causal, scale, s);
+  return launch<float>(q, k, v, o, lse, dout, dq, dk, dv, delta, strides, B, H, S, D, causal,
+                       scale, s);
+}
+
+// What the two kernels of a call for (B, H, S, D) in `dtype` get (see
+// report), without launching.
+extern "C" int tao_flash_attention_bwd_info(int B, int H, int S, int D, int dtype, int* out,
+                                            void* stream) {
+  (void)stream;
+  if (!valid(B, H, S, D, dtype)) return (int)cudaErrorInvalidValue;
+  return dtype == 1 ? info<__nv_bfloat16>(B, H, S, D, out) : info<float>(B, H, S, D, out);
 }

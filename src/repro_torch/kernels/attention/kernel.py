@@ -39,12 +39,15 @@ backward needs.  The sources' headers say what bounds each design and
 ``PERF.md`` what it measured.
 
 ``flash_attention_bwd_cuda`` binds the backward (``csrc/attention_bwd.cu``),
-the port's own kernel, for what the Tao trainer gives it (causal or not,
-no segment ids, q_offset 0, Sq == Sk, D == Dv <= 128): two kernels on
-one stream, delta = rowsum(dO o), then the dK / dV pass (a warp per 16
-keys) and the dQ pass (a warp per 16 query rows) side by side in one grid;
-every product on the tensor cores in the forward's 3xTF32 split, P and dS
-kept in registers, no atomics, so two calls give the same bits.
+the port's own kernel, for what the trainers give it (causal or not, no
+segment ids, q_offset 0, Sq == Sk, D == Dv <= 128; float32 from the Tao
+trainer, bfloat16 from the LLM trainer): two kernels on one stream, delta
+= rowsum(dO o), then the dK / dV pass (a warp per 16 keys) and the dQ
+pass (a warp per 16 query rows) side by side in one grid; every product
+on the tensor cores in the forward's 3xTF32 split (bfloat16 operands are
+exact in TF32, so their products take one term), P and dS kept in
+registers, no atomics, so two calls give the same bits.  bfloat16
+gradients are computed in float32 and rounded once.
 ``FLASH_ATTENTION_BWD.launches`` counts its calls and ``bwd_launch_info``
 reports what each of its kernels (``BWD_KERNEL_NAMES``) gets.
 """
@@ -83,7 +86,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FLASH_ATTENTION_BWD = CudaKernel(
     "attention_bwd.cu",
     "tao_flash_attention_bwd",
-    [_P] * 10 + [ctypes.POINTER(_L)] + [_I] * 5 + [ctypes.c_float],
+    [_P] * 10 + [ctypes.POINTER(_L)] + [_I] * 6 + [ctypes.c_float],
 )
 _LAUNCH_INFO = CudaKernel(
     "attention.cu", "tao_flash_attention_info", [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]
@@ -91,7 +94,7 @@ _LAUNCH_INFO = CudaKernel(
 _INFO_KEYS = ("regs_per_thread", "smem_bytes_per_block", "threads_per_block",
               "blocks_per_sm", "spill_bytes_per_thread", "query_blocks")
 _BWD_LAUNCH_INFO = CudaKernel(
-    "attention_bwd.cu", "tao_flash_attention_bwd_info", [_I] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    "attention_bwd.cu", "tao_flash_attention_bwd_info", [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]
 )
 BWD_KERNEL_NAMES = ("bwd_delta", "bwd_dkdv_dq")
 _BWD_INFO_KEYS = _INFO_KEYS[:5] + ("blocks_per_call",)
@@ -162,19 +165,22 @@ def flash_attention_bwd_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of the attention ``out = flash_attention_cuda(
     q, k, v, causal=causal)`` given ``lse`` (its ``return_lse``) and the
-    gradient ``dout`` of ``out``.  All (B,H,S,D) float32 CUDA tensors at
-    any strides with a contiguous last dimension (``lse`` (B,H,S)
-    contiguous); each gradient is the (B,H,S,D) view of a contiguous
-    (B,S,H,D) tensor."""
+    gradient ``dout`` of ``out``.  All (B,H,S,D) CUDA tensors of one dtype,
+    float32 or bfloat16, at any strides with a contiguous last dimension
+    (``lse`` (B,H,S) float32 contiguous); each gradient, in that dtype, is
+    the (B,H,S,D) view of a contiguous (B,S,H,D) tensor."""
     B, H, S, D = q.shape
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)):
-        _check(name, t)
+        _check(name, t, tuple(_DTYPES))
         if t.shape != (B, H, S, D):
             raise ValueError(f"{name} must have shape {(B, H, S, D)}, got {tuple(t.shape)}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"q, k, v, out, dout must share one dtype, got {name} {t.dtype} "
+                             f"beside q {q.dtype}")
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"head dim D={D} outside 1..{MAX_HEAD_DIM}")
     check_cuda_tensor("lse", lse, torch.float32, (B, H, S))
-    grads = [torch.empty((B, S, H, D), device=q.device, dtype=torch.float32).transpose(1, 2)
+    grads = [torch.empty((B, S, H, D), device=q.device, dtype=q.dtype).transpose(1, 2)
              for _ in range(3)]
     delta = torch.empty((B, H, S), device=q.device, dtype=torch.float32)
     tensors = (q, k, v, out, dout, *grads)
@@ -182,7 +188,7 @@ def flash_attention_bwd_cuda(
     FLASH_ATTENTION_BWD.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         dout.data_ptr(), *(g.data_ptr() for g in grads), delta.data_ptr(), strides,
-        B, H, S, D, int(causal), 1.0 / math.sqrt(D),
+        B, H, S, D, int(causal), _DTYPES[q.dtype], 1.0 / math.sqrt(D),
     )
     return tuple(grads)
 
@@ -202,13 +208,14 @@ def launch_info(Sq: int, D: int, Dv: int, segmented: bool = False,
     return dict(zip(_INFO_KEYS, info))
 
 
-def bwd_launch_info(B: int, H: int, S: int, D: int) -> Dict[str, Dict[str, int]]:
-    """What each kernel of a backward call for (B, H, S, D) gets on the
-    current device, without launching it: {kernel name: registers and
-    spill bytes per thread, dynamic shared memory and threads per block,
-    resident blocks per SM, blocks per call}."""
+def bwd_launch_info(B: int, H: int, S: int, D: int,
+                    dtype: torch.dtype = torch.float32) -> Dict[str, Dict[str, int]]:
+    """What each kernel of a backward call for (B, H, S, D) in ``dtype``
+    gets on the current device, without launching it: {kernel name:
+    registers and spill bytes per thread, dynamic shared memory and threads
+    per block, resident blocks per SM, blocks per call}."""
     info = (ctypes.c_int * (len(BWD_KERNEL_NAMES) * len(_BWD_INFO_KEYS)))()
-    err = _BWD_LAUNCH_INFO._entry()(B, H, S, D, info, None)
+    err = _BWD_LAUNCH_INFO._entry()(B, H, S, D, _DTYPES[dtype], info, None)
     if err != 0:
         raise RuntimeError(f"tao_flash_attention_bwd_info: CUDA error {err}")
     n = len(_BWD_INFO_KEYS)

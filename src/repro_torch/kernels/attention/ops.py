@@ -10,12 +10,13 @@ k and v at their strides.
 On the card, a call that autograd records (grad mode on and an operand
 that requires grad) goes through ``FlashAttentionFn``: the forward kernel
 with its per-row log-sum-exp, and the hand-written backward kernel for the
-gradients.  The backward takes what the Tao trainer gives it (float32, no
-segment ids, q_offset 0, Sq == Sk, D == Dv); such a call outside it raises
-rather than run something else.  bfloat16 operands that require grad come
-with the LLM trainer (ROADMAP A.12b); until then they raise.  Under
-``no_grad`` or ``inference_mode``, as in the engine, the call is the
-forward launch alone.
+gradients, in the operands' dtype: float32 from the Tao trainer, bfloat16
+from the LLM trainer (``train/trainer.py::make_train_step``).  The
+backward takes no segment ids, q_offset 0, Sq == Sk and D == Dv <= 128; a
+call outside that raises rather than run something else (nothing falls
+back to the plain version or to a library).  Under ``no_grad`` or
+``inference_mode``, as in the engine and the serving entry points, the
+call is the forward launch alone.
 """
 from __future__ import annotations
 
@@ -63,11 +64,6 @@ def flash_attention(
     if not q.is_cuda:
         return attention_plain(q, k, v, segment_ids, causal=causal, q_offset=q_offset)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if q.dtype != torch.float32:
-            raise NotImplementedError(
-                f"the attention backward on the card is float32; {q.dtype} operands that "
-                "require grad come with the LLM trainer (ROADMAP A.12b)"
-            )
         if segment_ids is not None or q_offset != 0 or q.shape != k.shape or k.shape != v.shape:
             raise ValueError(
                 "the attention backward takes no segment ids, q_offset 0 and q, k, v "

@@ -71,9 +71,11 @@ def attention_bwd_plain(
 ):
     """(dq, dk, dv) of ``o = attention_plain(q, k, v, causal=causal)``
     given ``lse`` and ``do``, the gradient of ``o``; (B,H,S,D) operands,
-    no segment ids, q_offset 0.  The explicit formulas the kernel
-    computes: P = 2^(s log2(e) - lse), delta = rowsum(do o), dv = Pᵀ do,
-    dS = P (do vᵀ - delta), dq = dS k / sqrt(D), dk = dSᵀ q / sqrt(D)."""
+    all float32 or all bfloat16, no segment ids, q_offset 0.  The explicit
+    formulas the kernel computes: P = 2^(s log2(e) - lse), delta =
+    rowsum(do o), dv = Pᵀ do, dS = P (do vᵀ - delta), dq = dS k / sqrt(D),
+    dk = dSᵀ q / sqrt(D), in float32 on the upcast operands, each gradient
+    rounded once to q's dtype."""
     D = q.shape[-1]
     scale = 1.0 / math.sqrt(D)
     s, mask = _scores(q, k, None, causal, 0)
@@ -83,7 +85,7 @@ def attention_bwd_plain(
     ds = p * (torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float()) - delta)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
-    return dq, dk, dv
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def _scores(q, k, segment_ids, causal, q_offset):

@@ -38,8 +38,8 @@ def ssd_scan(
         raise ValueError(f"{H} heads do not split into {G} groups")
     if any(t.requires_grad for t in (xh, dt, A, Bm, Cm)):
         raise RuntimeError(
-            "ssd_scan is forward only: the SSD backward kernel is ROADMAP item "
-            "A.12 (the LLM trainer)"
+            "ssd_scan is forward only: the SSD backward kernel comes with Mamba-2's "
+            "training, ROADMAP item A.12a"
         )
     if xh.is_cuda:
         c = torch.Tensor.contiguous

@@ -46,7 +46,16 @@ cache: ``prefill``, ``init_cache`` and ``decode_step`` refuse it, as the
 reference routes its encoder only through ``encode``.  ``loss`` adds each
 MoE layer's ``router_aux_weight · load_balance + router_z_weight ·
 router_z`` to ``aux``.  The reference's ``prefill_chunks`` is not ported:
-the port prefills the batch whole.  Every entry point is forward only.
+the port prefills the batch whole.  The serving entry points
+(``prefill``, ``decode_step``, ``encode``) are forward only; ``loss``
+follows the caller's grad mode, as the reference's pure function does
+(``train/trainer.py`` differentiates it; callers that only read its value
+wrap it in ``torch.no_grad()``).  Under autograd each cross-entropy
+chunk's logits are recomputed in the backward (``torch.utils.checkpoint``,
+as the reference's ``@jax.checkpoint`` on ``ce_chunk``), so the float32
+(B, chunk, V) logits and their gradient are live one chunk at a time; the
+layers are not rematerialized (the port's ``ArchConfig`` has no
+``remat``).
 """
 from __future__ import annotations
 
@@ -56,6 +65,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..nn.core import LayerNorm, RMSNorm, trunc_normal_param
@@ -157,7 +167,7 @@ class Model(nn.Module):
     """A language model of the ``ssm``, ``dense``, ``vlm``, ``audio``,
     ``moe`` or ``hybrid`` family: ``prefill`` / ``decode_step`` /
     ``init_cache`` for serving a decoder, ``encode`` for an encoder,
-    ``loss`` (forward only).
+    ``loss`` (differentiable under grad mode).
 
     ``Model(cfg, device=None, generator=None)`` builds the parameters on
     ``device`` (``cuda`` by default; raises without it unless
@@ -468,14 +478,22 @@ class Model(nn.Module):
             )
         return self._logits(self._hidden(self._inputs(frames=frames))[0])
 
-    @torch.no_grad()
+    def _ce_chunk(self, xs: torch.Tensor, ys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One chunk's summed masked cross-entropy and its count of labels
+        >= 0: xs (B, c, d) before the final norm, ys (B, c)."""
+        logits = self._logits(xs)
+        gold = logits.gather(-1, ys.clamp(min=0)[..., None])[..., 0]
+        mask = (ys >= 0).float()
+        return ((torch.logsumexp(logits, -1) - gold) * mask).sum(), mask.sum()
+
     def loss(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Cross-entropy over ``batch["labels"]`` (B, S), labels < 0 masked:
         next-token for a decoder (on ``"tokens"``, and ``"patches"`` for
         ``vlm``), per frame for an encoder (on ``"frames"``, no shift), in
         sequence chunks of ``VOCAB_CHUNK`` so the full-vocabulary logits are
-        never all live.  Returns (ce + aux, {"ce", "aux"}); ``aux`` is the
-        MoE layers' weighted router losses, 0 for the other families."""
+        never all live (under autograd each chunk is recomputed in the
+        backward).  Returns (ce + aux, {"ce", "aux"}); ``aux`` is the MoE
+        layers' weighted router losses, 0 for the other families."""
         x, aux = self._hidden(self._inputs(batch.get("tokens"), batch.get("frames"),
                                            batch.get("patches")))
         xs, labels = x, batch["labels"]
@@ -486,11 +504,13 @@ class Model(nn.Module):
         tot = torch.zeros((), dtype=torch.float32, device=x.device)
         cnt = torch.zeros((), dtype=torch.float32, device=x.device)
         for lo in range(0, S, csz):  # the last chunk takes the remainder
-            logits = self._logits(xs[:, lo : lo + csz])
-            ys = labels[:, lo : lo + csz]
-            gold = logits.gather(-1, ys.clamp(min=0)[..., None])[..., 0]
-            mask = (ys >= 0).float()
-            tot = tot + ((torch.logsumexp(logits, -1) - gold) * mask).sum()
-            cnt = cnt + mask.sum()
+            args = (xs[:, lo : lo + csz], labels[:, lo : lo + csz])
+            if torch.is_grad_enabled():
+                part, n = checkpoint(self._ce_chunk, *args, use_reentrant=False,
+                                     preserve_rng_state=False)
+            else:
+                part, n = self._ce_chunk(*args)
+            tot = tot + part
+            cnt = cnt + n
         ce = tot / cnt.clamp(min=1.0)
         return ce + aux, {"ce": ce, "aux": aux}

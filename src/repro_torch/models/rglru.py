@@ -66,10 +66,19 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ...): a Hillis–Steele scan of the reference's combine, each step
     ``h[t] += a[t] · h[t - s]`` and ``a[t] *= a[t - s]`` for s = 1, 2, 4,
     ... (the a's of the last step are not needed).  Two pairs of buffers
-    take turns, so the inputs are not written."""
+    take turns, so the inputs are not written; under autograd each step
+    makes its tensors anew (the same operations, so the same values)."""
     S = a.shape[1]
     if S == 1:
         return b.clone()
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        h, s = b, 1
+        while s < S:
+            h = torch.cat([h[:, :s], torch.addcmul(h[:, s:], a[:, s:], h[:, :-s])], dim=1)
+            if 2 * s < S:
+                a = torch.cat([a[:, :s], torch.mul(a[:, s:], a[:, :-s])], dim=1)
+            s *= 2
+        return h
     bufs_a = (torch.empty_like(a), torch.empty_like(a))
     bufs_h = (torch.empty_like(b), torch.empty_like(b))
     h, turn, s = b, 0, 1

@@ -1,8 +1,33 @@
-"""The process-wide train-step cache: one entry per recipe, one CUDA graph
-per batch geometry on the card.
+"""The LLM trainer, and the process-wide train-step cache: one entry per
+recipe, one CUDA graph per batch geometry on the card.
 
-Counterpart of the step cache of ``repro/train/trainer.py`` (its LLM
-trainer is not ported yet).  The reference jits each trainer's step once
+Counterpart of ``repro/train/trainer.py``.  Its LLM half
+(``TrainConfig``, ``TrainState``, ``init_state``, ``make_train_step``,
+``batch_axes``; ``:155-263``) trains a ``models.Model``:
+
+  * ``TrainState(step, params, opt)``: ``params`` is the module's
+    ``named_parameters()`` as a name -> tensor dict, the module's own
+    tensors, so that ``adamw_update`` updates the model in place and
+    ``ckpt.CheckpointManager`` saves and (with ``restore_into``) restores
+    the run; ``opt`` is ``train/optim.py``'s ``AdamWState`` with the first
+    moment in ``opt_m_dtype`` (bfloat16 by default, as the reference's);
+  * ``make_train_step(model, tcfg)`` returns ``(state, batch) -> (state,
+    metrics)``: ``Model.loss`` under autograd, ``torch.autograd.grad``
+    for the gradients (in the parameters' dtype), then one in-place AdamW
+    at the schedule's lr, with no host read.  With ``microbatches`` > 1
+    the batch is cut along its leading axis and each microbatch's
+    gradients are summed into float32 buffers (the reference sums them in
+    float32, ``:229-238``), then divided by their number; ``metrics`` then
+    hold no loss parts, as the reference's.  The reference jits its LLM
+    step directly (``launch/train.py:79``), not through the step cache, so
+    this step runs eagerly; on the card attention runs B4 and its
+    hand-written backward (``kernels/attention/ops.py``).  The ``ssm``
+    family's step raises: the SSD backward kernel comes with Mamba-2's
+    training (ROADMAP A.12a).
+  * ``state_axes`` / ``state_shardings`` raise: the port runs on one
+    device (ROADMAP A.14), as ``engine/plan.py`` refuses a mesh.
+
+The step cache serves the Tao trainers.  The reference jits each trainer's step once
 per (model config, optimizer config, trainable set) and traces it once
 per (batch, window) geometry; parameters and optimizer state are
 arguments, so every run of one recipe shares the executable.  Here an
@@ -22,17 +47,28 @@ nothing falls back to the eager step on the card.
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
+from .optim import AdamWConfig, AdamWState, adamw_init, adamw_update, make_lr_schedule
+
 __all__ = [
     "CachedTrainStep",
+    "TrainConfig",
+    "TrainState",
+    "batch_axes",
     "cached_train_step",
     "cache_stats",
     "clear_train_step_cache",
+    "init_state",
+    "make_train_step",
+    "restore_into",
+    "state_axes",
+    "state_shardings",
     "train_step_compiles",
 ]
 
@@ -182,3 +218,126 @@ def train_step_compiles() -> int:
     """Geometries met across the cache's entries — snapshot before and
     after a training run to attribute the captures it made."""
     return sum(e.compiles for e in _TRAIN_STEP_CACHE.values())
+
+
+# ---------------------------------------------------------------------------
+# The LLM trainer (reference ``trainer.py:155-263``)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    weight_decay: float = 0.01
+    clip_norm: float = 1.0
+    microbatches: int = 1
+    opt_m_dtype: str = "bfloat16"  # low-precision Adam first moment
+
+
+class TrainState(NamedTuple):
+    step: torch.Tensor  # int32 device scalar
+    params: Dict[str, torch.Tensor]  # the module's own parameters, by name
+    opt: AdamWState
+
+
+def init_state(model: nn.Module, tcfg: TrainConfig) -> TrainState:
+    """The state of a run that starts from ``model``'s weights: its
+    parameters by name (shared, not copied), zero moments, step 0."""
+    params = dict(model.named_parameters())
+    device = next(iter(params.values())).device
+    return TrainState(
+        step=torch.zeros((), dtype=torch.int32, device=device),
+        params=params,
+        opt=adamw_init(params, m_dtype=tcfg.opt_m_dtype),
+    )
+
+
+@torch.no_grad()
+def restore_into(state: TrainState, restored: TrainState) -> TrainState:
+    """Copy a restored state (``CheckpointManager.restore_latest(state)``'s,
+    whose tensors are new) into ``state``'s tensors in place, so that the
+    module's parameters hold the restored weights; returns ``state``."""
+    dst = [state.step, state.opt.step]
+    src = [restored.step, restored.opt.step]
+    for name in state.params:
+        dst += [state.params[name], state.opt.mu[name], state.opt.nu[name]]
+        src += [restored.params[name], restored.opt.mu[name], restored.opt.nu[name]]
+    torch._foreach_copy_(dst, src)
+    return state
+
+
+def state_axes(model: nn.Module):
+    raise NotImplementedError(
+        "state_axes: the port trains on one device; sharded training states are ROADMAP A.14"
+    )
+
+
+def state_shardings(model: nn.Module, state, mesh):
+    raise NotImplementedError(
+        "state_shardings: the port trains on one device; meshes and sharded training states "
+        "are ROADMAP A.14"
+    )
+
+
+def make_train_step(
+    model: nn.Module, tcfg: TrainConfig
+) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
+    """The train step of ``model`` (module note): ``(state, batch) ->
+    (new_state, metrics)``, ``metrics`` device scalars ``loss``,
+    ``grad_norm``, ``lr`` and, with one microbatch, the loss parts."""
+    if model.cfg.family == "ssm":
+        raise NotImplementedError(
+            f"{model.cfg.name}: the ssm family does not train yet: the SSD backward kernel "
+            "comes with Mamba-2's training, ROADMAP A.12a"
+        )
+    opt_cfg = AdamWConfig(
+        lr=tcfg.lr, weight_decay=tcfg.weight_decay, clip_norm=tcfg.clip_norm,
+        m_dtype=tcfg.opt_m_dtype,
+    )
+    sched = make_lr_schedule(tcfg.lr, tcfg.warmup_steps, tcfg.total_steps)
+
+    def grads_of(params: Dict[str, torch.Tensor], batch: Dict):
+        """(loss, parts, gradients in the parameters' dtype) of one batch."""
+        with torch.enable_grad():
+            loss, parts = model.loss(batch)
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params.values(), grads)]
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
+
+    def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        nm = tcfg.microbatches
+        if nm > 1:
+            # the batch cut on its leading axis; gradients summed in float32
+            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                   for p in state.params.values()]
+            loss = torch.zeros((), dtype=torch.float32, device=state.step.device)
+            for i in range(nm):
+                mb = {k: v[i * (v.shape[0] // nm):(i + 1) * (v.shape[0] // nm)]
+                      for k, v in batch.items()}
+                mloss, _, g = grads_of(state.params, mb)
+                torch._foreach_add_(acc, [x.float() for x in g])
+                loss = loss + mloss
+            torch._foreach_div_(acc, float(nm))
+            grads, loss, parts = acc, loss / nm, {}
+        else:
+            loss, parts, grads = grads_of(state.params, batch)
+        lr = sched(state.step)
+        params, opt, gnorm = adamw_update(state.params, dict(zip(state.params, grads)),
+                                          state.opt, opt_cfg, lr=lr)
+        new_state = TrainState(step=state.step + 1, params=params, opt=opt)
+        return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr, **parts}
+
+    return train_step
+
+
+def batch_axes(model: nn.Module) -> Dict:
+    """Logical axes of the input batch (the reference's names, as data)."""
+    cfg = model.cfg
+    if cfg.family == "audio":
+        return {"frames": ("batch", "seq", None), "labels": ("batch", "seq")}
+    b = {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+    if cfg.family == "vlm":
+        b["patches"] = ("batch", None, None)
+    return b

@@ -1827,13 +1827,127 @@ def test_bf16_calls_launch_the_wgmma_kernel_and_float32_the_mma_sync_one(dev):
 
 
 def test_flash_attention_refuses_bf16_that_requires_grad(dev):
-    """The backward on the card is float32; bfloat16 operands under
-    autograd wait for the LLM trainer (ROADMAP A.12b)."""
+    """bfloat16 operands under autograd launch the kernel backward (the LLM
+    trainer's); what it does not take is refused, never run another way:
+    segment ids, q_offset, Sq != Sk and D > 128 raise."""
     q = torch.randn(1, 2, 16, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A.12b"):
-        flash_attention(q, q, q, causal=True)
+    counts = (FLASH_ATTENTION.launches, FLASH_ATTENTION_BWD.launches)
+    flash_attention(q, q, q, causal=True).sum().backward()
+    assert (FLASH_ATTENTION.launches, FLASH_ATTENTION_BWD.launches) == (counts[0] + 1, counts[1] + 1)
+    assert q.grad.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="backward takes"):
+        flash_attention(q, q, q, torch.zeros(1, 16, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="backward takes"):
+        flash_attention(q, q, q, q_offset=2)
+    with pytest.raises(ValueError, match="backward takes"):
+        flash_attention(q, q[:, :, :8].detach(), q[:, :, :8].detach())
+    wide = torch.randn(1, 2, 16, 136, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(ValueError, match="outside 1..128"):
+        flash_attention(wide, wide, wide)
+    assert FLASH_ATTENTION_BWD.launches == counts[1] + 1
     with torch.no_grad():
         assert flash_attention(q, q, q, causal=True).dtype == torch.bfloat16
+
+
+# (B, H, S, D, causal, kv repeat, seed) of the bfloat16 backward: widths 32,
+# 64, 80 (the 128-wide template, padded) and 128, causal and not, k / v
+# repeated over the query heads (GQA) as the models hand them over, and a
+# row count past one 64-row tile that is not a multiple of 16
+ATTN_BWD_BF16_CASES = {
+    "d32_causal": (2, 4, 100, 32, True, 1, 0),
+    "d64_noncausal_gqa": (2, 6, 300, 64, False, 3, 1),
+    "d64_causal_gqa": (2, 14, 257, 64, True, 7, 2),
+    "d80_noncausal": (2, 4, 129, 80, False, 1, 3),
+    "d80_causal": (1, 2, 200, 80, True, 1, 4),
+    "d128_causal_gqa": (2, 4, 200, 128, True, 2, 5),
+    "d128_noncausal": (1, 3, 77, 128, False, 1, 6),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_BWD_BF16_CASES))
+def test_attention_bwd_bf16_matches_plain(dev, case):
+    """The backward on bfloat16 operands against the plain formulas on the
+    same bfloat16 inputs, both in float32 and rounded once: every element
+    within 2^-7 |plain| + 1e-4 max |plain| (one bfloat16 rounding, the
+    float32 sums in other orders), at least 99% bitwise, two calls bitwise;
+    the lse is the wgmma forward's."""
+    B, H, S, D, causal, rep, seed = ATTN_BWD_BF16_CASES[case]
+    g = torch.Generator().manual_seed(seed)
+    bf = torch.bfloat16
+    q = torch.randn(B, H, S, D, generator=g).to(dev, bf)
+    k, v = (torch.randn(B, H // rep, S, D, generator=g).to(dev, bf).repeat_interleave(rep, dim=1)
+            for _ in range(2))
+    do = torch.randn(B, H, S, D, generator=g).to(dev, bf)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+    again = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+    ref = attention_bwd_plain(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, again, ref):
+        assert a.dtype == c.dtype == bf and torch.equal(a, b)
+        a32, c32 = a.float(), c.float()
+        limit = 2.0**-7 * c32.abs() + 1e-4 * float(c32.abs().max())
+        assert bool(torch.all((a32 - c32).abs() <= limit)), float((a32 - c32).abs().max())
+        assert float((a == c).float().mean()) >= 0.99
+
+
+def test_attention_bwd_bf16_takes_unaligned_strides(dev):
+    """bfloat16 widths and strides that are not multiples of 8 elements
+    stage element by element: within the bfloat16 band, two calls bitwise."""
+    g = torch.Generator().manual_seed(21)
+    base = torch.randn(2, 3, 77, 2 * 21 + 1, generator=g).to(dev, torch.bfloat16)
+    q, k, v = base[..., :21], base[..., 21:42], base[..., 1:22]
+    do = torch.randn(2, 3, 77, 2 * 21 + 1, generator=g).to(dev, torch.bfloat16)[..., 2:23]
+    out, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=True)
+    again = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=True)
+    ref = attention_bwd_plain(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, again, ref):
+        assert torch.equal(a, b)
+        a32, c32 = a.float(), c.float()
+        assert bool(torch.all((a32 - c32).abs() <= 2.0**-7 * c32.abs() + 1e-4 * float(c32.abs().max())))
+
+
+def test_attention_bwd_bf16_launch_info_at_the_training_shapes(dev):
+    """What the bfloat16 backward's kernels get at the LLM training shapes:
+    no spill at widths up to 64; the 128-wide template (D 80 and 128)
+    keeps its registers under 255."""
+    for D in (64, 80, 128):
+        info = bwd_launch_info(4, 14, 2048, D, torch.bfloat16)["bwd_dkdv_dq"]
+        assert info["blocks_per_sm"] >= 1 and info["regs_per_thread"] <= 255, (D, info)
+        if D <= 64:
+            assert info["spill_bytes_per_thread"] == 0, (D, info)
+
+
+def test_lm_train_step_on_card_matches_cpu(dev):
+    """One step of the LLM trainer at qwen2-0.5b reduced in bfloat16: B4
+    and its backward once a layer on the card, the loss, grad_norm and lr
+    within 1e-2 relative of the same step on the CPU (plain attention
+    under autograd), the parameters within 2 lr plus one bfloat16 ulp of
+    the CPU's (a sign flip where g ~ 0, bfloat16 rounding elsewhere)."""
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+
+    cfg = dataclasses.replace(get_arch("qwen2-0.5b", reduced=True), param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    gpu = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    tcfg = TrainConfig(lr=1e-3, total_steps=10, warmup_steps=0)
+    batch = {k: torch.from_numpy(v) for k, v in LMDataPipeline(cfg, 4, 64, seed=2).make_batch(0).items()}
+    counts = (FLASH_ATTENTION.launches, FLASH_ATTENTION_BWD.launches)
+    g_state, g_m = make_train_step(gpu, tcfg)(init_state(gpu, tcfg), {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert (FLASH_ATTENTION.launches - counts[0], FLASH_ATTENTION_BWD.launches - counts[1]) == (
+        cfg.n_layers, cfg.n_layers)
+    c_state, c_m = make_train_step(cpu, tcfg)(init_state(cpu, tcfg), batch)
+    for k in ("loss", "grad_norm", "lr"):
+        assert abs(float(g_m[k]) - float(c_m[k])) <= 1e-2 * abs(float(c_m[k])), k
+    lr = float(c_m["lr"])
+    for name, p in c_state.params.items():
+        d = (g_state.params[name].detach().cpu().float() - p.detach().float()).abs()
+        assert float(d.max()) <= 2 * lr + 2.0**-7 * float(p.detach().float().abs().max()), name
 
 
 def test_attention_kernel_refuses_mixed_dtypes(dev):

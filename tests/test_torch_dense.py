@@ -151,7 +151,8 @@ def test_loss_matches_reference(pair):
     toks = tokens(3)
     labels = toks.copy()
     labels[0, :5] = -1  # masked positions
-    loss, metrics = port.loss({"tokens": t_(toks), "labels": t_(labels)})
+    with torch.no_grad():  # the value only
+        loss, metrics = port.loss({"tokens": t_(toks), "labels": t_(labels)})
     r_loss, r_metrics = jax.jit(ref.loss)(params, {"tokens": j_(toks), "labels": j_(labels)})
     close(loss, r_loss)
     close(metrics["ce"], r_metrics["ce"])
@@ -171,7 +172,8 @@ def test_qwen2_matches_the_reference_pallas_kernel(entry):
         close(logits, r_logits)
         assert_cache(cache, r_cache)
     else:
-        loss, _ = port.loss({"tokens": t_(toks), "labels": t_(toks)})
+        with torch.no_grad():  # the value only
+            loss, _ = port.loss({"tokens": t_(toks), "labels": t_(toks)})
         r_loss, _ = jax.jit(ref.loss)(params, {"tokens": j_(toks), "labels": j_(toks)})
         close(loss, r_loss)
 

@@ -35,7 +35,8 @@ print(len(names), bad, sorted(names))
 # modules the walk must reach: one per subpackage, the persistence,
 # joint-training and serving slices' too, the paper's config, the dense
 # family's modules, the vlm / audio configs, the moe family's module and
-# configs, the hybrid family's module and config and the roofline counts
+# configs, the hybrid family's module and config, the roofline counts, and
+# the LLM trainer's data pipeline and launcher
 _MUST_WALK = (
     "repro_torch.ckpt.checkpoint",
     "repro_torch.configs.deepseek_v2_lite_16b",
@@ -53,11 +54,13 @@ _MUST_WALK = (
     "repro_torch.core.simnet",
     "repro_torch.core.simulate",
     "repro_torch.core.transfer",
+    "repro_torch.data.pipeline",
     "repro_torch.engine.plan",
     "repro_torch.engine.runner",
     "repro_torch.engine.scheduler",
     "repro_torch.launch.roofline",
     "repro_torch.launch.serve",
+    "repro_torch.launch.train",
     "repro_torch.models.attention",
     "repro_torch.models.mlp",
     "repro_torch.models.moe",
@@ -170,6 +173,24 @@ def test_hybrid_modules_import_alone_without_jax_or_reference():
             "m.prefill(torch.zeros((1, 40), dtype=torch.long)); "
             "repro_torch.launch.roofline.analytic_flops(cfg, {'batch': 1, 'seq': 40, "
             "'kind': 'prefill'}); "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=_env(),
+                         timeout=300, check=True).stdout
+    assert out.strip() == "[]"
+
+
+def test_trainer_modules_import_alone_without_jax_or_reference():
+    """The LLM trainer's modules (the trainer, the data pipeline, the
+    launcher) imported first in a fresh interpreter, and a train step of a
+    reduced qwen2-0.5b on the CPU, bring in neither JAX nor the
+    reference."""
+    code = ("import sys, torch, repro_torch.launch.train, repro_torch.data.pipeline; "
+            "from repro_torch.configs import get_arch; from repro_torch.models import Model; "
+            "from repro_torch.train import TrainConfig, init_state, make_train_step; "
+            "from repro_torch.data import LMDataPipeline; "
+            "cfg = get_arch('qwen2-0.5b', reduced=True); m = Model(cfg, device='cpu'); "
+            "t = TrainConfig(); b = LMDataPipeline(cfg, 2, 16).make_batch(0); "
+            "make_train_step(m, t)(init_state(m, t), {k: torch.from_numpy(v) for k, v in b.items()}); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=_env(),
                          timeout=300, check=True).stdout

@@ -306,7 +306,8 @@ def test_loss_matches_reference_ce_and_aux_apart(pair):
     toks = tokens(3)
     labels = toks.copy()
     labels[0, :5] = -1  # masked positions
-    loss, metrics = port.loss({"tokens": t_(toks), "labels": t_(labels)})
+    with torch.no_grad():  # the value only
+        loss, metrics = port.loss({"tokens": t_(toks), "labels": t_(labels)})
     r_loss, r_metrics = jax.jit(ref.loss)(params, {"tokens": j_(toks), "labels": j_(labels)})
     close(metrics["ce"], r_metrics["ce"])
     close(metrics["aux"], r_metrics["aux"], ROUTE_TOL)
@@ -328,7 +329,8 @@ def test_model_with_dropping_capacity_matches_reference(arch):
     r_logits, r_cache = jax.jit(ref.prefill)(params, {"tokens": j_(toks)})
     close(logits, r_logits)
     assert_cache(cache, r_cache)
-    loss, metrics = port.loss({"tokens": t_(toks), "labels": t_(toks)})
+    with torch.no_grad():  # the value only
+        loss, metrics = port.loss({"tokens": t_(toks), "labels": t_(toks)})
     r_loss, r_metrics = jax.jit(ref.loss)(params, {"tokens": j_(toks), "labels": j_(toks)})
     close(loss, r_loss)
     close(metrics["aux"], r_metrics["aux"], ROUTE_TOL)
@@ -348,7 +350,8 @@ def test_qwen3_moe_matches_the_reference_pallas_kernel(entry):
         close(logits, r_logits)
         assert_cache(cache, r_cache)
     else:
-        loss, _ = port.loss({"tokens": t_(toks), "labels": t_(toks)})
+        with torch.no_grad():  # the value only
+            loss, _ = port.loss({"tokens": t_(toks), "labels": t_(toks)})
         r_loss, _ = jax.jit(ref.loss)(params, {"tokens": j_(toks), "labels": j_(toks)})
         close(loss, r_loss)
 
@@ -433,7 +436,8 @@ def smoke_batch(cfg, B=2, S=32):
 @pytest.mark.parametrize("arch", MOE)
 def test_forward_loss_finite(arch):
     model = smoke_model(arch)
-    loss, metrics = model.loss(smoke_batch(model.cfg))
+    with torch.no_grad():  # the value only
+        loss, metrics = model.loss(smoke_batch(model.cfg))
     assert loss.shape == ()
     assert bool(torch.isfinite(loss)), arch
     assert float(loss) > 0 and float(metrics["aux"]) > 0

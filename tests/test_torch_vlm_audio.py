@@ -155,7 +155,8 @@ def test_vlm_loss_matches_reference(vlm):
     toks, pt = tokens(4), patches(cfg, 5)
     labels = toks.copy()
     labels[:, : cfg.vision_patches] = -1  # no targets on the image positions
-    loss, metrics = port.loss({"tokens": t_(toks), "patches": t_(pt), "labels": t_(labels)})
+    with torch.no_grad():  # the value only
+        loss, metrics = port.loss({"tokens": t_(toks), "patches": t_(pt), "labels": t_(labels)})
     r_loss, r_metrics = jax.jit(ref.loss)(
         params, {"tokens": j_(toks), "patches": j_(pt), "labels": j_(labels)})
     close(loss, r_loss)
@@ -192,7 +193,8 @@ def test_hubert_loss_matches_reference(audio):
     fr = frames(cfg, 8)
     labels = rng(9).integers(0, cfg.vocab, (B, S)).astype(np.int32)
     labels[1, :7] = -1
-    loss, metrics = port.loss({"frames": t_(fr), "labels": t_(labels)})
+    with torch.no_grad():  # the value only
+        loss, metrics = port.loss({"frames": t_(fr), "labels": t_(labels)})
     r_loss, r_metrics = jax.jit(ref.loss)(params, {"frames": j_(fr), "labels": j_(labels)})
     close(loss, r_loss)
     close(metrics["ce"], r_metrics["ce"])
@@ -245,7 +247,8 @@ def smoke_model(arch):
 @pytest.mark.parametrize("arch", [AUDIO, VLM])
 def test_forward_loss_finite(arch):
     model = smoke_model(arch)
-    loss, _ = model.loss(smoke_batch(model.cfg))
+    with torch.no_grad():  # the value only
+        loss, _ = model.loss(smoke_batch(model.cfg))
     assert loss.shape == ()
     assert bool(torch.isfinite(loss)), arch
     assert float(loss) > 0
@@ -270,8 +273,10 @@ def test_hubert_encode_shapes():
 def test_vlm_patches_change_output():
     model = smoke_model(VLM)
     b = smoke_batch(model.cfg)
-    l1, _ = model.loss(b)
-    l2, _ = model.loss({**b, "patches": b["patches"] + 1.0})
+    with torch.no_grad():  # the value only
+        l1, _ = model.loss(b)
+    with torch.no_grad():  # the value only
+        l2, _ = model.loss({**b, "patches": b["patches"] + 1.0})
     assert float(l1) != pytest.approx(float(l2))
 
 
