@@ -543,6 +543,15 @@ ATTN_BWD_BF16_MIN_BITWISE = 0.99
 ATTN_BWD_BF16_SHAPES = ((4, 14, 2048, 64, True, 7), (4, 12, 2048, 128, True, 1),
                         (4, 16, 2048, 80, False, 1))
 ATTN_BWD_BF16_UNALIGNED = (2, 4, 300, 60)
+# (B, H, S, D), causal, at twice the training cells' sequence: each
+# gradient sums through one wgmma chain over every streamed tile, where
+# the tensor cores' alignment of addends can grow with S
+ATTN_BWD_BF16_LONG = (1, 2, 4096, 128)
+# the bfloat16 backward's times at ATTN_BWD_BF16_SHAPES in its earlier
+# design, the float32 kernels on bf16 tiles with TF32 mma.sync (NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md), printed beside each reading as recorded, not
+# measured; the kernels line holds only this run's numbers
+ATTN_BWD_BF16_MMA_SYNC_MS = {"h14_d64": 1.1741, "h12_d128": 2.0818, "h16_d80": 5.3786}
 # the LLM training cell: qwen2-0.5b at full width and depth, batch x seq
 # of the serving cells, TRAIN_LM_STEPS steps of the launcher's loop with a
 # checkpoint every TRAIN_LM_CKPT_EVERY, then a resume from that step in a
@@ -1346,23 +1355,46 @@ def check_attention_bwd_bf16(failures, results):
     """B4's backward on bfloat16 operands (the LLM trainer's) against its
     plain version on the same bfloat16 inputs at the training cells'
     shapes (ATTN_BWD_BF16_SHAPES, k / v repeated over the query heads where
-    the cell's GQA does) and at unaligned strides and widths: every
-    gradient element within ATTN_BWD_BF16_RTOL |plain| +
-    ATTN_BWD_BF16_ATOL_OF_MAX max |plain|, at least
+    the cell's GQA does), at unaligned strides and widths and at 4,096
+    rows (ATTN_BWD_BF16_LONG): every gradient element within
+    ATTN_BWD_BF16_RTOL |plain| + ATTN_BWD_BF16_ATOL_OF_MAX max |plain|, at least
     ATTN_BWD_BF16_MIN_BITWISE of them bitwise the plain version's, the
     forward's lse from the wgmma kernel; then each shape's time (graph
     replay), the plain version's, SDPA's bfloat16 backward (device time),
     the bound (10 D FLOPs a visible pair at the bf16 tensor rate, or the 8
-    bfloat16 tensors and the float32 lse read or written once) and what
-    each of its kernels gets (registers, spills, blocks per SM)."""
+    bfloat16 tensors and the float32 lse read or written once), the earlier
+    design's recorded time (ATTN_BWD_BF16_MMA_SYNC_MS, in the reading line
+    only) and what each of its kernels gets
+    (registers, spills, blocks per SM).  First the tensor-core
+    instructions of the kernels a call launches: the bfloat16 ones hold
+    wgmma (HGMMA) and no mma.sync (HMMA), the float32 ones HMMA and no
+    HGMMA."""
     import torch
 
+    from repro_torch.kernels._cuda import sass_counts
     from repro_torch.kernels.attention.kernel import (
+        FLASH_ATTENTION_BWD,
         bwd_launch_info,
         flash_attention_bwd_cuda,
         flash_attention_cuda,
     )
     from repro_torch.kernels.attention.ref import attention_bwd_plain
+
+    # the instantiations by template arguments: the bfloat16 (wgmma) kernel's
+    # W, the float32 (mma.sync) one's
+    sass = sass_counts(FLASH_ATTENTION_BWD.source, "bwd_dkdv_dq")
+    pieces = {f"bf16_W{w}": f"bwd_dkdv_dq_wgmmaILi{w}E" for w in (64, 128)} | {
+        f"float32_W{w}": f"bwd_dkdv_dqIfLi{w}E" for w in (32, 64, 128)}
+    found = {name: next((ops for k, ops in sass.items() if piece in k), None)
+             for name, piece in pieces.items()}
+    sass_ok = all(ops is not None and ((ops["HGMMA"] > 0 and ops["HMMA"] == 0)
+                                       if name.startswith("bf16") else
+                                       (ops["HMMA"] > 0 and ops["HGMMA"] == 0))
+                  for name, ops in found.items())
+    emit({"phase": "kernels", "kernel": "flash_attention_bwd", "check": "sass", **found,
+          "ok": sass_ok})
+    if not sass_ok:
+        failures.append(f"flash_attention_bwd SASS: {found}")
 
     g = torch.Generator(device="cuda").manual_seed(5)
     bf = torch.bfloat16
@@ -1403,6 +1435,7 @@ def check_attention_bwd_bf16(failures, results):
     cases = {f"h{H}_d{D}": (B, H, S, D, causal, rep)
              for B, H, S, D, causal, rep in ATTN_BWD_BF16_SHAPES}
     cases["unaligned_strides"] = (*ATTN_BWD_BF16_UNALIGNED, True, None)
+    cases["long_s4096"] = (*ATTN_BWD_BF16_LONG, True, 1)
     for name, (B, H, S, D, causal, rep) in cases.items():
         q, k, v, do = inputs(B, H, S, D, rep)
         r, out, lse = held(q, k, v, do, causal)
@@ -1421,6 +1454,7 @@ def check_attention_bwd_bf16(failures, results):
                   "bound_operations_ms": flops / BF16_TENSOR_FLOPS_PER_S * 1e3,
                   "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                   "x_bound": ms / b_ms, "x_library": ms / lib_ms,
+                  "mma_sync_ms_recorded": ATTN_BWD_BF16_MMA_SYNC_MS.get(name),
                   "library": "scaled_dot_product_attention backward, bfloat16",
                   "library_kernels": lib_kernels, "launch_info": info})
         readings[name] = r

@@ -1,12 +1,14 @@
 // The backward of the online-softmax attention (attention.cu), for Hopper
-// (sm_90a), float32 or bfloat16 I/O, on the tensor cores.
+// (sm_90a), on the tensor cores: float32 I/O on mma.sync (3xTF32), bfloat16
+// I/O on wgmma.  Both compute in float32.
 //
 // The port's own kernel: the reference has no backward of its attention
-// kernel (no custom_vjp under src/repro/kernels/); its trainer
-// differentiates the jnp attention of src/repro/core/model.py:217.  This
-// gives the same gradients from the forward's output and its per-row
-// log-sum-exp, the FlashAttention-2 way, recomputing the probabilities
-// instead of storing them:
+// kernel (no custom_vjp under src/repro/kernels/); its trainers
+// differentiate the jnp attention of src/repro/core/model.py:217 (Tao,
+// float32) and flash_ref, src/repro/models/attention.py:122 (the LLM zoo,
+// bfloat16).  This gives the same gradients from the forward's output and
+// its per-row log-sum-exp, the FlashAttention-2 way, recomputing the
+// probabilities instead of storing them:
 //
 //   s = q k^T * scale, P = 2^(s * log2(e) - lse)      (lse in base 2, as the
 //                                                       forward stores it)
@@ -19,32 +21,20 @@
 // (batch, head, sequence) strides with the last dimension contiguous, all
 // float32 or all bfloat16 (dtype 0 or 1); lse and delta float32.
 //
-// bfloat16 I/O (the LLM trainer's): the same kernels on bfloat16 tiles,
-// computing in float32 as the float32 path does and rounding each gradient
-// once to bfloat16 (to nearest even).  q, k, v, o and dO are staged into
-// shared memory as they come (16-byte cp.async, 8 elements, where widths,
-// strides and pointers allow it; element by element otherwise: cp.async
-// has no 2-byte copy) and widened as a fragment is loaded.  A bfloat16
-// value is exact in TF32 (8 mantissa bits of TF32's 10), so its TF32
-// remainder is 0 and the products between staged operands (S = Q K^T,
-// dP = dO V^T) take one mma.sync each, exact products summed in float32;
-// the products with P or dS (float32, split into two TF32 terms) take two.
-// That is 6 mma.sync per step and pair of tiles in the dK / dV pass and 4
-// in the dQ pass, against the float32 path's 12 and 9.
-//
 // Two kernels on one stream, no atomics, so two calls give the same bits:
 //   * bwd_delta: one warp per row, delta = rowsum(dO o) by a fixed
 //     shuffle tree;
-//   * bwd_dkdv_dq: both passes in one grid, side by side.  In the dK / dV
-//     pass a warp owns 16 keys and keeps their dK and dV in registers; it
-//     walks the queries that see them (under causal masking, from its
-//     diagonal on) in steps of 8.  In the dQ pass a warp owns 16 query
-//     rows and keeps their dQ in registers; it walks the keys they see (up
-//     to its diagonal) in steps of 8.
-// Both passes recompute the scores and dP (the cost of having no atomics:
-// every output element is summed by one lane in a fixed order).
+//   * the two passes in one grid, side by side: the dK / dV pass, whose
+//     rows own keys, keep their dK and dV in registers and walk the queries
+//     that see them (under causal masking, from their diagonal on), and the
+//     dQ pass, whose rows own queries, keep their dQ and walk the keys they
+//     see (up to their diagonal).  Both recompute the scores and dP (the
+//     cost of having no atomics: every output element is summed by one
+//     thread in a fixed order).
 //
-// Arithmetic: 3xTF32, as the forward's.  All five products (S^T or S,
+// ---- float32: bwd_dkdv_dq<float, W>, 3xTF32 mma.sync ----
+// In the dK / dV pass a warp owns 16 keys, in the dQ pass 16 query rows;
+// each walks the other side in steps of 8.  All five products (S^T or S,
 // dP^T or dP, dV, dK, dQ) run as mma.sync.m16n8k8 TF32 tensor-core
 // instructions with each float32 operand split into a TF32 high part and
 // its TF32 remainder, three products accumulated in float32 (see
@@ -92,11 +82,83 @@
 // (the warp of keys 0-15, or of rows 128-143, 17 steps of split, mma,
 // exponent, split, mma) runs with two or three warps per scheduler to
 // hide it, so one (batch, head) alone takes most of batch 16's time.
-// PERF.md has the times.
+//
+// ---- bfloat16: bwd_dkdv_dq_wgmma<W>, wgmma ----
+// bfloat16 I/O (the LLM trainer's) computes what the float32 path computes
+// on the upcast operands, in float32, and rounds each gradient once to
+// bfloat16 (to nearest even).
+//
+// What bounds the function on the H100: its operations.  At qwen2-0.5b's
+// training shape (4, 14, 2048, 64), causal, the 117.5 M visible (query,
+// key) pairs (2.1 M a (batch, head)) take 10 D FLOPs each (five
+// products), 75.2 GFLOP: 0.076 ms at the data sheet's dense bf16 rate of
+// 989 TFLOP/s, against 0.035 ms for the eight bfloat16 tensors and the lse
+// at 3.35 TB/s.  Only wgmma reaches that rate.
+//
+// The design (the forward's attention_kernel_wgmma, attention.cu, turned
+// round): a warpgroup owns 64 rows (wgmma's M) of one (batch, head);
+// blockIdx.y even the dK / dV pass (own rows keys, streamed Q and dO with
+// their lse and delta), odd the dQ pass (own rows queries, streamed K and
+// V), the heaviest causal block of each first.
+//   * Staging.  The own pair (K and V, or Q and dO: 64 or 128 rows, once) and
+//     64-row tiles of the streamed pair (double-buffered, so the next tile
+//     loads while this one computes) go to shared memory by 16-byte
+//     cp.async where widths, strides and pointers allow it, element by
+//     element otherwise, in the 128-byte-swizzled layout a wgmma
+//     descriptor reads (the forward's): rows of 64 bfloat16, 16-byte chunk
+//     c of row r at chunk c ^ (r % 8), a second 64-column panel at width
+//     128, every panel on a 1,024-byte boundary; widths up to 64 zero-
+//     padded to 64, up to 128 to 128 (W).  D = 80 runs at W = 128.
+//   * S^T = K Q^T and dP^T = V dO^T (dK / dV pass, 32 queries a step:
+//     wgmma N = 32), or S = Q K^T and dP = dO V^T (dQ pass, a 64-key tile):
+//     one wgmma chain of W / 16 k16 slices each, both operands from shared
+//     memory and K-major.  bfloat16 products are exact, the sums float32.
+//   * P = 2^(s * scale * log2(e) - lse) and dS = P (dP - delta) in the
+//     accumulator registers (wgmma's m64nN layout gives each warp 16 rows
+//     in mma.sync's C layout: a thread holds two rows, columns 8n + 2t,
+//     + 1), one ex2 of one FFMA each; masks only on a tile that crosses
+//     the causal diagonal or S.
+//   * dV += P^T dO and dK += dS^T Q, or dQ += dS K, with P and dS kept in
+//     float32 as two bfloat16 terms, x = hi + lo, hi = bf16(x), lo =
+//     bf16(x - hi) (what lo drops is at most 2^-16 |x|): two wgmma chains a
+//     product, the lo term first, the A fragments from the accumulator
+//     registers as they are (no shuffle), the B operand the staged tile
+//     read MN-major through the descriptor's transpose bit, as the forward
+//     reads V.  That is 10 k-chains a pair of 64-row tiles over both passes,
+//     where five bfloat16 products would take 5.
+//   * Overlap.  S and dP are two commit groups: P's exponentials run while
+//     the dP chain does, and dS (with its split) while the dV chain does.
+//     Each warpgroup otherwise waits for its own chains, so what fills the
+//     tensor cores while it computes exponentials is another warpgroup.
+//   * Blocks and registers.  At W = 64 a block is one warpgroup and three
+//     share an SM (144 registers a thread, no spill): they meet at no
+//     barrier, so one's exponentials overlap another's products.  At W =
+//     128 dK and dV alone take 128 registers a thread, so one block of two
+//     warpgroups (128 rows) per SM.  32-query steps keep the dK / dV pass's
+//     score tiles at 16 registers each; at W = 64 they are what lets three
+//     blocks fit (with 64-query steps only one block of two warpgroups
+//     did, and it ran slower).
+//   * Long sums.  dK, dV and dQ sum over up to S rows through one wgmma
+//     chain into the running accumulator, 2 S / 16 k16 additions; the
+//     tensor cores may cut an addend to the accumulator's alignment (as
+//     mma.sync does, see the float32 part), an error that grows with S.
+//     On the card every element stays within one bfloat16 rounding of the
+//     plain version at S = 2048 and 4096, while the share of elements
+//     bitwise it falls with S (PERF.md); summing groups of tiles into
+//     zeroed registers would take W / 2 more registers a thread, which
+//     W = 128 does not have.
+//   * Fences: wgmma.fence before each group of chains (their registers
+//     were written since the last), commit, and wait before the
+//     accumulator is read; every chain is waited for before the barrier
+//     that lets the next cp.async overwrite its tiles.
+// A producer warp with TMA, deeper buffering, GQA inside the kernel and a
+// W = 96 instantiation for D = 80 are later changes (ROADMAP §B).  PERF.md
+// has the times, registers and blocks per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -142,14 +204,12 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
 
-// What the element type gives the tensor cores: a float32 element is split
-// as above; a bfloat16 element is its own TF32 high part (its bits moved up
-// 16) with a zero remainder, which the products then skip (kExact).
+// What the element type gives the kernels: the float32 path's fragment
+// loads (split as above) and row padding; both types' widening and stores.
 template <typename T>
 struct Elem;
 template <>
 struct Elem<float> {
-  static constexpr bool kExact = false;
   static constexpr int kPad = kPadBytes / 4;  // row pitch padding in elements
   __device__ static __forceinline__ float widen(float x) { return x; }
   __device__ static __forceinline__ void tf32(const float* p, uint32_t& hi, uint32_t& lo) {
@@ -162,12 +222,7 @@ struct Elem<float> {
 };
 template <>
 struct Elem<__nv_bfloat16> {
-  static constexpr bool kExact = true;
-  static constexpr int kPad = kPadBytes / 2;
   __device__ static __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-  __device__ static __forceinline__ void tf32(const __nv_bfloat16* p, uint32_t& hi, uint32_t&) {
-    hi = (uint32_t)__bfloat16_as_ushort(*p) << 16;
-  }
   __device__ static __forceinline__ void store2(__nv_bfloat16* o, float a, float b) {
     *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
   }
@@ -191,13 +246,11 @@ __device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t*
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c += a b in 3xTF32: the two small cross terms first, then hi * hi; an
-// operand exact in TF32 (EA, EB: its remainder is 0) drops its cross term
-template <bool EA, bool EB>
+// c += a b in 3xTF32: the two small cross terms first, then hi * hi
 __device__ __forceinline__ void mma3(float* c, const uint32_t* ahi, const uint32_t* alo,
                                      const uint32_t* bhi, const uint32_t* blo) {
-  if constexpr (!EA) mma(c, alo, bhi);
-  if constexpr (!EB) mma(c, ahi, blo);
+  mma(c, alo, bhi);
+  mma(c, ahi, blo);
   mma(c, ahi, bhi);
 }
 
@@ -218,11 +271,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Stage nrows rows of `width` elements (row stride rs) into dst at `pitch`,
+// Stage nrows rows of `width` floats (row stride rs) into dst at `pitch`,
 // zero-filling the columns up to `wpad` and the rows from `nvalid` on:
-// 16-byte cp.async chunks where vec16 allows them; otherwise 4-byte
-// cp.async for float32 and plain copies for bfloat16 (cp.async copies 4,
-// 8 or 16 bytes), which the barrier before the tile's use publishes.
+// 16-byte cp.async chunks where vec16 allows them, 4-byte ones otherwise.
 template <typename T>
 __device__ __forceinline__ void stage_rows(T* dst, int pitch, const T* src,
                                            long long rs, int nvalid, int nrows,
@@ -246,10 +297,7 @@ __device__ __forceinline__ void stage_rows(T* dst, int pitch, const T* src,
       const int r = i / wpad;
       const int c = i - r * wpad;
       const bool ok = r < nvalid && c < width;
-      if constexpr (sizeof(T) == 4)
-        cp_async4(dst + r * pitch + c, ok ? src + r * rs + c : src, ok ? 4 : 0);
-      else
-        dst[r * pitch + c] = ok ? src[r * rs + c] : T(0.0f);
+      cp_async4(dst + r * pitch + c, ok ? src + r * rs + c : src, ok ? 4 : 0);
     }
   }
 }
@@ -287,7 +335,6 @@ __device__ __forceinline__ void chunk(float (&acc1)[W8][4], float (&acc2)[KV ? W
                                       const float (&own_delta)[2], bool masked, int own0,
                                       int str0, const Params<T>& p, int g, int t) {
   using E = Elem<T>;
-  constexpr bool X = E::kExact;
   constexpr int pitch = W8 * 8 + E::kPad;
 
   // ---- s = x u^T and dp = y z^T: x's and y's fragments once per 8 columns
@@ -314,10 +361,10 @@ __device__ __forceinline__ void chunk(float (&acc1)[W8][4], float (&acc2)[KV ? W
       uint32_t bh[2], bl[2];
       E::tf32(ub + n * 8 * pitch + kk, bh[0], bl[0]);
       E::tf32(ub + n * 8 * pitch + kk + 4, bh[1], bl[1]);
-      mma3<X, X>(s[n], xh, xl, bh, bl);
+      mma3(s[n], xh, xl, bh, bl);
       E::tf32(zb + n * 8 * pitch + kk, bh[0], bl[0]);
       E::tf32(zb + n * 8 * pitch + kk + 4, bh[1], bl[1]);
-      mma3<X, X>(dp[n], yh, yl, bh, bl);
+      mma3(dp[n], yh, yl, bh, bl);
     }
   }
 
@@ -386,12 +433,12 @@ __device__ __forceinline__ void chunk(float (&acc1)[W8][4], float (&acc2)[KV ? W
       E::tf32(uc + 8 * n * pitch + 8 * m, bh[0], bl[0]);
       E::tf32(uc + (8 * n + 1) * pitch + 8 * m, bh[1], bl[1]);
       if constexpr (KV) {
-        mma3<false, X>(c2, dh[n], dl[n], bh, bl);  // dK += dS^T Q
+        mma3(c2, dh[n], dl[n], bh, bl);  // dK += dS^T Q
         E::tf32(zc + 8 * n * pitch + 8 * m, bh[0], bl[0]);
         E::tf32(zc + (8 * n + 1) * pitch + 8 * m, bh[1], bl[1]);
-        mma3<false, X>(c1, ph[n], pl[n], bh, bl);  // dV += P^T dO
+        mma3(c1, ph[n], pl[n], bh, bl);  // dV += P^T dO
       } else {
-        mma3<false, X>(c1, dh[n], dl[n], bh, bl);  // dQ += dS K
+        mma3(c1, dh[n], dl[n], bh, bl);  // dQ += dS K
       }
     }
 #pragma unroll
@@ -581,9 +628,533 @@ __global__ void __launch_bounds__(kMaxWarps * 32) bwd_dkdv_dq(const Params<T> p)
     bwd_pass<T, true, W>(p, blockIdx.y >> 1, gridDim.y >> 1);
 }
 
-// The launch a call gets: kernel, warps (own row tiles) per block, blocks
-// per pass and (batch, head), dynamic shared memory (the dK / dV pass's,
-// the larger).
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma (the header's second part)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWgRows = 64;  // own rows per warpgroup: wgmma's M
+constexpr int kKvCols = 32;  // streamed queries a step of the dK / dV pass takes: wgmma's N
+constexpr int kAtom = 1024;  // 8 swizzled rows of 128 bytes
+
+// Warpgroups per block, by W: at 64 one, so that three blocks (at most 170
+// registers a thread) share an SM and run out of phase; at 128 two, one
+// block per SM (dK and dV alone take 128 registers a thread)
+template <int W>
+__host__ __device__ constexpr int wgs() {
+  return W == 64 ? 1 : 2;
+}
+
+// Byte offset of element (r, c) in a tile of `rows` bfloat16 rows staged in
+// 128-byte-swizzled panels of 64 columns: panel c / 64 holds rows * 128
+// bytes, row r starts at 128 r, and its 16-byte chunk (c % 64) / 8 sits at
+// chunk ((c % 64) / 8) ^ (r % 8).
+__device__ __forceinline__ int sw128(int rows, int r, int c) {
+  return (c >> 6) * rows * 128 + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + ((c & 7) << 1);
+}
+
+// Stage `rows` rows of `width` bfloat16 (row stride rs) into dst in the
+// swizzled layout of width W, zero-filling the columns up to W and the rows
+// from `nvalid` on: 16-byte cp.async chunks where vec16 allows them, else
+// one element at a time by plain loads and stores (cp.async has no 2-byte
+// copy).
+template <int W>
+__device__ __forceinline__ void stage_sw128(unsigned char* dst, int rows, const bf16* src,
+                                            long long rs, int nvalid, int width, bool vec16) {
+  if (vec16) {
+    constexpr int kChunks = W / 8;  // per row
+    for (int i = threadIdx.x; i < rows * kChunks; i += blockDim.x) {
+      const int r = i / kChunks;
+      const int c = (i - r * kChunks) * 8;
+      const bool ok = r < nvalid && c < width;
+      cp_async16(dst + sw128(rows, r, c), ok ? src + r * rs + c : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * W; i += blockDim.x) {
+      const int r = i / W;
+      const int c = i - r * W;
+      const bool ok = r < nvalid && c < width;
+      *reinterpret_cast<bf16*>(dst + sw128(rows, r, c)) = ok ? src[r * rs + c] : __float2bfloat16_rn(0.0f);
+    }
+  }
+}
+
+// A wgmma shared-memory descriptor of a 128-byte-swizzled operand: the
+// start address, leading and stride byte offsets (each >> 4) and the
+// swizzle mode (1: 128 bytes) in bits 62-63.  The base offset (bits 49-51)
+// stays 0: every panel starts on a 1,024-byte boundary.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3ffff) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
+}
+
+// A K-major operand's k16 slice j: 32 bytes apart inside a 64-column panel,
+// panels `rows` * 128 bytes apart
+__device__ __forceinline__ uint64_t kmajor(uint32_t addr, int rows, int j) {
+  return sw128_desc(addr + (j >> 2) * rows * 128 + (j & 3) * 32, 16, kAtom);
+}
+
+// An MN-major operand (the streamed 64-row tile read as k x W, the
+// transpose bit set) from row `row` on: panels 64 rows * 128 bytes apart,
+// 8-row groups 1,024 bytes apart
+__device__ __forceinline__ uint64_t mnmajor(uint32_t addr, int row) {
+  return sw128_desc(addr + row * 128, kTile * 128, kAtom);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N of this warpgroup's committed groups are pending
+// (groups complete in order)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from touching a wgmma's registers across its wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// Make this thread's generic-proxy writes to shared memory (cp.async, st)
+// visible to wgmma's async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  uint32_t u;
+  memcpy(&u, &x, 4);
+  return u;
+}
+
+// d (64 x 64, float32) = [d +] a b^T over one k16 slice: a (64 x 16) and b
+// (64 x 16) bfloat16 from shared memory, both K-major; scale_d 0 drops d
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 32, float32) = [d +] a b^T over one k16 slice: as wgmma_ss_n64
+// with b (32 x 16)
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64, float32) += a b over one k16 slice: a (64 x 16) bfloat16 in
+// registers (the m64k16 A fragment), b (16 x 64) bfloat16 from shared
+// memory, MN-major (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, float32) += a b over one k16 slice: as wgmma_rs_n64 with b
+// (16 x 128)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, "
+      "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int W>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b) {
+  if constexpr (W == 64)
+    wgmma_rs_n64(d, a, b);
+  else
+    wgmma_rs_n128(d, a, b);
+}
+
+// x = hi + lo as bfloat16 A fragments of NS k16 slices: slice j's register
+// r holds columns 16j + 8 (r >> 1) + 2t, + 1 of row g + 8 (r & 1), which
+// is x[8j + 2r], x[8j + 2r + 1] of the accumulator layout
+template <int NS>
+__device__ __forceinline__ void split_frags(const float* x, uint32_t (&hi)[NS][4],
+                                            uint32_t (&lo)[NS][4]) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x0 = x[8 * j + 2 * r], x1 = x[8 * j + 2 * r + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(h);
+      hi[j][r] = bits(h);
+      lo[j][r] = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+    }
+  }
+}
+
+// One streamed 64-row tile of the dK / dV pass for one warpgroup: k_addr
+// and v_addr its 64 keys' K and V, q_addr and do_addr the tile's Q and dO,
+// st the tile's lse (st[0..64)) and delta (st[64..128)); r the tile's first
+// query, r0 the warpgroup's first key.  The tile is walked in steps of
+// kKvCols queries: the score tiles take 16 registers each.
+template <int W>
+__device__ __forceinline__ void kv_tile(float* dv, float* dk, const Params<bf16>& p,
+                                        uint32_t k_addr, uint32_t v_addr, uint32_t q_addr,
+                                        uint32_t do_addr, const float* st, int r, int r0,
+                                        int warp, int g, int t) {
+  constexpr int N = kKvCols;
+  constexpr int NS = N / 16;  // k16 slices of the products with P^T and dS^T
+  constexpr int kOwnRows = wgs<W>() * kWgRows;
+#pragma unroll
+  for (int sub = 0; sub < kTile / N; ++sub) {
+    const int c0 = r + sub * N;  // the step's first query
+    // (uniform over the warpgroup) past S, or every query before every key
+    if (c0 >= p.S || (p.causal && c0 + N <= r0)) continue;
+
+    // ---- S^T = K Q^T and dP^T = V dO^T (64 keys x N queries), two groups:
+    // s[4n + e] key 16 warp + g + 8 (e >> 1), query 8n + 2t + (e & 1)
+    float s[N / 2], dp[N / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < W / 16; ++j)
+      wgmma_ss_n32(s, kmajor(k_addr, kOwnRows, j), kmajor(q_addr + sub * N * 128, kTile, j), j);
+    wgmma_commit();
+#pragma unroll
+    for (int j = 0; j < W / 16; ++j)
+      wgmma_ss_n32(dp, kmajor(v_addr, kOwnRows, j), kmajor(do_addr + sub * N * 128, kTile, j), j);
+    wgmma_commit();
+
+    // ---- P^T = 2^(s qscale - lse) into s, lse per query (column), while
+    // the dP^T chain runs
+    wgmma_wait<1>();
+    fence_regs<N / 2>(s);
+    const bool masked = c0 + N > p.S || (p.causal && c0 < r0 + kWgRows - 1);
+    const int key0 = r0 + 16 * warp + g;
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(st + sub * N + 8 * n + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pr = ex2(fmaf(s[4 * n + e], p.qscale, -((e & 1) ? l2.y : l2.x)));
+        if (masked) {
+          const int query = c0 + 8 * n + 2 * t + (e & 1);
+          if (query >= p.S || (p.causal && query < key0 + 8 * (e >> 1))) pr = 0.0f;
+        }
+        s[4 * n + e] = pr;
+      }
+    }
+
+    // ---- dV += P^T dO: the lo term's chain, then the hi term's; slice j
+    // of dO: queries sub N + 16 j ..
+    uint32_t ph[NS][4], pl[NS][4];
+    split_frags<NS>(s, ph, pl);
+    fence_regs<W / 2>(dv);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < NS; ++j) wgmma_rs<W>(dv, pl[j], mnmajor(do_addr, sub * N + 16 * j));
+#pragma unroll
+    for (int j = 0; j < NS; ++j) wgmma_rs<W>(dv, ph[j], mnmajor(do_addr, sub * N + 16 * j));
+    wgmma_commit();
+
+    // ---- dS^T = P^T (dP^T - delta) into dp, delta per query, while the
+    // dV chain runs; then dK += dS^T Q as dV
+    wgmma_wait<1>();
+    fence_regs<N / 2>(dp);
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n) {
+      const float2 d2 = *reinterpret_cast<const float2*>(st + kTile + sub * N + 8 * n + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * n + e] = s[4 * n + e] * (dp[4 * n + e] - ((e & 1) ? d2.y : d2.x));
+    }
+    uint32_t dh[NS][4], dl[NS][4];
+    split_frags<NS>(dp, dh, dl);
+    fence_regs<W / 2>(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < NS; ++j) wgmma_rs<W>(dk, dl[j], mnmajor(q_addr, sub * N + 16 * j));
+#pragma unroll
+    for (int j = 0; j < NS; ++j) wgmma_rs<W>(dk, dh[j], mnmajor(q_addr, sub * N + 16 * j));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<W / 2>(dv);
+    fence_regs<W / 2>(dk);
+  }
+}
+
+// One streamed 64-key tile of the dQ pass for one warpgroup: q_addr and
+// do_addr its 64 query rows' Q and dO, k_addr and v_addr the tile's K and
+// V; lse and delta of this thread's two rows; r the tile's first key, r0
+// the warpgroup's first query.
+template <int W>
+__device__ __forceinline__ void q_tile(float* dq, const Params<bf16>& p, uint32_t q_addr,
+                                       uint32_t do_addr, uint32_t k_addr, uint32_t v_addr,
+                                       const float (&lse)[2], const float (&delta)[2], int r,
+                                       int r0, int warp, int g, int t) {
+  // ---- S = Q K^T and dP = dO V^T (64 queries x 64 keys), two groups:
+  // s[4n + e] query 16 warp + g + 8 (e >> 1), key 8n + 2t + (e & 1)
+  constexpr int kOwnRows = wgs<W>() * kWgRows;
+  float s[32], dp[32];
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < W / 16; ++j)
+    wgmma_ss_n64(s, kmajor(q_addr, kOwnRows, j), kmajor(k_addr, kTile, j), j);
+  wgmma_commit();
+#pragma unroll
+  for (int j = 0; j < W / 16; ++j)
+    wgmma_ss_n64(dp, kmajor(do_addr, kOwnRows, j), kmajor(v_addr, kTile, j), j);
+  wgmma_commit();
+
+  // ---- P = 2^(s qscale - lse) into s, lse per query (row), while the dP
+  // chain runs; then dS = P (dP - delta) into dp
+  wgmma_wait<1>();
+  fence_regs<32>(s);
+  const bool masked = r + kTile > p.S || (p.causal && r + kTile - 1 > r0);
+  const int query0 = r0 + 16 * warp + g;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float pr = ex2(fmaf(s[4 * n + e], p.qscale, -lse[e >> 1]));
+      if (masked) {
+        const int key = r + 8 * n + 2 * t + (e & 1);
+        if (key >= p.S || (p.causal && key > query0 + 8 * (e >> 1))) pr = 0.0f;
+      }
+      s[4 * n + e] = pr;
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs<32>(dp);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - delta[(i >> 1) & 1]);
+
+  // ---- dQ += dS K: the lo term's chain, then the hi term's; slice j of K:
+  // keys 16 j ..
+  uint32_t dh[4][4], dl[4][4];
+  split_frags<4>(dp, dh, dl);
+  fence_regs<W / 2>(dq);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wgmma_rs<W>(dq, dl[j], mnmajor(k_addr, 16 * j));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wgmma_rs<W>(dq, dh[j], mnmajor(k_addr, 16 * j));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<W / 2>(dq);
+}
+
+// Write a warpgroup's rows ra and ra + 8 (this thread's) of one gradient
+// from its accumulator (acc[4n + e]: column 8n + 2t + (e & 1)), times `mul`.
+template <int W>
+__device__ __forceinline__ void store_wg(bf16* base, long long rs, const float* acc, float mul,
+                                         int ra, const Params<bf16>& p, int t) {
+  using E = Elem<bf16>;
+  const int rb = ra + 8;
+#pragma unroll
+  for (int n = 0; n < W / 8; ++n) {
+    const int c = 8 * n + 2 * t;
+    if (c >= p.D) continue;
+    if (p.vec2) {
+      if (ra < p.S) E::store2(base + ra * rs + c, acc[4 * n] * mul, acc[4 * n + 1] * mul);
+      if (rb < p.S) E::store2(base + rb * rs + c, acc[4 * n + 2] * mul, acc[4 * n + 3] * mul);
+    } else {
+      const bool c1ok = c + 1 < p.D;
+      if (ra < p.S) {
+        E::store1(base + ra * rs + c, acc[4 * n] * mul);
+        if (c1ok) E::store1(base + ra * rs + c + 1, acc[4 * n + 1] * mul);
+      }
+      if (rb < p.S) {
+        E::store1(base + rb * rs + c, acc[4 * n + 2] * mul);
+        if (c1ok) E::store1(base + rb * rs + c + 1, acc[4 * n + 3] * mul);
+      }
+    }
+  }
+}
+
+// Block `blk` of `nb` of one pass: KV the dK / dV pass, otherwise the dQ
+// pass.  The block owns wgs<W>() * 64 rows of one (batch, head), 64 a
+// warpgroup, and streams the other pair of operands through shared memory
+// in 64-row tiles.
+template <int W, bool KV>
+__device__ __forceinline__ void wg_pass(const Params<bf16>& p, int blk, int nb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kBlockRows = wgs<W>() * kWgRows;
+  constexpr int kOwnBytes = kBlockRows * W * 2;
+  constexpr int kTileBytes = kTile * W * 2;
+  // the panels on 1,024-byte boundaries (the launch adds kAtom bytes for it)
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  unsigned char* x_s = smem_raw + ((kAtom - (raw & (kAtom - 1))) & (kAtom - 1));  // K (KV) or Q
+  unsigned char* y_s = x_s + kOwnBytes;                                          // V or dO
+  unsigned char* u_s = y_s + kOwnBytes;           // [2][kTile rows]: Q (KV) or K
+  unsigned char* z_s = u_s + 2 * kTileBytes;      // dO or V
+  float* st_s = reinterpret_cast<float*>(z_s + 2 * kTileBytes);  // KV: [2][lse, delta][kTile]
+  const uint32_t x_addr = (uint32_t)__cvta_generic_to_shared(x_s);
+  const uint32_t y_addr = x_addr + kOwnBytes;
+  const uint32_t u_addr = y_addr + kOwnBytes;
+  const uint32_t z_addr = u_addr + 2 * kTileBytes;
+
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3;  // in the warpgroup: rows 16 warp ..
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  // heaviest causal block first: the first keys, or the last query rows
+  const int base = (KV ? blk : nb - 1 - blk) * kBlockRows;
+  const Strides& sx = KV ? p.sk : p.sq;
+  const Strides& sy = KV ? p.sv : p.sdo;
+  const Strides& su = KV ? p.sq : p.sk;
+  const Strides& sz = KV ? p.sdo : p.sv;
+  const bf16* xg = (KV ? p.k : p.q) + b * sx.b + h * sx.h;
+  const bf16* yg = (KV ? p.v : p.dout) + b * sy.b + h * sy.h;
+  const bf16* ug = (KV ? p.q : p.k) + b * su.b + h * su.h;
+  const bf16* zg = (KV ? p.dout : p.v) + b * sz.b + h * sz.h;
+  const float* lse_bh = p.lse + (long long)bh * p.S;
+  const float* delta_bh = p.delta + (long long)bh * p.S;
+
+  // streamed tiles: KV the queries from the block's first key on (all,
+  // without causal masking); dQ the keys up to the block's last row
+  const int it0 = KV && p.causal ? base / kTile : 0;
+  const int send = KV || !p.causal ? p.S : min(p.S, base + kBlockRows);
+  const int it1 = (send + kTile - 1) / kTile;
+
+  auto issue = [&](int it) {
+    const int r = it * kTile;
+    const int n = min(kTile, p.S - r);
+    const int buf = (it - it0) & 1;
+    stage_sw128<W>(u_s + buf * kTileBytes, kTile, ug + r * su.s, su.s, n, p.D, p.vec16);
+    stage_sw128<W>(z_s + buf * kTileBytes, kTile, zg + r * sz.s, sz.s, n, p.D, p.vec16);
+    if (KV) {
+      float* st = st_s + buf * 2 * kTile;
+      for (int i = threadIdx.x; i < 2 * kTile; i += blockDim.x) {
+        const int j = i & (kTile - 1);
+        const float* src = (i < kTile ? lse_bh : delta_bh) + r + j;
+        cp_async4(st + i, j < n ? src : lse_bh, j < n ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  const int own_n = min(kBlockRows, p.S - base);
+  stage_sw128<W>(x_s, kBlockRows, xg + base * sx.s, sx.s, own_n, p.D, p.vec16);
+  stage_sw128<W>(y_s, kBlockRows, yg + base * sy.s, sy.s, own_n, p.D, p.vec16);
+  issue(it0);  // one group: the own rows and the first streamed tile
+  if (it0 + 1 < it1) issue(it0 + 1);
+
+  // This warpgroup's rows (uniform over it, as wgmma needs) and the
+  // streamed rows it sees: KV under causal masking the queries from its
+  // first key on; dQ the keys up to its last row
+  const int r0 = base + wg * kWgRows;
+  const bool active = r0 < p.S;
+  const int wbeg = KV && p.causal ? r0 : 0;
+  const int wend = KV || !p.causal ? p.S : min(p.S, r0 + kWgRows);
+  const int ra = r0 + 16 * warp + g;  // this thread's rows ra, ra + 8
+
+  float lse[2] = {__int_as_float(0x7f800000), __int_as_float(0x7f800000)};
+  float delta[2] = {0.0f, 0.0f};
+  if (!KV && active) {  // a row past S keeps lse = +inf: P = 0 there
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (ra + 8 * i < p.S) {
+        lse[i] = lse_bh[ra + 8 * i];
+        delta[i] = delta_bh[ra + 8 * i];
+      }
+    }
+  }
+  float acc1[W / 2], acc2[KV ? W / 2 : 1];  // dV and dK, or dQ
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) acc1[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < (KV ? W / 2 : 1); ++i) acc2[i] = 0.0f;
+  const uint32_t own = wg * kWgRows * 128;  // the warpgroup's rows in each panel
+
+  for (int it = it0; it < it1; ++it) {
+    if (it + 1 < it1) cp_async_wait<1>(); else cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    const int r = it * kTile;
+    if (active && r < wend && r + kTile > wbeg) {
+      const int buf = (it - it0) & 1;
+      const uint32_t ut = u_addr + buf * kTileBytes, zt = z_addr + buf * kTileBytes;
+      if constexpr (KV)
+        kv_tile<W>(acc1, acc2, p, x_addr + own, y_addr + own, ut, zt, st_s + buf * 2 * kTile, r,
+                   r0, warp, g, t);
+      else
+        q_tile<W>(acc1, p, x_addr + own, y_addr + own, ut, zt, lse, delta, r, r0, warp, g, t);
+    }
+    __syncthreads();  // both warpgroups' products are done with this buffer
+    if (it + 2 < it1) issue(it + 2);
+  }
+
+  if (!active) return;
+  if constexpr (KV) {
+    store_wg<W>(p.dv + b * p.sdv.b + h * p.sdv.h, p.sdv.s, acc1, 1.0f, ra, p, t);
+    store_wg<W>(p.dk + b * p.sdk.b + h * p.sdk.h, p.sdk.s, acc2, p.scale, ra, p, t);
+  } else {
+    store_wg<W>(p.dq + b * p.sdq.b + h * p.sdq.h, p.sdq.s, acc1, p.scale, ra, p, t);
+  }
+}
+
+// Both passes in one grid, as the float32 kernel's: even blocks (y = 2i)
+// take the dK / dV pass's block i, odd ones the dQ pass's.  W: D padded to
+// 64 or 128.
+template <int W>
+__global__ void __launch_bounds__(wgs<W>() * 128, W == 64 ? 3 : 1)
+    bwd_dkdv_dq_wgmma(const Params<bf16> p) {
+  if (blockIdx.y & 1)
+    wg_pass<W, false>(p, blockIdx.y >> 1, gridDim.y >> 1);
+  else
+    wg_pass<W, true>(p, blockIdx.y >> 1, gridDim.y >> 1);
+}
+
+// The launch a call gets: kernel, warps per block, blocks per pass and
+// (batch, head), dynamic shared memory (float32: the dK / dV pass's, the
+// larger).
 template <typename T>
 struct Config {
   void (*kernel)(Params<T>);
@@ -591,6 +1162,7 @@ struct Config {
   size_t smem;
 };
 
+// float32: mma.sync, up to 4 warps of 16 own rows a block
 template <typename T>
 Config<T> configure(long long bhs, int S, int D, int sms) {
   const int w = D <= 32 ? 32 : D <= 64 ? 64 : 128;
@@ -603,6 +1175,23 @@ Config<T> configure(long long bhs, int S, int D, int sms) {
   c.nb = (tiles + c.nw - 1) / c.nw;         // equal blocks
   const int pitch = w + Elem<T>::kPad;
   c.smem = sizeof(T) * ((size_t)2 * c.nw * kRows * pitch + 2 * 2 * kTile * pitch) +
+           sizeof(float) * 2 * kTile * 2;
+  return c;
+}
+
+// bfloat16: wgmma, wgs<W>() warpgroups of 64 own rows a block, at W = D
+// padded to 64 or 128; the own pair, two buffers of the streamed pair (64
+// rows) and of the streamed rows' lse and delta, and kAtom bytes to put
+// the panels on 1,024-byte boundaries
+template <>
+Config<bf16> configure<bf16>(long long, int S, int D, int) {
+  const int w = D <= 64 ? 64 : 128;
+  const int rows = (w == 64 ? wgs<64>() : wgs<128>()) * kWgRows;
+  Config<bf16> c;
+  c.kernel = w == 64 ? bwd_dkdv_dq_wgmma<64> : bwd_dkdv_dq_wgmma<128>;
+  c.nw = rows / 16;
+  c.nb = (S + rows - 1) / rows;
+  c.smem = kAtom + sizeof(bf16) * (size_t)(2 * rows + 2 * 2 * kTile) * w +
            sizeof(float) * 2 * kTile * 2;
   return c;
 }
@@ -666,7 +1255,8 @@ int launch(const void* q, const void* k, const void* v, const void* o, const flo
 }
 
 // What the two kernels of a call for (B, H, S, D) get, without launching:
-// for bwd_delta and bwd_dkdv_dq in turn, 6 ints each: registers per
+// for bwd_delta and the passes' kernel (bwd_dkdv_dq in float32,
+// bwd_dkdv_dq_wgmma in bfloat16) in turn, 6 ints each: registers per
 // thread, dynamic shared bytes per block, threads per block, resident
 // blocks per SM, local (spill) bytes per thread, blocks per call.
 template <typename F>

@@ -42,14 +42,15 @@ backward needs.  The sources' headers say what bounds each design and
 the port's own kernel, for what the trainers give it (causal or not, no
 segment ids, q_offset 0, Sq == Sk, D == Dv <= 128; float32 from the Tao
 trainer, bfloat16 from the LLM trainer): two kernels on one stream, delta
-= rowsum(dO o), then the dK / dV pass (a warp per 16 keys) and the dQ
-pass (a warp per 16 query rows) side by side in one grid; every product
-on the tensor cores in the forward's 3xTF32 split (bfloat16 operands are
-exact in TF32, so their products take one term), P and dS kept in
-registers, no atomics, so two calls give the same bits.  bfloat16
-gradients are computed in float32 and rounded once.
-``FLASH_ATTENTION_BWD.launches`` counts its calls and ``bwd_launch_info``
-reports what each of its kernels (``BWD_KERNEL_NAMES``) gets.
+= rowsum(dO o), then the dK / dV pass and the dQ pass side by side in one
+grid, P and dS kept in registers, no atomics, so two calls give the same
+bits.  float32 runs the forward's 3xTF32 ``mma.sync`` design (a warp per
+16 keys or query rows); bfloat16 runs ``wgmma`` (a warpgroup per 64 keys
+or query rows, tiles in swizzled shared memory, P and dS in float32 as
+two bfloat16 terms), computing in float32 and rounding each gradient
+once.  ``FLASH_ATTENTION_BWD.launches`` counts its calls and
+``bwd_launch_info`` reports what each of the two kernels a call launches
+gets.
 """
 from __future__ import annotations
 
@@ -96,7 +97,10 @@ _INFO_KEYS = ("regs_per_thread", "smem_bytes_per_block", "threads_per_block",
 _BWD_LAUNCH_INFO = CudaKernel(
     "attention_bwd.cu", "tao_flash_attention_bwd_info", [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]
 )
+# the backward's kernels by the prefix of their names (the profiler finds
+# either dtype's by it), and the two a call launches in each dtype
 BWD_KERNEL_NAMES = ("bwd_delta", "bwd_dkdv_dq")
+_BWD_KERNELS = {torch.float32: BWD_KERNEL_NAMES, torch.bfloat16: ("bwd_delta", "bwd_dkdv_dq_wgmma")}
 _BWD_INFO_KEYS = _INFO_KEYS[:5] + ("blocks_per_call",)
 
 
@@ -211,13 +215,15 @@ def launch_info(Sq: int, D: int, Dv: int, segmented: bool = False,
 def bwd_launch_info(B: int, H: int, S: int, D: int,
                     dtype: torch.dtype = torch.float32) -> Dict[str, Dict[str, int]]:
     """What each kernel of a backward call for (B, H, S, D) in ``dtype``
-    gets on the current device, without launching it: {kernel name:
-    registers and spill bytes per thread, dynamic shared memory and threads
-    per block, resident blocks per SM, blocks per call}."""
-    info = (ctypes.c_int * (len(BWD_KERNEL_NAMES) * len(_BWD_INFO_KEYS)))()
+    gets on the current device, without launching it: {kernel name
+    (``bwd_delta`` and ``bwd_dkdv_dq`` or, for bfloat16,
+    ``bwd_dkdv_dq_wgmma``): registers and spill bytes per thread, dynamic
+    shared memory and threads per block, resident blocks per SM, blocks per
+    call}."""
+    names = _BWD_KERNELS[dtype]
+    info = (ctypes.c_int * (len(names) * len(_BWD_INFO_KEYS)))()
     err = _BWD_LAUNCH_INFO._entry()(B, H, S, D, _DTYPES[dtype], info, None)
     if err != 0:
         raise RuntimeError(f"tao_flash_attention_bwd_info: CUDA error {err}")
     n = len(_BWD_INFO_KEYS)
-    return {name: dict(zip(_BWD_INFO_KEYS, info[i * n:(i + 1) * n]))
-            for i, name in enumerate(BWD_KERNEL_NAMES)}
+    return {name: dict(zip(_BWD_INFO_KEYS, info[i * n:(i + 1) * n])) for i, name in enumerate(names)}

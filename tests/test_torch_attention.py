@@ -16,7 +16,10 @@ autograd through ``attention_plain`` and to ``jax.vjp`` of the reference
 model's jnp attention, within atol = rtol = 2e-6 (float32 einsums in other
 orders, gradients of magnitude <= ~10); ``FlashAttentionFn``'s wiring (the
 forward's lse saved, the gradients returned in order) is checked on the
-CPU with the two kernel calls swapped for their plain versions.
+CPU with the two kernel calls swapped for their plain versions.  The
+bfloat16 backward kernel's arithmetic (P and dS as two bfloat16 terms,
+bfloat16 products summed in float32, one rounding) is emulated in torch
+and held to the plain formulas in the card test's band at its shapes.
 
 Tolerance: atol = rtol = 2e-6.  Every path computes in float32; they differ
 only in summation order (einsum vs blocked online softmax) and in
@@ -299,3 +302,74 @@ def test_p_split_keeps_the_bfloat16_output_where_one_bfloat16_term_moves_it(D):
     one = (hi @ v / l).to(torch.bfloat16)
     assert float((split == want).float().mean()) >= 0.99
     assert float((one == want).float().mean()) < 0.9
+
+
+def bwd_two_term_emulation(q, k, v, o, lse, do, causal, terms=2):
+    """What the bfloat16 backward kernel (``csrc/attention_bwd.cu``,
+    ``bwd_dkdv_dq_wgmma``) computes, in torch on the CPU: S = q kᵀ and dP =
+    dO vᵀ as products of bfloat16 values summed in float32; P = 2^(S scale
+    log2(e) - lse) and dS = P (dP - delta) in float32, each split into
+    bf16(x) + bf16(x - bf16(x)) (``terms=1``: the first term alone); dV,
+    dK, dQ as the products of those bfloat16 terms with the bfloat16
+    operands summed in float32, the lo term's then the hi term's; each
+    gradient rounded once to bfloat16."""
+    import math
+
+    D = q.shape[-1]
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    S = q.shape[2]
+    mask = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        mask = torch.tril(mask)
+    p = torch.where(mask, torch.exp2(s * (scale * 1.4426950408889634) - lse[..., None]),
+                    torch.zeros(()))
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta)
+
+    def split(x):
+        hi = x.to(torch.bfloat16).float()
+        return [hi] if terms == 1 else [(x - hi).to(torch.bfloat16).float(), hi]
+
+    dv = sum(torch.einsum("bhqk,bhqd->bhkd", t, dof) for t in split(p))
+    dk = sum(torch.einsum("bhqk,bhqd->bhkd", t, qf) for t in split(ds)) * scale
+    dq = sum(torch.einsum("bhqk,bhkd->bhqd", t, kf) for t in split(ds)) * scale
+    return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
+
+
+def _bf16_bwd_cases():
+    from attention_bwd_bf16_cases import ATTN_BWD_BF16_CASES
+
+    return {name: c for name, c in ATTN_BWD_BF16_CASES.items() if c[2] <= 300}
+
+
+@pytest.mark.parametrize("case", sorted(_bf16_bwd_cases()))
+def test_bf16_bwd_two_term_split_meets_the_card_contract(case):
+    """The bfloat16 backward's arithmetic (P and dS as two bfloat16 terms,
+    bfloat16 products summed in float32, one rounding) against the plain
+    formulas at the shapes of the card's bfloat16 backward cases (S <= 300),
+    held to the card test's band: every element within 2^-7 |plain| +
+    1e-4 max |plain|, and >= 99% of elements bitwise the plain version's.
+    P and dS rounded to one bfloat16 term (what a kernel that drops the lo
+    term computes) keep < 90% bitwise.  What the emulation leaves out is
+    the kernel's summation order and ex2.approx; the card tests hold the
+    kernel itself."""
+    B, H, S, D, causal, rep, seed = _bf16_bwd_cases()[case]
+    rng = np.random.default_rng(100 + seed)
+    bf = torch.bfloat16
+    q = torch.from_numpy(rng.standard_normal((B, H, S, D)).astype(np.float32)).to(bf)
+    k, v = (torch.from_numpy(rng.standard_normal((B, H // rep, S, D)).astype(np.float32)).to(bf)
+            .repeat_interleave(rep, dim=1) for _ in range(2))
+    do = torch.from_numpy(rng.standard_normal((B, H, S, D)).astype(np.float32)).to(bf)
+    o = attention_plain(q, k, v, causal=causal)
+    lse = attention_lse_plain(q, k, causal=causal)
+    got = bwd_two_term_emulation(q, k, v, o, lse, do, causal)
+    ref = attention_bwd_plain(q, k, v, o, lse, do, causal)
+    for name, a, c in zip(("dq", "dk", "dv"), got, ref):
+        a32, c32 = a.float(), c.float()
+        limit = 2.0**-7 * c32.abs() + 1e-4 * float(c32.abs().max())
+        assert bool(torch.all((a32 - c32).abs() <= limit)), (name, float((a32 - c32).abs().max()))
+        assert float((a == c).float().mean()) >= 0.99, (name, float((a == c).float().mean()))
+    one = bwd_two_term_emulation(q, k, v, o, lse, do, causal, terms=1)
+    assert all(float((a == c).float().mean()) < 0.9 for a, c in zip(one, ref))

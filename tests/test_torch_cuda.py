@@ -69,7 +69,14 @@ parameter a gradient (``qkv`` included) within 1e-4 of its tensor's
 largest CPU gradient; the engine's graph holds no backward node; 3 steps
 of ``train_tao_impl`` launch 2 forward and 2 backward attention kernels a
 step and track the CPU's (losses 1e-4 relative, parameters 2 lr a step);
-the fine-tune leaves ``embed`` bitwise unchanged.
+the fine-tune leaves ``embed`` bitwise unchanged.  The bfloat16 backward
+(the LLM trainer's, on wgmma) is held to its plain formulas on the same
+bfloat16 inputs within 2^-7 |plain| + 1e-4 max |plain|, >= 99% bitwise,
+two calls bitwise, at widths 32 to 128, causal and not, GQA-repeated k / v,
+unaligned strides and 4,096 rows (``attention_bwd_bf16_cases.py``); its
+SASS holds wgmma and no mma.sync, the float32 instantiations' mma.sync and
+no wgmma, and a call launches ``bwd_delta`` and the wgmma kernel
+(profiler).
 
 The train steps' CUDA graphs (``train/trainer.py``, one per recipe and
 batch geometry): ``train_tao_impl`` on the graph is bitwise the entry's
@@ -202,6 +209,8 @@ TAO_CONFIGS = {"default": TaoConfig(), "paper": PAPER}
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.uarch import UARCH_A, get_benchmark, run_detailed, run_functional  # noqa: E402
 from repro_torch.uarch.isa import FUNC_TRACE_DTYPE, Op  # noqa: E402
+
+from attention_bwd_bf16_cases import ATTN_BWD_BF16_CASES  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -1849,21 +1858,6 @@ def test_flash_attention_refuses_bf16_that_requires_grad(dev):
         assert flash_attention(q, q, q, causal=True).dtype == torch.bfloat16
 
 
-# (B, H, S, D, causal, kv repeat, seed) of the bfloat16 backward: widths 32,
-# 64, 80 (the 128-wide template, padded) and 128, causal and not, k / v
-# repeated over the query heads (GQA) as the models hand them over, and a
-# row count past one 64-row tile that is not a multiple of 16
-ATTN_BWD_BF16_CASES = {
-    "d32_causal": (2, 4, 100, 32, True, 1, 0),
-    "d64_noncausal_gqa": (2, 6, 300, 64, False, 3, 1),
-    "d64_causal_gqa": (2, 14, 257, 64, True, 7, 2),
-    "d80_noncausal": (2, 4, 129, 80, False, 1, 3),
-    "d80_causal": (1, 2, 200, 80, True, 1, 4),
-    "d128_causal_gqa": (2, 4, 200, 128, True, 2, 5),
-    "d128_noncausal": (1, 3, 77, 128, False, 1, 6),
-}
-
-
 @pytest.mark.parametrize("case", sorted(ATTN_BWD_BF16_CASES))
 def test_attention_bwd_bf16_matches_plain(dev, case):
     """The backward on bfloat16 operands against the plain formulas on the
@@ -1910,14 +1904,55 @@ def test_attention_bwd_bf16_takes_unaligned_strides(dev):
 
 
 def test_attention_bwd_bf16_launch_info_at_the_training_shapes(dev):
-    """What the bfloat16 backward's kernels get at the LLM training shapes:
-    no spill at widths up to 64; the 128-wide template (D 80 and 128)
-    keeps its registers under 255."""
+    """What the bfloat16 backward's wgmma kernel gets at the LLM training
+    shapes: at width 64 three one-warpgroup blocks per SM and no spill; the
+    128-wide template (D 80 and 128) one block of two warpgroups, its
+    registers under 255 and no more spill than the mma.sync kernel it
+    replaced had there (104 bytes)."""
+    assert tuple(bwd_launch_info(1, 1, 64, 64, torch.bfloat16)) == ("bwd_delta", "bwd_dkdv_dq_wgmma")
     for D in (64, 80, 128):
-        info = bwd_launch_info(4, 14, 2048, D, torch.bfloat16)["bwd_dkdv_dq"]
-        assert info["blocks_per_sm"] >= 1 and info["regs_per_thread"] <= 255, (D, info)
+        info = bwd_launch_info(4, 14, 2048, D, torch.bfloat16)["bwd_dkdv_dq_wgmma"]
+        assert info["regs_per_thread"] <= 255, (D, info)
         if D <= 64:
+            assert (info["threads_per_block"], info["blocks_per_sm"]) == (128, 3), (D, info)
             assert info["spill_bytes_per_thread"] == 0, (D, info)
+        else:
+            assert (info["threads_per_block"], info["blocks_per_sm"]) == (256, 1), (D, info)
+            assert info["spill_bytes_per_thread"] <= 104, (D, info)
+
+
+def test_attention_bwd_sass_bf16_on_wgmma_and_float32_on_mma_sync(dev):
+    """The bfloat16 backward's instantiations (widths 64 and 128) run their
+    products as wgmma (HGMMA) and hold no mma.sync (HMMA); the float32 ones
+    (widths 32, 64 and 128) hold HMMA and no HGMMA."""
+    sass = sass_counts(FLASH_ATTENTION_BWD.source, "bwd_dkdv_dq")
+    wgmma = {k: v for k, v in sass.items() if "bwd_dkdv_dq_wgmma" in k}
+    assert len(wgmma) == 2, sorted(sass)
+    for name, ops in wgmma.items():
+        assert ops["HGMMA"] > 0 and ops["HMMA"] == 0, (name, ops)
+    for w in (32, 64, 128):
+        [ops] = [v for k, v in sass.items() if f"bwd_dkdv_dqIfLi{w}E" in k]
+        assert ops["HMMA"] > 0 and ops["HGMMA"] == 0, (w, ops)
+
+
+def test_bf16_backward_launches_the_wgmma_kernel_and_float32_the_mma_sync_one(dev):
+    """By the profiler: a bfloat16 backward runs bwd_delta and the wgmma
+    kernel at either width; a float32 one bwd_delta and the mma.sync one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(33)
+    for D, dtype, piece in ((64, torch.bfloat16, "bwd_dkdv_dq_wgmma<64>"),
+                            (128, torch.bfloat16, "bwd_dkdv_dq_wgmma<128>"),
+                            (64, torch.float32, "bwd_dkdv_dq<float, 64>")):
+        q, k, v, do = (torch.randn(1, 2, 300, D, generator=g, device=dev).to(dtype) for _ in range(4))
+        out, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+        flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=True)
+            torch.cuda.synchronize()
+        names = sorted(e.key for e in prof.key_averages() if "bwd_" in e.key)
+        assert len(names) == 2 and "bwd_delta" in names[0] and piece in names[1], (D, dtype, names)
 
 
 def test_lm_train_step_on_card_matches_cpu(dev):
