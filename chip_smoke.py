@@ -52,7 +52,14 @@ and ``nvcc``.  Phases, one JSON line each:
            and bfloat16, with two groups, in one chunk, at chunk 200, at
            widths 40 / 72, and against the sequential recurrence, with its
            registers, shared memory, blocks per SM and the tensor-core
-           (HMMA) instructions in its SASS;
+           (HMMA) instructions in its SASS; and its backward (the port's
+           own kernel, csrc/ssd_bwd.cu) against the plain chunked
+           formulas at mamba2-1.3b's training shape (4 x 2048 and the
+           2 x 2048 microbatch) in bfloat16 and float32 and at the
+           forward's edge cases, each gradient's worst error against its
+           limit, two calls bitwise, timed beside its bound and the plain
+           version with each of its three kernels' device ms, what each
+           gets and their HMMA counts;
   slice    the port's main paths at the default TaoConfig width on
            captured benchmark traces: the engine's step captured ahead of
            time (StreamingEngine.warmup: one CUDA graph, its capture time
@@ -268,19 +275,22 @@ and ``nvcc``.  Phases, one JSON line each:
            and the card against the CPU (2 x 256 tokens) on a float32 copy
            cut to one unit and one tail layer;
   train_lm the LLM trainer: python -m repro_torch.launch.train's loop
-           (launch/train.py::run) on qwen2-0.5b at full width and depth
-           (24 layers, bfloat16, weights from seed 0), 4 x 2048 tokens a
-           step of LMDataPipeline's stream, AdamW, 20 steps with a
-           checkpoint at step 10 and 20: the losses (finite, the last below
-           the first), wall ms a step with the card synchronised (median
-           and range), tokens/s, B4's forward and backward launches in
-           every step (24 each, nothing else) by the counters and, in one
-           more profiled step, by the profiler, with its device ms by
-           kernel and idle share, the peak memory and the analytic bound
-           of a step (roofline, kind "train"); then the checkpoint of step
-           20 removed and the same command run again: it resumes from step
-           10 in a fresh Model, and its losses of steps 11-20 are held to
-           the uninterrupted run's.
+           (launch/train.py::run) at full width and depth (bfloat16,
+           weights from seed 0), 4 x 2048 tokens a step of
+           LMDataPipeline's stream, AdamW: qwen2-0.5b (24 layers) for 20
+           steps with a checkpoint at step 10 and 20, then mamba2-1.3b (48
+           layers) for 10 steps in two microbatches of 2 x 2048 with a
+           checkpoint at step 5 and 10; for each the losses (finite, the
+           last below the first), wall ms a step with the card
+           synchronised (median and range), tokens/s, the main kernels'
+           launches in every step (B4's forward and backward, 24 each; B5
+           and its backward, 96 each; nothing else) by the counters and,
+           in one more profiled step, by the profiler, with its device ms
+           by kernel group and idle share, the peak memory and the
+           analytic bound of a step (roofline, kind "train"); then the
+           last checkpoint removed and the same command run again: it
+           resumes from the first in a fresh Model, and its losses are
+           held to the uninterrupted run's.
 
 Each LLM phase (mamba2, dense, vlm_audio, moe, hybrid) prints, before
 each model's reading, a ``roofline`` line per prefill (or encode) and per
@@ -294,7 +304,9 @@ main path, error, times and bound (B4's and its backward's entries also
 hold their readings at the paper's width, B4's its bfloat16 readings and
 the dense, vlm, audio, moe, hybrid and train_lm cells' launches; the
 bfloat16 backward's entry its readings at the training shapes and its
-launches in train_lm's 20 steps); the card's name and power limit
+launches in train_lm's 20 steps; B5's its launches in a prefill and in
+mamba2-1.3b's 10 training steps; the SSD backward's its launches in those
+10 steps); the card's name and power limit
 as ``nvidia-smi`` prints them; and, last, the device line.  With phase
 names as arguments, the build and those phases run, and the last line is
 the device line with the phases' names; no kernels line.  Any failed check
@@ -499,6 +511,13 @@ GRAPH_PHASE_RTOL = 64 * 2.0**-24
 # round nearly equal float32 values once; the float32 state is unrounded.
 SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SSD_STATE_TOL = 1e-4
+# the SSD backward against its plain version: float32, each output within
+# SSD_BWD_OF_MAX of its largest |plain| (split TF32 against float32 FMAs,
+# sums in another order); bfloat16, each element within SSD_BWD_BF16_REL
+# of |plain| plus SSD_BWD_OF_MAX of the largest (each side rounds a float32
+# result once)
+SSD_BWD_OF_MAX = 1e-4
+SSD_BWD_BF16_REL = 2.0**-7
 # the mamba2-1.3b serving cell: prompts x tokens, greedy decode steps
 MAMBA_BATCH, MAMBA_PROMPT, MAMBA_DECODE = 4, 2048, 32
 MAMBA_CPU_LAYERS, MAMBA_CPU_SEQ = 4, 512
@@ -552,12 +571,13 @@ ATTN_BWD_BF16_LONG = (1, 2, 4096, 128)
 # 80GB HBM3, 700 W; PERF.md), printed beside each reading as recorded, not
 # measured; the kernels line holds only this run's numbers
 ATTN_BWD_BF16_MMA_SYNC_MS = {"h14_d64": 1.1741, "h12_d128": 2.0818, "h16_d80": 5.3786}
-# the LLM training cell: qwen2-0.5b at full width and depth, batch x seq
-# of the serving cells, TRAIN_LM_STEPS steps of the launcher's loop with a
-# checkpoint every TRAIN_LM_CKPT_EVERY, then a resume from that step in a
-# fresh Model
-TRAIN_LM_ARCH = "qwen2-0.5b"
-TRAIN_LM_STEPS, TRAIN_LM_CKPT_EVERY = 20, 10
+# the LLM training cells, each at full width and depth and batch x seq of
+# the serving cells: {config: (steps of the launcher's loop, checkpoint
+# every, microbatches)}, then a resume from the first checkpoint in a fresh
+# Model.  mamba2-1.3b keeps its 4 x 2048 tokens as two microbatches of 2 x
+# 2048: without layer rematerialization one batch would hold ~46 GB of
+# activations for the backward beside ~16 GB of state
+TRAIN_LM_CELLS = {"qwen2-0.5b": (20, 10, 1), "mamba2-1.3b": (10, 5, 2)}
 # the resumed steps' losses against the uninterrupted run's: every kernel
 # of the step is deterministic, so bitwise is expected; the tolerance is
 # what the phase accepts where the eager ops' kernels choose otherwise
@@ -756,11 +776,11 @@ def launch_counters() -> dict:
     from repro_torch.kernels.attention.kernel import FLASH_ATTENTION, FLASH_ATTENTION_BWD
     from repro_torch.kernels.features.kernel import BRANCH_HISTORY, MEMDIST_DELTA
     from repro_torch.kernels.fused.kernel import FUSED_FEATURES
-    from repro_torch.kernels.ssd.kernel import SSD_SCAN
+    from repro_torch.kernels.ssd.kernel import SSD_SCAN, SSD_SCAN_BWD
 
     return {"fused_features": FUSED_FEATURES, "flash_attention": FLASH_ATTENTION,
             "branch_history": BRANCH_HISTORY, "memdist_delta": MEMDIST_DELTA, "ssd": SSD_SCAN,
-            "flash_attention_bwd": FLASH_ATTENTION_BWD}
+            "flash_attention_bwd": FLASH_ATTENTION_BWD, "ssd_bwd": SSD_SCAN_BWD}
 
 
 def zero_counts() -> None:
@@ -1007,6 +1027,7 @@ def phase_kernels(failures, results, traces):
     check_attention_bwd_kernel(failures, results)
     check_attention_bwd_bf16(failures, results)
     check_ssd_kernel(failures, results)
+    check_ssd_bwd_kernel(failures, results)
 
 
 def packed_qkv(B, S, H, D, rand):
@@ -1589,6 +1610,122 @@ def check_ssd_kernel(failures, results):
           "sass_hmma": {("bfloat16" if "bfloat16" in k else "float32"): v for k, v in hmma.items()}})
 
 
+def ssd_bwd_work(B, S, H, P, G, N, c, itemsize) -> tuple:
+    """(bytes, FLOPs) the SSD backward needs: each input (x, dt, B, C, dy,
+    A) read once and each gradient written once; per (batch, chunk) the
+    causal score tiles C Bᵀ once per group and, per head, dy xᵀ, Wᵀ dy, M B
+    and Mᵀ C over the lower triangle (c(c+1)/2 entries), plus five c·N·P
+    products per head: the two state recurrences (S0 forward, dS back) and
+    the state terms of dx, dB and dC."""
+    tri = c * (c + 1) // 2
+    nbytes = (3 * B * S * H * P + 4 * B * S * G * N + 2 * B * S * H) * itemsize + 2 * H * 4
+    flops = 2 * B * (S // c) * (tri * G * N + H * (2 * tri * (P + N) + 5 * c * N * P))
+    return nbytes, flops
+
+
+def check_ssd_bwd_kernel(failures, results):
+    """The SSD backward (csrc/ssd_bwd.cu) against ssd_chunked_bwd_plain at
+    mamba2-1.3b's full training shape (4 x 2048, and the 2 x 2048 microbatch
+    train_lm runs) in bfloat16 and float32 and at the forward's edge cases
+    (two groups, one chunk, chunk 200, widths 40 / 72): each output's worst
+    error against its limit and two calls bitwise; timed at the training
+    shapes beside its bound and the plain version, with what each of its
+    three kernels gets and the tensor-core instructions in their SASS."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels._cuda import sass_counts
+    from repro_torch.kernels.ssd.kernel import (BWD_KERNEL_NAMES, SSD_SCAN_BWD, bwd_launch_info,
+                                                ssd_scan_bwd_cuda)
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_plain
+
+    s = get_arch("mamba2-1.3b").ssm
+    d = get_arch("mamba2-1.3b").d_model
+    H, P, G, N, c = s.n_heads(d), s.head_dim, s.n_groups, s.d_state, s.chunk
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, S = DENSE_BATCH, DENSE_PROMPT
+    cases = {  # name: (B, S, H, P, G, N, chunk, dtype)
+        "train_bf16": (B, S, H, P, G, N, c, bf16),
+        "train_f32": (B, S, H, P, G, N, c, f32),
+        "microbatch_bf16": (B // 2, S, H, P, G, N, c, bf16),
+        "two_groups_f32": (B, 512, H, P, 2, N, c, f32),
+        "two_groups_bf16": (B, 512, H, P, 2, N, c, bf16),
+        "single_chunk_f32": (B, c, H, P, G, N, c, f32),
+        "chunk_200_f32": (2, 400, H, P, G, N, 200, f32),
+        "chunk_200_bf16": (2, 400, H, P, G, N, 200, bf16),
+        "widths_40_72_f32": (1, 256, 8, 40, G, 72, 64, f32),
+        "widths_40_72_bf16": (1, 256, 8, 40, G, 72, 64, bf16),
+    }
+    timed = ("train_bf16", "train_f32", "microbatch_bf16")
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    ok, max_err, max_rel, readings = True, 0.0, 0.0, {}
+    for i, (name, (b, sq, h, p, g, n, cc, dtype)) in enumerate(cases.items()):
+        inp = ssd_inputs(b, sq, h, p, g, n, dtype, 100 + i)
+        dy = (torch.randn(b, sq, h, p, generator=torch.Generator(device="cuda").manual_seed(i),
+                          device="cuda")).to(dtype)
+        got = ssd_scan_bwd_cuda(*inp, dy, chunk=cc)
+        again = ssd_scan_bwd_cuda(*inp, dy, chunk=cc)
+        want = ssd_chunked_bwd_plain(*inp, dy, cc)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(x, y) for x, y in zip(got, again))
+        errs, good = {}, bitwise
+        for out, a, w in zip(names, got, want):
+            a, w = a.float(), w.float()
+            top = float(w.abs().max())
+            err = float((a - w).abs().max())
+            limit = SSD_BWD_OF_MAX * top
+            if dtype == f32 or out == "dA":
+                fine = err <= limit
+            else:  # the element-wise band
+                fine = bool(torch.all((a - w).abs() <= SSD_BWD_BF16_REL * w.abs() + limit))
+            fine &= bool(torch.isfinite(a).all())
+            errs[out] = {"max_abs_err": err, "max_abs_plain": top, "limit_of_max": limit, "ok": fine}
+            good &= fine
+            max_err = max(max_err, err)
+            max_rel = max(max_rel, err / max(top, 1e-30))
+        emit({"phase": "kernels", "kernel": "ssd_bwd", "case": name,
+              "shape": [b, sq, h, p, g, n, cc], "dtype": str(dtype), "errors": errs,
+              "bf16_rel_band": SSD_BWD_BF16_REL if dtype == bf16 else None,
+              "two_calls_bitwise": bitwise, "ok": good})
+        ok &= good
+        if name in timed:
+            nbytes, flops = ssd_bwd_work(b, sq, h, p, g, n, cc, 2 if dtype == bf16 else 4)
+            b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS_PER_S)
+            ms = cuda_ms(lambda: ssd_scan_bwd_cuda(*inp, dy, chunk=cc), 10)
+            plain_ms = cuda_ms(lambda: ssd_chunked_bwd_plain(*inp, dy, cc), 3, warmup=1)
+            prof = profile_breakdown(lambda: ssd_scan_bwd_cuda(*inp, dy, chunk=cc),
+                                     track=BWD_KERNEL_NAMES)
+            readings[name] = {"shape": [b, sq, h, p, g, n, cc], "dtype": str(dtype), "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                              "x_bound": ms / b_ms, "bytes": nbytes, "flops": flops,
+                              "kernel_ms": prof["tracked_ms"]}
+        del inp, dy, got, again, want
+        torch.cuda.empty_cache()
+    if not ok:
+        failures.append("ssd_bwd: kernel outside tolerance of its plain version, or not bitwise")
+
+    info = {str(dt): bwd_launch_info(dt) for dt in (f32, bf16)}
+    for per in info.values():
+        for k, v in per.items():
+            if v["spill_bytes_per_thread"] or v["blocks_per_sm"] < 1:
+                failures.append(f"ssd_bwd: {k} spills or does not fit on an SM: {v}")
+    sass = {k: {"HMMA": v["HMMA"], "HGMMA": v["HGMMA"]}
+            for k, v in sass_counts(SSD_SCAN_BWD.source, "ssd_bwd").items()}
+    mma_kernels = [k for k in sass if "reduce" not in k]
+    if len(mma_kernels) != 4 or not all(sass[k]["HMMA"] for k in mma_kernels):
+        failures.append(f"ssd_bwd: no tensor-core (HMMA) instructions in a kernel: {sass}")
+    main = readings["train_bf16"]
+    results["ssd_bwd"] = {
+        "name": "ssd_bwd", "route": "cuda", "source": "src/repro_torch/csrc/ssd_bwd.cu",
+        "replaces": "none: the reference differentiates ssd_chunked_ref, "
+                    "src/repro/models/mamba2.py:96",
+        "max_abs_err": max_err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+    }
+    emit({"phase": "kernels", "kernel": "ssd_bwd", "timed": readings, "launch_info": info,
+          "sass": sass, "max_abs_err": max_err, "max_err_of_max": max_rel, "library_ms": None})
+
+
 def bitwise_equal(a, b) -> bool:
     """Same shape, dtype and float32 bit patterns (any device, or NumPy)."""
     import numpy as np
@@ -1876,7 +2013,7 @@ def phase_slice(failures, results, traces):
               "total_cycles": r.total_cycles, "branch_mpki": r.branch_mpki,
               "l1d_mpki": r.l1d_mpki})
     expected = {"fused_features": batches, "branch_history": 0, "memdist_delta": 0, "ssd": 0,
-                "flash_attention_bwd": 0}
+                "flash_attention_bwd": 0, "ssd_bwd": 0}
     got = {k: v for k, v in launches.items() if k != "flash_attention"}
     if got != expected:
         failures.append(f"slice: fused route launches {got}, expected {expected}")
@@ -1914,7 +2051,7 @@ def phase_slice(failures, results, traces):
     s_launches = read_counts()
     expected = {"fused_features": 0, "flash_attention": cfg.n_layers * batches,
                 "branch_history": len(traces), "memdist_delta": len(traces), "ssd": 0,
-                "flash_attention_bwd": 0}
+                "flash_attention_bwd": 0, "ssd_bwd": 0}
     if s_launches != expected:
         failures.append(f"slice: staged route launches {s_launches}, expected {expected}")
     for name in ("branch_history", "memdist_delta"):
@@ -2160,7 +2297,8 @@ def slice_int8(failures, traces, arrays, model, engine, extract, batches, lee_ba
     b4 = {"counter": launches["flash_attention"], "graph_nodes_x_replays": attn_nodes * replays,
           "captured_x_replays": entry8.aot.launches.get(FLASH_ATTENTION, 0) * replays}
     expected = {"fused_features": batches, "flash_attention": cfg.n_layers * batches,
-                "branch_history": 0, "memdist_delta": 0, "ssd": 0, "flash_attention_bwd": 0}
+                "branch_history": 0, "memdist_delta": 0, "ssd": 0, "flash_attention_bwd": 0,
+                "ssd_bwd": 0}
     if launches != expected or attn_nodes != cfg.n_layers or set(b4.values()) != {cfg.n_layers * batches}:
         failures.append(f"slice int8: fused launches {launches}, expected {expected}; attention "
                         f"nodes {attn_nodes}, counts {b4}")
@@ -2183,7 +2321,7 @@ def slice_int8(failures, traces, arrays, model, engine, extract, batches, lee_ba
     s_launches = read_counts()
     expected = {"fused_features": 0, "flash_attention": cfg.n_layers * batches,
                 "branch_history": len(traces), "memdist_delta": len(traces), "ssd": 0,
-                "flash_attention_bwd": 0}
+                "flash_attention_bwd": 0, "ssd_bwd": 0}
     if s_launches != expected:
         failures.append(f"slice int8: staged launches {s_launches}, expected {expected}")
     vs_fused = {b: same_metrics(r, res8[b]) for b, r in staged8.items()}
@@ -5220,12 +5358,55 @@ def train_lm_run(flags, track_steps: bool) -> tuple:
     return out, buf.getvalue().splitlines(), per_step
 
 
+def train_lm_kernels(cfg, microbatches: int) -> tuple:
+    """What one train_lm step of ``cfg`` must launch: ({counter: launches}),
+    {counter: the name piece of its main kernel in a profile}, the
+    profile's kernel name pieces to track and its groups."""
+    per_step = cfg.n_layers * microbatches
+    if cfg.family == "ssm":
+        return ({"ssd": per_step, "ssd_bwd": per_step},
+                {"ssd": "ssd_kernel", "ssd_bwd": "ssd_bwd_chunk"},
+                ("ssd_kernel", "ssd_bwd_states", "ssd_bwd_chunk", "ssd_bwd_reduce"),
+                {"ssd_fwd": ("ssd_kernel",), "ssd_bwd": ("ssd_bwd_",), "gemm": GEMM_PIECES,
+                 "copy": ("copy",)})
+    return ({"flash_attention": per_step, "flash_attention_bwd": per_step},
+            {"flash_attention": "attention_kernel", "flash_attention_bwd": "bwd_dkdv_dq"},
+            ("attention_kernel", "bwd_dkdv_dq", "bwd_delta"),
+            {"b4_fwd": ("attention_kernel",), "b4_bwd": ("bwd_dkdv_dq", "bwd_delta"),
+             "gemm": GEMM_PIECES, "copy": ("copy",)})
+
+
 def phase_train_lm(failures, results, traces):
-    """The LLM trainer at full width and depth (module note): the
-    launcher's loop on TRAIN_LM_ARCH, DENSE_BATCH x DENSE_PROMPT tokens a
-    step, TRAIN_LM_STEPS steps from seed 0 with a checkpoint every
-    TRAIN_LM_CKPT_EVERY; then the run resumed from that checkpoint in a
-    fresh Model, its losses against the uninterrupted run's."""
+    """The LLM trainer at full width and depth (module note), for each of
+    TRAIN_LM_CELLS: the launcher's loop, DENSE_BATCH x DENSE_PROMPT tokens a
+    step (in the cell's microbatches), its steps from seed 0 with a
+    checkpoint every so many; then the run resumed from the first
+    checkpoint in a fresh Model, its losses against the uninterrupted
+    run's."""
+    import gc
+
+    import torch
+
+    from repro_torch.engine import clear_step_cache
+    from repro_torch.train import clear_train_step_cache
+
+    t0 = time.perf_counter()
+    # the Tao phases' captured steps stay in the process-wide caches, their
+    # CUDA graphs holding private memory pools, and the earlier phases'
+    # freed blocks stay reserved in pieces; mamba2's step peaks at ~51 GB
+    clear_step_cache()
+    clear_train_step_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train_lm", "check": "memory_at_start",
+          "allocated_bytes": torch.cuda.memory_allocated(),
+          "reserved_bytes": torch.cuda.memory_reserved()})
+    for arch, (n, every, microbatches) in TRAIN_LM_CELLS.items():
+        train_lm_cell(failures, results, arch, n, every, microbatches)
+    emit({"phase": "train_lm", "check": "seconds", "seconds": time.perf_counter() - t0})
+
+
+def train_lm_cell(failures, results, arch, n, every, microbatches):
     import tempfile
 
     import torch
@@ -5236,12 +5417,13 @@ def phase_train_lm(failures, results, traces):
     from repro_torch.train import TrainConfig, make_train_step
 
     t0 = time.perf_counter()
-    B, S, n = DENSE_BATCH, DENSE_PROMPT, TRAIN_LM_STEPS
-    cfg = get_arch(TRAIN_LM_ARCH)
+    B, S = DENSE_BATCH, DENSE_PROMPT
+    cfg = get_arch(arch)
+    expected_kernels, main_pieces, track, groups = train_lm_kernels(cfg, microbatches)
     with tempfile.TemporaryDirectory() as ckpt:
-        flags = ["--arch", TRAIN_LM_ARCH, "--full", "--steps", str(n), "--batch", str(B),
-                 "--seq", str(S), "--ckpt-dir", ckpt, "--ckpt-every", str(TRAIN_LM_CKPT_EVERY),
-                 "--seed", "0", "--device", "cuda"]
+        flags = ["--arch", arch, "--full", "--steps", str(n), "--batch", str(B),
+                 "--seq", str(S), "--ckpt-dir", ckpt, "--ckpt-every", str(every),
+                 "--microbatches", str(microbatches), "--seed", "0", "--device", "cuda"]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         out, lines, per_step = train_lm_run(flags, track_steps=True)
@@ -5252,78 +5434,81 @@ def phase_train_lm(failures, results, traces):
         logged = {i: losses[i] for i in range(n) if i % 5 == 0 or i == n - 1}
         falling = all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
         launches = [p["launches"] for p in per_step]
-        none = {k: 0 for k in launches[0]}
-        expected = none | {"flash_attention": cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+        expected = {k: 0 for k in launches[0]} | expected_kernels
         # the first step warms cuBLAS and the allocator's pools; the
-        # checkpoint at TRAIN_LM_CKPT_EVERY copies the state to the host in
-        # its step and writes it from a thread during the next ones
+        # checkpoint at `every` copies the state to the host in its step
+        # and writes it from a thread during the next ones
         all_ms = [p["s"] * 1e3 for p in per_step]
         step_ms = sorted(all_ms[1:])
         median = step_ms[len(step_ms) // 2]
-        before = sorted(all_ms[1:TRAIN_LM_CKPT_EVERY - 1])
+        before = sorted(all_ms[1:every - 1])
         median_before = before[len(before) // 2]
         if not falling:
-            failures.append(f"train_lm: losses not finite and falling: {losses}")
+            failures.append(f"train_lm {arch}: losses not finite and falling: {losses}")
         if any(x != expected for x in launches):
-            failures.append(f"train_lm: launches per step {launches}, expected {expected}")
+            failures.append(f"train_lm {arch}: launches per step {launches}, expected {expected}")
         roofline("train_lm", cfg, "train", B, S, n_params, 0, median)
-        # one more step under the profiler: device ms by kernel, B4's and its
-        # backward's launches, idle share
-        tcfg = TrainConfig(lr=3e-4, total_steps=n, warmup_steps=max(1, n // 10))
+        # one more step under the profiler: device ms by kernel, the main
+        # kernels' launches, idle share
+        tcfg = TrainConfig(lr=3e-4, total_steps=n, warmup_steps=max(1, n // 10),
+                           microbatches=microbatches)
         step_fn = make_train_step(model, tcfg)
         batch = batch_to_device(LMDataPipeline(cfg, B, S, seed=0).make_batch(n), torch.device("cuda"))
-        track = ("attention_kernel", "bwd_dkdv_dq", "bwd_delta")
-        prof = profile_breakdown(lambda: step_fn(state, batch), track=track,
-                                 groups={"b4_fwd": ("attention_kernel",),
-                                         "b4_bwd": ("bwd_dkdv_dq", "bwd_delta"),
-                                         "gemm": GEMM_PIECES, "copy": ("copy",)})
+        prof = profile_breakdown(lambda: step_fn(state, batch), track=track, groups=groups)
         counts = prof["tracked_count"]
-        prof_launches = {"flash_attention": sum(c for k, c in counts.items()
-                                                if k.startswith("attention_kernel")),
-                         "flash_attention_bwd": sum(c for k, c in counts.items()
-                                                    if k.startswith("bwd_dkdv_dq"))}
-        if prof_launches != {"flash_attention": cfg.n_layers, "flash_attention_bwd": cfg.n_layers}:
-            failures.append(f"train_lm: the profiled step ran {prof_launches} B4 kernels")
+        prof_launches = {k: sum(c for name, c in counts.items() if name.startswith(piece))
+                         for k, piece in main_pieces.items()}
+        if prof_launches != expected_kernels:
+            failures.append(f"train_lm {arch}: the profiled step ran {prof_launches} kernels, "
+                            f"expected {expected_kernels}")
         reading = {"config": cfg.name, "dtype": cfg.compute_dtype, "layers": cfg.n_layers,
-                   "params": n_params, "batch": B, "seq": S, "steps": n,
-                   "losses_logged": logged, "losses": losses, "finite_and_falling": falling,
+                   "params": n_params, "batch": B, "seq": S, "microbatches": microbatches,
+                   "steps": n, "losses_logged": logged, "losses": losses,
+                   "finite_and_falling": falling,
                    "first_step_ms_with_setup": per_step[0]["s"] * 1e3, "step_ms_median": median,
                    "step_ms_range": [step_ms[0], step_ms[-1]], "step_ms": all_ms,
                    "step_ms_median_before_checkpoint": median_before,
                    "tokens_per_s": B * S / (median / 1e3),
                    "launches_per_step": launches[1], "launches_per_step_all_as_expected":
                    all(x == expected for x in launches),
-                   "b4_launches_profiler": prof_launches, "peak_bytes": peak,
+                   "launches_profiler": prof_launches, "peak_bytes": peak,
                    "loop_seconds": out["seconds"], "launcher_lines": lines}
         emit({"phase": "train_lm", **reading})
         emit({"phase": "train_lm", "config": cfg.name, "check": "profile", "call": "train_step",
               **prof})
-        results.setdefault("flash_attention_bwd_bf16", {})["launches"] = sum(
-            p["launches"]["flash_attention_bwd"] for p in per_step)
-        results.setdefault("flash_attention", {})["train_lm"] = {
-            k: reading[k] for k in ("layers", "step_ms_median", "tokens_per_s", "peak_bytes")}
+        summary = {k: reading[k] for k in ("layers", "step_ms_median", "tokens_per_s", "peak_bytes")}
+        if cfg.family == "ssm":
+            results.setdefault("ssd_bwd", {})["launches"] = sum(
+                p["launches"]["ssd_bwd"] for p in per_step)
+            results.setdefault("ssd", {})["train_lm"] = {
+                **summary, "launches": sum(p["launches"]["ssd"] for p in per_step)}
+        else:
+            results.setdefault("flash_attention_bwd_bf16", {})["launches"] = sum(
+                p["launches"]["flash_attention_bwd"] for p in per_step)
+            results.setdefault("flash_attention", {})["train_lm"] = summary
         del model, state, out, step_fn, batch
         torch.cuda.empty_cache()
 
-        # ---- resume: from the checkpoint at TRAIN_LM_CKPT_EVERY, in a fresh Model
+        # ---- resume: from the checkpoint at `every`, in a fresh Model
         shutil.rmtree(os.path.join(ckpt, f"step_{n}"))
         resumed, r_lines, r_steps = train_lm_run(flags, track_steps=True)
         r_losses = [float(m["loss"]) for m in resumed["metrics"]]
-        want = losses[TRAIN_LM_CKPT_EVERY:]
+        want = losses[every:]
         bitwise = r_losses == want
         worst = max((abs(a - b) / abs(b) for a, b in zip(r_losses, want)), default=math.inf)
-        ok = (resumed["start_step"] == TRAIN_LM_CKPT_EVERY and len(r_losses) == len(want)
+        ok = (resumed["start_step"] == every and len(r_losses) == len(want)
               and worst <= TRAIN_LM_RESUME_REL
               and all(p["launches"] == expected for p in r_steps))
         if not ok:
-            failures.append(f"train_lm: resumed run {r_losses} against {want}")
-        emit({"phase": "train_lm", "check": "resume", "from_step": resumed["start_step"],
-              "steps": len(r_losses), "losses": r_losses, "losses_bitwise": bitwise,
-              "max_rel_diff": worst, "limit": TRAIN_LM_RESUME_REL,
+            failures.append(f"train_lm {arch}: resumed run {r_losses} against {want}")
+        emit({"phase": "train_lm", "config": cfg.name, "check": "resume",
+              "from_step": resumed["start_step"], "steps": len(r_losses), "losses": r_losses,
+              "losses_bitwise": bitwise, "max_rel_diff": worst, "limit": TRAIN_LM_RESUME_REL,
               "launcher_lines": r_lines[:2], "ok": ok})
         del resumed
         torch.cuda.empty_cache()
-    emit({"phase": "train_lm", "check": "seconds", "seconds": time.perf_counter() - t0})
+    emit({"phase": "train_lm", "config": cfg.name, "check": "seconds",
+          "seconds": time.perf_counter() - t0})
 
 
 PHASES = {"build": phase_build, "kernels": phase_kernels, "slice": phase_slice,
@@ -5372,7 +5557,7 @@ def main(argv) -> int:
         return 0
     emit({"kernels": [results[k] for k in
                       ("fused_features", "branch_history", "memdist_delta", "flash_attention",
-                       "flash_attention_bwd", "flash_attention_bwd_bf16", "ssd")]})
+                       "flash_attention_bwd", "flash_attention_bwd_bf16", "ssd", "ssd_bwd")]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": device})
     return 0

@@ -1,4 +1,5 @@
-"""ctypes binding of the hand-written SSD scan kernel (``csrc/ssd.cu``).
+"""ctypes bindings of the hand-written SSD scan kernel (``csrc/ssd.cu``)
+and of its backward (``csrc/ssd_bwd.cu``).
 
 The CUDA counterpart of ``repro/kernels/ssd/kernel.py`` (``ssd_kernel``).
 Its four products run on the tensor cores as ``mma.sync.m16n8k8`` TF32
@@ -6,6 +7,12 @@ tiles in a split scheme (each float32 operand as a TF32 high part plus its
 TF32 remainder), at float32-level error; bfloat16 operands are exact in
 TF32 and need no remainder.  The source's header says how it is laid out
 and what bounds it.  ``SSD_SCAN.launches`` counts launches.
+
+The backward (``ssd_scan_bwd_cuda``, ``SSD_SCAN_BWD.launches``) has no
+TPU counterpart: the reference differentiates its jnp chunked oracle.
+One C call runs its three kernels (the state passes, the chunk pass, the
+group and dA sums) on float32 scratch that the wrapper allocates; its
+source's header says how.
 """
 from __future__ import annotations
 
@@ -16,7 +23,10 @@ import torch
 
 from .._cuda import CudaKernel, check_cuda_tensor
 
-__all__ = ["MAX_CHUNK", "MAX_HEAD_DIM", "MAX_STATE", "SSD_SCAN", "launch_info", "ssd_scan_cuda"]
+__all__ = [
+    "BWD_KERNEL_NAMES", "MAX_CHUNK", "MAX_HEAD_DIM", "MAX_STATE", "SSD_SCAN", "SSD_SCAN_BWD",
+    "bwd_launch_info", "launch_info", "ssd_scan_bwd_cuda", "ssd_scan_cuda",
+]
 
 # what one block holds in shared memory (see csrc/ssd.cu)
 MAX_STATE = 128    # d_state N
@@ -30,22 +40,15 @@ SSD_SCAN = CudaKernel("ssd.cu", "tao_ssd_scan", [_P] * 7 + [_I] * 8)
 _LAUNCH_INFO = CudaKernel("ssd.cu", "tao_ssd_scan_info", [_I] * 3 + [ctypes.POINTER(ctypes.c_int)])
 _INFO_KEYS = ("regs_per_thread", "smem_bytes_per_block", "threads_per_block",
               "blocks_per_sm", "spill_bytes_per_thread")
+SSD_SCAN_BWD = CudaKernel("ssd_bwd.cu", "tao_ssd_scan_bwd", [_P] * 14 + [_I] * 8)
+_BWD_LAUNCH_INFO = CudaKernel("ssd_bwd.cu", "tao_ssd_scan_bwd_info", [_I, ctypes.POINTER(ctypes.c_int)])
+# the backward's kernels, in launch order (the profiler finds them by name)
+BWD_KERNEL_NAMES = ("ssd_bwd_states", "ssd_bwd_chunk", "ssd_bwd_reduce")
 
 
-def ssd_scan_cuda(
-    xh: torch.Tensor,
-    dt: torch.Tensor,
-    A: torch.Tensor,
-    Bm: torch.Tensor,
-    Cm: torch.Tensor,
-    *,
-    chunk: int,
-    return_state: bool = False,
-):
-    """xh (B,S,H,P), dt (B,S,H), Bm/Cm (B,S,G,N): contiguous CUDA tensors
-    of one dtype (float32 or bfloat16); A (H,) float32.  Returns y
-    (B,S,H,P) in that dtype, and with ``return_state`` also the final
-    (B,H,N,P) float32 state."""
+def _check_shapes(xh, dt, A, Bm, Cm, chunk):
+    """(B, S, H, P, G, N) of the scan's operands; raises unless they are
+    contiguous CUDA tensors of one dtype (A float32) that the kernels take."""
     B, S, H, P = xh.shape
     G, N = Bm.shape[2], Bm.shape[3]
     if xh.dtype not in _DTYPES:
@@ -62,6 +65,24 @@ def ssd_scan_cuda(
         )
     if S % chunk or H % G:
         raise ValueError(f"S={S} must be a multiple of chunk={chunk} and H={H} of G={G}")
+    return B, S, H, P, G, N
+
+
+def ssd_scan_cuda(
+    xh: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    *,
+    chunk: int,
+    return_state: bool = False,
+):
+    """xh (B,S,H,P), dt (B,S,H), Bm/Cm (B,S,G,N): contiguous CUDA tensors
+    of one dtype (float32 or bfloat16); A (H,) float32.  Returns y
+    (B,S,H,P) in that dtype, and with ``return_state`` also the final
+    (B,H,N,P) float32 state."""
+    B, S, H, P, G, N = _check_shapes(xh, dt, A, Bm, Cm, chunk)
     y = torch.empty_like(xh)
     state = torch.empty((B, H, N, P), device=xh.device, dtype=torch.float32) if return_state else None
     SSD_SCAN.launch(
@@ -70,6 +91,38 @@ def ssd_scan_cuda(
         B, S, H, G, N, P, chunk, _DTYPES[xh.dtype],
     )
     return (y, state) if return_state else y
+
+
+def ssd_scan_bwd_cuda(
+    xh: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    dy: torch.Tensor,
+    *,
+    chunk: int,
+):
+    """Gradients (dx, ddt, dA, dB, dC) of ``ssd_scan_cuda(xh, dt, A, Bm, Cm,
+    chunk=chunk)`` against ``dy`` (B,S,H,P), all contiguous CUDA tensors of
+    xh's dtype but A (float32); dA comes back float32, the rest in that
+    dtype.  The function of ``ref.ssd_chunked_bwd_plain``."""
+    B, S, H, P, G, N = _check_shapes(xh, dt, A, Bm, Cm, chunk)
+    check_cuda_tensor("dy", dy, xh.dtype, (B, S, H, P))
+    nc = S // chunk
+    f32 = dict(device=xh.device, dtype=torch.float32)
+    dx, ddt, dB, dC = (torch.empty_like(t) for t in (xh, dt, Bm, Cm))
+    dA = torch.empty(H, **f32)
+    states = torch.empty((2, B, nc, H, N, P), **f32)  # S0 and dS of every chunk
+    per_head = torch.empty((2, B, S, H, N), **f32)    # dB and dC before the group sums
+    da_part = torch.empty((B * nc, H), **f32)
+    SSD_SCAN_BWD.launch(
+        xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
+        dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        states.data_ptr(), per_head.data_ptr(), da_part.data_ptr(),
+        B, S, H, G, N, P, chunk, _DTYPES[xh.dtype],
+    )
+    return dx, ddt, dA, dB, dC
 
 
 def launch_info(N: int, chunk: int, dtype: torch.dtype) -> Dict[str, int]:
@@ -85,3 +138,19 @@ def launch_info(N: int, chunk: int, dtype: torch.dtype) -> Dict[str, int]:
     if err != 0:
         raise RuntimeError(f"tao_ssd_scan_info: CUDA error {err}")
     return dict(zip(_INFO_KEYS, info))
+
+
+def bwd_launch_info(dtype: torch.dtype) -> Dict[str, Dict[str, int]]:
+    """What each kernel of a backward call in ``dtype`` gets on the current
+    device, without launching it: {kernel name (``BWD_KERNEL_NAMES``):
+    the keys of ``launch_info``}.  Shared memory does not depend on the
+    shapes (tiles are padded to the limits)."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+    n = len(_INFO_KEYS)
+    info = (ctypes.c_int * (n * len(BWD_KERNEL_NAMES)))()
+    err = _BWD_LAUNCH_INFO._entry()(_DTYPES[dtype], info, None)
+    if err != 0:
+        raise RuntimeError(f"tao_ssd_scan_bwd_info: CUDA error {err}")
+    return {name: dict(zip(_INFO_KEYS, info[i * n:(i + 1) * n]))
+            for i, name in enumerate(BWD_KERNEL_NAMES)}

@@ -12,6 +12,10 @@ devices, and ``--mesh`` raises (one device; meshes are ROADMAP A.14).
     # the card, qwen2-0.5b at full width and depth:
     PYTHONPATH=src python -m repro_torch.launch.train --full --batch 4 --seq 2048 \\
         --steps 20 --ckpt-dir /tmp/ckpt
+    # the card, mamba2-1.3b at full width and depth, 4 x 2048 tokens a step
+    # as two microbatches:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b --full --batch 4 \\
+        --seq 2048 --microbatches 2 --steps 10 --ckpt-dir /tmp/ckpt
 
 The model's weights are drawn from ``--seed`` (a ``torch.Generator`` on
 the device), the data from ``LMDataPipeline(seed=--seed)``.  Each step is
@@ -96,7 +100,10 @@ def run(args: argparse.Namespace,
     if mgr is not None:
         restored, extra = mgr.restore_latest(state)
         if restored is not None:
+            # the restored tree is a second copy of the state on the device:
+            # copied in, then freed before the first step
             state = restore_into(state, restored)
+            del restored
             start_step = extra["step"]
             pipeline.load_state_dict(extra.get("data", {"next_index": start_step, "seed": args.seed}))
             print(f"[resume] from step {start_step}", flush=True)

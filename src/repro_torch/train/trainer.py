@@ -21,9 +21,9 @@ Counterpart of ``repro/train/trainer.py``.  Its LLM half
     hold no loss parts, as the reference's.  The reference jits its LLM
     step directly (``launch/train.py:79``), not through the step cache, so
     this step runs eagerly; on the card attention runs B4 and its
-    hand-written backward (``kernels/attention/ops.py``).  The ``ssm``
-    family's step raises: the SSD backward kernel comes with Mamba-2's
-    training (ROADMAP A.12a).
+    hand-written backward (``kernels/attention/ops.py``), and Mamba-2's
+    SSD scan runs B5 and its hand-written backward
+    (``kernels/ssd/ops.py``).
   * ``state_axes`` / ``state_shardings`` raise: the port runs on one
     device (ROADMAP A.14), as ``engine/plan.py`` refuses a mesh.
 
@@ -287,11 +287,6 @@ def make_train_step(
     """The train step of ``model`` (module note): ``(state, batch) ->
     (new_state, metrics)``, ``metrics`` device scalars ``loss``,
     ``grad_norm``, ``lr`` and, with one microbatch, the loss parts."""
-    if model.cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{model.cfg.name}: the ssm family does not train yet: the SSD backward kernel "
-            "comes with Mamba-2's training, ROADMAP A.12a"
-        )
     opt_cfg = AdamWConfig(
         lr=tcfg.lr, weight_decay=tcfg.weight_decay, clip_norm=tcfg.clip_norm,
         m_dtype=tcfg.opt_m_dtype,

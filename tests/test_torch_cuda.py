@@ -23,6 +23,13 @@ version within atol = rtol = 1e-4 in float32 (summation order and the
 chunk's prefix sum differ) and 2e-2 on bfloat16 outputs (one rounding of
 nearly equal float32 values), its float32 final state within 1e-4 either
 way; one Mamba-2 prefill launches it once per layer, a decode step never.
+Its backward (csrc/ssd_bwd.cu) is held to ssd_chunked_bwd_plain at the
+same cases and mamba2-1.3b's training microbatch: float32 within 1e-4 of
+each gradient's largest |plain|, bfloat16 each element within 2^-7 |plain|
++ 1e-4 of the largest (each side rounds a float32 result once), two calls
+bitwise (no atomics); a reduced Mamba-2's Model.loss backward launches it
+once per layer, and its gradients on the card are within 1e-3 of the
+CPU's (of each leaf's largest |g|).
 B4 with bfloat16 I/O (the wgmma kernel) is held to its plain version on
 the same bfloat16 inputs within 2^-7 |plain| + 1e-5 max|v| (both compute
 in float32 and round once; the sums' order may put an element one
@@ -198,9 +205,11 @@ from repro_torch.kernels.features.ref import (  # noqa: E402
 from repro_torch.kernels.fused.kernel import FUSED_FEATURES, fused_features_cuda  # noqa: E402
 from repro_torch.kernels.fused.ops import FusedExtractor, fused_feature_columns, init_fused_state  # noqa: E402
 from repro_torch.kernels.fused.ref import fused_features_plain  # noqa: E402
-from repro_torch.kernels.ssd.kernel import SSD_SCAN, ssd_scan_cuda  # noqa: E402
+from repro_torch.kernels.ssd.kernel import SSD_SCAN, SSD_SCAN_BWD, ssd_scan_bwd_cuda, ssd_scan_cuda  # noqa: E402
+from repro_torch.kernels.ssd.kernel import bwd_launch_info as ssd_bwd_launch_info  # noqa: E402
 from repro_torch.kernels.ssd.kernel import launch_info as ssd_launch_info  # noqa: E402
-from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_sequential_ref  # noqa: E402
+from repro_torch.kernels.ssd.ops import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_plain, ssd_chunked_ref, ssd_sequential_ref  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 
 PAPER = get_arch("tao")  # the paper's TaoConfig
@@ -546,10 +555,12 @@ SSD_CASES = {
     "odd_widths": (1, 40, 3, 5, 1, 7, 8),
     "chunk_200": (2, 400, 64, 64, 1, 128, 200),
     "widths_40_72": (1, 256, 8, 40, 1, 72, 64),
+    # a microbatch of mamba2-1.3b's training step
+    "train_microbatch": (2, 2048, 64, 64, 1, 128, 256),
 }
 # each case's own seed: a new case leaves the others' inputs as they were
 SSD_SEEDS = {"chunk_96": 0, "full_width": 1, "odd_widths": 2, "reduced_config": 3,
-             "two_groups": 4, "chunk_200": 5, "widths_40_72": 6}
+             "two_groups": 4, "chunk_200": 5, "widths_40_72": 6, "train_microbatch": 7}
 
 
 def ssd_inputs(case, dtype, dev):
@@ -618,6 +629,124 @@ def test_mamba2_prefill_launches_ssd_once_per_layer(dev):
     torch.testing.assert_close(logits.cpu(), ref, atol=2e-4, rtol=2e-4)
     for k in cache:
         torch.testing.assert_close(cache[k].cpu(), ref_cache[k], atol=2e-4, rtol=2e-4)
+
+
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+
+
+def assert_ssd_bwd_close(got, want, dtype):
+    """float32: each output within 1e-4 of its largest |plain|; bfloat16:
+    each element within 2^-7 |plain| + 1e-4 of the largest (the kernel and
+    the plain version each round a float32 result once)."""
+    for name, a, b in zip(SSD_BWD_NAMES, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        a, b = a.float(), b.float()
+        assert torch.isfinite(a).all(), name
+        top = float(b.abs().max())
+        if dtype == "float32" or name == "dA":
+            assert float((a - b).abs().max()) <= 1e-4 * top, (name, float((a - b).abs().max()), top)
+        else:
+            assert torch.all((a - b).abs() <= 2.0**-7 * b.abs() + 1e-4 * top), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_ssd_bwd_kernel_matches_plain(dev, case, dtype):
+    """The backward against ``ssd_chunked_bwd_plain`` on the same inputs,
+    and two calls bitwise (no atomics)."""
+    inp, c = ssd_inputs(case, getattr(torch, dtype), dev)
+    gen = torch.Generator(device=dev).manual_seed(SSD_SEEDS[case])
+    dy = torch.randn(inp[0].shape, generator=gen, device=dev).to(inp[0].dtype)
+    launches = SSD_SCAN_BWD.launches
+    got = ssd_scan_bwd_cuda(*inp, dy, chunk=c)
+    again = ssd_scan_bwd_cuda(*inp, dy, chunk=c)
+    want = ssd_chunked_bwd_plain(*inp, dy, c)
+    torch.cuda.synchronize()
+    assert SSD_SCAN_BWD.launches == launches + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert_ssd_bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_bwd_launch_info(dev, dtype):
+    info = ssd_bwd_launch_info(getattr(torch, dtype))
+    assert set(info) == {"ssd_bwd_states", "ssd_bwd_chunk", "ssd_bwd_reduce"}
+    for name, k in info.items():
+        assert k["spill_bytes_per_thread"] == 0, name
+        assert k["blocks_per_sm"] >= 1 and k["regs_per_thread"] > 0, name
+
+
+def test_ssd_bwd_kernel_refuses_what_it_cannot_hold(dev):
+    inp, _ = ssd_inputs("reduced_config", torch.float32, dev)
+    dy = torch.zeros_like(inp[0])
+    with pytest.raises(ValueError, match="limits"):
+        ssd_scan_bwd_cuda(*inp, dy, chunk=512)
+    with pytest.raises(ValueError, match="dy must be a contiguous torch.float32"):
+        ssd_scan_bwd_cuda(*inp, dy.to(torch.bfloat16), chunk=32)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd_scan_bwd_cuda(*inp, dy, chunk=48)
+
+
+def test_ssd_scan_records_the_kernel_backward(dev):
+    """Under autograd, ``ssd_scan`` launches B5's forward and, in backward,
+    its backward kernel once: its gradients are the kernel's.  Without
+    grad it is the forward launch alone; ``return_state`` under autograd
+    raises."""
+    inp, c = ssd_inputs("reduced_config", torch.float32, dev)
+    dy = torch.randn(inp[0].shape, generator=torch.Generator(device=dev).manual_seed(9), device=dev)
+    leaves = [t.clone().requires_grad_() for t in inp]
+    counts = (SSD_SCAN.launches, SSD_SCAN_BWD.launches)
+    y = ssd_scan(*leaves, chunk=c)
+    y.backward(dy)
+    assert (SSD_SCAN.launches, SSD_SCAN_BWD.launches) == (counts[0] + 1, counts[1] + 1)
+    assert torch.equal(y.detach(), ssd_scan_cuda(*inp, chunk=c))
+    for leaf, want in zip(leaves, ssd_scan_bwd_cuda(*inp, dy, chunk=c)):
+        assert torch.equal(leaf.grad, want)
+    counts = (SSD_SCAN.launches, SSD_SCAN_BWD.launches)
+    with torch.no_grad():
+        plain = ssd_scan(*leaves, chunk=c)
+    assert plain.grad_fn is None
+    assert (SSD_SCAN.launches, SSD_SCAN_BWD.launches) == (counts[0] + 1, counts[1])
+    with pytest.raises(ValueError, match="return_state"):
+        ssd_scan(*leaves, chunk=c, return_state=True)
+
+
+def mamba2_grads(model, batch):
+    named = dict(model.named_parameters())
+    loss, _ = model.loss(batch)
+    return loss.detach(), dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+
+
+def mamba2_batch(cfg, dev, B=2, S=48):
+    rng = np.random.default_rng(0)
+    return {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to(dev) for k in ("tokens", "labels")}
+
+
+def test_mamba2_loss_backward_launches_ssd_bwd_once_per_layer(dev):
+    cfg = get_arch("mamba2-1.3b", reduced=True)
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    counts = (SSD_SCAN.launches, SSD_SCAN_BWD.launches)
+    loss, grads = mamba2_grads(model, mamba2_batch(cfg, dev))
+    torch.cuda.synchronize()
+    assert (SSD_SCAN.launches, SSD_SCAN_BWD.launches) == (counts[0] + cfg.n_layers, counts[1] + cfg.n_layers)
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values())
+
+
+def test_mamba2_gradients_on_card_match_cpu(dev):
+    """A reduced mamba2's loss and every gradient leaf on the card within
+    1e-3 of the same model's on the CPU (of the leaf's largest |g|): the
+    card runs B5 and its backward in split TF32, the CPU the plain chunked
+    version under autograd."""
+    cfg = get_arch("mamba2-1.3b", reduced=True)
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    loss, grads = mamba2_grads(model, mamba2_batch(cfg, dev))
+    ref_loss, ref_grads = mamba2_grads(cpu, mamba2_batch(cfg, "cpu"))
+    assert abs(float(loss) - float(ref_loss)) <= 1e-3 * abs(float(ref_loss))
+    for name, ref in ref_grads.items():
+        err = float((grads[name].cpu() - ref).abs().max())
+        assert err <= 1e-3 * float(ref.abs().max()), (name, err, float(ref.abs().max()))
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,10 @@ At each family's reduced config (float32, 4 layers, d_model 64, vocab
 512): ``qwen3-moe-235b-a22b`` (MoE with QK-norm, GQA), ``recurrentgemma-9b``
 (RG-LRU units and local attention), ``deepseek-v2-lite-16b`` (MLA, MoE, a
 dense first layer), ``qwen2-vl-2b`` (M-RoPE, patches over the first
-positions) and ``hubert-xlarge`` (a bidirectional encoder over frames).
+positions), ``hubert-xlarge`` (a bidirectional encoder over frames) and
+``mamba2-1.3b`` (the SSD scan, whose gradient on the CPU is autograd's
+through the plain chunked version, as the reference's is jax.grad's through
+its own).
 The reference initializes the weights, which cross through
 ``convert.lm_params_from_jax`` with its gradient tree; the batch is one of
 ``LMDataPipeline``'s (NumPy), the same for both.
@@ -16,8 +19,6 @@ relative, gradients within 5.1e-6 of the largest: matmul and reduction
 order; the MoE routing ids, and so the routed tokens, are the same).  Then,
 as the reference's ``tests/test_models_smoke.py::test_train_step_improves``
 asks of its trainer, six steps of the port's at lr 5e-3 lower the loss.
-``mamba2-1.3b``'s step raises: the SSD backward kernel comes with ROADMAP
-A.12a.
 """
 import numpy as np
 import pytest
@@ -37,7 +38,7 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.train import TrainConfig, init_state, make_train_step  # noqa: E402
 
 FAMILIES = ("qwen3-moe-235b-a22b", "recurrentgemma-9b", "deepseek-v2-lite-16b", "qwen2-vl-2b",
-            "hubert-xlarge")
+            "hubert-xlarge", "mamba2-1.3b")
 LOSS_REL = 1e-5
 GRAD_OF_MAX = 1e-4
 
@@ -103,10 +104,3 @@ def test_train_step_improves(arch):
     assert losses[-1] < losses[0], (arch, losses)
     assert int(state.step) == 6
 
-
-def test_mamba2_step_raises_naming_a12a():
-    model = Model(get_arch("mamba2-1.3b", reduced=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.12a"):
-        make_train_step(model, TrainConfig())
-    with pytest.raises(RuntimeError, match="A.12a"):  # the loss under autograd reaches B5
-        model.loss(smoke_batch(model.cfg))

@@ -11,6 +11,15 @@ Tolerances: atol = rtol = 1e-4 in float32 (both sides float32; they
 differ in summation order and in how the chunk's prefix sum is taken), as
 the reference's own kernel tests use; bfloat16 inputs at 5e-2, as the
 reference holds its kernel to the sequential oracle.
+
+The backward's plain version (``ssd_chunked_bwd_plain``, the function
+``csrc/ssd_bwd.cu`` is held to on the card) against torch autograd through
+``ssd_chunked_ref`` within 1e-5 of each output's largest |·| (the same
+float32 arithmetic in another order; measured ≤ 2.2e-6, dA's sum over
+batch and sequence the widest), and against ``jax.grad`` of the
+reference's ``ssd_chunked_ref`` within 1e-4 of it, the reference's own
+float32 tolerance; on bfloat16 inputs each element within 2^-7 of its
+float32 value plus 1e-4 of the largest (one rounding of the output).
 """
 import re
 
@@ -19,6 +28,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.ssd.ops import ssd_scan as ref_ssd_scan  # noqa: E402
@@ -28,7 +38,7 @@ from repro.models.mamba2 import ssd_chunked_ref as ref_chunked  # noqa: E402
 from repro_torch.kernels import _cuda  # noqa: E402
 from repro_torch.kernels.ssd import kernel as port_kernel  # noqa: E402
 from repro_torch.kernels.ssd.ops import ssd_scan  # noqa: E402
-from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_sequential_ref  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_plain, ssd_chunked_ref, ssd_sequential_ref  # noqa: E402
 
 ATOL = RTOL = 1e-4
 BF16_TOL = 5e-2
@@ -133,14 +143,83 @@ def test_ssd_bf16_matches_reference_sequential():
 
 
 def test_ssd_scan_refuses_bad_shapes_and_grad():
+    """Shapes the scan does not take raise; a CPU call under autograd is
+    ``ssd_chunked_ref``'s, gradients and all, and refuses ``return_state``."""
     inp = as_torch(make_inputs(1, 64, 4, 8, 2, 8, 0))
     with pytest.raises(ValueError, match="multiple of chunk"):
         ssd_scan(*inp, chunk=48)
     xh, dt, A, Bm, Cm = inp
     with pytest.raises(ValueError, match="groups"):
         ssd_scan(xh[:, :, :3].contiguous(), dt[:, :, :3].contiguous(), A[:3], Bm, Cm, chunk=32)
-    with pytest.raises(RuntimeError, match=r"A\.12"):
-        ssd_scan(xh.requires_grad_(), dt, A, Bm, Cm, chunk=32)
+    dy = torch.from_numpy(np.random.default_rng(1).standard_normal(xh.shape).astype(np.float32))
+    grads = []
+    for fn in (lambda *a: ssd_scan(*a, chunk=32), lambda *a: ssd_chunked_ref(*a, 32)):
+        leaves = [t.clone().requires_grad_() for t in inp]
+        grads.append(torch.autograd.grad(fn(*leaves), leaves, dy))
+    for got, want in zip(*grads):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="return_state"):
+        ssd_scan(*leaves, chunk=32, return_state=True)
+
+
+# (B, S, H, P, G, N, chunk) of the backward's cases: several chunks, two
+# groups, one chunk, and the reference's widest kernel case
+BWD_CASES = {
+    "several_chunks": (2, 128, 4, 16, 1, 8, 32),
+    "two_groups": (2, 96, 8, 16, 2, 16, 32),
+    "one_chunk": (1, 64, 4, 8, 2, 16, 64),
+    "ref_c": (1, 256, 8, 32, 1, 16, 64),
+}
+BWD_AUTOGRAD_OF_MAX = 1e-5
+BWD_REF_OF_MAX = 1e-4
+BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+
+
+def bwd_inputs(case, seed):
+    B, S, H, P, G, N, c = BWD_CASES[case]
+    inp = make_inputs(B, S, H, P, G, N, seed)
+    dy = np.random.default_rng(seed + 100).standard_normal((B, S, H, P)).astype(np.float32)
+    return inp, dy, c
+
+
+def assert_within_of_max(got, want, rel, names=BWD_NAMES):
+    for name, a, b in zip(names, got, want):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        assert a.shape == b.shape, name
+        err, top = float(np.abs(a - b).max()), float(np.abs(b).max())
+        assert err <= rel * top, (name, err, top)
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_ssd_bwd_plain_matches_autograd_through_chunked_ref(case):
+    inp, dy, c = bwd_inputs(case, sorted(BWD_CASES).index(case))
+    leaves = [t.requires_grad_() for t in as_torch(inp)]
+    want = torch.autograd.grad(ssd_chunked_ref(*leaves, c), leaves, torch.from_numpy(dy))
+    got = ssd_chunked_bwd_plain(*as_torch(inp), torch.from_numpy(dy), c)
+    for g, t in zip(got, as_torch(inp)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+    assert_within_of_max([g.numpy() for g in got], [w.numpy() for w in want], BWD_AUTOGRAD_OF_MAX)
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_ssd_bwd_plain_matches_jax_grad_of_reference(case):
+    inp, dy, c = bwd_inputs(case, 10 + sorted(BWD_CASES).index(case))
+    got = ssd_chunked_bwd_plain(*as_torch(inp), torch.from_numpy(dy), c)
+    grad = jax.jit(lambda a, g: jax.vjp(lambda *t: ref_chunked(*t, chunk=c), *a)[1](g))
+    want = grad(as_jax(inp), jnp.array(dy, copy=True))
+    assert_within_of_max([g.numpy() for g in got], [np.asarray(w) for w in want], BWD_REF_OF_MAX)
+
+
+def test_ssd_bwd_plain_bf16_within_one_rounding_of_float32():
+    inp, dy, c = bwd_inputs("two_groups", 20)
+    bf = [v if i == 2 else v.to(torch.bfloat16) for i, v in enumerate(as_torch(inp))]
+    dy_bf = torch.from_numpy(dy).to(torch.bfloat16)
+    got = ssd_chunked_bwd_plain(*bf, dy_bf, c)
+    want = ssd_chunked_bwd_plain(*(v.float() for v in bf), dy_bf.float(), c)
+    for name, a, b in zip(BWD_NAMES, got, want):
+        assert a.dtype == (torch.float32 if name == "dA" else torch.bfloat16), name
+        err = (a.float() - b).abs()
+        assert torch.all(err <= 2.0**-7 * b.abs() + 1e-4 * b.abs().max()), (name, float(err.max()))
 
 
 def test_kernel_limits_match_the_source():
