@@ -58,8 +58,10 @@ and ``nvcc``.  Phases, one JSON line each:
            2 x 2048 microbatch) in bfloat16 and float32 and at the
            forward's edge cases, each gradient's worst error against its
            limit, two calls bitwise, timed beside its bound and the plain
-           version with each of its three kernels' device ms, what each
-           gets and their HMMA counts;
+           version with each of its five kernels' device ms, what each
+           gets and the tensor-core instructions of those that multiply
+           (HGMMA in bfloat16, HMMA in float32), and across 32 chunks
+           (1 x 8192) in both types;
   slice    the port's main paths at the default TaoConfig width on
            captured benchmark traces: the engine's step captured ahead of
            time (StreamingEngine.warmup: one CUDA graph, its capture time
@@ -1627,10 +1629,12 @@ def check_ssd_bwd_kernel(failures, results):
     """The SSD backward (csrc/ssd_bwd.cu) against ssd_chunked_bwd_plain at
     mamba2-1.3b's full training shape (4 x 2048, and the 2 x 2048 microbatch
     train_lm runs) in bfloat16 and float32 and at the forward's edge cases
-    (two groups, one chunk, chunk 200, widths 40 / 72): each output's worst
-    error against its limit and two calls bitwise; timed at the training
-    shapes beside its bound and the plain version, with what each of its
-    three kernels gets and the tensor-core instructions in their SASS."""
+    (two groups, one chunk, chunk 200, widths 40 / 72) and across 32 chunks
+    (1 x 8192): each output's worst error against its limit and two calls
+    bitwise; timed at the training shapes beside its bound and the plain
+    version, with each of its five kernels' device ms and what it gets, and
+    the tensor-core instructions of those that multiply (bfloat16 HGMMA,
+    float32 HMMA)."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -1655,6 +1659,9 @@ def check_ssd_bwd_kernel(failures, results):
         "chunk_200_bf16": (2, 400, H, P, G, N, 200, bf16),
         "widths_40_72_f32": (1, 256, 8, 40, G, 72, 64, f32),
         "widths_40_72_bf16": (1, 256, 8, 40, G, 72, 64, bf16),
+        # the parallel state pass across 32 chunks
+        "long_chain_bf16": (1, 8192, H, P, G, N, c, bf16),
+        "long_chain_f32": (1, 8192, H, P, G, N, c, f32),
     }
     timed = ("train_bf16", "train_f32", "microbatch_bf16")
     names = ("dx", "ddt", "dA", "dB", "dC")
@@ -1693,12 +1700,14 @@ def check_ssd_bwd_kernel(failures, results):
             b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS_PER_S)
             ms = cuda_ms(lambda: ssd_scan_bwd_cuda(*inp, dy, chunk=cc), 10)
             plain_ms = cuda_ms(lambda: ssd_chunked_bwd_plain(*inp, dy, cc), 3, warmup=1)
-            prof = profile_breakdown(lambda: ssd_scan_bwd_cuda(*inp, dy, chunk=cc),
-                                     track=BWD_KERNEL_NAMES)
+            # three calls: the profile may miss its window's first kernel
+            prof = profile_breakdown(lambda: [ssd_scan_bwd_cuda(*inp, dy, chunk=cc)
+                                              for _ in range(3)], track=BWD_KERNEL_NAMES)
             readings[name] = {"shape": [b, sq, h, p, g, n, cc], "dtype": str(dtype), "ms": ms,
                               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                               "x_bound": ms / b_ms, "bytes": nbytes, "flops": flops,
-                              "kernel_ms": prof["tracked_ms"]}
+                              "kernel_ms": {k: v / prof["tracked_count"][k]
+                                            for k, v in prof["tracked_ms"].items()}}
         del inp, dy, got, again, want
         torch.cuda.empty_cache()
     if not ok:
@@ -1711,9 +1720,13 @@ def check_ssd_bwd_kernel(failures, results):
                 failures.append(f"ssd_bwd: {k} spills or does not fit on an SM: {v}")
     sass = {k: {"HMMA": v["HMMA"], "HGMMA": v["HGMMA"]}
             for k, v in sass_counts(SSD_SCAN_BWD.source, "ssd_bwd").items()}
-    mma_kernels = [k for k in sass if "reduce" not in k]
-    if len(mma_kernels) != 4 or not all(sass[k]["HMMA"] for k in mma_kernels):
-        failures.append(f"ssd_bwd: no tensor-core (HMMA) instructions in a kernel: {sass}")
+    # the kernels that multiply (each chunk's share of the states, the chunk
+    # kernel): bfloat16 on wgmma (HGMMA), float32 on mma.sync (HMMA)
+    mma_kernels = {k: ("HGMMA" if "bfloat16" in k else "HMMA") for k in sass
+                   if "ssd_bwd_local" in k or "ssd_bwd_chunk" in k}
+    if len(mma_kernels) != 4 or not all(sass[k][op] for k, op in mma_kernels.items()):
+        failures.append(f"ssd_bwd: a kernel that multiplies lacks its tensor-core instructions "
+                        f"(bfloat16 HGMMA, float32 HMMA): {sass}")
     main = readings["train_bf16"]
     results["ssd_bwd"] = {
         "name": "ssd_bwd", "route": "cuda", "source": "src/repro_torch/csrc/ssd_bwd.cu",
@@ -1724,6 +1737,16 @@ def check_ssd_bwd_kernel(failures, results):
     }
     emit({"phase": "kernels", "kernel": "ssd_bwd", "timed": readings, "launch_info": info,
           "sass": sass, "max_abs_err": max_err, "max_err_of_max": max_rel, "library_ms": None})
+    # each kernel's device ms per call at the timed shapes beside what it gets
+    for name, r in readings.items():
+        per = info["torch.bfloat16" if "bf16" in name else "torch.float32"]
+        emit({"phase": "kernels", "kernel": "ssd_bwd", "per_kernel": name, "shape": r["shape"],
+              "kernels": {k: {"ms": next((v for piece, v in r["kernel_ms"].items()
+                                          if piece.startswith(k)), None),
+                              "regs_per_thread": per[k]["regs_per_thread"],
+                              "smem_bytes_per_block": per[k]["smem_bytes_per_block"],
+                              "blocks_per_sm": per[k]["blocks_per_sm"]}
+                          for k in BWD_KERNEL_NAMES}})
 
 
 def bitwise_equal(a, b) -> bool:
@@ -5364,9 +5387,11 @@ def train_lm_kernels(cfg, microbatches: int) -> tuple:
     profile's kernel name pieces to track and its groups."""
     per_step = cfg.n_layers * microbatches
     if cfg.family == "ssm":
+        from repro_torch.kernels.ssd.kernel import BWD_KERNEL_NAMES
+
         return ({"ssd": per_step, "ssd_bwd": per_step},
                 {"ssd": "ssd_kernel", "ssd_bwd": "ssd_bwd_chunk"},
-                ("ssd_kernel", "ssd_bwd_states", "ssd_bwd_chunk", "ssd_bwd_reduce"),
+                ("ssd_kernel", *BWD_KERNEL_NAMES),
                 {"ssd_fwd": ("ssd_kernel",), "ssd_bwd": ("ssd_bwd_",), "gemm": GEMM_PIECES,
                  "copy": ("copy",)})
     return ({"flash_attention": per_step, "flash_attention_bwd": per_step},

@@ -5,8 +5,9 @@ with a plain C interface and loaded with ``ctypes``; nothing includes
 PyTorch's headers, so a build takes seconds.  Libraries go to
 ``BUILD_DIR`` (``build/`` at the checkout root unless
 ``engine.aot.enable_persistent_cache`` points it elsewhere), named by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused, by this process and by every later one.
+hash of the source, the headers it includes from ``csrc/`` and the flags,
+so an edited source or header rebuilds and an unchanged one is reused, by
+this process and by every later one.
 ``build()`` starts one ``nvcc`` per source, all together, and counts its
 lookups in ``BUILD_COUNTERS``: a hit is a library found in the directory,
 a miss an ``nvcc`` run.
@@ -38,7 +39,7 @@ import torch
 
 __all__ = [
     "CSRC", "BUILD_COUNTERS", "BUILD_DIR", "DEFAULT_BUILD_DIR", "KERNELS", "NVCC_FLAGS", "CudaKernel",
-    "build", "check_cuda_tensor", "library_path", "sass_counts",
+    "build", "check_cuda_tensor", "included_sources", "library_path", "sass_counts",
 ]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -69,10 +70,32 @@ def _nvcc() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def included_sources(source: Path) -> List[Path]:
+    """``source`` and every file it pulls in by a local ``#include "..."``
+    (resolved beside the including file), recursively, each once, in the
+    order first met."""
+    seen: List[Path] = []
+    stack = [Path(source).resolve()]
+    while stack:
+        path = stack.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        names = _LOCAL_INCLUDE.findall(path.read_bytes())
+        stack.extend(reversed([(path.parent / n.decode()).resolve() for n in names]))
+    return seen
+
+
 def library_path(source: Path) -> Path:
     """Where the library built from ``source`` lives: keyed by the hash of
-    the source text and the compiler flags."""
-    h = hashlib.sha256(source.read_bytes())
+    the text of the source and of every header it includes from beside it
+    (``included_sources``), and of the compiler flags."""
+    h = hashlib.sha256()
+    for path in included_sources(source):
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 

@@ -10,9 +10,12 @@ and what bounds it.  ``SSD_SCAN.launches`` counts launches.
 
 The backward (``ssd_scan_bwd_cuda``, ``SSD_SCAN_BWD.launches``) has no
 TPU counterpart: the reference differentiates its jnp chunked oracle.
-One C call runs its three kernels (the state passes, the chunk pass, the
-group and dA sums) on float32 scratch that the wrapper allocates; its
-source's header says how.
+One C call runs its five kernels (``BWD_KERNEL_NAMES``: each chunk's share
+of the state recurrences, the recurrences over the chunks, the gradients
+inside each chunk, the reverse scan of dcums, the group and dA sums) on
+float32 scratch that the wrapper allocates; in bfloat16 the products run
+on ``wgmma``, in float32 on split-TF32 ``mma.sync``.  Its source's header
+says how.
 """
 from __future__ import annotations
 
@@ -24,8 +27,9 @@ import torch
 from .._cuda import CudaKernel, check_cuda_tensor
 
 __all__ = [
-    "BWD_KERNEL_NAMES", "MAX_CHUNK", "MAX_HEAD_DIM", "MAX_STATE", "SSD_SCAN", "SSD_SCAN_BWD",
-    "bwd_launch_info", "launch_info", "ssd_scan_bwd_cuda", "ssd_scan_cuda",
+    "BWD_HEADS_PER_BLOCK", "BWD_KERNEL_NAMES", "BWD_VEC_ROWS", "MAX_CHUNK", "MAX_HEAD_DIM",
+    "MAX_STATE", "SSD_SCAN", "SSD_SCAN_BWD", "bwd_heads_per_block", "bwd_launch_info",
+    "launch_info", "ssd_scan_bwd_cuda", "ssd_scan_cuda",
 ]
 
 # what one block holds in shared memory (see csrc/ssd.cu)
@@ -40,10 +44,29 @@ SSD_SCAN = CudaKernel("ssd.cu", "tao_ssd_scan", [_P] * 7 + [_I] * 8)
 _LAUNCH_INFO = CudaKernel("ssd.cu", "tao_ssd_scan_info", [_I] * 3 + [ctypes.POINTER(ctypes.c_int)])
 _INFO_KEYS = ("regs_per_thread", "smem_bytes_per_block", "threads_per_block",
               "blocks_per_sm", "spill_bytes_per_thread")
-SSD_SCAN_BWD = CudaKernel("ssd_bwd.cu", "tao_ssd_scan_bwd", [_P] * 14 + [_I] * 8)
+SSD_SCAN_BWD = CudaKernel("ssd_bwd.cu", "tao_ssd_scan_bwd", [_P] * 16 + [_I] * 8)
 _BWD_LAUNCH_INFO = CudaKernel("ssd_bwd.cu", "tao_ssd_scan_bwd_info", [_I, ctypes.POINTER(ctypes.c_int)])
-# the backward's kernels, in launch order (the profiler finds them by name)
-BWD_KERNEL_NAMES = ("ssd_bwd_states", "ssd_bwd_chunk", "ssd_bwd_reduce")
+# The backward's kernels in launch order: the one list of their names.
+# Each is a piece of its kernel's name in either dtype (the profiler finds
+# them by it; the bfloat16 chunk kernel is ssd_bwd_chunk_wgmma).
+BWD_KERNEL_NAMES = ("ssd_bwd_local", "ssd_bwd_recur", "ssd_bwd_chunk", "ssd_bwd_tail", "ssd_bwd_reduce")
+# rows of `chunk` float32 per (batch, chunk, head) in the backward's vecs
+# scratch (csrc/ssd_bwd.cu, kVecRows): cums, dt, four per-row sums, ⟨S0,
+# dS⟩ and a partial sum per 64-row column tile and warp
+BWD_VEC_ROWS = 6 + 4 * (MAX_CHUNK // 64)
+# heads a bfloat16 chunk block takes at most (kHeadsPerBlock), its dB and
+# dC summed over them before the group sums
+BWD_HEADS_PER_BLOCK = 4
+
+
+def bwd_heads_per_block(H: int, G: int, dtype: torch.dtype) -> int:
+    """Heads of one group that a block of the backward's chunk kernel
+    takes: in bfloat16 the largest power of two up to BWD_HEADS_PER_BLOCK
+    dividing H / G, in float32 one (csrc/ssd_bwd.cu, run)."""
+    hpb = 1
+    while dtype == torch.bfloat16 and hpb < BWD_HEADS_PER_BLOCK and (H // G) % (2 * hpb) == 0:
+        hpb *= 2
+    return hpb
 
 
 def _check_shapes(xh, dt, A, Bm, Cm, chunk):
@@ -113,14 +136,17 @@ def ssd_scan_bwd_cuda(
     f32 = dict(device=xh.device, dtype=torch.float32)
     dx, ddt, dB, dC = (torch.empty_like(t) for t in (xh, dt, Bm, Cm))
     dA = torch.empty(H, **f32)
+    local = torch.empty((2, B, nc, H, N, P), **f32)   # each chunk's share of the states
     states = torch.empty((2, B, nc, H, N, P), **f32)  # S0 and dS of every chunk
-    per_head = torch.empty((2, B, S, H, N), **f32)    # dB and dC before the group sums
+    # dB and dC summed over each chunk block's heads, before the group sums
+    per_head = torch.empty((2, B, S, H // bwd_heads_per_block(H, G, xh.dtype), N), **f32)
     da_part = torch.empty((B * nc, H), **f32)
+    vecs = torch.empty((B * nc * H, BWD_VEC_ROWS, chunk), **f32)  # per-row sums of each chunk
     SSD_SCAN_BWD.launch(
         xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
         dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        states.data_ptr(), per_head.data_ptr(), da_part.data_ptr(),
-        B, S, H, G, N, P, chunk, _DTYPES[xh.dtype],
+        local.data_ptr(), states.data_ptr(), per_head.data_ptr(), da_part.data_ptr(),
+        vecs.data_ptr(), B, S, H, G, N, P, chunk, _DTYPES[xh.dtype],
     )
     return dx, ddt, dA, dB, dC
 
@@ -142,9 +168,9 @@ def launch_info(N: int, chunk: int, dtype: torch.dtype) -> Dict[str, int]:
 
 def bwd_launch_info(dtype: torch.dtype) -> Dict[str, Dict[str, int]]:
     """What each kernel of a backward call in ``dtype`` gets on the current
-    device, without launching it: {kernel name (``BWD_KERNEL_NAMES``):
-    the keys of ``launch_info``}.  Shared memory does not depend on the
-    shapes (tiles are padded to the limits)."""
+    device, without launching it: {kernel name (every one of
+    ``BWD_KERNEL_NAMES``): the keys of ``launch_info``}.  Shared memory
+    does not depend on the shapes (tiles are padded to the limits)."""
     if dtype not in _DTYPES:
         raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
     n = len(_INFO_KEYS)

@@ -24,10 +24,13 @@ chunk's prefix sum differ) and 2e-2 on bfloat16 outputs (one rounding of
 nearly equal float32 values), its float32 final state within 1e-4 either
 way; one Mamba-2 prefill launches it once per layer, a decode step never.
 Its backward (csrc/ssd_bwd.cu) is held to ssd_chunked_bwd_plain at the
-same cases and mamba2-1.3b's training microbatch: float32 within 1e-4 of
+same cases, mamba2-1.3b's training microbatch and 16 chunks of two groups
+(S = 4096): float32 within 1e-4 of
 each gradient's largest |plain|, bfloat16 each element within 2^-7 |plain|
 + 1e-4 of the largest (each side rounds a float32 result once), two calls
-bitwise (no atomics); a reduced Mamba-2's Model.loss backward launches it
+bitwise (no atomics); its bfloat16 kernels that multiply hold wgmma
+(HGMMA), the float32 ones mma.sync (HMMA); a reduced Mamba-2's
+Model.loss backward launches it
 once per layer, and its gradients on the card are within 1e-3 of the
 CPU's (of each leaf's largest |g|).
 B4 with bfloat16 I/O (the wgmma kernel) is held to its plain version on
@@ -206,6 +209,7 @@ from repro_torch.kernels.fused.kernel import FUSED_FEATURES, fused_features_cuda
 from repro_torch.kernels.fused.ops import FusedExtractor, fused_feature_columns, init_fused_state  # noqa: E402
 from repro_torch.kernels.fused.ref import fused_features_plain  # noqa: E402
 from repro_torch.kernels.ssd.kernel import SSD_SCAN, SSD_SCAN_BWD, ssd_scan_bwd_cuda, ssd_scan_cuda  # noqa: E402
+from repro_torch.kernels.ssd.kernel import BWD_KERNEL_NAMES as SSD_BWD_KERNEL_NAMES  # noqa: E402
 from repro_torch.kernels.ssd.kernel import bwd_launch_info as ssd_bwd_launch_info  # noqa: E402
 from repro_torch.kernels.ssd.kernel import launch_info as ssd_launch_info  # noqa: E402
 from repro_torch.kernels.ssd.ops import ssd_scan  # noqa: E402
@@ -557,10 +561,13 @@ SSD_CASES = {
     "widths_40_72": (1, 256, 8, 40, 1, 72, 64),
     # a microbatch of mamba2-1.3b's training step
     "train_microbatch": (2, 2048, 64, 64, 1, 128, 256),
+    # 16 chunks through the parallel state pass, two groups
+    "long_s4096_g2": (1, 4096, 64, 64, 2, 128, 256),
 }
 # each case's own seed: a new case leaves the others' inputs as they were
 SSD_SEEDS = {"chunk_96": 0, "full_width": 1, "odd_widths": 2, "reduced_config": 3,
-             "two_groups": 4, "chunk_200": 5, "widths_40_72": 6, "train_microbatch": 7}
+             "two_groups": 4, "chunk_200": 5, "widths_40_72": 6, "train_microbatch": 7,
+             "long_s4096_g2": 8}
 
 
 def ssd_inputs(case, dtype, dev):
@@ -670,10 +677,28 @@ def test_ssd_bwd_kernel_matches_plain(dev, case, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_bwd_launch_info(dev, dtype):
     info = ssd_bwd_launch_info(getattr(torch, dtype))
-    assert set(info) == {"ssd_bwd_states", "ssd_bwd_chunk", "ssd_bwd_reduce"}
+    assert tuple(info) == SSD_BWD_KERNEL_NAMES
     for name, k in info.items():
         assert k["spill_bytes_per_thread"] == 0, name
         assert k["blocks_per_sm"] >= 1 and k["regs_per_thread"] > 0, name
+    if dtype == "bfloat16":  # three warpgroups' tiles share an SM
+        assert info["ssd_bwd_chunk"]["threads_per_block"] == 128
+        assert info["ssd_bwd_chunk"]["blocks_per_sm"] >= 3
+
+
+def test_ssd_bwd_sass_bf16_on_wgmma_and_float32_on_mma_sync(dev):
+    """The kernels that multiply (each chunk's share of the states, the
+    chunk kernel) run wgmma (HGMMA) in bfloat16 and mma.sync (HMMA) in
+    float32; the others hold neither."""
+    sass = sass_counts(SSD_SCAN_BWD.source, "ssd_bwd")
+    assert len(sass) == 2 * len(SSD_BWD_KERNEL_NAMES), sorted(sass)
+    for name, v in sass.items():
+        if "ssd_bwd_local" not in name and "ssd_bwd_chunk" not in name:
+            assert v["HMMA"] == v["HGMMA"] == 0, (name, v)
+        elif "bfloat16" in name:
+            assert v["HGMMA"] > 0 and v["HMMA"] == 0, (name, v)
+        else:
+            assert v["HMMA"] > 0 and v["HGMMA"] == 0, (name, v)
 
 
 def test_ssd_bwd_kernel_refuses_what_it_cannot_hold(dev):

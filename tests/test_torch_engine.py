@@ -658,6 +658,32 @@ def test_host_route_is_bitwise_with_prefetch_on_and_off(weights, traces, mode, m
         np.testing.assert_array_equal(getattr(on, k), getattr(off, k), err_msg=k)
 
 
+def test_library_path_follows_every_included_header(tmp_path):
+    """An edit to a header that a source pulls in by a local ``#include``,
+    directly or through another header, renames its library; an edit to a
+    file it does not include leaves the name as it was.  The wgmma kernels
+    share csrc/wgmma.cuh."""
+    from repro_torch.kernels import _cuda
+
+    (tmp_path / "sub").mkdir()
+    src = tmp_path / "k.cu"
+    src.write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint main() {}\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "sub/b.cuh"\n')
+    (tmp_path / "sub" / "b.cuh").write_text("constexpr int kB = 1;\n")
+    (tmp_path / "unrelated.cuh").write_text("constexpr int kU = 1;\n")
+    assert [p.name for p in _cuda.included_sources(src)] == ["k.cu", "a.cuh", "b.cuh"]
+    first = _cuda.library_path(src)
+    (tmp_path / "unrelated.cuh").write_text("constexpr int kU = 2;\n")
+    assert _cuda.library_path(src) == first
+    (tmp_path / "sub" / "b.cuh").write_text("constexpr int kB = 2;\n")
+    second = _cuda.library_path(src)
+    assert second != first and second.name.startswith("k-")
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "sub/b.cuh"\n// edited\n')
+    assert _cuda.library_path(src) not in (first, second)
+    for name in ("attention.cu", "attention_bwd.cu", "ssd_bwd.cu"):
+        assert _cuda.CSRC / "wgmma.cuh" in _cuda.included_sources(_cuda.CSRC / name), name
+
+
 def test_build_cache_hit_needs_no_nvcc_and_status_has_the_reference_keys(tmp_path, monkeypatch):
     from repro.engine import persistent_cache_status as ref_status
     from repro_torch.kernels import _cuda

@@ -223,10 +223,28 @@ def test_ssd_bwd_plain_bf16_within_one_rounding_of_float32():
 
 
 def test_kernel_limits_match_the_source():
-    src = (_cuda.CSRC / "ssd.cu").read_text()
-    for const, value in (("kMaxN", port_kernel.MAX_STATE), ("kMaxP", port_kernel.MAX_HEAD_DIM),
-                         ("kMaxChunk", port_kernel.MAX_CHUNK)):
-        assert int(re.search(rf"constexpr int {const} = (\d+);", src)[1]) == value, const
+    """The wrapper's limits are the forward's (csrc/ssd.cu) and the
+    backward's (csrc/ssd_bwd.cu)."""
+    for source in ("ssd.cu", "ssd_bwd.cu"):
+        src = (_cuda.CSRC / source).read_text()
+        for const, value in (("kMaxN", port_kernel.MAX_STATE), ("kMaxP", port_kernel.MAX_HEAD_DIM),
+                             ("kMaxChunk", port_kernel.MAX_CHUNK)):
+            assert int(re.search(rf"constexpr int {const} = (\d+);", src)[1]) == value, (source, const)
+
+
+def test_backward_scratch_matches_the_source():
+    """The wrapper sizes the backward's scratch as csrc/ssd_bwd.cu reads it:
+    the vecs rows a chunk and the heads a bfloat16 chunk block sums dB and
+    dC over."""
+    src = (_cuda.CSRC / "ssd_bwd.cu").read_text()
+    rowk = int(re.search(r"kVRowk = (\d+);", src)[1])
+    per_tile = int(re.search(r"constexpr int kRowkParts = kMaxTiles \* (\d+);", src)[1])
+    assert port_kernel.BWD_VEC_ROWS == rowk + per_tile * port_kernel.MAX_CHUNK // 64
+    assert int(re.search(r"constexpr int kHeadsPerBlock = (\d+);", src)[1]) == \
+        port_kernel.BWD_HEADS_PER_BLOCK
+    hpb = port_kernel.bwd_heads_per_block
+    assert [hpb(64, 1, torch.bfloat16), hpb(64, 2, torch.bfloat16), hpb(12, 2, torch.bfloat16),
+            hpb(3, 1, torch.bfloat16), hpb(64, 1, torch.float32)] == [4, 4, 2, 1, 1]
 
 
 def _split_tf32(x: torch.Tensor):
