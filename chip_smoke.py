@@ -259,11 +259,14 @@ and ``nvcc``.  Phases, one JSON line each:
            of a prefill and of a decode step split by stage (B4, expert
            GEMMs and their SwiGLU, routing, dispatch / combine, MLA's
            plain attention, other GEMMs, the rest) and the share of
-           routed slots dropped at capacity in each; the handoff on a
+           routed slots dropped at capacity in each; qwen3-moe's prefill
+           whole and in 2 slices of the batch (ArchConfig.prefill_chunks)
+           in turns, ms and peak bytes of each; the handoff on a
            float32 copy at capacity_factor = E (no slot can drop) on 4 x
            64-token prompts; and the card against the CPU in float32 at
            the published capacity (deepseek at 2 layers, qwen3-moe at 1;
-           2 x 256 tokens), with the routing choices that differ counted;
+           2 x 256 tokens; qwen3-moe's prefill whole and in 2 slices),
+           with the routing choices that differ counted;
   hybrid   recurrentgemma-9b at full width and depth (38 layers: 12 units
            of two RG-LRU layers and one local-attention layer, window
            2048, 16 query heads of 256 over 1 kv head, and a tail of two
@@ -279,20 +282,29 @@ and ``nvcc``.  Phases, one JSON line each:
   train_lm the LLM trainer: python -m repro_torch.launch.train's loop
            (launch/train.py::run) at full width and depth (bfloat16,
            weights from seed 0), 4 x 2048 tokens a step of
-           LMDataPipeline's stream, AdamW: qwen2-0.5b (24 layers) for 20
-           steps with a checkpoint at step 10 and 20, then mamba2-1.3b (48
-           layers) for 10 steps in two microbatches of 2 x 2048 with a
-           checkpoint at step 5 and 10; for each the losses (finite, the
-           last below the first), wall ms a step with the card
-           synchronised (median and range), tokens/s, the main kernels'
-           launches in every step (B4's forward and backward, 24 each; B5
-           and its backward, 96 each; nothing else) by the counters and,
-           in one more profiled step, by the profiler, with its device ms
-           by kernel group and idle share, the peak memory and the
-           analytic bound of a step (roofline, kind "train"); then the
-           last checkpoint removed and the same command run again: it
-           resumes from the first in a fresh Model, and its losses are
-           held to the uninterrupted run's.
+           LMDataPipeline's stream as one batch, AdamW, each model under
+           its config's remat="full" (each layer recomputed in the
+           backward), each for 10 steps with a checkpoint at step 5 and
+           10: qwen2-0.5b (24 layers), mamba2-1.3b (48 layers) and
+           hubert-xlarge (48 layers, the encoder, on frames); for each
+           the losses (finite, the last below the first), wall ms a step
+           with the card synchronised (median and range),
+           tokens/s, the main kernels' launches in every step (B4's
+           forward twice a layer, forward and recomputation, and its
+           backward once: 48 + 24 for qwen2, 96 + 48 for hubert; B5 and
+           its backward 96 + 48; nothing else) by the counters and, in one
+           more profiled step, by the profiler, with its device ms by
+           kernel group and idle share, the peak memory and the analytic
+           bound of a step (roofline, kind "train"); then the last
+           checkpoint removed and the same command run again: it resumes
+           from the first in a fresh Model, and its losses are held to the
+           uninterrupted run's.  Then the remat check, in process: one
+           step of qwen2-0.5b (4 x 2048) and of mamba2-1.3b (2 x 2048, a
+           batch that fits without remat) under "none", "full" and
+           "dots" on the same weights and batch, the loss and every
+           gradient under "full" and "dots" bitwise "none"'s, with each
+           mode's backward peak, step peak, ms of loss plus gradient and
+           kernel launches.
 
 Each LLM phase (mamba2, dense, vlm_audio, moe, hybrid) prints, before
 each model's reading, a ``roofline`` line per prefill (or encode) and per
@@ -306,9 +318,9 @@ main path, error, times and bound (B4's and its backward's entries also
 hold their readings at the paper's width, B4's its bfloat16 readings and
 the dense, vlm, audio, moe, hybrid and train_lm cells' launches; the
 bfloat16 backward's entry its readings at the training shapes and its
-launches in train_lm's 20 steps; B5's its launches in a prefill and in
-mamba2-1.3b's 10 training steps; the SSD backward's its launches in those
-10 steps); the card's name and power limit
+launches in train_lm's qwen2-0.5b and hubert-xlarge runs; B5's its
+launches in a prefill and in mamba2-1.3b's 10 training steps; the SSD
+backward's its launches in those 10 steps); the card's name and power limit
 as ``nvidia-smi`` prints them; and, last, the device line.  With phase
 names as arguments, the build and those phases run, and the last line is
 the device line with the phases' names; no kernels line.  Any failed check
@@ -574,12 +586,32 @@ ATTN_BWD_BF16_LONG = (1, 2, 4096, 128)
 # measured; the kernels line holds only this run's numbers
 ATTN_BWD_BF16_MMA_SYNC_MS = {"h14_d64": 1.1741, "h12_d128": 2.0818, "h16_d80": 5.3786}
 # the LLM training cells, each at full width and depth and batch x seq of
-# the serving cells: {config: (steps of the launcher's loop, checkpoint
-# every, microbatches)}, then a resume from the first checkpoint in a fresh
-# Model.  mamba2-1.3b keeps its 4 x 2048 tokens as two microbatches of 2 x
-# 2048: without layer rematerialization one batch would hold ~46 GB of
-# activations for the backward beside ~16 GB of state
-TRAIN_LM_CELLS = {"qwen2-0.5b": (20, 10, 1), "mamba2-1.3b": (10, 5, 2)}
+# the serving cells, under its config's remat ("full", the reference's
+# default: each layer's input kept, the layer recomputed in the backward):
+# {config: (steps of the launcher's loop, checkpoint every)}, then a resume
+# from that one checkpoint in a fresh Model (qwen2-0.5b ran 20 steps alone;
+# 10 keep the script near its time beside the other two, and a checkpoint
+# at 8 leaves six steps 1-6 for the median before its writer runs).
+# mamba2-1.3b takes its 4 x 2048 tokens as one batch (without remat it
+# would hold ~46 GB of activations); hubert-xlarge trains on
+# LMDataPipeline's frames
+TRAIN_LM_CELLS = {"qwen2-0.5b": (10, 8), "mamba2-1.3b": (10, 8), "hubert-xlarge": (10, 8)}
+# the remat check: one step's loss and gradients under each mode, which
+# must be bitwise "none"'s, at {config: batch} x DENSE_PROMPT tokens (a
+# batch whose activations fit under "none")
+REMAT_CELLS = {"qwen2-0.5b": 4, "mamba2-1.3b": 2}
+# the trainer's microbatch path (TrainConfig.microbatches): one step of
+# {config: (batch, microbatches)} at full width and depth under the
+# config's remat, whole and cut, in float32 (B4 and its backward in
+# float32), the gradients it hands to AdamW held to the whole batch's
+# within this share of each gradient's largest |value| and the loss
+# within MICROBATCH_LOSS_REL (the CPU tests' limits; the sums' order is
+# all that differs).  In bfloat16 the tied embedding's gradient differs
+# by ~10% of its largest value, its two halves cancelling (their largest
+# 0.58 and 0.52 against the whole's 0.43), and 6e-6 in float32
+MICROBATCH_CELLS = {"qwen2-0.5b": (4, 2)}
+MICROBATCH_GRAD_OF_MAX = 1e-4
+MICROBATCH_LOSS_REL = 1e-5
 # the resumed steps' losses against the uninterrupted run's: every kernel
 # of the step is deterministic, so bitwise is expected; the tolerance is
 # what the phase accepts where the eager ops' kernels choose otherwise
@@ -605,6 +637,10 @@ MOE_CUT_LAYERS = 4
 # qwen3-moe layer is ~10 GB of float32 weights) and the prompts (2 x 256)
 MOE_CPU_LAYERS = {"deepseek-v2-lite-16b": 2, "qwen3-moe-235b-a22b": 1}
 MOE_CPU_SEQ = 256
+# qwen3-moe's prefill also in this many slices of the batch
+# (ArchConfig.prefill_chunks), timed beside the whole batch and held to the
+# CPU at it
+MOE_PREFILL_CHUNKS = 2
 # the handoff runs where no slot can drop, capacity_factor = E (C >= Tg *
 # k), whose dispatch buffers grow with E: 4 prompts of this many tokens
 MOE_HANDOFF_PROMPT = 64
@@ -623,6 +659,16 @@ PROFILE_RANGES = {"moe.route": "routing", "moe.dispatch": "dispatch_combine",
                   "rglru.conv": "conv_gates", "rglru.gates": "conv_gates",
                   "attention.windowed": "windowed_attention"}
 GEMM_PIECES = ("nvjet", "gemm", "gemv")
+# a profiler session on the card loses the first records of the kernels it
+# traces, more of them the longer the process has run (in this script's
+# later phases a prefill's first layer, one of a train step's 96 B5
+# launches): each session first runs this many spin kernels (PREFIX_KERNEL),
+# which take the loss and are left out of every count and time; a session
+# that kept none of them fails (``prefix_left``), and each profile line
+# says how many it lost (NVIDIA H100 80GB HBM3, 700 W: 1-34 a session, 164
+# in stablelm-1.6b's prefill, 931 in recurrentgemma-9b's decode step)
+PROFILE_PREFIX_KERNELS = 5000
+PREFIX_KERNEL = "spin_kernel"
 
 
 def emit(obj) -> None:
@@ -688,12 +734,64 @@ def bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def profile_prefix() -> None:
+    """The spin kernels that open a profiler session (PROFILE_PREFIX_KERNELS),
+    run to their end."""
+    import torch
+
+    for _ in range(PROFILE_PREFIX_KERNELS):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
+def prefix_left(averages) -> int:
+    """How many of a session's PROFILE_PREFIX_KERNELS spin kernels its
+    profile (``key_averages()``) kept.  Raises where it kept none: the loss
+    may then have reached the kernels after them."""
+    from torch.autograd import DeviceType
+
+    left = sum(e.count for e in averages
+               if e.device_type == DeviceType.CUDA and PREFIX_KERNEL in e.key)
+    if not left:
+        raise RuntimeError(f"a profiler session lost the records of all {PROFILE_PREFIX_KERNELS} "
+                           "prefix kernels: its counts may miss the kernels after them")
+    return left
+
+
+def prefix_probe(launches: int = 300) -> dict:
+    """``launches`` known kernels (an in-place add) counted by torch.profiler
+    in a session as profile_breakdown opens it, without the prefix and then
+    with it: how many of them each session lost, and how many of the
+    prefix's records the second lost."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros(1 << 16, device="cuda")
+    out = {"launches": launches}
+    for key, prefix in (("lost_without_prefix", False), ("lost_with_prefix", True)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            if prefix:
+                profile_prefix()
+            for _ in range(launches):
+                x.add_(1)
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        out[key] = launches - sum(e.count for e in averages if e.device_type == DeviceType.CUDA
+                                  and PREFIX_KERNEL not in e.key
+                                  and not e.key.startswith(("Memcpy", "Memset")))
+        if prefix:
+            out["prefix_records_lost"] = PROFILE_PREFIX_KERNELS - prefix_left(averages)
+    return out
+
+
 def kernels_enqueued(fn, sessions: int = 3) -> int:
     """How many device kernels one ``fn()`` runs, from torch.profiler
     (copies and memsets not counted): the most over ``sessions`` profiled
-    calls.  A session can miss a kernel but never counts one that did not
-    run: in a process whose kernels were already built once, the first
-    session counted B1's five kernels as four; why was not found."""
+    calls, each opened by ``profile_prefix`` and checked by
+    ``prefix_left``.  A session can miss a kernel but never counts one
+    that did not run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -702,10 +800,14 @@ def kernels_enqueued(fn, sessions: int = 3) -> int:
     for _ in range(sessions):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profile_prefix()
             fn()
             torch.cuda.synchronize()
-        counts.append(sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                          and not e.key.startswith(("Memcpy", "Memset"))))
+        averages = prof.key_averages()
+        prefix_left(averages)
+        counts.append(sum(e.count for e in averages if e.device_type == DeviceType.CUDA
+                          and not e.key.startswith(("Memcpy", "Memset"))
+                          and PREFIX_KERNEL not in e.key))
     return max(counts)
 
 
@@ -807,19 +909,26 @@ def profile_breakdown(fn, track: tuple = (), groups: dict = None) -> dict:
     kernel going to the first group one of whose pieces its name holds,
     the rest to "other".  Where the profile holds the port's profiler
     ranges, also ``device_ms_split`` (``range_split``).  Raises when the
-    profile cannot be taken or shows no device time."""
+    profile cannot be taken or shows no device time.
+
+    The session opens with ``profile_prefix``, whose kernels are left out
+    (``prefix_records_lost``: how many of their records the session lost;
+    ``prefix_left`` raises where it lost them all)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profile_prefix()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    lost = PROFILE_PREFIX_KERNELS - prefix_left(averages)
+    events = [e for e in averages
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-              and not annotation(e)]
+              and not annotation(e) and PREFIX_KERNEL not in e.key]
     if not events:
         raise RuntimeError("torch.profiler recorded no device time")
     busy_us = sum(e.self_device_time_total for e in events)
@@ -835,6 +944,7 @@ def profile_breakdown(fn, track: tuple = (), groups: dict = None) -> dict:
         # PyTorch's copy / cast kernel (direct_copy_kernel_cuda): what a
         # .contiguous() or a layout-changing reshape launches
         "copy_kernels": sum(e.count for e in events if "copy_kernel" in e.key),
+        "prefix_records_lost": lost,
         "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top],
         **({"tracked_ms": tracked, "tracked_count": tracked_count} if track else {}),
         **({"group_ms": group_ms(events, groups)} if groups else {}),
@@ -867,7 +977,8 @@ def range_split(events) -> dict:
 
     from torch.autograd import DeviceType
 
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    on_device = [e for e in events
+                 if e.device_type == DeviceType.CUDA and PREFIX_KERNEL not in e.name]
     spans = sorted((e.time_range.start, e.time_range.end, PROFILE_RANGES[e.name])
                    for e in on_device if annotation(e) and e.name in PROFILE_RANGES)
     if not spans:
@@ -5107,7 +5218,9 @@ def moe_serve(failures, cfg) -> tuple:
     generator, seed 0) served as the dense cells are (``dense_serve``, whose
     profiles split each call's device ms by stage), then the share of
     routed slots dropped at the published capacity in one more prefill and
-    decode step.  Returns the weights on the host and the reading."""
+    decode step; for MOE_CUT the prefill whole beside in slices
+    (``moe_chunked_prefill``).  Returns the weights on the host and the
+    reading."""
     import torch
 
     from repro_torch.models.moe import capacity
@@ -5133,10 +5246,51 @@ def moe_serve(failures, cfg) -> tuple:
               "dropped_slot_share_per_layer": shares,
               "dropped_slot_share_mean": sum(shares) / len(shares)})
         reading[f"{call}_dropped_slot_share"] = sum(shares) / len(shares)
+    del cache
+    if cfg.name == MOE_CUT:
+        reading["chunked_prefill"] = moe_chunked_prefill(failures, model, prompts)
     sd = {k: v.to("cpu") for k, v in model.state_dict().items()}
-    del model, cache, prompts
+    del model, prompts
     torch.cuda.empty_cache()
     return sd, reading
+
+
+def moe_chunked_prefill(failures, model, prompts) -> dict:
+    """The cell's prefill whole and in MOE_PREFILL_CHUNKS slices of the
+    batch, in turns (whole, sliced, sliced, whole): ms, peak bytes above
+    what was allocated before, B4 launches (one a layer a slice), finite
+    logits."""
+    import torch
+
+    cfg = model.cfg
+    runs = []
+    for nc in (1, MOE_PREFILL_CHUNKS, MOE_PREFILL_CHUNKS, 1):
+        model.cfg = dataclasses.replace(cfg, prefill_chunks=nc)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        zero_counts()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(prompts)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        runs.append({"prefill_chunks": nc, "ms": ms,
+                     "peak_bytes_above_held": torch.cuda.max_memory_allocated() - held,
+                     "b4_launches": read_counts()["flash_attention"],
+                     "finite": bool(torch.isfinite(logits).all())})
+        del logits, cache
+    model.cfg = cfg
+    ok = all(r["finite"] and r["b4_launches"] == cfg.n_layers * r["prefill_chunks"]
+             for r in runs)
+    if not ok:
+        failures.append(f"moe {cfg.name}: chunked prefill {runs}")
+    by = {nc: [r for r in runs if r["prefill_chunks"] == nc] for nc in (1, MOE_PREFILL_CHUNKS)}
+    summary = {str(nc): {"ms": [r["ms"] for r in rs],
+                         "peak_bytes_above_held": max(r["peak_bytes_above_held"] for r in rs)}
+               for nc, rs in by.items()}
+    emit({"phase": "moe", "config": cfg.name, "check": "chunked_prefill",
+          "prompts": list(prompts.shape), "runs": runs, "by_chunks": summary, "ok": ok})
+    return summary
 
 
 def moe_handoff(failures, cfg, sd):
@@ -5176,7 +5330,8 @@ def moe_gpu_vs_cpu(failures, cfg, sd):
     float32, the published capacity, MOE_CPU_LAYERS[name] layers, 2 x
     MOE_CPU_SEQ tokens: prefill logits, every cache leaf and one decode
     step, within GPU_CPU_REL, with the (token, expert) routing choices that
-    differ between the two sides counted."""
+    differ between the two sides counted; for MOE_CUT also with the prefill
+    in MOE_PREFILL_CHUNKS slices of the batch on both sides."""
     import torch
 
     from repro_torch.models import Model
@@ -5188,37 +5343,46 @@ def moe_gpu_vs_cpu(failures, cfg, sd):
     toks = torch.randint(0, cfg.vocab, (2, MOE_CPU_SEQ), device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(3))
 
-    def run(model, tokens, out):
+    def run(model, tokens, nc):
+        model.cfg = dataclasses.replace(cut, prefill_chunks=nc)
         logits, cache = model.prefill(tokens)
         step, cache = model.decode_step(cache, tokens[:, 0], MOE_CPU_SEQ - 1)
-        out.update({"prefill_logits": logits.cpu(), "decode_logits": step.cpu(),
-                    **{f"cache_{k}": v.cpu() for k, v in cache.items()}})
+        model.cfg = cut
+        return {"prefill_logits": logits.cpu(), "decode_logits": step.cpu(),
+                **{f"cache_{k}": v.cpu() for k, v in cache.items()}}
 
-    zero_counts()
-    g_out, c_out = {}, {}
-    g_route = moe_routing(gpu, lambda: run(gpu, toks, g_out))
-    torch.cuda.synchronize()
-    g_launches = read_counts()["flash_attention"]
+    # qwen3-moe also in prefill slices: each routes its own tokens, on
+    # both sides alike
+    chunks = (1, MOE_PREFILL_CHUNKS) if cfg.name == MOE_CUT else (1,)
+    g_out, c_out, g_route, c_route, g_launches = {}, {}, {}, {}, {}
+    for nc in chunks:
+        zero_counts()
+        g_route[nc] = moe_routing(gpu, lambda: g_out.__setitem__(nc, run(gpu, toks, nc)))
+        torch.cuda.synchronize()
+        g_launches[nc] = read_counts()["flash_attention"]
     cpu = gpu.to("cpu")  # the same weights, moved
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    c_route = moe_routing(cpu, lambda: run(cpu, toks.cpu(), c_out))
-    cpu_s = time.perf_counter() - t0
-    diffs = {k: rel_diff(g_out[k], c_out[k]) for k in c_out}
-    flips = routing_flips(g_route, c_route, cfg.moe.num_experts)
-    want_b4 = b4_per_prefill(cut)
-    ok = max(diffs.values()) <= GPU_CPU_REL and g_launches == want_b4
-    if not ok:
-        failures.append(f"moe {cfg.name}: GPU and CPU disagree beyond {GPU_CPU_REL}: {diffs}, "
-                        f"{flips} routing choices differ, {g_launches} B4 launches")
-    emit({"phase": "moe", "config": cfg.name, "check": "gpu_vs_cpu", "layers": n,
-          "layers_cut_from": cfg.n_layers, "tokens": list(toks.shape),
-          "capacity_factor": cfg.moe.capacity_factor, "rel_diffs": diffs, "limit": GPU_CPU_REL,
-          "routing_choices": sum(int(i.numel()) for i, _ in c_route),
-          "routing_choices_differing": flips,
-          "dropped_slot_share_gpu": [d for _, d in g_route],
-          "dropped_slot_share_cpu": [d for _, d in c_route],
-          "gpu_b4_launches": g_launches, "cpu_seconds": cpu_s, "ok": ok})
+    for nc in chunks:
+        t0 = time.perf_counter()
+        c_route[nc] = moe_routing(cpu, lambda: c_out.__setitem__(nc, run(cpu, toks.cpu(), nc)))
+        cpu_s = time.perf_counter() - t0
+        diffs = {k: rel_diff(g_out[nc][k], c_out[nc][k]) for k in c_out[nc]}
+        flips = routing_flips(g_route[nc], c_route[nc], cfg.moe.num_experts)
+        want_b4 = b4_per_prefill(cut) * nc
+        ok = max(diffs.values()) <= GPU_CPU_REL and g_launches[nc] == want_b4
+        if not ok:
+            failures.append(f"moe {cfg.name}: GPU and CPU disagree beyond {GPU_CPU_REL} at "
+                            f"prefill_chunks={nc}: {diffs}, {flips} routing choices differ, "
+                            f"{g_launches[nc]} B4 launches")
+        emit({"phase": "moe", "config": cfg.name, "check": "gpu_vs_cpu", "layers": n,
+              "layers_cut_from": cfg.n_layers, "tokens": list(toks.shape), "prefill_chunks": nc,
+              "capacity_factor": cfg.moe.capacity_factor, "rel_diffs": diffs,
+              "limit": GPU_CPU_REL,
+              "routing_choices": sum(int(i.numel()) for i, _ in c_route[nc]),
+              "routing_choices_differing": flips,
+              "dropped_slot_share_gpu": [d for _, d in g_route[nc]],
+              "dropped_slot_share_cpu": [d for _, d in c_route[nc]],
+              "gpu_b4_launches": g_launches[nc], "cpu_seconds": cpu_s, "ok": ok})
 
 
 def phase_moe(failures, results, traces):
@@ -5381,20 +5545,22 @@ def train_lm_run(flags, track_steps: bool) -> tuple:
     return out, buf.getvalue().splitlines(), per_step
 
 
-def train_lm_kernels(cfg, microbatches: int) -> tuple:
+def train_lm_kernels(cfg) -> tuple:
     """What one train_lm step of ``cfg`` must launch: ({counter: launches}),
     {counter: the name piece of its main kernel in a profile}, the
-    profile's kernel name pieces to track and its groups."""
-    per_step = cfg.n_layers * microbatches
+    profile's kernel name pieces to track and its groups.  Under remat
+    "full" or "dots" each layer's forward kernel runs twice a step, in the
+    forward and in its recomputation; its backward once."""
+    fwd = cfg.n_layers * (1 if cfg.remat == "none" else 2)
     if cfg.family == "ssm":
         from repro_torch.kernels.ssd.kernel import BWD_KERNEL_NAMES
 
-        return ({"ssd": per_step, "ssd_bwd": per_step},
+        return ({"ssd": fwd, "ssd_bwd": cfg.n_layers},
                 {"ssd": "ssd_kernel", "ssd_bwd": "ssd_bwd_chunk"},
                 ("ssd_kernel", *BWD_KERNEL_NAMES),
                 {"ssd_fwd": ("ssd_kernel",), "ssd_bwd": ("ssd_bwd_",), "gemm": GEMM_PIECES,
                  "copy": ("copy",)})
-    return ({"flash_attention": per_step, "flash_attention_bwd": per_step},
+    return ({"flash_attention": fwd, "flash_attention_bwd": cfg.n_layers},
             {"flash_attention": "attention_kernel", "flash_attention_bwd": "bwd_dkdv_dq"},
             ("attention_kernel", "bwd_dkdv_dq", "bwd_delta"),
             {"b4_fwd": ("attention_kernel",), "b4_bwd": ("bwd_dkdv_dq", "bwd_delta"),
@@ -5404,10 +5570,11 @@ def train_lm_kernels(cfg, microbatches: int) -> tuple:
 def phase_train_lm(failures, results, traces):
     """The LLM trainer at full width and depth (module note), for each of
     TRAIN_LM_CELLS: the launcher's loop, DENSE_BATCH x DENSE_PROMPT tokens a
-    step (in the cell's microbatches), its steps from seed 0 with a
-    checkpoint every so many; then the run resumed from the first
-    checkpoint in a fresh Model, its losses against the uninterrupted
-    run's."""
+    step, its steps from seed 0 with a checkpoint every so many; then the
+    run resumed from the first checkpoint in a fresh Model, its losses
+    against the uninterrupted run's; then the remat check (REMAT_CELLS),
+    the microbatch check (MICROBATCH_CELLS) and the profiler's prefix
+    (``prefix_probe``)."""
     import gc
 
     import torch
@@ -5426,12 +5593,28 @@ def phase_train_lm(failures, results, traces):
     emit({"phase": "train_lm", "check": "memory_at_start",
           "allocated_bytes": torch.cuda.memory_allocated(),
           "reserved_bytes": torch.cuda.memory_reserved()})
-    for arch, (n, every, microbatches) in TRAIN_LM_CELLS.items():
-        train_lm_cell(failures, results, arch, n, every, microbatches)
+    for arch, (n, every) in TRAIN_LM_CELLS.items():
+        train_lm_cell(failures, results, arch, n, every)
+        if failures:
+            return
+    for arch, batch in REMAT_CELLS.items():
+        train_lm_remat(failures, arch, batch)
+        if failures:
+            return
+    for arch, (batch, nm) in MICROBATCH_CELLS.items():
+        train_lm_microbatches(failures, arch, batch, nm)
+        if failures:
+            return
+    # the profiler's loss where this script's process is oldest
+    probe = prefix_probe()
+    if probe["lost_with_prefix"]:
+        failures.append(f"profiler prefix: a session opened by it lost kernel records {probe}")
+    emit({"phase": "train_lm", "check": "profiler_prefix", **probe,
+          "ok": not probe["lost_with_prefix"]})
     emit({"phase": "train_lm", "check": "seconds", "seconds": time.perf_counter() - t0})
 
 
-def train_lm_cell(failures, results, arch, n, every, microbatches):
+def train_lm_cell(failures, results, arch, n, every):
     import tempfile
 
     import torch
@@ -5444,11 +5627,11 @@ def train_lm_cell(failures, results, arch, n, every, microbatches):
     t0 = time.perf_counter()
     B, S = DENSE_BATCH, DENSE_PROMPT
     cfg = get_arch(arch)
-    expected_kernels, main_pieces, track, groups = train_lm_kernels(cfg, microbatches)
+    expected_kernels, main_pieces, track, groups = train_lm_kernels(cfg)
     with tempfile.TemporaryDirectory() as ckpt:
         flags = ["--arch", arch, "--full", "--steps", str(n), "--batch", str(B),
                  "--seq", str(S), "--ckpt-dir", ckpt, "--ckpt-every", str(every),
-                 "--microbatches", str(microbatches), "--seed", "0", "--device", "cuda"]
+                 "--seed", "0", "--device", "cuda"]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         out, lines, per_step = train_lm_run(flags, track_steps=True)
@@ -5475,8 +5658,7 @@ def train_lm_cell(failures, results, arch, n, every, microbatches):
         roofline("train_lm", cfg, "train", B, S, n_params, 0, median)
         # one more step under the profiler: device ms by kernel, the main
         # kernels' launches, idle share
-        tcfg = TrainConfig(lr=3e-4, total_steps=n, warmup_steps=max(1, n // 10),
-                           microbatches=microbatches)
+        tcfg = TrainConfig(lr=3e-4, total_steps=n, warmup_steps=max(1, n // 10))
         step_fn = make_train_step(model, tcfg)
         batch = batch_to_device(LMDataPipeline(cfg, B, S, seed=0).make_batch(n), torch.device("cuda"))
         prof = profile_breakdown(lambda: step_fn(state, batch), track=track, groups=groups)
@@ -5487,7 +5669,7 @@ def train_lm_cell(failures, results, arch, n, every, microbatches):
             failures.append(f"train_lm {arch}: the profiled step ran {prof_launches} kernels, "
                             f"expected {expected_kernels}")
         reading = {"config": cfg.name, "dtype": cfg.compute_dtype, "layers": cfg.n_layers,
-                   "params": n_params, "batch": B, "seq": S, "microbatches": microbatches,
+                   "params": n_params, "batch": B, "seq": S, "remat": cfg.remat,
                    "steps": n, "losses_logged": logged, "losses": losses,
                    "finite_and_falling": falling,
                    "first_step_ms_with_setup": per_step[0]["s"] * 1e3, "step_ms_median": median,
@@ -5501,21 +5683,25 @@ def train_lm_cell(failures, results, arch, n, every, microbatches):
         emit({"phase": "train_lm", **reading})
         emit({"phase": "train_lm", "config": cfg.name, "check": "profile", "call": "train_step",
               **prof})
-        summary = {k: reading[k] for k in ("layers", "step_ms_median", "tokens_per_s", "peak_bytes")}
-        if cfg.family == "ssm":
-            results.setdefault("ssd_bwd", {})["launches"] = sum(
-                p["launches"]["ssd_bwd"] for p in per_step)
-            results.setdefault("ssd", {})["train_lm"] = {
-                **summary, "launches": sum(p["launches"]["ssd"] for p in per_step)}
-        else:
-            results.setdefault("flash_attention_bwd_bf16", {})["launches"] = sum(
-                p["launches"]["flash_attention_bwd"] for p in per_step)
-            results.setdefault("flash_attention", {})["train_lm"] = summary
+        summary = {k: reading[k] for k in ("layers", "remat", "step_ms_median", "tokens_per_s",
+                                           "peak_bytes", "launches_per_step")}
+        # the kernels line's entries: the bfloat16 backward's is its own
+        entries = {"ssd": "ssd", "ssd_bwd": "ssd_bwd", "flash_attention": "flash_attention",
+                   "flash_attention_bwd": "flash_attention_bwd_bf16"}
+        for counter in expected_kernels:
+            results.setdefault(entries[counter], {}).setdefault("train_lm", {})[cfg.name] = {
+                **summary, "launches": sum(p["launches"][counter] for p in per_step)}
+        # a backward's entry counts its launches on the training path
+        bwd = results[entries[list(expected_kernels)[1]]]
+        bwd["launches"] = sum(r["launches"] for r in bwd["train_lm"].values())
         del model, state, out, step_fn, batch
         torch.cuda.empty_cache()
 
         # ---- resume: from the checkpoint at `every`, in a fresh Model
-        shutil.rmtree(os.path.join(ckpt, f"step_{n}"))
+        for name in os.listdir(ckpt):
+            if (name.startswith("step_") and not name.endswith(".tmp")
+                    and int(name[len("step_"):]) > every):
+                shutil.rmtree(os.path.join(ckpt, name))
         resumed, r_lines, r_steps = train_lm_run(flags, track_steps=True)
         r_losses = [float(m["loss"]) for m in resumed["metrics"]]
         want = losses[every:]
@@ -5534,6 +5720,170 @@ def train_lm_cell(failures, results, arch, n, every, microbatches):
         torch.cuda.empty_cache()
     emit({"phase": "train_lm", "config": cfg.name, "check": "seconds",
           "seconds": time.perf_counter() - t0})
+
+
+def train_lm_remat(failures, arch, B):
+    """One step of ``arch`` at full width and depth (seed 0), B x
+    DENSE_PROMPT tokens, under each of ``models.config.REMAT_MODES`` in
+    turn ("none" first) on the same weights and batch: the state built
+    (AdamW's moments), one untimed loss and gradient, the peak reset, the
+    loss and ``autograd.grad`` (the backward's peak, ms, the host's share
+    of them and the kernels' launches), then AdamW's update (the step's
+    peak), and the weights put back.  The loss and every gradient under
+    "full" and "dots" must be bitwise those under "none"."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.models import Model
+    from repro_torch.models.config import REMAT_MODES
+    from repro_torch.train import TrainConfig, init_state
+    from repro_torch.train.optim import AdamWConfig, adamw_update
+
+    t0 = time.perf_counter()
+    cfg = get_arch(arch)
+    model = Model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    batch = batch_to_device(LMDataPipeline(cfg, B, DENSE_PROMPT, seed=0).make_batch(0),
+                            torch.device("cuda"))
+    tcfg = TrainConfig()
+    opt_cfg = AdamWConfig(lr=tcfg.lr, weight_decay=tcfg.weight_decay, clip_norm=tcfg.clip_norm,
+                          m_dtype=tcfg.opt_m_dtype)
+    # the starting weights and "none"'s results wait on the host, so that
+    # every mode runs with the same bytes on the card
+    start = {k: v.detach().cpu() for k, v in model.named_parameters()}
+    ref = None
+    for mode in ("none", *(m for m in REMAT_MODES if m != "none")):
+        model.cfg = dataclasses.replace(cfg, remat=mode)
+        state = init_state(model, tcfg)
+        params = list(state.params.values())
+        with torch.enable_grad():  # warms the allocator's pools for this mode
+            torch.autograd.grad(model.loss(batch)[0], params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        zero_counts()
+        t1 = time.perf_counter()
+        with torch.enable_grad():
+            loss, _ = model.loss(batch)
+            t2 = time.perf_counter()
+            grads = torch.autograd.grad(loss, params)
+        t3 = time.perf_counter()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        bwd_peak = torch.cuda.max_memory_allocated()
+        launches = {k: v for k, v in read_counts().items() if v}
+        got = (loss.detach().cpu(), [g.cpu() for g in grads])
+        adamw_update(state.params, dict(zip(state.params, grads)), state.opt, opt_cfg,
+                     lr=torch.tensor(tcfg.lr, device="cuda"))
+        torch.cuda.synchronize()
+        step_peak = torch.cuda.max_memory_allocated()
+        del loss, grads, state, params
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(start[k])
+        if ref is None:
+            ref = got
+        bitwise = torch.equal(got[0], ref[0]) and all(
+            torch.equal(a, b) for a, b in zip(got[1], ref[1]))
+        want = train_lm_kernels(model.cfg)[0]
+        ok = bitwise and launches == want
+        if not ok:
+            failures.append(f"train_lm remat {arch} {mode}: bitwise {bitwise}, launches "
+                            f"{launches}, expected {want}")
+        emit({"phase": "train_lm", "check": "remat", "config": cfg.name, "remat": mode,
+              "batch": B, "seq": DENSE_PROMPT, "layers": cfg.n_layers, "loss": float(got[0]),
+              "bitwise_none": bitwise, "launches": launches, "launches_expected": want,
+              "loss_plus_grad_ms": ms,
+              # the host's time to enqueue the forward and the backward (each
+              # call's return, no sync): where their sum nears the wall
+              # time, the host paces the card
+              "host_forward_ms": (t2 - t1) * 1e3, "host_backward_ms": (t3 - t2) * 1e3,
+              "backward_peak_bytes": bwd_peak,
+              "step_peak_bytes": step_peak, "allocated_before_bytes": held, "ok": ok})
+        if failures:
+            break
+    del model, batch, start, ref, got
+    torch.cuda.empty_cache()
+    emit({"phase": "train_lm", "check": "remat_seconds", "config": cfg.name,
+          "seconds": time.perf_counter() - t0})
+
+
+def train_lm_microbatches(failures, arch, B, nm):
+    """The trainer's microbatch path at full width and depth under the
+    config's remat, in float32 (seed 0): one step of ``make_train_step`` on B x
+    DENSE_PROMPT tokens whole (twice: the first warms float32's kernels),
+    then one with ``TrainConfig(microbatches=nm)`` from the same weights
+    and state.  The gradients each step hands to
+    AdamW (read by a wrapper around ``train.trainer.adamw_update``) and its
+    loss: the cut step's within MICROBATCH_GRAD_OF_MAX of each gradient's
+    largest |value| and MICROBATCH_LOSS_REL of the whole step's; its
+    launches nm times the whole step's."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.models import Model
+    from repro_torch.train import TrainConfig, init_state, make_train_step, trainer
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(arch), param_dtype="float32", compute_dtype="float32")
+    model = Model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    batch = batch_to_device(LMDataPipeline(cfg, B, DENSE_PROMPT, seed=0).make_batch(0),
+                            torch.device("cuda"))
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+    update, seen, runs = trainer.adamw_update, {}, {}
+
+    def reading(params, grads, *args, **kwargs):
+        seen["grads"] = {k: g.float() for k, g in grads.items()}
+        return update(params, grads, *args, **kwargs)
+
+    trainer.adamw_update = reading
+    try:
+        for m in (1, 1, nm):
+            tcfg = TrainConfig(microbatches=m)
+            step = make_train_step(model, tcfg)
+            state = init_state(model, tcfg)
+            torch.cuda.synchronize()
+            zero_counts()
+            t1 = time.perf_counter()
+            _, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            runs[m] = {"ms": (time.perf_counter() - t1) * 1e3, "loss": float(metrics["loss"]),
+                       "launches": {k: v for k, v in read_counts().items() if v},
+                       "grads": seen.pop("grads")}
+            del step, state, metrics
+            with torch.no_grad():
+                for k, p in model.named_parameters():
+                    p.copy_(start[k])
+    finally:
+        trainer.adamw_update = update
+    whole, cut = runs[1], runs[nm]
+    tiny = torch.finfo(torch.float32).tiny
+    grad_err, worst = max((float((cut["grads"][k] - g).abs().max() / g.abs().max().clamp(min=tiny)), k)
+                          for k, g in whole["grads"].items())
+    loss_err = abs(cut["loss"] - whole["loss"]) / abs(whole["loss"])
+    once = train_lm_kernels(cfg)[0]
+    want = {k: nm * v for k, v in once.items()}
+    ok = (grad_err <= MICROBATCH_GRAD_OF_MAX and loss_err <= MICROBATCH_LOSS_REL
+          and whole["launches"] == once and cut["launches"] == want)
+    if not ok:
+        failures.append(f"train_lm microbatches {arch}: gradients {grad_err}, loss {loss_err}, "
+                        f"launches {whole['launches']} / {cut['launches']}, expected {once} / "
+                        f"{want}")
+    emit({"phase": "train_lm", "check": "microbatches", "config": cfg.name, "remat": cfg.remat,
+          "dtype": cfg.compute_dtype, "batch": B, "seq": DENSE_PROMPT, "layers": cfg.n_layers,
+          "microbatches": nm,
+          "loss_whole": whole["loss"], "loss_microbatched": cut["loss"],
+          "loss_rel_diff": loss_err, "loss_limit": MICROBATCH_LOSS_REL,
+          "grad_max_diff_of_max": grad_err, "grad_worst": worst,
+          "grad_limit": MICROBATCH_GRAD_OF_MAX,
+          "launches_whole": whole["launches"], "launches_microbatched": cut["launches"],
+          "launches_expected": want, "step_ms_whole": whole["ms"],
+          "step_ms_microbatched": cut["ms"], "ok": ok, "seconds": time.perf_counter() - t0})
+    del model, batch, start, runs, whole, cut
+    torch.cuda.empty_cache()
 
 
 PHASES = {"build": phase_build, "kernels": phase_kernels, "slice": phase_slice,
@@ -5567,7 +5917,9 @@ def main(argv) -> int:
     failures, results = [], {}
     names = ["build", *(a for a in argv if a != "build")] if argv else list(PHASES)
     for name in names:
+        t1 = time.perf_counter()
         PHASES[name](failures, results, traces)
+        emit({"phase": name, "check": "phase_seconds", "seconds": time.perf_counter() - t1})
         if failures:
             break
     if failures:

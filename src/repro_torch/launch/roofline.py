@@ -5,13 +5,12 @@ The port's copy of ``repro/launch/roofline.py``, reading the port's
 the two agree exactly (``tests/test_torch_roofline.py``).  The reference
 counts analytically because XLA's ``cost_analysis()`` counts a scanned
 layer once; the port keeps the counts as the bound beside its measured
-times (``chip_smoke.py``'s LLM phases).  The port does not rematerialize,
-so its ``ArchConfig`` has no ``remat`` and a ``train`` step counts the
-reference's multiplier without remat, 3.
+times (``chip_smoke.py``'s LLM phases).
 
 Conventions:
   * matmul (m,k)x(k,n): 2*m*k*n flops.
-  * training flops = fwd * (2 bwd + 1 fwd) = 3x.
+  * training flops = fwd * (2 bwd + 1 fwd) = 3x, and 4x under
+    ``remat="full"`` (each layer's forward runs again in the backward).
   * causal attention context factor 1/2; local window uses min(window, S).
   * HBM traffic: parameter bytes x passes + optimizer state traffic +
     per-layer activation read/write estimate + cache traffic for decode.
@@ -126,7 +125,8 @@ def analytic_flops(cfg: ArchConfig, meta: Dict) -> float:
     per_tok = fwd_flops_per_token(cfg, S, kind)
     tokens = B * S
     if kind == "train":
-        return 3.0 * tokens * per_tok  # no remat: the reference's "none" / "dots"
+        mult = 4.0 if cfg.remat == "full" else 3.0
+        return mult * tokens * per_tok
     return tokens * per_tok  # prefill
 
 

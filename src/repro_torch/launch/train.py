@@ -13,12 +13,18 @@ devices, and ``--mesh`` raises (one device; meshes are ROADMAP A.14).
     PYTHONPATH=src python -m repro_torch.launch.train --full --batch 4 --seq 2048 \\
         --steps 20 --ckpt-dir /tmp/ckpt
     # the card, mamba2-1.3b at full width and depth, 4 x 2048 tokens a step
-    # as two microbatches:
+    # as one batch (its config's remat="full" keeps each layer's input only):
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b --full --batch 4 \\
-        --seq 2048 --microbatches 2 --steps 10 --ckpt-dir /tmp/ckpt
+        --seq 2048 --steps 10 --ckpt-dir /tmp/ckpt
+    # the card, hubert-xlarge (an encoder trained on LMDataPipeline's frames):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge --full --batch 4 \\
+        --seq 2048 --steps 10 --ckpt-dir /tmp/ckpt
 
-The model's weights are drawn from ``--seed`` (a ``torch.Generator`` on
-the device), the data from ``LMDataPipeline(seed=--seed)``.  Each step is
+There is no flag for the memory policy: the config carries it
+(``ArchConfig.remat``, "full" in every full config, "none" under
+``--reduced``), as the reference's launcher has none.  The model's
+weights are drawn from ``--seed`` (a ``torch.Generator`` on the device),
+the data from ``LMDataPipeline(seed=--seed)``.  Each step is
 ``train.trainer.make_train_step``'s, run eagerly as the reference jits its
 step directly; a line is printed every 5 steps and at the last, a
 checkpoint (``ckpt.CheckpointManager``: the ``TrainState`` and the

@@ -45,27 +45,45 @@ cache into ``init_cache(B, S + n)``.  An encoder (``encoder_only``) has no
 cache: ``prefill``, ``init_cache`` and ``decode_step`` refuse it, as the
 reference routes its encoder only through ``encode``.  ``loss`` adds each
 MoE layer's ``router_aux_weight · load_balance + router_z_weight ·
-router_z`` to ``aux``.  The reference's ``prefill_chunks`` is not ported:
-the port prefills the batch whole.  The serving entry points
-(``prefill``, ``decode_step``, ``encode``) are forward only; ``loss``
-follows the caller's grad mode, as the reference's pure function does
+router_z`` to ``aux``.  The serving entry points (``prefill``,
+``decode_step``, ``encode``) are forward only; ``loss`` follows the
+caller's grad mode, as the reference's pure function does
 (``train/trainer.py`` differentiates it; callers that only read its value
 wrap it in ``torch.no_grad()``).  Under autograd each cross-entropy
 chunk's logits are recomputed in the backward (``torch.utils.checkpoint``,
 as the reference's ``@jax.checkpoint`` on ``ce_chunk``), so the float32
-(B, chunk, V) logits and their gradient are live one chunk at a time; the
-layers are not rematerialized (the port's ``ArchConfig`` has no
-``remat``).
+(B, chunk, V) logits and their gradient are live one chunk at a time.
+
+Memory policies, the reference's.  ``cfg.remat`` sets what the layers keep
+for the backward, at the reference's granularity (``_remat`` around each
+scanned body: an ``ssm`` layer; a hybrid unit, its recurrent layers and
+its attention together, then each tail layer; a decoder or encoder layer,
+``dense_layers`` included, its MoE aux losses carried out): "none" keeps
+every activation autograd saves; "full" keeps each layer's input and
+recomputes the layer in the backward (a non-reentrant
+``torch.utils.checkpoint``, so B4 and B5 launch twice a step: forward
+and recomputation); "dots" keeps the outputs of products without a batch
+dimension (``aten.mm`` / ``aten.addmm``, the torch reading of
+``dots_with_no_batch_dims_saveable``) and recomputes the rest, the batched
+products, the elementwise ops and the hand kernels included.  The values
+are the same under all three, bitwise: only the memory and the work
+differ.  Without grad no layer is checkpointed.  ``cfg.prefill_chunks``
+= n > 1 with the batch a multiple of n prefills n slices of the batch one
+after another (a vlm's patches cut with them) and concatenates the
+logits and every cache leaf on its batch axis, as the reference's
+``lax.map`` does; a MoE's dispatch groups then follow each slice's
+tokens, as the reference's do.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from .. import resolve_device
 from ..nn.core import LayerNorm, RMSNorm, trunc_normal_param
@@ -87,6 +105,30 @@ __all__ = ["Model", "VOCAB_CHUNK"]
 
 VOCAB_CHUNK = 2048  # logit/CE chunk along the sequence to bound live logits
 FAMILIES = ("ssm", "dense", "vlm", "audio", "moe", "hybrid")
+
+
+# the products "dots" keeps: those without a batch dimension
+_DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _remat(fn: Callable, cfg: ArchConfig) -> Callable:
+    """``fn`` under ``cfg.remat`` (module note): itself under "none" or
+    without grad, else run through a non-reentrant checkpoint, selective
+    under "dots"."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _DOTS_SAVED)
+    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
+def _cat_batch(parts):
+    """Prefill chunks' caches joined leaf by leaf on the batch axis (1, after
+    the layers'), nested dicts included."""
+    if isinstance(parts[0], dict):
+        return {k: _cat_batch([p[k] for p in parts]) for k in parts[0]}
+    return torch.cat(parts, dim=1)
 
 
 def _norm(cfg: ArchConfig, *, device) -> nn.Module:
@@ -302,8 +344,18 @@ class Model(nn.Module):
         """Process prompts (B, S) of token ids (and, for ``vlm``, their
         ``patches`` (B, P, frontend_dim), which take the first P positions):
         returns the last position's logits (B, V) float32 and the decode
-        cache."""
+        cache, in ``cfg.prefill_chunks`` slices of the batch where B is a
+        multiple of it (module note)."""
         self._decoder_only("prefill")
+        nc = self.cfg.prefill_chunks
+        if nc > 1 and tokens.shape[0] % nc == 0:
+            cut = [None] * nc if patches is None else patches.chunk(nc)
+            parts = [self._prefill(t, p) for t, p in zip(tokens.chunk(nc), cut)]
+            return (torch.cat([lg for lg, _ in parts]), _cat_batch([c for _, c in parts]))
+        return self._prefill(tokens, patches)
+
+    def _prefill(self, tokens: torch.Tensor, patches: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         x = self._inputs(tokens, patches=patches)
         if self.cfg.family == "ssm":
             states = []
@@ -443,27 +495,44 @@ class Model(nn.Module):
 
     def _hidden(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The stack's output (B, S, d) on its input ``x``, before the final
-        norm, and the sum of its MoE layers' weighted aux losses (float32)."""
+        norm, and the sum of its MoE layers' weighted aux losses (float32);
+        each layer (a hybrid's unit) under ``_remat``."""
+        cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if self.cfg.family == "ssm":
+        if cfg.family == "ssm":
+            def ssm_body(layer, x):
+                return x + layer.mixer(layer.ln(x))
+
+            body = _remat(ssm_body, cfg)
             for layer in self.layers:
-                x = x + layer.mixer(layer.ln(x))
+                x = body(layer, x)
             return x, aux
         positions = self._positions(x)
-        if self.cfg.family == "hybrid":
-            for unit in self.layers:
+        if cfg.family == "hybrid":
+            def unit_body(unit, x):
                 for layer in unit.recs:
                     x = self._rec_layer(layer, x)[0]
-                x = self._layer(unit.attn, x, positions, window=self.cfg.hybrid.window)[0]
+                return self._layer(unit.attn, x, positions, window=cfg.hybrid.window)[0]
+
+            body = _remat(unit_body, cfg)
+            for unit in self.layers:
+                x = body(unit, x)
+            rec_body = _remat(lambda layer, x: self._rec_layer(layer, x)[0], cfg)
             for layer in getattr(self, "tail", ()):
-                x = self._rec_layer(layer, x)[0]
+                x = rec_body(layer, x)
             return x, aux
-        m = self.cfg.moe
-        for layer in self._decoder_layers():
+
+        def layer_body(layer, x, aux):
             x, _, layer_aux = self._layer(layer, x, positions)
             if layer_aux is not None:
+                m = cfg.moe
                 aux = aux + (m.router_aux_weight * layer_aux["load_balance"]
                              + m.router_z_weight * layer_aux["router_z"])
+            return x, aux
+
+        body = _remat(layer_body, cfg)
+        for layer in self._decoder_layers():
+            x, aux = body(layer, x, aux)
         return x, aux
 
     @torch.no_grad()

@@ -9,11 +9,13 @@ encoder over projected frame embeddings) and ``moe`` (the decoder with a
 mixture-of-experts MLP, ``MoEConfig``, and for DeepSeek-V2 MLA attention,
 ``MLAConfig``) and ``hybrid`` (RecurrentGemma: units of RG-LRU layers
 and one local-attention layer, ``HybridConfig``).  The reference's
-``use_pallas``, ``remat``, ``scan_layers`` and ``prefill_chunks`` are
-left out: the port always launches its kernels on the card (B4 on every
-windowless attention, B5 on every SSD scan), runs eagerly, does not
-rematerialize and prefills the batch whole.  ``reduced()`` gives the reference's
-smoke-test numbers by the reference's rules.
+``use_pallas`` and ``scan_layers`` are left out: the port always launches
+its kernels on the card (B4 on every windowless attention, B5 on every SSD
+scan) and runs its layers eagerly.  Its memory policies are the
+reference's: ``remat`` ("full" by default, "dots" or "none") picks what
+each layer keeps for the backward (``models/backbone.py::_remat``), and
+``prefill_chunks`` cuts a prefill's batch.  ``reduced()`` gives the
+reference's smoke-test numbers by the reference's rules.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import dataclasses
 from typing import Optional, Tuple
 
 __all__ = ["ArchConfig", "HybridConfig", "MLAConfig", "MoEConfig", "SSMConfig"]
+
+REMAT_MODES = ("full", "dots", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +110,15 @@ class ArchConfig:
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     kv_cache_dtype: str = "bfloat16"  # bfloat16 | float32 | int8
+    remat: str = "full"              # full | dots | none
+    # prefill the prompt batch in this many chunks, one after another, to
+    # bound the prefill's transient memory (MoE dispatch / combine buffers
+    # scale with the live tokens)
+    prefill_chunks: int = 1
+
+    def __post_init__(self):
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"{self.name}: remat={self.remat!r}; have {REMAT_MODES}")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -124,7 +137,8 @@ class ArchConfig:
         routing); for ``mla`` ranks 32 / 16 / 8 / 16 (kv_lora, nope,
         rope, v); for ``hybrid`` window 32, ``lru_width`` None and
         ``rec_per_unit + attn_per_unit + 1`` layers (one unit and a
-        one-layer tail) in place of 4.  ``kv_cache_dtype`` is kept."""
+        one-layer tail) in place of 4; ``remat`` "none".
+        ``kv_cache_dtype`` and ``prefill_chunks`` are kept."""
         n_heads = min(self.n_heads, 4) if self.n_heads else 0
         n_kv = min(self.n_kv_heads, n_heads) if self.n_kv_heads else n_heads
         if n_kv and n_heads % n_kv:
@@ -165,4 +179,5 @@ class ArchConfig:
             vision_patches=4,
             param_dtype="float32",
             compute_dtype="float32",
+            remat="none",
         )

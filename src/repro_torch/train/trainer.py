@@ -23,7 +23,13 @@ Counterpart of ``repro/train/trainer.py``.  Its LLM half
     this step runs eagerly; on the card attention runs B4 and its
     hand-written backward (``kernels/attention/ops.py``), and Mamba-2's
     SSD scan runs B5 and its hand-written backward
-    (``kernels/ssd/ops.py``).
+    (``kernels/ssd/ops.py``).  The model's ``cfg.remat`` (``"full"`` in
+    every full config) sets what the forward keeps: under "full" and
+    "dots" ``torch.autograd.grad`` recomputes each layer's forward from
+    its input, B4 and B5 included, before that layer's backward (their
+    ``autograd.Function``s save tensors only through
+    ``save_for_backward``, which the checkpoint drops and recomputes), so
+    a step launches each forward kernel twice and each backward once.
   * ``state_axes`` / ``state_shardings`` raise: the port runs on one
     device (ROADMAP A.14), as ``engine/plan.py`` refuses a mesh.
 

@@ -9,9 +9,11 @@ reference's, every id.  The four ``dense`` configs, ``qwen2-vl-2b``,
 ``hubert-xlarge``, the two ``moe`` configs and ``recurrentgemma-9b``
 equal the reference's field by field, full and reduced (the MoE, MLA and
 hybrid fields nested), on every field the port has; the fields the port
-leaves out are the reference's switches it does not read
-(``use_pallas``, ``remat``, ``scan_layers``, ``prefill_chunks``), which
-these configs leave at their defaults.
+leaves out are the reference's switches it does not read (``use_pallas``,
+``scan_layers``), which these configs leave at their defaults.  The
+memory policies are fields of both: ``remat`` "full" and
+``prefill_chunks`` 1 in every full config, ``remat`` "none" in every
+reduced one.
 """
 import dataclasses
 
@@ -34,7 +36,11 @@ MOE = ("qwen3-moe-235b-a22b", "deepseek-v2-lite-16b")
 HYBRID = "recurrentgemma-9b"
 PORTED = DENSE + ("mamba2-1.3b",) + VLM_AUDIO + MOE + (HYBRID,)
 # reference ArchConfig fields the port leaves out, and their defaults
-LEFT_OUT = {"remat": "full", "scan_layers": True, "use_pallas": False, "prefill_chunks": 1}
+LEFT_OUT = {"scan_layers": True, "use_pallas": False}
+
+
+def assert_memory_policies(port, reduced):
+    assert (port.remat, port.prefill_chunks) == ("none" if reduced else "full", 1)
 
 
 def as_fields(cfg):
@@ -79,10 +85,9 @@ def test_dense_config_equals_the_reference_field_by_field(arch, reduced):
     port_fields = dataclasses.asdict(port)
     assert set(port_fields) | set(LEFT_OUT) == set(ref_fields)
     assert port_fields == {k: v for k, v in ref_fields.items() if k in port_fields}
-    reduced_defaults = {"remat": "none"}
-    for k, v in LEFT_OUT.items():  # the families not ported are off in these configs
-        want = reduced_defaults.get(k, v) if reduced else v
-        assert ref_fields[k] == want, k
+    for k, v in LEFT_OUT.items():  # the switches the port does not read are off
+        assert ref_fields[k] == v, k
+    assert_memory_policies(port, reduced)
     assert port.resolved_head_dim == ref.resolved_head_dim
     assert port.family == "dense"
     assert (port.frontend, port.encoder_only, port.rope) == (None, False, "rope")
@@ -99,8 +104,8 @@ def test_vlm_audio_config_equals_the_reference_field_by_field(arch, reduced):
     port_fields = dataclasses.asdict(port)
     assert set(port_fields) | set(LEFT_OUT) == set(ref_fields)
     assert port_fields == {k: v for k, v in ref_fields.items() if k in port_fields}
-    assert all(ref_fields[k] == (("none" if reduced else v) if k == "remat" else v)
-               for k, v in LEFT_OUT.items())
+    assert all(ref_fields[k] == v for k, v in LEFT_OUT.items())
+    assert_memory_policies(port, reduced)
     want = {"qwen2-vl-2b": {"family": "vlm", "frontend": "vision_stub", "frontend_dim": 1280,
                             "encoder_only": False, "rope": "mrope", "mrope_sections": (16, 24, 24)},
             "hubert-xlarge": {"family": "audio", "frontend": "audio_stub", "frontend_dim": 512,
@@ -128,8 +133,8 @@ def test_moe_config_equals_the_reference_field_by_field(arch, reduced):
     port_fields = dataclasses.asdict(port)
     assert set(port_fields) | set(LEFT_OUT) == set(ref_fields)
     assert port_fields == {k: v for k, v in ref_fields.items() if k in port_fields}
-    assert all(ref_fields[k] == (("none" if reduced else v) if k == "remat" else v)
-               for k, v in LEFT_OUT.items())
+    assert all(ref_fields[k] == v for k, v in LEFT_OUT.items())
+    assert_memory_policies(port, reduced)
     assert [f.name for f in dataclasses.fields(port.moe)] == [
         f.name for f in dataclasses.fields(ref.moe)]
     m = port.moe
@@ -163,8 +168,8 @@ def test_hybrid_config_equals_the_reference_field_by_field(reduced):
     port_fields = dataclasses.asdict(port)
     assert set(port_fields) | set(LEFT_OUT) == set(ref_fields)
     assert port_fields == {k: v for k, v in ref_fields.items() if k in port_fields}
-    assert all(ref_fields[k] == (("none" if reduced else v) if k == "remat" else v)
-               for k, v in LEFT_OUT.items())
+    assert all(ref_fields[k] == v for k, v in LEFT_OUT.items())
+    assert_memory_policies(port, reduced)
     assert [f.name for f in dataclasses.fields(port.hybrid)] == [
         f.name for f in dataclasses.fields(ref.hybrid)]
     assert dataclasses.astuple(port.hybrid) == ((2, 1, 32, None, 4) if reduced

@@ -52,7 +52,14 @@ shape (64 query heads over 4 kv heads repeated 16x); each moe config at
 full width cut to its first MoE layer matches the CPU in float32 (MoE
 routing, dispatch and combine; MLA's plain prefill and absorbed decode),
 and in bfloat16 a qwen3-moe prefill launches B4 once per layer, an MLA
-(deepseek) prefill and every decode step never.
+(deepseek) prefill and every decode step never.  The memory policies: a
+reduced bfloat16 qwen2-0.5b's and a reduced Mamba-2's loss and gradients
+under remat "full" and "dots" are bitwise those under "none", with the
+forward kernel (B4, B5) launched twice a layer (forward and
+recomputation) and its backward once; a prefill in 2 slices of the batch
+(prefill_chunks=2, dense and moe) matches the CPU's within 2e-4 of the
+largest value.  A profiler session opened by chip_smoke.py's prefix of
+spin kernels counts every launch of a known loop.
 
 The engine's graphed step (one CUDA graph per geometry, replayed per
 batch) is held to the eager step driven through its cache entry, on every
@@ -2407,3 +2414,97 @@ def test_hybrid_bf16_serving_launches_no_b4(dev):
     torch.cuda.synchronize()
     assert FLASH_ATTENTION.launches == launches
     assert torch.isfinite(logits).all()
+
+
+# ---------------------------------------------------------------------------
+# Memory policies: ArchConfig.remat and prefill_chunks
+# ---------------------------------------------------------------------------
+
+# a reduced dense model in the full configs' bfloat16 (B4 and its bf16
+# backward) and a reduced Mamba-2 (B5 and the SSD backward)
+REMAT_ARCHS = {"qwen2-0.5b": "bfloat16", "mamba2-1.3b": "float32"}
+
+
+@pytest.mark.parametrize("arch", sorted(REMAT_ARCHS))
+def test_remat_full_and_dots_bitwise_none_on_card(dev, arch):
+    """The loss and every gradient under remat "full" and "dots" bitwise
+    those under "none" on the card; the forward kernel (B4 or B5) launched
+    once a layer under "none" and twice under "full" and "dots" (forward
+    and recomputation), its backward once a layer under each."""
+    dtype = REMAT_ARCHS[arch]
+    cfg = dataclasses.replace(get_arch(arch, reduced=True), param_dtype=dtype,
+                              compute_dtype=dtype)
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    batch = mamba2_batch(cfg, dev, B=2, S=64)
+    fwd, bwd = (SSD_SCAN, SSD_SCAN_BWD) if cfg.family == "ssm" else (
+        FLASH_ATTENTION, FLASH_ATTENTION_BWD)
+    runs = {}
+    for mode in ("none", "full", "dots"):
+        model.cfg = dataclasses.replace(cfg, remat=mode)
+        counts = (fwd.launches, bwd.launches)
+        loss, grads = mamba2_grads(model, batch)
+        torch.cuda.synchronize()
+        assert (fwd.launches - counts[0], bwd.launches - counts[1]) == (
+            cfg.n_layers * (1 if mode == "none" else 2), cfg.n_layers), mode
+        runs[mode] = (loss, grads)
+    loss, grads = runs["none"]
+    assert torch.isfinite(loss)
+    for mode in ("full", "dots"):
+        assert torch.equal(runs[mode][0], loss), mode
+        for name, g in grads.items():
+            assert torch.equal(runs[mode][1][name], g), (mode, name)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-moe-235b-a22b"])
+def test_chunked_prefill_on_card_matches_cpu(dev, arch):
+    """prefill_chunks=2 at reduced width, float32: 4 prompts prefilled as
+    2 slices of 2 on the card (B4 once a layer a slice) against the same
+    model and slices on the CPU, logits and every cache leaf within 2e-4
+    of the largest value."""
+    cfg = dataclasses.replace(get_arch(arch, reduced=True), prefill_chunks=2)
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (4, 64), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    launches = FLASH_ATTENTION.launches
+    logits, cache = model.prefill(toks)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION.launches == launches + 2 * cfg.n_layers
+    assert logits.shape == (4, cfg.vocab) and cache["k"].shape[1] == 4
+    got = [t.cpu() for t in (logits, *cache.values())]
+    del logits, cache
+    cpu = model.to("cpu")
+    ref, ref_cache = cpu.prefill(toks.cpu())
+    for g, want in zip(got, (ref, *ref_cache.values())):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(g, want, atol=2e-4 * scale, rtol=0)
+
+
+def chip_smoke_module():
+    """``chip_smoke.py``, at the repo's root, as a module (its ``main`` not
+    run)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# last in the file, so that it runs where the file's process is oldest
+def test_profile_prefix_keeps_every_record_of_a_known_loop(dev):
+    """torch.profiler on the card can lose the first kernel records of a
+    session, more the longer the process has run (in chip_smoke.py's later
+    phases one B4 launch of a prefill's 24, one B5 launch of a train step's
+    96).  300 known launches, profiled as chip_smoke's ``profile_breakdown``
+    profiles, without ``profile_prefix`` and with it: the session opened by
+    the prefix counts all 300 and keeps some of the prefix's own records
+    (``prefix_left`` raises where it kept none); the loss without the
+    prefix is printed."""
+    smoke = chip_smoke_module()
+    probe = smoke.prefix_probe(300)
+    print("prefix_probe", probe)
+    assert probe["lost_with_prefix"] == 0
+    assert 0 <= probe["prefix_records_lost"] < smoke.PROFILE_PREFIX_KERNELS
+    assert 0 <= probe["lost_without_prefix"] <= 300

@@ -5,9 +5,9 @@ Every ``ARCH_IDS`` entry, full and reduced: the forward FLOPs per token,
 ``analytic_flops`` and ``analytic_hbm_bytes`` for a prefill and a decode
 step at 1, 2,048 and 32,768 positions are EQUAL, as floats, to the
 reference's on the reference's config (the same terms in the same
-order).  A ``train`` step is compared at the reference's ``remat="none"``:
-the port does not rematerialize, and its config has no ``remat``.
-``count_params`` raises in both.
+order).  A ``train`` step is compared under each ``remat``: 3x the
+forward under "none" and "dots", 4x under "full", the full configs'
+default.  ``count_params`` raises in both.
 """
 import dataclasses
 
@@ -50,15 +50,35 @@ def test_serving_counts_equal_the_reference(arch, kind, seq, reduced):
     assert roofline.analytic_flops(port, meta) > 0
 
 
+def train_counts(arch, seq, remat):
+    """The port's and the reference's train-step FLOPs and HBM bytes of
+    ``arch`` under ``remat``."""
+    ref, port = (dataclasses.replace(c, remat=remat) for c in configs(arch, False))
+    meta = {"batch": 2, "seq": seq, "kind": "train"}
+    return ((roofline.analytic_flops(port, meta), roofline.analytic_hbm_bytes(port, meta, N_PARAMS)),
+            (ref_roofline.analytic_flops(ref, meta),
+             ref_roofline.analytic_hbm_bytes(ref, meta, N_PARAMS)))
+
+
 @pytest.mark.parametrize("seq", SEQS)
 @pytest.mark.parametrize("arch", REF_ARCH_IDS)
 def test_train_counts_equal_the_reference_without_remat(arch, seq):
-    ref, port = configs(arch, False)
-    meta = {"batch": 2, "seq": seq, "kind": "train"}
-    ref_none = dataclasses.replace(ref, remat="none")
-    assert roofline.analytic_flops(port, meta) == ref_roofline.analytic_flops(ref_none, meta)
-    assert roofline.analytic_hbm_bytes(port, meta, N_PARAMS) == (
-        ref_roofline.analytic_hbm_bytes(ref_none, meta, N_PARAMS))
+    port, ref = train_counts(arch, seq, "none")
+    assert port == ref
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+@pytest.mark.parametrize("seq", SEQS)
+@pytest.mark.parametrize("arch", REF_ARCH_IDS)
+def test_train_counts_equal_the_reference_under_remat(arch, seq, remat):
+    port, ref = train_counts(arch, seq, remat)
+    assert port == ref
+    none = train_counts(arch, seq, "none")[0]
+    assert port[0] / none[0] == pytest.approx(4.0 / 3.0 if remat == "full" else 1.0, rel=1e-12)
+    if remat == "full":  # the full configs' default
+        assert get_arch(arch).remat == "full"
+        assert roofline.analytic_flops(get_arch(arch), {"batch": 2, "seq": seq,
+                                                        "kind": "train"}) == port[0]
 
 
 def test_hybrid_counts_read_the_window_and_the_units():
