@@ -305,6 +305,25 @@ and ``nvcc``.  Phases, one JSON line each:
            gradient under "full" and "dots" bitwise "none"'s, with each
            mode's backward peak, step peak, ms of loss plus gradient and
            kernel launches.
+  dryrun   the runtime sanitizer and the one-card dry run
+           (analysis/sanitize.py, launch/dryrun.py): the default
+           TaoConfig's fused route, warm, on the three 150k traces inside
+           sanitized(compile_budget=0) (the sync guard armed, NaNs
+           checked): nothing raises or compiles, the results are the
+           unsanitized run's, one B1 launch a batch; inside a sanitized
+           block a planted .item() raises and device_get passes, and a
+           planted NaN raises at the block's exit; one layer's B4 bfloat16
+           call of qwen2-0.5b's prefill_32k, (2, 14, 32768, 64) causal,
+           against its plain version one (batch, head) at a time, and B5 at
+           mamba2-1.3b's (2 x 32768, 128 chunks), each timed beside its
+           plain version and bound (B4 also beside SDPA); then run_cell for
+           qwen2-0.5b's and mamba2-1.3b's prefill_32k (B4 / B5 once a
+           layer), qwen2-0.5b's train_4k (16 x 4096 in 2 microbatches,
+           remat "full": B4 twice a layer and its backward once, a
+           microbatch) and mamba2-1.3b's long_500k (a decode over a
+           524,288-token state: no kernel), each line the cell's record
+           (step ms, profile, peak, launches, roofline terms) with the
+           launches read around the whole run.
 
 Each LLM phase (mamba2, dense, vlm_audio, moe, hybrid) prints, before
 each model's reading, a ``roofline`` line per prefill (or encode) and per
@@ -320,7 +339,9 @@ the dense, vlm, audio, moe, hybrid and train_lm cells' launches; the
 bfloat16 backward's entry its readings at the training shapes and its
 launches in train_lm's qwen2-0.5b and hubert-xlarge runs; B5's its
 launches in a prefill and in mamba2-1.3b's 10 training steps; the SSD
-backward's its launches in those 10 steps); the card's name and power limit
+backward's its launches in those 10 steps; B4's, B5's and the bfloat16
+backward's their readings at S = 32768 and their launches in the dryrun
+cells); the card's name and power limit
 as ``nvidia-smi`` prints them; and, last, the device line.  With phase
 names as arguments, the build and those phases run, and the last line is
 the device line with the phases' names; no kernels line.  Any failed check
@@ -617,6 +638,25 @@ MICROBATCH_LOSS_REL = 1e-5
 # what the phase accepts where the eager ops' kernels choose otherwise
 TRAIN_LM_RESUME_REL = 1e-6
 # the dense serving cells: prompts x tokens, greedy decode steps
+# the dryrun phase: launch/dryrun.py's cells on the card, the two that take
+# B4 bf16 and B5 to S = 32768 (2 x 32768 a prefill: the reference's 32 over
+# its data axis of 16), qwen2-0.5b's train_4k (16 x 4096, 2 microbatches,
+# remat "full": B4 and its backward) and mamba2-1.3b's 524,288-token state
+# decode; each run for DRYRUN_STEPS timed steps
+DRYRUN_CELLS = (("qwen2-0.5b", "prefill_32k"), ("mamba2-1.3b", "prefill_32k"),
+                ("qwen2-0.5b", "train_4k"), ("mamba2-1.3b", "long_500k"))
+DRYRUN_STEPS = 2
+DRYRUN_SEQ = 32768
+DRYRUN_SSD_BATCH = 2
+# (B, H, S, D, kv heads' repeat) of qwen2-0.5b's prefill_32k attention
+DRYRUN_ATTN_SHAPE = (2, 14, DRYRUN_SEQ, 64, 7)
+# B4 bf16 at S = 32768 is held elementwise as in the kernels phase
+# (ATTN_BF16_RTOL, ATTN_BF16_ATOL_OF_MAX_V); its bitwise share falls with
+# S (99.74% at 2048): an output's float32 sum over 16x the keys carries
+# about 4x (sqrt 16) the rounding error, so ~1% of its elements may round to
+# the neighbouring bfloat16 where ~0.26% do at 2048; set before the first
+# run at 32768, not after
+DRYRUN_ATTN_MIN_BITWISE = 0.97
 DENSE_FULL = ("qwen2-0.5b", "stablelm-1.6b")    # full width and depth
 DENSE_CUT = ("glm4-9b", "qwen1.5-32b")          # full width, DENSE_CUT_LAYERS
 DENSE_CUT_LAYERS = 2
@@ -676,11 +716,10 @@ def emit(obj) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    from repro_torch.launch.dryrun import card_line as line
+
+    return line()
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -877,14 +916,9 @@ def edge_delta_trace(seed: int):
 
 def launch_counters() -> dict:
     """Every kernel wrapper of the port, by the name the kernels line uses."""
-    from repro_torch.kernels.attention.kernel import FLASH_ATTENTION, FLASH_ATTENTION_BWD
-    from repro_torch.kernels.features.kernel import BRANCH_HISTORY, MEMDIST_DELTA
-    from repro_torch.kernels.fused.kernel import FUSED_FEATURES
-    from repro_torch.kernels.ssd.kernel import SSD_SCAN, SSD_SCAN_BWD
+    from repro_torch.kernels import launch_counters as counters
 
-    return {"fused_features": FUSED_FEATURES, "flash_attention": FLASH_ATTENTION,
-            "branch_history": BRANCH_HISTORY, "memdist_delta": MEMDIST_DELTA, "ssd": SSD_SCAN,
-            "flash_attention_bwd": FLASH_ATTENTION_BWD, "ssd_bwd": SSD_SCAN_BWD}
+    return counters()
 
 
 def zero_counts() -> None:
@@ -1629,6 +1663,17 @@ def ssd_inputs(B, S, H, P, G, N, dtype, seed):
     return rand(B, S, H, P), dt, A, rand(B, S, G, N, scale=0.5), rand(B, S, G, N, scale=0.5)
 
 
+def ssd_work(B, S, H, P, G, N, c) -> tuple:
+    """(bytes, FLOPs) B5 needs in bfloat16 with the state written: each
+    input read once and y and the state written once; the causal scores C
+    Bᵀ and the W X product over the lower triangle only (c(c+1)/2 entries
+    per chunk, per group and per head), plus the state's apply and update,
+    4NPH per token."""
+    nbytes = (2 * B * S * H * P + 2 * B * S * G * N + B * S * H) * 2 + H * 4 + B * H * N * P * 4
+    flops = B * (S // c) * (c * (c + 1) // 2) * 2 * (G * N + H * P) + B * S * 4 * N * P * H
+    return nbytes, flops
+
+
 def check_ssd_kernel(failures, results):
     """B5 against its plain chunked version (y and the final state) at the
     full mamba2-1.3b prefill shape in float32 and bfloat16, with two
@@ -1695,11 +1740,7 @@ def check_ssd_kernel(failures, results):
     ms = graph_ms(lambda: ssd_scan_cuda(*inp, chunk=c, return_state=True), per_graph=5, replays=10)
     call_ms = cuda_ms(lambda: ssd_scan_cuda(*inp, chunk=c, return_state=True), 10)
     plain_ms = cuda_ms(lambda: ssd_chunked_ref(*inp, c, return_state=True), 3, warmup=1)
-    nbytes = (2 * B * S * H * P + 2 * B * S * G * N + B * S * H) * 2 + H * 4 + B * H * N * P * 4
-    # what the function needs: the causal scores C Bᵀ and the W X product
-    # over the lower triangle only (c(c+1)/2 entries per chunk, per group
-    # and per head), plus the state's apply and update, 4NPH per token
-    flops = B * (S // c) * (c * (c + 1) // 2) * 2 * (G * N + H * P) + B * S * 4 * N * P * H
+    nbytes, flops = ssd_work(B, S, H, P, G, N, c)
     # priced at the bf16 tensor-core rate: the kernel's products run there
     b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS_PER_S)
     info = launch_info(N, c, bf16)
@@ -5886,12 +5927,249 @@ def train_lm_microbatches(failures, arch, B, nm):
     torch.cuda.empty_cache()
 
 
+def phase_dryrun(failures, results, traces):
+    """The one-card dry run (module note): the Tao fused warm path under
+    ``analysis.sanitize.sanitized(compile_budget=0)`` with the sync guard
+    armed, the guard firing on a planted ``.item()`` and a planted NaN
+    caught at a block's exit; B4 bf16 and B5 at S = 32768 against their
+    plain versions; then DRYRUN_CELLS through ``launch.dryrun.run_cell``,
+    each with every kernel's launches read around it."""
+    import gc
+
+    import torch
+
+    from repro_torch.engine import clear_step_cache
+    from repro_torch.train import clear_train_step_cache
+
+    t0 = time.perf_counter()
+    clear_step_cache()
+    clear_train_step_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_sanitized(failures, traces)
+    if failures:
+        return
+    dryrun_attention_32k(failures, results)
+    dryrun_ssd_32k(failures, results)
+    if failures:
+        return
+    for arch, shape in DRYRUN_CELLS:
+        dryrun_cell(failures, results, arch, shape)
+        if failures:
+            return
+    emit({"phase": "dryrun", "check": "seconds", "seconds": time.perf_counter() - t0})
+
+
+def dryrun_sanitized(failures, traces):
+    """The default TaoConfig's engine, its geometry captured and each trace
+    simulated once, then the three traces again inside
+    ``sanitized(compile_budget=0)`` (sync guard armed, NaNs checked):
+    nothing raises, nothing is captured or built, the same results, one B1
+    launch a batch.  Inside a sanitized block a planted ``.item()`` must
+    raise and ``device_get`` must pass; a planted NaN must raise at the
+    block's exit."""
+    import torch
+
+    from repro_torch.analysis.sanitize import compiles_now, sanitized
+    from repro_torch.core.model import TaoConfig, init_tao
+    from repro_torch.engine import EngineConfig, StreamingEngine
+    from repro_torch.engine.runner import device_get
+
+    cfg = TaoConfig()
+    engine = StreamingEngine(init_tao(cfg, torch.Generator().manual_seed(0), device="cuda"), cfg,
+                             EngineConfig(metrics=("cpi", "branch_mpki", "l1d_mpki")), device="cuda")
+    warm = {b: engine.simulate(t) for b, t in traces.items()}
+    compiles = compiles_now()
+    zero_counts()
+    t1 = time.perf_counter()
+    error = None
+    try:
+        with sanitized(compile_budget=0):
+            got = {b: engine.simulate(t) for b, t in traces.items()}
+    except (RuntimeError, AssertionError, FloatingPointError) as e:
+        error = f"{type(e).__name__}: {e}"
+        got = {}
+    seconds = time.perf_counter() - t1
+    launches = read_counts()
+    batches = sum(-(-(len(t) // cfg.window) // engine.ecfg.batch_size) for t in traces.values())
+    same = bool(got) and all(same_metrics(got[b], warm[b]) for b in traces)
+    planted = {}
+    x = torch.arange(4, dtype=torch.float32, device="cuda")
+    with sanitized(debug_nans=False):
+        try:
+            x.sum().item()
+            planted["item_raised"] = False
+        except RuntimeError as e:
+            planted["item_raised"] = "synchroniz" in str(e)
+        planted["device_get_passed"] = device_get({"x": x})["x"].tolist() == [0.0, 1.0, 2.0, 3.0]
+    try:
+        with sanitized():
+            torch.log(x - 10.0)
+        planted["nan_raised"] = False
+    except FloatingPointError as e:
+        planted["nan_raised"] = "aten.log" in str(e)
+    ok = (error is None and same and compiles_now() == compiles
+          and launches["fused_features"] == batches and all(planted.values()))
+    if not ok:
+        failures.append(f"dryrun sanitized: error {error}, same {same}, launches {launches}, "
+                        f"{batches} batches, planted {planted}")
+    emit({"phase": "dryrun", "check": "sanitized_warm_fused", "traces": list(traces),
+          "error": error, "results_same_as_unsanitized": same,
+          "compiles_in_block": compiles_now() - compiles, "launches": launches,
+          "batches": batches, "seconds": seconds, "planted": planted, "ok": ok})
+
+
+def dryrun_attention_32k(failures, results):
+    """One layer's B4 bfloat16 call of qwen2-0.5b's prefill_32k cell, (2,
+    14, 32768, 64) causal, k / v drawn at 2 heads and repeated 7x, against
+    its plain version run one (batch, head) at a time (the whole (S, S)
+    float32 score matrix of every head at once would need ~120 GB): every
+    element within ATTN_BF16_RTOL |plain| + ATTN_BF16_ATOL_OF_MAX_V max|v|
+    and at least DRYRUN_ATTN_MIN_BITWISE of them bitwise; its time beside
+    the plain loop's, SDPA's and its bound."""
+    import torch
+
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.attention.ref import attention_plain
+
+    B, H, S, D, rep = DRYRUN_ATTN_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(B, H, S, D, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(B, H // rep, S, D, generator=g, device="cuda").to(torch.bfloat16)
+            .repeat_interleave(rep, dim=1) for _ in range(2))
+    a = flash_attention_cuda(q, k, v, causal=True)
+
+    def plain():
+        return torch.cat([torch.cat([attention_plain(q[b:b + 1, h:h + 1], k[b:b + 1, h:h + 1],
+                                                     v[b:b + 1, h:h + 1], causal=True)
+                                     for h in range(H)], dim=1) for b in range(B)])
+
+    ref = plain()
+    torch.cuda.synchronize()
+    diff = (a.float() - ref.float()).abs()
+    limit = ATTN_BF16_RTOL * ref.float().abs() + ATTN_BF16_ATOL_OF_MAX_V * float(v.float().abs().max())
+    within = bool(torch.all(diff <= limit))
+    share = float((a == ref).float().mean())
+    max_err = float(diff.max())
+    ok = within and share >= DRYRUN_ATTN_MIN_BITWISE and bool(torch.isfinite(a.float()).all())
+    del diff, limit, ref
+    ms = graph_ms(lambda: flash_attention_cuda(q, k, v, causal=True), per_graph=2, replays=5)
+    plain_ms = cuda_ms(plain, 1, warmup=0)
+    lib_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True), per_graph=2, replays=5)
+    visible = B * H * S * (S + 1) // 2
+    b_ms, b_by = bound(4 * B * H * S * D * 2, visible * 4 * D, BF16_TENSOR_FLOPS_PER_S)
+    r = {"shape": [B, H, S, D], "causal": True, "kv_repeat": rep, "max_abs_err": max_err,
+         "bitwise_share": share, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "x_bound": ms / b_ms, "x_library": ms / lib_ms}
+    emit({"phase": "dryrun", "kernel": "flash_attention", "dtype": "bfloat16",
+          "rtol": ATTN_BF16_RTOL, "atol_of_max_v": ATTN_BF16_ATOL_OF_MAX_V,
+          "min_bitwise_share": DRYRUN_ATTN_MIN_BITWISE, **r, "ok": ok})
+    if not ok:
+        failures.append(f"dryrun flash_attention bf16 at {[B, H, S, D]}: within {within}, "
+                        f"bitwise share {share}")
+    results.setdefault("flash_attention", {}).setdefault("dryrun", {})["s32768"] = r
+    del q, k, v, a
+    torch.cuda.empty_cache()
+
+
+def dryrun_ssd_32k(failures, results):
+    """B5 at mamba2-1.3b's prefill_32k shape (2 x 32768: 128 chunks of 256
+    carried in the state), bfloat16, against its plain chunked version
+    (y within SSD_TOL, the final state within SSD_STATE_TOL); its time
+    beside the plain version's and its bound."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    cfg = get_arch("mamba2-1.3b")
+    s, d = cfg.ssm, cfg.d_model
+    H, P, G, N, c = s.n_heads(d), s.head_dim, s.n_groups, s.d_state, s.chunk
+    B, S = DRYRUN_SSD_BATCH, DRYRUN_SEQ
+    inp = ssd_inputs(B, S, H, P, G, N, torch.bfloat16, 7)
+    y, state = ssd_scan_cuda(*inp, chunk=c, return_state=True)
+    y_ref, state_ref = ssd_chunked_ref(*inp, c, return_state=True)
+    torch.cuda.synchronize()
+    tol = SSD_TOL["bfloat16"]
+    err = float((y.float() - y_ref.float()).abs().max())
+    s_err = float((state - state_ref).abs().max())
+    ok = (bool(torch.isfinite(y.float()).all())
+          and bool(torch.all((y.float() - y_ref.float()).abs() <= tol + tol * y_ref.float().abs()))
+          and bool(torch.all((state - state_ref).abs()
+                             <= SSD_STATE_TOL + SSD_STATE_TOL * state_ref.abs())))
+    del y, state, y_ref, state_ref
+    ms = graph_ms(lambda: ssd_scan_cuda(*inp, chunk=c, return_state=True), per_graph=2, replays=5)
+    plain_ms = cuda_ms(lambda: ssd_chunked_ref(*inp, c, return_state=True), 1, warmup=0)
+    b_ms, b_by = bound(*ssd_work(B, S, H, P, G, N, c), BF16_TENSOR_FLOPS_PER_S)
+    r = {"shape": [B, S, H, P, G, N, c], "chunks": S // c, "max_abs_err": max(err, s_err),
+         "y_max_abs_err": err, "state_max_abs_err": s_err, "ms": ms, "plain_ms": plain_ms,
+         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "x_bound": ms / b_ms}
+    emit({"phase": "dryrun", "kernel": "ssd", "dtype": "bfloat16", "y_tol": tol,
+          "state_tol": SSD_STATE_TOL, **r, "ok": ok})
+    if not ok:
+        failures.append(f"dryrun ssd at {r['shape']}: y error {err}, state error {s_err}")
+    results.setdefault("ssd", {}).setdefault("dryrun", {})["s32768"] = r
+    del inp
+    torch.cuda.empty_cache()
+
+
+def dryrun_expected(cfg, meta) -> dict:
+    """The hand kernels one step of a cell launches (each counter's
+    launches; the rest 0): a prefill B4 or B5 once a layer, a train step
+    ``train_lm_kernels`` once a microbatch, a decode step none."""
+    if meta["kind"] == "decode":
+        return {}
+    if meta["kind"] == "train":
+        return {k: v * meta["microbatches"] for k, v in train_lm_kernels(cfg)[0].items()}
+    return {"ssd" if cfg.family == "ssm" else "flash_attention": cfg.n_layers}
+
+
+def dryrun_cell(failures, results, arch, shape):
+    """One cell through ``run_cell`` (DRYRUN_STEPS timed steps) with every
+    kernel's counter set to 0 just before and read just after: it must
+    fit, run, give finite output and launch per step what
+    ``dryrun_expected`` says, in every step it ran (warm-up, timed,
+    profiled, counted)."""
+    import torch
+
+    from repro_torch.launch.dryrun import lower_cell, run_cell
+
+    _, meta, cfg = lower_cell(arch, shape)
+    want = dryrun_expected(cfg, meta)
+    zero_counts()
+    t0 = time.perf_counter()
+    rec = run_cell(arch, shape, steps=DRYRUN_STEPS)
+    seconds = time.perf_counter() - t0
+    counts = {k: v for k, v in read_counts().items() if v}
+    steps_run = DRYRUN_STEPS + 3  # warm-up, timed, profiled, counted
+    ok = ("skipped" not in rec and rec["finite"]
+          and rec["launches_per_step"] == {k: float(v) for k, v in want.items()}
+          and counts == {k: v * steps_run for k, v in want.items()})
+    keep = ("kind", "batch", "global_batch", "seq", "microbatches", "n_params", "step_ms_median",
+            "step_ms_range", "launches_per_step", "finite", "output_shape")
+    emit({"phase": "dryrun", "cell": f"{arch}|{shape}", **rec, "launches_expected_per_step": want,
+          "launches_all_steps": counts, "seconds": seconds, "ok": ok})
+    if not ok:
+        failures.append(f"dryrun {arch}|{shape}: skipped {rec.get('skipped')}, finite "
+                        f"{rec.get('finite')}, launches {rec.get('launches_per_step')} / {counts}, "
+                        f"expected {want} a step")
+    entries = {"flash_attention": "flash_attention", "ssd": "ssd",
+               "flash_attention_bwd": "flash_attention_bwd_bf16", "ssd_bwd": "ssd_bwd"}
+    for counter, n in counts.items():
+        results.setdefault(entries[counter], {}).setdefault("dryrun", {})[f"{arch}|{shape}"] = {
+            **{k: rec[k] for k in keep}, "launches": n}
+    torch.cuda.empty_cache()
+
+
 PHASES = {"build": phase_build, "kernels": phase_kernels, "slice": phase_slice,
           "sweep": phase_sweep, "train": phase_train, "persist": phase_persist,
           "joint": phase_joint, "session": phase_session, "serve": phase_serve,
           "paper": phase_paper, "mamba2": phase_mamba2, "dense": phase_dense,
           "vlm_audio": phase_vlm_audio, "moe": phase_moe, "hybrid": phase_hybrid,
-          "train_lm": phase_train_lm}
+          "train_lm": phase_train_lm, "dryrun": phase_dryrun}
 
 
 def main(argv) -> int:

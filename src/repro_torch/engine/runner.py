@@ -74,6 +74,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..analysis.sanitize import allowed_sync
 from ..core.dataset import INPUT_KEYS, num_windows, stream_batches
 from ..core.features import FeatureSet
 from ..core.model import Tao, TaoConfig, tao_forward
@@ -364,7 +365,9 @@ _HOST_DTYPES = {torch.float32: np.float32, torch.int32: np.int32}
 def device_get(tree: Any) -> Any:
     """A nested dict of tensors -> the same tree of NumPy arrays, in ONE
     device-to-host copy: every leaf is packed into a float64 buffer (exact
-    for float32 and int32) and unpacked on the host."""
+    for float32 and int32) and unpacked on the host.  The copy is the
+    sanctioned end-of-trace sync: it passes ``analysis.sanitize``'s guard
+    (``allowed_sync``)."""
     leaves: List[torch.Tensor] = []
 
     def collect(node):
@@ -377,7 +380,9 @@ def device_get(tree: Any) -> Any:
     collect(tree)
     if not leaves:
         return tree
-    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in leaves]).cpu().numpy()
+    packed = torch.cat([t.reshape(-1).to(torch.float64) for t in leaves])
+    with allowed_sync():  # the sanctioned pull: passes a sanitized block's guard
+        flat = packed.cpu().numpy()
     it = iter(leaves)
     offset = 0
 
@@ -611,7 +616,8 @@ class StreamingEngine:
         carry = {s.name: s.init(self.device) for s in self._specs}
         carry[_GRID_KEY] = {
             "seen": torch.zeros((), dtype=torch.int32, device=self.device),
-            "total": torch.tensor(nw, dtype=torch.int32, device=self.device),
+            # a fill, not torch.tensor's copy from the host (a sync on the card)
+            "total": torch.full((), nw, dtype=torch.int32, device=self.device),
         }
         return carry
 
@@ -709,9 +715,10 @@ class StreamingEngine:
             pad_to=nb * per,
             device=self.device,
         )
-        valid = torch.zeros((nb * bsz, w_eff), dtype=torch.float32)
+        # made on the device: a copy from the host would wait for the card
+        valid = torch.zeros((nb * bsz, w_eff), dtype=torch.float32, device=self.device)
         valid[:nw] = 1.0
-        valid = valid.reshape(nb, bsz, w_eff).to(self.device)
+        valid = valid.reshape(nb, bsz, w_eff)
         for i in range(nb):
             feats = extractor.next_batch(per)
             batch = {k: v.reshape((bsz, w_eff) + v.shape[1:]) for k, v in feats.items()}

@@ -97,7 +97,9 @@ class FusedExtractor:
         self._cols: Dict[str, torch.Tensor] = {}
         for k in COLUMN_KEYS:
             a = np.pad(cols[k], (0, pad_to - n))
-            self._cols[k] = torch.from_numpy(a).to(dev)
+            # non_blocking: from pageable memory the copy is staged before
+            # the call returns, without waiting for the card's queue
+            self._cols[k] = torch.from_numpy(a).to(dev, non_blocking=True)
         self._cfg = cfg
         self._pos = 0
         self._limit = pad_to

@@ -214,7 +214,9 @@ class Model(nn.Module):
     ``Model(cfg, device=None, generator=None)`` builds the parameters on
     ``device`` (``cuda`` by default; raises without it unless
     ``device="cpu"``) from ``generator`` (seed 0 on that device when
-    None), with the reference's distributions.  Load the reference's
+    None), with the reference's distributions.  ``device="meta"`` builds
+    the shapes only, nothing allocated or drawn (the reference's
+    ``jax.eval_shape(model.init, key)``).  Load the reference's
     weights with ``load_state_dict(convert.lm_params_from_jax(tree))``."""
 
     def __init__(
@@ -232,7 +234,9 @@ class Model(nn.Module):
                 f"does; attn_per_unit={cfg.hybrid.attn_per_unit}"
             )
         dev = resolve_device(device)
-        g = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
+        # on ``meta`` the parameters are shapes only: nothing is drawn
+        g = (generator if generator is not None or dev.type == "meta"
+             else torch.Generator(device=dev).manual_seed(0))
         pd = getattr(torch, cfg.param_dtype)
         self.cfg = cfg
         self.cd = getattr(torch, cfg.compute_dtype)

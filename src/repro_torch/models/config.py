@@ -121,6 +121,11 @@ class ArchConfig:
             raise ValueError(f"{self.name}: remat={self.remat!r}; have {REMAT_MODES}")
 
     @property
+    def sub_quadratic(self) -> bool:
+        """Supports the long_500k cell (state-space or windowed attention)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
 

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.ssd.ops import ssd_scan
-from ..nn.core import RMSNorm, rmsnorm, trunc_normal_param
+from ..nn.core import RMSNorm, draw_device, rmsnorm, trunc_normal_param
 from .config import ArchConfig
 
 __all__ = ["Mamba2", "init_ssm_state"]
@@ -74,7 +74,7 @@ class Mamba2(nn.Module):
         self.conv_b = nn.Parameter(torch.zeros(self.conv_dim, dtype=pd, device=device))
         self.A_log = nn.Parameter(torch.log(torch.arange(1, H + 1, dtype=f32, device=device)))
         # dt bias such that softplus(dt_bias) spans [dt_min, dt_max]
-        u = torch.rand(H, generator=generator, dtype=f32, device=generator.device)
+        u = torch.rand(H, generator=generator, dtype=f32, device=draw_device(generator, device))
         u = u * (math.log(s.dt_max) - math.log(s.dt_min)) + math.log(s.dt_min)
         self.dt_bias = nn.Parameter(torch.log(torch.expm1(torch.exp(u))).to(device))
         self.D = nn.Parameter(torch.ones(H, dtype=f32, device=device))

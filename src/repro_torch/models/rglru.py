@@ -45,7 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
-from ..nn.core import trunc_normal_param
+from ..nn.core import draw_device, trunc_normal_param
 from .config import ArchConfig
 
 __all__ = ["RGLRU", "causal_conv", "init_rglru_state", "linear_scan"]
@@ -118,7 +118,8 @@ class RGLRU(nn.Module):
         self.conv_b = nn.Parameter(torch.zeros(w, dtype=pd, device=device))
         self.w_r = param((w, w), 1.0 / math.sqrt(w))
         self.w_i = param((w, w), 1.0 / math.sqrt(w))
-        u = torch.rand(w, generator=generator, dtype=torch.float32, device=generator.device)
+        u = torch.rand(w, generator=generator, dtype=torch.float32,
+                       device=draw_device(generator, device))
         a_init = 0.9 + 0.099 * u
         lam = torch.log(torch.expm1(-torch.log(a_init) / _C))
         self.register_parameter("lambda", nn.Parameter(lam.to(device)))

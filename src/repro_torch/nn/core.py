@@ -16,6 +16,7 @@ built with ``skip_init``, so the global torch RNG is never drawn from.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -23,7 +24,7 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 __all__ = ["LayerNorm", "RMSNorm", "dense", "embed", "gelu", "layernorm", "rmsnorm", "softmax_cross_entropy",
-           "scaled_layernorm", "trunc_normal_param", "truncated_normal_"]
+           "draw_device", "scaled_layernorm", "trunc_normal_param", "truncated_normal_"]
 
 # std of a unit normal truncated to [-2, 2]: dividing by it keeps the
 # requested stddev after truncation (as the reference's initializer does)
@@ -37,11 +38,20 @@ def truncated_normal_(t: torch.Tensor, stddev: float, generator: torch.Generator
     return t.mul_(stddev / _TRUNC_STD)
 
 
-def trunc_normal_param(shape, stddev: float, generator: torch.Generator, *,
+def draw_device(generator: Optional[torch.Generator], device) -> torch.device:
+    """Where a parameter's random draw runs: on the generator's device, or
+    on ``meta`` (no generator, nothing drawn) for a model built for its
+    shapes only (``Model(cfg, device="meta")``)."""
+    device = torch.device(device)
+    return device if device.type == "meta" else generator.device
+
+
+def trunc_normal_param(shape, stddev: float, generator: Optional[torch.Generator], *,
                        device, dtype) -> nn.Parameter:
     """A 2-sigma truncated normal of std ``stddev``, drawn in float32 on the
-    generator's device and stored as ``dtype`` on ``device``."""
-    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    generator's device and stored as ``dtype`` on ``device`` (on ``meta``:
+    its shape only)."""
+    t = torch.empty(shape, dtype=torch.float32, device=draw_device(generator, device))
     return nn.Parameter(truncated_normal_(t, stddev, generator).to(device=device, dtype=dtype))
 
 

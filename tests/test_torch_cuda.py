@@ -164,6 +164,14 @@ cut to one unit and a tail layer against the CPU in float32 (2e-4 of the
 largest value), and a bfloat16 prefill past the window and decode steps
 on its ring that launch no B4.
 
+The runtime sanitizer (``analysis/sanitize.py``): inside ``sanitized()``
+a planted ``.item()`` on a card tensor raises (the sync guard, the card's
+sync debug mode "error") while ``engine.runner.device_get`` passes and the
+previous mode comes back after the block; a NaN made on the card raises
+``FloatingPointError`` at the block's exit; the warm Tao fused route runs
+inside ``sanitized(compile_budget=0)`` with no sync, capture or NaN, one
+B1 launch a batch, its results those of the unsanitized run.
+
 The paper's model (``configs/tao.py``: 6 layers, width 512, 8 heads of 64)
 runs through the same paths: B4 and its backward at (·, 8, 129, 64) on the
 packed views; its graphed fused simulate bitwise the eager step and held
@@ -2477,6 +2485,60 @@ def test_chunked_prefill_on_card_matches_cpu(dev, arch):
     for g, want in zip(got, (ref, *ref_cache.values())):
         scale = float(want.abs().max())
         torch.testing.assert_close(g, want, atol=2e-4 * scale, rtol=0)
+
+
+def test_sanitized_guard_fires_on_a_hidden_sync_and_passes_device_get(dev):
+    """Inside ``sanitized()`` a ``.item()`` on a card tensor (a hidden
+    sync) raises, while ``device_get``, the sanctioned end-of-trace pull,
+    passes; the previous sync debug mode comes back after the block."""
+    from repro_torch.analysis.sanitize import sanitized
+    from repro_torch.engine.runner import device_get
+
+    x = torch.arange(4, dtype=torch.float32, device=dev)
+    before = torch.cuda.get_sync_debug_mode()
+    with sanitized(debug_nans=False):
+        with pytest.raises(RuntimeError, match="synchronizing"):
+            x.sum().item()
+        host = device_get({"x": x, "n": torch.full((), 3, dtype=torch.int32, device=dev)})
+    np.testing.assert_array_equal(host["x"], np.arange(4, dtype=np.float32))
+    assert host["n"] == 3
+    assert torch.cuda.get_sync_debug_mode() == before
+
+
+def test_sanitized_catches_a_nan_on_the_card_at_the_block_exit(dev):
+    """A NaN made on the card raises FloatingPointError at the block's exit
+    (the flag read through the sanctioned path, the guard armed inside),
+    naming the op that made it."""
+    from repro_torch.analysis.sanitize import sanitized
+
+    x = torch.full((8,), -1.0, device=dev)
+    with pytest.raises(FloatingPointError, match="aten.log"):
+        with sanitized():
+            y = torch.log(x)
+            y * 2.0
+    with sanitized():  # no NaN: the exit's read passes the armed guard
+        torch.exp(x)
+
+
+def test_warm_fused_simulate_runs_sanitized(dev):
+    """The Tao fused route, warm (its geometry captured), inside
+    ``sanitized(compile_budget=0)`` with the sync guard armed and NaNs
+    checked: no hidden sync, no capture, no NaN, one B1 launch a batch, and
+    the results the same as outside the block."""
+    from repro_torch.analysis.sanitize import sanitized
+
+    engine = graph_engine(dev, batch_size=32)
+    trace = run_functional(get_benchmark("dee"), 20000)
+    ref = engine.simulate(trace)
+    short_ref = engine.simulate(trace[:9001])
+    fused = FUSED_FEATURES.launches
+    with sanitized(compile_budget=0):
+        got = engine.simulate(trace)
+        short = engine.simulate(trace[:9001])
+    w = engine.cfg.window
+    assert FUSED_FEATURES.launches - fused == -(-(20000 // w) // 32) + -(-(9001 // w) // 32)
+    assert_graph_equals_eager(got, ref, 32)
+    assert_graph_equals_eager(short, short_ref, 32)
 
 
 def chip_smoke_module():

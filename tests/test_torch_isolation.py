@@ -36,8 +36,10 @@ print(len(names), bad, sorted(names))
 # joint-training and serving slices' too, the paper's config, the dense
 # family's modules, the vlm / audio configs, the moe family's module and
 # configs, the hybrid family's module and config, the roofline counts, and
-# the LLM trainer's data pipeline and launcher
+# the LLM trainer's data pipeline and launcher, the runtime sanitizer and
+# the one-card dry run
 _MUST_WALK = (
+    "repro_torch.analysis.sanitize",
     "repro_torch.ckpt.checkpoint",
     "repro_torch.configs.deepseek_v2_lite_16b",
     "repro_torch.configs.glm4_9b",
@@ -58,6 +60,7 @@ _MUST_WALK = (
     "repro_torch.engine.plan",
     "repro_torch.engine.runner",
     "repro_torch.engine.scheduler",
+    "repro_torch.launch.dryrun",
     "repro_torch.launch.roofline",
     "repro_torch.launch.serve",
     "repro_torch.launch.train",
